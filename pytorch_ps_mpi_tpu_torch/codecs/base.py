@@ -15,7 +15,9 @@ The counterpart of ``pytorch_ps_mpi_tpu/codecs/base.py``:
   algebra is exact (identity, casts). The streaming host-side forms
   (``agg_init``/``agg_fold``/``agg_finalize``) belong to the async wire
   and come with it (ROADMAP queue 1 item 7);
-- ``init_state(shape, dtype)`` and ``payload_bits(shape, dtype)``.
+- ``init_state(shape, dtype, device)``: per-leaf codec state (error
+  feedback's residual memory), made on the leaf's device;
+- ``payload_bits(shape, dtype)``.
 """
 
 from __future__ import annotations
@@ -94,7 +96,8 @@ class Codec:
     #: never uses
     agg_exact: bool = True
 
-    def init_state(self, shape: Tuple[int, ...], dtype) -> Any:
+    def init_state(self, shape: Tuple[int, ...], dtype,
+                   device: Optional[torch.device] = None) -> Any:
         return ()
 
     def encode(self, grad: torch.Tensor, state: Any = (),
@@ -136,7 +139,7 @@ class Codec:
         """Encoded wire size in bits per gradient. The default encodes a
         tensor on the ``meta`` device, which has shapes and no data."""
         grad = torch.zeros(shape, dtype=dtype, device="meta")
-        payload, _ = self.encode(grad, self.init_state(shape, dtype))
+        payload, _ = self.encode(grad, self.init_state(shape, dtype, "meta"))
         return sum(t.numel() * t.element_size() * 8
                    for t in _payload_leaves(payload))
 

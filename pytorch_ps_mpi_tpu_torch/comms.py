@@ -43,22 +43,23 @@ def all_gather(x: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def _tree_map(fn, tree: Tree) -> Tree:
+def tree_map(fn, tree: Tree) -> Tree:
     if isinstance(tree, dict):
-        return {k: _tree_map(fn, v) for k, v in tree.items()}
+        return {k: tree_map(fn, v) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(_tree_map(fn, v) for v in tree)
+        return type(tree)(tree_map(fn, v) for v in tree)
     return fn(tree)
 
 
 def allreduce_sum_tree(tree: Tree) -> Tree:
-    return _tree_map(allreduce_sum, tree)
+    return tree_map(allreduce_sum, tree)
 
 
 def all_gather_tree(tree: Tree) -> Tree:
-    return _tree_map(all_gather, tree)
+    return tree_map(all_gather, tree)
 
 
 __all__ = [
     "allreduce_sum", "allreduce_sum_tree", "all_gather", "all_gather_tree",
+    "tree_map",
 ]

@@ -1,11 +1,13 @@
 """Build and load the port's CUDA kernels.
 
-Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into a
-shared library with a plain C interface (``_build/lib<name>.so``, listed
-in ``.gitignore``) and loaded with ``ctypes``. The build runs at first
-use, from the package's own sources, and again whenever the source's
-hash changes. Nothing here runs at import time: the CPU tests import
-every module on a machine with no ``nvcc``.
+Each ``csrc/<name>.cu`` (``sign``, ``quant``, ``topk``) is compiled by
+``nvcc`` for ``sm_90a`` into a shared library with a plain C interface
+(``_build/lib<name>.so``, listed in ``.gitignore``) and loaded with
+``ctypes``. A library is built at its first use, from the package's own
+sources, and again whenever the source's hash changes; ``build`` can
+also compile several sources at once, one ``nvcc`` each. Nothing here
+runs at import time: the CPU tests import every module on a machine with
+no ``nvcc``.
 """
 
 from __future__ import annotations
@@ -46,22 +48,36 @@ def _paths(name: str):
         BUILD_DIR / f"lib{name}.sha256"
 
 
-def build(name: str) -> float:
-    """Compile ``csrc/<name>.cu`` if its library is missing or stale.
-    Returns the seconds the build took (0.0 when it was up to date)."""
-    src, digest, lib, stamp = _paths(name)
-    if lib.exists() and stamp.exists() and stamp.read_text() == digest:
-        return 0.0
-    BUILD_DIR.mkdir(exist_ok=True)
-    tmp = BUILD_DIR / f"lib{name}.{os.getpid()}.so"
+def build(*names: str) -> Dict[str, float]:
+    """Compile each ``csrc/<name>.cu`` whose library is missing or stale,
+    one ``nvcc`` per source, all started together. Returns, per source,
+    the seconds from the start until its build was collected (0.0 for a
+    library that was up to date)."""
     t0 = time.perf_counter()
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
-                          capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {name}.cu:\n{proc.stderr}")
-    os.replace(tmp, lib)
-    stamp.write_text(digest)
-    return time.perf_counter() - t0
+    seconds, running = {}, {}
+    for name in names:
+        src, digest, lib, stamp = _paths(name)
+        if lib.exists() and stamp.exists() and stamp.read_text() == digest:
+            seconds[name] = 0.0
+            continue
+        BUILD_DIR.mkdir(exist_ok=True)
+        tmp = BUILD_DIR / f"lib{name}.{os.getpid()}.so"
+        proc = subprocess.Popen(
+            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        running[name] = (proc, tmp, lib, stamp, digest)
+    failed = []
+    for name, (proc, tmp, lib, stamp, digest) in running.items():
+        _, err = proc.communicate()
+        seconds[name] = time.perf_counter() - t0
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed on {name}.cu:\n{err}")
+            continue
+        os.replace(tmp, lib)
+        stamp.write_text(digest)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return seconds
 
 
 def load(name: str, signatures: Optional[dict] = None) -> ctypes.CDLL:

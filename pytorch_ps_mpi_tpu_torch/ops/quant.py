@@ -1,0 +1,147 @@
+"""Int8 symmetric quantize and dequantize-sum: CUDA kernels and their
+plain PyTorch versions.
+
+The hot path of ``Int8Codec`` and ``QSGDCodec``. Each wrapper replaces
+Pallas TPU kernels of ``pytorch_ps_mpi_tpu/ops/quant_pallas.py``:
+
+===================  ===========================================  =====================
+wrapper              replaces                                     kernel
+===================  ===========================================  =====================
+``quantize_int8``    ``quantize_int8`` (``quant_pallas.py:64``:   ``csrc/quant.cu``
+                     ``_absmax_kernel`` ``:84``, ``_quant_kernel``  ``quant_int8``
+                     ``:97``)
+``dequant_sum``      ``dequantize_int8`` (``:118``, ``:130``) at  ``dequant_sum``
+                     world 1, and ``_ScaleFoldedInt8``'s
+                     ``einsum("wn,w->n")`` (``codecs/quant.py:61``)
+``dequantize_int8``  ``dequantize_int8``: ``dequant_sum`` of one  ``dequant_sum``
+                     rank
+===================  ===========================================  =====================
+
+Semantics, the JAX package's as XLA compiles it (its jitted step, and
+its Pallas kernel at every size): ``s = max(max|x| * f32(1/127), 1e-12)``
+in float32 with NaN propagating (the source divides by 127.0, which XLA
+folds into a product with the reciprocal; run op by op, the JAX codec
+divides, and its scale can then differ in the last bit),
+``q = clip(round_half_even(x / s), ±127)`` as int8 with NaN
+codes 0 (XLA's float-to-int8 conversion), and the dequantize-sum
+``Σ_w f32(q_w)·s_w`` taken in rank order. The kernels take every size
+n > 0; there is no size at which a plain path takes over on the card.
+
+Bound: memory. Quantize needs 5n + 4 bytes and reads x twice (absmax
+pass, then quantize pass); dequantize-sum needs (W + 4)·n + 4W bytes.
+The design notes are in ``csrc/quant.cu``.
+
+A wrapper takes its plain version (``*_ref``) only for a CPU tensor. For
+a CUDA tensor it launches its kernel or raises; it never falls back.
+Each wrapper's ``launches`` attribute counts its kernel launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Tuple
+
+import torch
+
+from pytorch_ps_mpi_tpu_torch.ops import _build
+
+_P = ctypes.c_void_p
+_SIGNATURES = {
+    "quant_int8": (ctypes.c_int, [_P, _P, _P, _P, ctypes.c_longlong, _P]),
+    "dequant_sum": (ctypes.c_int, [_P, _P, ctypes.c_int, ctypes.c_longlong,
+                                   _P, _P]),
+}
+
+
+# -- plain versions (CPU path, and the yardstick the kernels are held to) ----
+
+def quantize_int8_ref(flat: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """float32[n] -> (int8[n] codes, float32 scale)."""
+    # max|x| * f32(1/127) (a float32 tensor times a Python scalar rounds
+    # the scalar to float32 first), floored at 1e-12; NaN propagates
+    scale = torch.clamp(flat.abs().amax() * (1 / 127), min=1e-12)
+    r = torch.clamp(torch.round(flat / scale), -127, 127)  # half to even
+    return torch.where(torch.isnan(r), 0.0, r).to(torch.int8), scale
+
+
+def dequant_sum_ref(q: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
+    """int8[world, n], float32[world] -> float32[n] = Σ_w f32(q_w)·s_w,
+    a left fold in rank order."""
+    acc = torch.zeros(q.shape[1], dtype=torch.float32, device=q.device)
+    for w in range(q.shape[0]):
+        acc = acc + q[w].to(torch.float32) * scales[w]
+    return acc
+
+
+# -- kernel wrappers -------------------------------------------------------
+
+def _lib() -> ctypes.CDLL:
+    return _build.load("quant", _SIGNATURES)
+
+
+def _check(x: torch.Tensor, dtype: torch.dtype, dim: int, what: str) -> None:
+    if x.dim() != dim or x.dtype != dtype or x.numel() == 0:
+        raise ValueError(f"{what}: expected a non-empty {dim}-D {dtype} "
+                         f"tensor, got {x.dtype}{tuple(x.shape)}")
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{what}: unsupported device {x.device}")
+
+
+def _raise_on(err: int, what: str) -> None:
+    if err:
+        raise RuntimeError(f"{what}: CUDA launch failed with error {err}")
+
+
+def quantize_int8(flat: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """float32[n] -> (int8[n] codes, float32 scale), the scale computed on
+    the device (no host sync)."""
+    _check(flat, torch.float32, 1, "quantize_int8")
+    if flat.device.type == "cpu":
+        return quantize_int8_ref(flat)
+    flat = flat.contiguous()
+    dev = flat.device
+    q = torch.empty(flat.numel(), dtype=torch.int8, device=dev)
+    scale = torch.empty((), dtype=torch.float32, device=dev)
+    scratch = torch.empty((), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        err = _lib().quant_int8(flat.data_ptr(), q.data_ptr(),
+                                scale.data_ptr(), scratch.data_ptr(),
+                                flat.numel(),
+                                torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(err, "quant_int8")
+    quantize_int8.launches += 1
+    return q, scale
+
+
+def dequant_sum(q: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
+    """int8[world, n], float32[world] -> float32[n] = Σ_w f32(q_w)·s_w in
+    rank order, without the ``[world, n]`` float intermediate."""
+    _check(q, torch.int8, 2, "dequant_sum")
+    _check(scales, torch.float32, 1, "dequant_sum")
+    if scales.shape[0] != q.shape[0] or scales.device != q.device:
+        raise ValueError(f"dequant_sum: {tuple(scales.shape)} scales on "
+                         f"{scales.device} for codes {tuple(q.shape)} on "
+                         f"{q.device}")
+    if q.device.type == "cpu":
+        return dequant_sum_ref(q, scales)
+    q, scales = q.contiguous(), scales.contiguous()
+    dev = q.device
+    out = torch.empty(q.shape[1], dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        err = _lib().dequant_sum(q.data_ptr(), scales.data_ptr(), q.shape[0],
+                                 q.shape[1], out.data_ptr(),
+                                 torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(err, "dequant_sum")
+    dequant_sum.launches += 1
+    return out
+
+
+def dequantize_int8(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """int8[n], float32 scale -> float32[n] = f32(q)·scale (the JAX
+    signature): ``dequant_sum`` of one rank."""
+    return dequant_sum(q.reshape(1, -1),
+                       scale.reshape(1).to(torch.float32))
+
+
+quantize_int8.launches = 0
+dequant_sum.launches = 0

@@ -155,7 +155,8 @@ class MPI_PS:
         self._loss_reduction = loss_reduction or "pmean"
         self.rank = mesh.rank()
         self.size = mesh.world_size()
-        self.codec_state = {k: self.code.init_state(tuple(p.shape), p.dtype)
+        self.codec_state = {k: self.code.init_state(tuple(p.shape), p.dtype,
+                                                    p.device)
                             for k, p in self.params.items()}
         self._gen = None
         if self.code.needs_rng:
@@ -296,11 +297,17 @@ class MPI_PS:
     @torch.no_grad()
     def load_state_dict(self, sd: Dict[str, Any]) -> None:
         """Restore a :meth:`state_dict`. Parameters are copied into the
-        existing tensors, so a module being trained sees the restore."""
+        existing tensors, so a module being trained sees the restore;
+        codec state (error feedback's memory) is copied onto each
+        parameter's device."""
         for k, p in self.params.items():
             p.copy_(sd["params"][k])
         self.opt_state = type(self.opt_state)(*sd["opt_state"])
-        self.codec_state = dict(sd["codec_state"])
+        self.codec_state = {}
+        for k, state in sd["codec_state"].items():
+            device = self.params[k].device
+            self.codec_state[k] = comms.tree_map(
+                lambda t: t.to(device, copy=True), state)
         self._step_count = int(sd["step_count"])
         if self._gen is not None and sd.get("rng_state") is not None:
             self._gen.set_state(sd["rng_state"])

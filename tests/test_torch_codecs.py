@@ -4,6 +4,15 @@ Sign payload bytes are bit-exact on both layouts (kernel layout for
 sizes divisible by 1024, eight consecutive elements per byte otherwise);
 the scale is a float sum taken in another order, so it agrees to rtol
 1e-6, and decode_sum of the same payloads agrees to 1 ulp.
+
+Int8 payloads equal the JAX encode as its jitted step runs it, byte for
+byte; QSGD's codes are bit-exact for the same uniforms and its norm (a
+float sum) agrees to rtol 1e-6; top-k payloads are bit-exact for every
+selection (threshold refine, sort, "approx"). decode_sum and aggregate
+are bit-exact at world 1 and for top-k at any world; the int8/QSGD sum
+over 3 ranks agrees to 1e-6 of the largest element (XLA's einsum fuses
+the multiply-adds). Error feedback's payloads and memory are bit-exact
+over 3 steps.
 """
 
 from __future__ import annotations
@@ -12,6 +21,7 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from pytorch_ps_mpi_tpu.codecs import get_codec as jax_codec
@@ -65,11 +75,170 @@ def test_sign_decode_sum_matches_jax(n, world):
     np.testing.assert_array_max_ulp(got, want, maxulp=1)
 
 
+def _topk_kwargs(variant: str) -> dict:
+    return {"pallas": dict(fraction=0.01, pallas=True),
+            "sort": dict(k=37), "approx": dict(fraction=0.02, approx=True),
+            "ef": dict(fraction=0.01, pallas=True)}[variant]
+
+
 @pytest.mark.parametrize("shape", [(1000,), (32, 32), (3, 3, 16, 8), ()])
 def test_payload_bits_match_jax(shape):
-    for name in ("sign", "identity", "bf16", "f16"):
+    for name in ("sign", "identity", "bf16", "f16", "int8", "qsgd"):
         assert get_codec(name).payload_bits(shape, torch.float32) == \
             jax_codec(name).payload_bits(shape, jnp.float32), name
+    for variant in ("pallas", "sort", "approx"):
+        kw = _topk_kwargs(variant)
+        assert get_codec("topk", **kw).payload_bits(shape, torch.float32) == \
+            jax_codec("topk", **kw).payload_bits(shape, jnp.float32), variant
+    ef = get_codec("ef", inner=get_codec("topk", fraction=0.01))
+    jef = jax_codec("ef", inner=jax_codec("topk", fraction=0.01))
+    assert ef.payload_bits(shape, torch.float32) == \
+        jef.payload_bits(shape, jnp.float32)
+
+
+def _torch_tree(tree):
+    return {k: torch.from_numpy(np.array(v)) for k, v in tree.items()}
+
+
+def _assert_payload_equal(p, jp):
+    assert set(p) == set(jp)
+    for key in jp:
+        want = np.asarray(jp[key]).reshape(-1)
+        got = p[key].numpy().reshape(-1)
+        assert got.dtype == want.dtype, key
+        np.testing.assert_array_equal(got.view(np.uint8), want.view(np.uint8),
+                                      err_msg=key)
+
+
+def _qsgd_pair(x: np.ndarray, seed: int):
+    """The JAX QSGD payload for a key, and the port's for the uniforms
+    that encode draws."""
+    key = jax.random.key(seed)
+    jp, _ = jax_codec("qsgd").encode(jnp.asarray(x), rng=key)
+    u = np.array(jax.random.uniform(key, x.shape))
+    p = get_codec("qsgd").quantize(torch.from_numpy(x), torch.from_numpy(u))
+    return p, jp
+
+
+@pytest.mark.parametrize("n", [1000, 1024, 36864])
+def test_int8_and_qsgd_payloads_match_jax(n):
+    x = _grads(n, 1)[0]
+    x[3] = -0.0
+    # the JAX encode as its jitted step runs it (test_torch_quant_ops.py)
+    p, _ = get_codec("int8").encode(torch.from_numpy(x))
+    jc = jax_codec("int8")
+    jp = jax.jit(lambda g: jc.encode(g)[0])(jnp.asarray(x))
+    _assert_payload_equal(p, jp)
+    # QSGD's norm is a float sum taken in another order on each side (as
+    # sign's scale is), so it agrees to rtol 1e-6; the codes are bit-exact
+    p, jp = _qsgd_pair(x, n)
+    np.testing.assert_array_equal(p["q"].numpy(), np.asarray(jp["q"]))
+    assert p["norm"].dtype == torch.float32
+    np.testing.assert_allclose(float(p["norm"]), float(jp["norm"]), rtol=1e-6)
+
+
+def test_qsgd_encode_draws_from_the_generator():
+    x = torch.from_numpy(_grads(4096, 1)[0])
+    code = get_codec("qsgd", levels=4)
+    a, _ = code.encode(x, rng=torch.Generator().manual_seed(7))
+    b, _ = code.encode(x, rng=torch.Generator().manual_seed(7))
+    c, _ = code.encode(x, rng=torch.Generator().manual_seed(8))
+    assert torch.equal(a["q"], b["q"]) and not torch.equal(a["q"], c["q"])
+    with pytest.raises(ValueError):
+        code.encode(x)
+    with pytest.raises(ValueError):
+        get_codec("qsgd", levels=128)
+
+
+@pytest.mark.parametrize("world", [1, 3])
+@pytest.mark.parametrize("name", ["int8", "qsgd"])
+def test_quant_decode_sum_and_aggregate_match_jax(name, world):
+    n = 5000
+    if name == "int8":
+        jc = jax_codec("int8")
+        payloads = [jc.encode(jnp.asarray(g))[0] for g in _grads(n, world)]
+    else:
+        jc = jax_codec("qsgd")
+        payloads = [_qsgd_pair(g, s)[1] for s, g in enumerate(_grads(n, world))]
+    stacked = {k: np.stack([np.asarray(p[k]) for p in payloads])
+               for k in payloads[0]}
+    code = get_codec(name)
+    got = code.decode_sum(_torch_tree(stacked), (50, 100), torch.float32)
+    want = np.asarray(jc.decode_sum({k: jnp.asarray(v)
+                                     for k, v in stacked.items()},
+                                    (50, 100), jnp.float32))
+    if world == 1:
+        # one product per element: bit-exact
+        np.testing.assert_array_equal(got.numpy(), want)
+    else:
+        # XLA's einsum fuses the ranks' multiply-adds, so an element can
+        # differ by the rounding of one product: rtol 1e-6 of the largest
+        np.testing.assert_allclose(got.numpy(), want, rtol=0,
+                                   atol=1e-6 * np.abs(want).max())
+    agg, meta = code.aggregate(_torch_tree(stacked), (50, 100), torch.float32)
+    assert meta == {"frames": world}
+    assert torch.equal(code.agg_decode(agg, meta, (50, 100), torch.float32),
+                       got)
+    one = {k: torch.from_numpy(np.array(v[0])) for k, v in stacked.items()}
+    np.testing.assert_array_equal(
+        code.decode(one, (50, 100), torch.float32).numpy(),
+        np.asarray(jc.decode({k: jnp.asarray(v[0]) for k, v in stacked.items()},
+                             (50, 100), jnp.float32)))
+
+
+@pytest.mark.parametrize("variant", ["pallas", "sort", "approx"])
+@pytest.mark.parametrize("n", [1000, 9216, 36864])
+def test_topk_payloads_match_jax(n, variant):
+    x = _grads(n, 1)[0]
+    kw = _topk_kwargs(variant)
+    p, _ = get_codec("topk", **kw).encode(torch.from_numpy(x))
+    jp, _ = jax_codec("topk", **kw).encode(jnp.asarray(x))
+    _assert_payload_equal(p, jp)
+
+
+@pytest.mark.parametrize("world", [1, 3])
+@pytest.mark.parametrize("n", [1000, 36864])
+def test_topk_decode_sum_and_aggregate_match_jax(n, world):
+    jc = jax_codec("topk", fraction=0.05, pallas=True)
+    g = _grads(n, world)
+    g[:, :64] = 10.0 + np.arange(64)  # indices every rank sends
+    payloads = [jc.encode(jnp.asarray(x))[0] for x in g]
+    stacked = {k: np.stack([np.asarray(p[k]) for p in payloads])
+               for k in payloads[0]}
+    code = get_codec("topk", fraction=0.05, pallas=True)
+    got = code.decode_sum(_torch_tree(stacked), (n,), torch.float32).numpy()
+    want = np.asarray(jc.decode_sum({k: jnp.asarray(v)
+                                     for k, v in stacked.items()},
+                                    (n,), jnp.float32))
+    np.testing.assert_array_equal(got, want)
+    agg, meta = code.aggregate(_torch_tree(stacked), (n,), torch.float32)
+    jagg, jmeta = jc.aggregate({k: jnp.asarray(v) for k, v in stacked.items()},
+                               (n,), jnp.float32)
+    assert meta == jmeta
+    _assert_payload_equal(agg, jagg)
+    np.testing.assert_array_equal(
+        code.decode({k: torch.from_numpy(v[0]) for k, v in stacked.items()},
+                    (n,), torch.float32).numpy(),
+        np.asarray(jc.decode(payloads[0], (n,), jnp.float32)))
+
+
+def test_error_feedback_matches_jax_over_steps():
+    n, shape = 36864, (192, 192)
+    code = get_codec("ef", inner=get_codec("topk", fraction=0.01,
+                                           pallas=True))
+    jc = jax_codec("ef", inner=jax_codec("topk", fraction=0.01, pallas=True))
+    state = code.init_state(shape, torch.float32, torch.device("cpu"))
+    jstate = jc.init_state(shape, jnp.float32)
+    assert state["memory"].device.type == "cpu" and state["inner"] == ()
+    for step in range(3):
+        g = _grads(n, 1, seed=step)[0].reshape(shape)
+        p, state = code.encode(torch.from_numpy(g), state)
+        jp, jstate = jc.encode(jnp.asarray(g), jstate)
+        _assert_payload_equal(p, jp)
+        np.testing.assert_array_equal(state["memory"].numpy(),
+                                      np.asarray(jstate["memory"]))
+    assert code.supports_aggregate and code.agg_exact and not code.needs_rng
+    assert get_codec("ef", inner_name="qsgd").needs_rng
 
 
 def test_sign_kernel_layout_has_no_host_aggregate():

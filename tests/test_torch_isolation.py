@@ -40,7 +40,8 @@ def test_port_and_chip_smoke_import_no_jax(probe):
 def test_probe_imported_every_module_of_the_port(probe):
     for name in ("ps", "optim", "comms", "mesh", "data", "ops.sign",
                  "ops._build", "codecs.sign", "models.resnet",
-                 "utils.interop", "utils.metrics"):
+                 "utils.interop", "utils.metrics", "ops.quant", "ops.topk",
+                 "codecs.quant", "codecs.topk", "codecs.error_feedback"):
         assert f"pytorch_ps_mpi_tpu_torch.{name}" in probe["modules"], name
 
 

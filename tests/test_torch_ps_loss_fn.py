@@ -13,6 +13,10 @@ on the width-32 ResNet-18 at world 1 (same weights, same batches).
     flax's GroupNorm drift flips signs at the third step and moves the
     trajectories apart. The MLP, which has no GroupNorm, runs free for 3
     steps under the same bound.
+(d) With error feedback around the exact top-k on the MLP, free-running
+    for 3 steps: the same elements are sent at every step, losses agree
+    to 1e-6 and parameters to rtol 1e-6 (not bit-exact: the frameworks'
+    matmul gradients differ in the last ulps).
 """
 
 from __future__ import annotations
@@ -39,7 +43,7 @@ from pytorch_ps_mpi_tpu_torch.utils.interop import (flax_path, params_from_jax,
                                                     params_to_jax,
                                                     torch_layout)
 from torch_parity import (HYPER, STEPS, assert_params_close, jax_resnet,
-                          mlp_pair, torch_resnet)
+                          make_codec, mlp_pair, torch_resnet)
 
 
 def _off_fraction(model, jparams) -> float:
@@ -167,6 +171,49 @@ def test_loss_fn_sign_free_run_tracks_jax_mlp():
         tl, _ = opt.step(loss_fn=tloss, batch=next(tit))
         assert abs(float(tl) - float(jl)) <= 1e-3
         assert _off_fraction(model, jopt.params) <= 1e-3
+
+
+def test_loss_fn_ef_topk_free_run_tracks_jax_mlp():
+    # Free-running for 3 steps of SGD(code=ef(topk(fraction=0.01,
+    # pallas=True))) on the MLP (48, 10): its 784 x 48 kernel (37,632
+    # elements) takes the threshold-refine selection, its other leaves the
+    # sort fallback. Not bit-exact: the two frameworks' matmul gradients
+    # differ in the last ulps, and the jitted JAX step contracts its
+    # update into fused multiply-adds. So each step must send the same
+    # elements (EF memory is zero exactly where an element was sent, on
+    # both sides), the losses agree to 1e-6 and the parameters to rtol
+    # 1e-6, atol 1e-7.
+    variables, model = mlp_pair(features=(48, 10))
+    jmodel = jm.MLP(features=(48, 10))
+    jopt = JSGD(jax.tree.map(jnp.asarray, variables),
+                code=make_codec("ef_topk", jax_codec),
+                mesh=make_mesh(devices=jax.devices()[:1]), **HYPER)
+    opt = SGD(model, code=make_codec("ef_topk", get_codec), device="cpu",
+              **HYPER)
+
+    def jloss(p, b):
+        return jdata.cross_entropy_loss(jmodel.apply(p, b[0]), b[1])
+
+    def tloss(p, b):
+        return tdata.cross_entropy_loss(functional_call(model, p, (b[0],)),
+                                        b[1])
+
+    jit, tit = (jdata.synthetic_images("mnist", 16),
+                tdata.synthetic_images("mnist", 16, device="cpu"))
+    for _ in range(3):
+        jl, _ = jopt.step(loss_fn=jloss, batch=next(jit))
+        tl, _ = opt.step(loss_fn=tloss, batch=next(tit))
+        assert abs(float(tl) - float(jl)) <= 1e-6
+        assert_params_close(model, jopt.params, rtol=1e-6, atol=1e-7)
+        jmem = jax.tree.map(np.asarray, jopt.codec_state)["params"]
+        for name, state in opt.codec_state.items():
+            node = jmem
+            for key in flax_path(model, name):
+                node = node[key]
+            want = torch_layout(flax_path(model, name),
+                                node["memory"][0]) == 0
+            np.testing.assert_array_equal(state["memory"].numpy() == 0,
+                                          want, err_msg=name)
 
 
 def _jax_grads(jloss, params, batch, fast_variance: bool):

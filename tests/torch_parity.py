@@ -1,6 +1,7 @@
 """Shared inputs of the port's step parity tests (``test_torch_ps*.py``):
 the width-32 ResNet-18 and a small MLP on both sides, seeded numpy
-gradients in both layouts, and the JAX package's grads-only sign run."""
+gradients in both layouts, the codecs the step tests use, and the JAX
+package's grads-only runs."""
 
 from __future__ import annotations
 
@@ -78,12 +79,24 @@ def assert_params_close(model, jparams, rtol, atol):
         np.testing.assert_allclose(a, b, rtol=rtol, atol=atol)
 
 
-def jax_grads_only(world: int):
+def make_codec(name: str, get_codec):
+    """A codec of the step parity tests from either package's registry:
+    ``sign``, ``int8``, or ``ef_topk`` (error feedback around the exact
+    top-k of 1% of each leaf, threshold-refine selection)."""
+    if name == "ef_topk":
+        return get_codec("ef", inner=get_codec("topk", fraction=0.01,
+                                               pallas=True))
+    return get_codec(name)
+
+
+@functools.lru_cache(maxsize=None)
+def jax_grads_only(world: int, codec: str = "sign"):
     """The JAX package's parameters after ``STEPS`` grads-only
-    ``SGD(code=sign)`` steps of the width-32 ResNet-18 on a ``world``-device
-    mesh."""
+    ``SGD(code=codec)`` steps of the width-32 ResNet-18 on a
+    ``world``-device mesh."""
     _, variables = jax_resnet()
-    jopt = JSGD(jax.tree.map(jnp.asarray, variables), code=jax_codec("sign"),
+    jopt = JSGD(jax.tree.map(jnp.asarray, variables),
+                code=make_codec(codec, jax_codec),
                 mesh=make_mesh(devices=jax.devices()[:world]), **HYPER)
     for s in range(STEPS):
         jopt.step(grads=jax.tree.map(jnp.asarray,
