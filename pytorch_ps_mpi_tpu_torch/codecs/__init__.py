@@ -1,7 +1,7 @@
 """Gradient codecs: the pluggable compression surface
 (``pytorch_ps_mpi_tpu/codecs``). This package registers ``identity``,
-``bf16``, ``f16``, ``sign``, ``int8``, ``qsgd``, ``topk`` and ``ef``; the
-others follow in ROADMAP queue 1 item 3."""
+``bf16``, ``f16``, ``sign``, ``int8``, ``qsgd``, ``topk``, ``ef`` and
+``terngrad``; the others follow in ROADMAP queue 1 item 3."""
 
 from pytorch_ps_mpi_tpu_torch.codecs.base import Codec, get_codec, register_codec
 from pytorch_ps_mpi_tpu_torch.codecs.identity import IdentityCodec
@@ -10,6 +10,7 @@ from pytorch_ps_mpi_tpu_torch.codecs.sign import SignCodec
 from pytorch_ps_mpi_tpu_torch.codecs.quant import Int8Codec, QSGDCodec
 from pytorch_ps_mpi_tpu_torch.codecs.topk import TopKCodec
 from pytorch_ps_mpi_tpu_torch.codecs.error_feedback import ErrorFeedback
+from pytorch_ps_mpi_tpu_torch.codecs.terngrad import TernGradCodec
 
 __all__ = [
     "Codec",
@@ -23,4 +24,5 @@ __all__ = [
     "QSGDCodec",
     "TopKCodec",
     "ErrorFeedback",
+    "TernGradCodec",
 ]

@@ -1,14 +1,15 @@
 """Synthetic data and the classification loss
 (``pytorch_ps_mpi_tpu/data.py``).
 
-``synthetic_images`` draws from the same numpy ``RandomState`` stream as
-the JAX package's generator, so both packages see the same batches for
-the same seed; only the final copy to a tensor differs.
+``synthetic_images`` and ``synthetic_mlm`` draw from the same numpy
+``RandomState`` streams as the JAX package's generators, so both packages
+see the same batches for the same seed; only the final copy to a tensor
+differs.
 """
 
 from __future__ import annotations
 
-from typing import Iterator, Tuple
+from typing import Dict, Iterator, Tuple
 
 import numpy as np
 import torch
@@ -37,6 +38,23 @@ def synthetic_images(
         x = rng.randn(batch, *shape).astype(np.float32) + class_means[labels]
         yield (torch.from_numpy(x).to(dev),
                torch.from_numpy(labels.astype(np.int64)).to(dev))
+
+
+def synthetic_mlm(
+    batch: int, seq_len: int, vocab_size: int, mask_rate: float = 0.15,
+    mask_token: int = 0, seed: int = 0, *, device: Device = "cuda",
+) -> Iterator[Dict[str, torch.Tensor]]:
+    """Endless iterator of MLM batches ``{"tokens", "targets"}`` (int64
+    ``[B, L]``) and ``"mask"`` (bool ``[B, L]``)."""
+    dev = resolve_device(device)
+    rng = np.random.RandomState(seed)
+    while True:
+        targets = rng.randint(1, vocab_size, size=(batch, seq_len))
+        mask = rng.rand(batch, seq_len) < mask_rate
+        tokens = np.where(mask, mask_token, targets)
+        yield {"tokens": torch.from_numpy(tokens.astype(np.int64)).to(dev),
+               "targets": torch.from_numpy(targets.astype(np.int64)).to(dev),
+               "mask": torch.from_numpy(mask).to(dev)}
 
 
 def cross_entropy_loss(logits: torch.Tensor,

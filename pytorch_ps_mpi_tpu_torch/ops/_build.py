@@ -1,6 +1,7 @@
 """Build and load the port's CUDA kernels.
 
-Each ``csrc/<name>.cu`` (``sign``, ``quant``, ``topk``) is compiled by
+Each ``csrc/<name>.cu`` (``sign``, ``quant``, ``topk``, ``tern``,
+``attention``; :data:`SOURCES`) is compiled by
 ``nvcc`` for ``sm_90a`` into a shared library with a plain C interface
 (``_build/lib<name>.so``, listed in ``.gitignore``) and loaded with
 ``ctypes``. A library is built at its first use, from the package's own
@@ -26,6 +27,9 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
+
+#: every kernel source of the package, by name
+SOURCES = ("sign", "quant", "topk", "tern", "attention")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 

@@ -13,11 +13,17 @@ port (``named_parameters``)            flax
 ``blocks.{i}.shortcut_norm.*``         ``{Block}_{i}/shortcut_norm/GroupNorm_0/{scale,bias}``
 ``head.{weight,bias}``                 ``Dense_0/{kernel,bias}``
 ``layers.{i}.{weight,bias}`` (MLP)     ``Dense_{i}/{kernel,bias}``
+``a.b.c`` (``BertMLM``)                ``a/b/c``
 =====================================  ==============================================
 
 ``{Block}`` is ``ResNetBlock`` or ``BottleneckBlock``. Layouts: a conv
 kernel is HWIO in flax and OIHW here; a Dense kernel ``[in, out]`` is a
-Linear weight ``[out, in]``; GroupNorm's scale is the weight.
+Linear weight ``[out, in]``; GroupNorm's scale is the weight. ``BertMLM``
+keeps flax's names and layouts (``tok_emb/embedding``,
+``layer_{i}/SelfAttention_0/{qkv,out}/{kernel,bias}``,
+``layer_{i}/LayerNorm_{0,1}/{scale,bias}``,
+``layer_{i}/Dense_{0,1}/{kernel,bias}``, ``LayerNorm_0``, ``mlm_head``),
+so its leaves cross unchanged.
 
 Leaf order: ``jax.tree.flatten`` visits dict keys in sorted order, so
 the JAX package's leaf order is the sort of the flax paths (note that
@@ -36,6 +42,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from pytorch_ps_mpi_tpu_torch.models.bert import BertMLM
 from pytorch_ps_mpi_tpu_torch.models.mlp import MLP
 from pytorch_ps_mpi_tpu_torch.models.resnet import BottleneckBlock, ResNet
 
@@ -75,6 +82,8 @@ def flax_path(model: nn.Module, name: str) -> Path:
     if isinstance(model, MLP):
         _, i, leaf = name.split(".")
         return (f"Dense_{i}", "kernel" if leaf == "weight" else "bias")
+    if isinstance(model, BertMLM):
+        return tuple(name.split("."))
     raise TypeError(f"no flax name map for {type(model).__name__}")
 
 
@@ -84,8 +93,12 @@ def jax_leaf_order(model: nn.Module) -> List[str]:
                   key=lambda n: flax_path(model, n))
 
 
+def _flax_layout_kept(model: nn.Module) -> bool:
+    return isinstance(model, BertMLM)
+
+
 def torch_layout(path: Path, a: np.ndarray) -> np.ndarray:
-    """A flax leaf at ``path`` in the port's layout."""
+    """A flax leaf at ``path`` in the port's layout (ResNet, MLP)."""
     if path[-1] == "kernel" and a.ndim == 4:
         return a.transpose(3, 2, 0, 1)  # HWIO -> OIHW
     if path[-1] == "kernel" and a.ndim == 2:
@@ -94,7 +107,8 @@ def torch_layout(path: Path, a: np.ndarray) -> np.ndarray:
 
 
 def flax_layout(path: Path, a: np.ndarray) -> np.ndarray:
-    """A port leaf bound for flax ``path``, in flax's layout."""
+    """A port leaf bound for flax ``path``, in flax's layout (ResNet,
+    MLP)."""
     if path[-1] == "kernel" and a.ndim == 4:
         return a.transpose(2, 3, 1, 0)  # OIHW -> HWIO
     if path[-1] == "kernel" and a.ndim == 2:
@@ -115,7 +129,10 @@ def params_from_jax(flax_params, model: nn.Module) -> Dict[str, torch.Tensor]:
         node = tree
         for key in path:
             node = node[key]
-        src = np.array(torch_layout(path, np.asarray(node)), order="C")
+        src = np.asarray(node)
+        if not _flax_layout_kept(model):
+            src = torch_layout(path, src)
+        src = np.array(src, order="C")
         p = named[name]
         if tuple(src.shape) != tuple(p.shape):
             raise ValueError(f"{name}: flax {'/'.join(path)} has shape "
@@ -134,6 +151,7 @@ def params_to_jax(model: nn.Module) -> Dict[str, dict]:
         node = tree
         for key in path[:-1]:
             node = node.setdefault(key, {})
+        a = p.detach().cpu().numpy()
         node[path[-1]] = np.ascontiguousarray(
-            flax_layout(path, p.detach().cpu().numpy()))
+            a if _flax_layout_kept(model) else flax_layout(path, a))
     return {"params": tree}

@@ -291,3 +291,142 @@ def test_dense_codecs_match_jax(name, world):
 def test_unknown_codec_raises():
     with pytest.raises(KeyError):
         get_codec("no-such-codec")
+
+
+# -- TernGrad -------------------------------------------------------------------
+#
+# Payload bytes and scales are bit-exact against the JAX codec when both
+# get the same random numbers: the port's ``ternarize`` is handed the
+# JAX encode's own draws (``jax.random.bits``/``uniform`` from the key,
+# from ``fold_in(key, i)`` for chunk i of a chunked leaf).
+
+_TERN_CASES = {
+    # name: (n, codec kwargs)
+    "flat": (1000, dict(use_pallas=True)),
+    "sublane": (36864, dict(use_pallas=True)),
+    "flat_no_pallas": (36864, dict(use_pallas=False)),
+    "chunked_sublane": (11264, dict(use_pallas=True, scan_block=2048)),
+    "chunked_flat": (10001, dict(use_pallas=True, scan_block=2048,
+                                 scan_threshold=8192)),
+}
+
+
+def _jax_noise(key, sublane: bool):
+    """The port's ``noise(chunk, size)`` giving the JAX encode's draws."""
+    def noise(chunk, size):
+        k = key if chunk is None else jax.random.fold_in(key, chunk)
+        if sublane:
+            bits = np.array(jax.random.bits(k, (size,), jnp.uint32))
+            return torch.from_numpy(bits.view(np.int32))
+        return torch.from_numpy(np.array(jax.random.uniform(k, (size,))))
+    return noise
+
+
+def _tern_pair(x: np.ndarray, kw: dict, seed: int):
+    code, jc = get_codec("terngrad", **kw), jax_codec("terngrad", **kw)
+    key = jax.random.key(seed)
+    jp, _ = jc.encode(jnp.asarray(x), rng=key)
+    p = code.ternarize(torch.from_numpy(x),
+                       _jax_noise(key, code._pallas_ok(x.size)))
+    return p, jp, code, jc
+
+
+@pytest.mark.parametrize("case", sorted(_TERN_CASES))
+def test_terngrad_payload_matches_jax(case):
+    n, kw = _TERN_CASES[case]
+    x = _grads(n, 1)[0]
+    x[3] = -0.0
+    p, jp, code, _ = _tern_pair(x, kw, seed=n)
+    _assert_payload_equal(p, jp)
+    assert code._pallas_ok(n) == (case in ("sublane", "chunked_sublane"))
+    assert (n >= code.scan_threshold) == case.startswith("chunked")
+
+
+@pytest.mark.parametrize("mode", ["propagate", "zero", "raise"])
+@pytest.mark.parametrize("n", [1000, 36864])
+def test_terngrad_nonfinite_modes_match_jax(n, mode):
+    x = _grads(n, 1)[0]
+    x[[5, 9]] = [np.inf, np.nan]
+    kw = dict(use_pallas=True, nonfinite=mode)
+    if mode == "raise":
+        with pytest.raises(FloatingPointError):
+            get_codec("terngrad", **kw).encode(
+                torch.from_numpy(x), rng=torch.Generator().manual_seed(0))
+        return
+    p, jp, _, _ = _tern_pair(x, kw, seed=1)
+    _assert_payload_equal(p, jp)
+
+
+@pytest.mark.parametrize("shape", [(1000,), (32, 32), (3, 3, 16, 8), (),
+                                   (4 * 1024 + 1,)])
+@pytest.mark.parametrize("use_pallas", [False, True])
+def test_terngrad_payload_bits_match_jax(shape, use_pallas):
+    kw = dict(use_pallas=use_pallas, scan_block=1024)
+    assert get_codec("terngrad", **kw).payload_bits(shape, torch.float32) == \
+        jax_codec("terngrad", **kw).payload_bits(shape, jnp.float32)
+
+
+@pytest.mark.parametrize("world", [1, 4])
+@pytest.mark.parametrize("case", ["flat", "sublane", "chunked_sublane"])
+def test_terngrad_decode_and_aggregate_match_jax(case, world):
+    n, kw = _TERN_CASES[case]
+    pairs = [_tern_pair(g, kw, seed=s)
+             for s, g in enumerate(_grads(n, world, seed=7))]
+    code, jc = pairs[0][2], pairs[0][3]
+    for p, jp, _, _ in pairs:
+        _assert_payload_equal(p, jp)
+    stacked = {k: torch.stack([p[k] for p, *_ in pairs]) for k in pairs[0][0]}
+    jstacked = {k: jnp.stack([jp[k] for _, jp, *_ in pairs])
+                for k in pairs[0][1]}
+    agg, meta = code.aggregate(stacked, (n,), torch.float32)
+    jagg, jmeta = jc.aggregate(jstacked, (n,), jnp.float32)
+    assert meta == jmeta == {"frames": world}
+    got = code.agg_decode(agg, meta, (n,), torch.float32).numpy()
+    want = np.asarray(jc.agg_decode(jagg, jmeta, (n,), jnp.float32))
+    if world == 1:
+        np.testing.assert_array_equal(got, want)
+    else:
+        np.testing.assert_allclose(got, want, rtol=1e-6, atol=0)
+    np.testing.assert_array_equal(
+        code.decode_sum(stacked, (n,), torch.float32).numpy(), got)
+    np.testing.assert_array_equal(
+        code.decode(pairs[0][0], (n,), torch.float32).numpy(),
+        np.asarray(jc.decode(pairs[0][1], (n,), jnp.float32)))
+
+
+@pytest.mark.parametrize("use_pallas", [False, True])
+def test_terngrad_decode_is_unbiased(use_pallas):
+    # E[decode] = g: each element's draw has variance s|g| - g² <= s²/4,
+    # so the mean of N draws is within 5·s/(2√N) of g (a 5-sigma bound)
+    n, draws = 1024, 1000
+    g = torch.from_numpy(_grads(n, 1)[0])
+    code = get_codec("terngrad", use_pallas=use_pallas)
+    gen = torch.Generator().manual_seed(0)
+    total = torch.zeros(n)
+    for _ in range(draws):
+        p, _ = code.encode(g, rng=gen)
+        total += code.decode(p, (n,), torch.float32)
+    s = float(g.abs().max())
+    assert float((total / draws - g).abs().max()) < 5 * s / (2 * draws ** 0.5)
+
+
+def test_terngrad_encode_draws_from_the_generator_and_streams_wait():
+    x = torch.from_numpy(_grads(4096, 1)[0])
+    code = get_codec("terngrad", use_pallas=True)
+    a, _ = code.encode(x, rng=torch.Generator().manual_seed(7))
+    b, _ = code.encode(x, rng=torch.Generator().manual_seed(7))
+    c, _ = code.encode(x, rng=torch.Generator().manual_seed(8))
+    assert torch.equal(a["packed"], b["packed"])
+    assert not torch.equal(a["packed"], c["packed"])
+    assert code.needs_rng and code.bucketable and code.supports_aggregate
+    with pytest.raises(ValueError):
+        code.encode(x)
+    with pytest.raises(ValueError):
+        get_codec("terngrad", scan_block=1022)
+    with pytest.raises(ValueError):
+        get_codec("terngrad", nonfinite="clip")
+    for call in (lambda: code.agg_init((4,), torch.float32),
+                 lambda: code.agg_fold({}, a),
+                 lambda: code.agg_finalize({}, (4,), torch.float32)):
+        with pytest.raises(NotImplementedError, match="queue 1 item 7"):
+            call()

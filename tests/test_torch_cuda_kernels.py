@@ -20,8 +20,10 @@ import torch
 
 from pytorch_ps_mpi_tpu_torch import SGD
 from pytorch_ps_mpi_tpu_torch.codecs import get_codec
+from pytorch_ps_mpi_tpu_torch.ops import attention as A
 from pytorch_ps_mpi_tpu_torch.ops import quant as Q
 from pytorch_ps_mpi_tpu_torch.ops import sign as S
+from pytorch_ps_mpi_tpu_torch.ops import tern as TG
 from pytorch_ps_mpi_tpu_torch.ops import topk as T
 
 pytestmark = pytest.mark.cuda
@@ -231,3 +233,146 @@ def test_error_feedback_memory_lives_on_the_card(cuda):
     opt.load_state_dict(sd)
     assert opt.codec_state["w"]["memory"].device.type == "cuda"
     assert torch.equal(opt.codec_state["w"]["memory"], mem)
+
+
+# -- TernGrad pack / unpack-sum -----------------------------------------------
+
+def _tern_input(n: int, planted: bool, device):
+    gen = torch.Generator(device="cuda").manual_seed(n)
+    x = torch.randn(n, generator=gen, device=device)
+    bits = torch.randint(-2**31, 2**31, (n,), generator=gen, device=device,
+                         dtype=torch.int32)
+    scale = x.abs().amax()
+    if planted:
+        scale = torch.tensor(4.0, device=device)
+        x[:8] = torch.tensor([-0.0, float("nan"), float("inf"),
+                              -float("inf"), -4.0, 0.5, 0.5, 1.0])
+        bits[4:8] = torch.tensor([-1, (2097152 << 8) | 0xFF,
+                                  ((2097152 - 1) << 8) | 0xFF, -2**31],
+                                 dtype=torch.int32)
+    return x, bits, scale
+
+
+@pytest.mark.parametrize("planted", [False, True])
+@pytest.mark.parametrize("n", [512, 1536, 1 << 20, 372_224, 2_359_296])
+def test_tern_pack_matches_plain_version(cuda, n, planted):
+    x, bits, scale = _tern_input(n, planted, cuda)
+    before = TG.tern_pack.launches
+    packed = TG.tern_pack(x, bits, scale)
+    assert TG.tern_pack.launches == before + 1
+    assert torch.equal(packed, TG.tern_pack_ref(x, bits, scale))
+    if planted:
+        assert TG.tern_digits(packed[:128])[:8].tolist() == \
+            [0, 0, 1, -1, -1, 0, 1, 0]
+
+
+@pytest.mark.parametrize("world", [1, 8])
+@pytest.mark.parametrize("m", [128, 384, 589_824])
+def test_tern_unpack_sum_matches_plain_fold(cuda, m, world):
+    gen = torch.Generator(device="cuda").manual_seed(m + world)
+    packed = torch.randint(0, 256, (world, m), generator=gen, device=cuda,
+                           dtype=torch.uint8)
+    scales = torch.rand(world, generator=gen, device=cuda)
+    got = TG.tern_unpack_sum(packed, scales)
+    want = TG.tern_unpack_sum_ref(packed, scales)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    if world == 1:
+        assert torch.equal(TG.tern_unpack(packed[0], scales[0]), got)
+
+
+def test_terngrad_step_on_the_card_matches_the_cpu(cuda):
+    # the same random numbers on both sides: drawn on the CPU per leaf
+    from pytorch_ps_mpi_tpu_torch import Adam
+
+    def codec():
+        code = get_codec("terngrad", use_pallas=True, scan_block=4096)
+        gen = torch.Generator().manual_seed(0)
+
+        def encode(grad, state=(), rng=None):
+            sub = code._pallas_ok(grad.numel())
+
+            def noise(chunk, size):
+                r = (torch.randint(-2**31, 2**31, (size,), generator=gen,
+                                   dtype=torch.int32) if sub
+                     else torch.rand(size, generator=gen))
+                return r.to(grad.device)
+            return code.ternarize(grad, noise), state
+
+        code.encode = encode
+        return code
+
+    gen = torch.Generator().manual_seed(1)
+    shapes = {"emb": (50, 512), "w": (64, 96), "b": (96,), "odd": (1000,)}
+    cpu = {k: torch.randn(s, generator=gen) for k, s in shapes.items()}
+    gpu = {k: v.to(cuda) for k, v in cpu.items()}
+    opts = [Adam(p, lr=1e-3, code=codec(), device=d)
+            for p, d in ((cpu, "cpu"), (gpu, "cuda"))]
+    for _ in range(2):
+        grads = {k: torch.randn((1,) + s, generator=gen)
+                 for k, s in shapes.items()}
+        opts[0].step(grads=grads)
+        opts[1].step(grads={k: g.to(cuda) for k, g in grads.items()})
+    for k in shapes:
+        torch.testing.assert_close(gpu[k].cpu(), cpu[k], rtol=1e-6, atol=1e-7)
+
+
+# -- flash attention ------------------------------------------------------------
+
+def _close(got, want, dtype):
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    else:
+        err = (got.float() - want.float()).abs().max()
+        assert float(err) <= 2 ** -6 * float(want.float().abs().max()), err
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,causal,offsets", [
+    ((4, 512, 12, 64), False, (0, 0)),
+    ((4, 512, 12, 64), True, (0, 0)),
+    ((2, 128, 4, 32), True, (0, 40)),      # rows 0..39 see no key
+    ((2, 64, 2, 16), True, (64, 0)),
+    ((1, 96, 2, 128), False, (0, 0)),      # a ragged last tile
+    ((2, 64, 2, 8), True, (0, 200)),       # every row masked
+])
+def test_flash_matches_plain_version(cuda, dtype, shape, causal, offsets):
+    b, l, h, d = shape
+    gen = torch.Generator(device="cuda").manual_seed(l + d)
+    q3, k3, v3, g3 = (torch.randn(b * h, l, d, generator=gen, device=cuda)
+                      .to(dtype) for _ in range(4))
+    g_lse = torch.randn(b * h, l, generator=gen, device=cuda)
+    qo, ko = offsets
+    scale = d ** -0.5
+    before = (A.flash_fwd.launches, A.flash_bwd.launches)
+    o, lse = A.flash_fwd(q3, k3, v3, qo, ko, causal, scale)
+    ro, rlse = A.flash_fwd_ref(q3, k3, v3, qo, ko, causal, scale)
+    _close(o, ro, dtype)
+    torch.testing.assert_close(lse, rlse, rtol=1e-5, atol=1e-5)
+    grads = A.flash_bwd(q3, k3, v3, o, lse, g3, g_lse, qo, ko, causal, scale)
+    want = A.flash_bwd_ref(q3, k3, v3, o, lse, g3, g_lse, qo, ko, causal,
+                           scale)
+    assert (A.flash_fwd.launches, A.flash_bwd.launches) == \
+        (before[0] + 1, before[1] + 2)
+    for got, ref in zip(grads, want):
+        assert got.dtype == dtype
+        if dtype == torch.float32:
+            torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-4)
+        else:
+            _close(got, ref, dtype)
+    if offsets == (0, 200):
+        assert not o.float().abs().any()
+
+
+def test_flash_attention_autograd_on_the_card_matches_the_cpu(cuda):
+    rng = np.random.RandomState(0)
+    arrays = [rng.randn(2, 64, 4, 32).astype(np.float32) for _ in range(3)]
+
+    def run(device):
+        ts = [torch.from_numpy(a).to(device).requires_grad_() for a in arrays]
+        o, lse = A.flash_attention(*ts, causal=True, q_offset=8,
+                                   return_lse=True)
+        loss = (o ** 2).sum() + torch.sin(lse).sum()
+        return [loss] + list(torch.autograd.grad(loss, ts))
+
+    for got, want in zip(run(cuda), run("cpu")):
+        torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)

@@ -41,7 +41,9 @@ def test_probe_imported_every_module_of_the_port(probe):
     for name in ("ps", "optim", "comms", "mesh", "data", "ops.sign",
                  "ops._build", "codecs.sign", "models.resnet",
                  "utils.interop", "utils.metrics", "ops.quant", "ops.topk",
-                 "codecs.quant", "codecs.topk", "codecs.error_feedback"):
+                 "codecs.quant", "codecs.topk", "codecs.error_feedback",
+                 "ops.tern", "ops.attention", "codecs.terngrad",
+                 "models.bert"):
         assert f"pytorch_ps_mpi_tpu_torch.{name}" in probe["modules"], name
 
 

@@ -11,6 +11,11 @@
     The int8 step is bit-exact against the JAX package's codec and update
     run one at a time, and within rtol 1e-6 of its jitted step, which
     contracts the update into fused multiply-adds.
+Adam with TernGrad (``use_pallas=True``, chunked leaves) on the tiny BERT
+through ``step(loss_fn=...)``: the port's payloads, run through the JAX
+codec's ``aggregate``/``agg_decode`` and the JAX ``adam_update``, give
+the port's parameters to rtol 1e-6 after 2 steps (BERT keeps
+flax's layouts, so a payload is the same array in both packages).
 (d) the options this slice does not port raise ``NotImplementedError``.
 (e) the default ``device="cuda"`` raises when there is no GPU.
 Also: the grads-only options (average, clip_norm, weight decay, bf16
@@ -35,9 +40,11 @@ from pytorch_ps_mpi_tpu.mesh import make_mesh
 from pytorch_ps_mpi_tpu_torch import SGD, Adam, Adafactor, MPI_PS
 from pytorch_ps_mpi_tpu_torch import data as tdata
 from pytorch_ps_mpi_tpu_torch.codecs import get_codec
-from torch_parity import (HYPER, STEPS, assert_params_close, jax_grads_only,
-                          jax_resnet, make_codec, mlp_pair, stacked_grads,
-                          torch_grads, torch_resnet)
+from torch_parity import (ADAM, HYPER, STEPS, TERN_KW, assert_params_close,
+                          bert_batch, bert_loss_fn, jax_bert, jax_grads_only,
+                          jax_replay_terngrad_adam, jax_resnet, make_codec,
+                          mlp_pair, record_payloads, stacked_grads,
+                          torch_bert, torch_grads, torch_resnet)
 
 
 def test_grads_only_sign_step_matches_jax_world1():
@@ -49,6 +56,24 @@ def test_grads_only_sign_step_matches_jax_world1():
             model, stacked_grads(variables, 1, s)))
         assert loss is None and data["wire_lowering"] == "allgather"
     assert_params_close(model, jax_grads_only(1), rtol=1e-6, atol=1e-7)
+
+
+def test_adam_terngrad_loss_fn_step_on_tiny_bert_matches_jax_world1():
+    model = torch_bert()
+    sent = []
+    code = record_payloads(get_codec("terngrad", **TERN_KW), sent)
+    opt = Adam(model, code=code, device="cpu", **ADAM)
+    names = list(opt.params)
+    steps = []
+    for s in range(2):
+        loss, _ = opt.step(loss_fn=bert_loss_fn(model), batch=bert_batch(s))
+        assert loss is not None and torch.isfinite(loss)
+        steps.append([sent[-len(names):]])
+    jparams = jax_replay_terngrad_adam(jax_bert()[1], names, steps)
+    assert_params_close(model, jparams, rtol=1e-6, atol=1e-7)
+    # chunked leaves with ragged tails, and both layouts, were on the path
+    assert code._pallas_ok(65536) and not code._pallas_ok(192)
+    assert opt.params["tok_emb.embedding"].numel() >= code.scan_threshold
 
 
 def _jax_int8_steps_op_by_op():

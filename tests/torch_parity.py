@@ -1,7 +1,8 @@
 """Shared inputs of the port's step parity tests (``test_torch_ps*.py``):
-the width-32 ResNet-18 and a small MLP on both sides, seeded numpy
-gradients in both layouts, the codecs the step tests use, and the JAX
-package's grads-only runs."""
+the width-32 ResNet-18, a small MLP and the tiny BERT on both sides,
+seeded numpy gradients in both layouts, the codecs the step tests use,
+the JAX package's grads-only runs, and the JAX aggregate-and-Adam replay
+of the port's TernGrad payloads."""
 
 from __future__ import annotations
 
@@ -16,8 +17,10 @@ import jax.numpy as jnp
 
 from pytorch_ps_mpi_tpu import SGD as JSGD
 from pytorch_ps_mpi_tpu import models as jm
+from pytorch_ps_mpi_tpu import optim as jax_optim
 from pytorch_ps_mpi_tpu.codecs import get_codec as jax_codec
 from pytorch_ps_mpi_tpu.mesh import make_mesh
+from pytorch_ps_mpi_tpu_torch import data as tdata
 from pytorch_ps_mpi_tpu_torch import models as tm
 from pytorch_ps_mpi_tpu_torch.utils.interop import (flax_path, params_from_jax,
                                                     params_to_jax,
@@ -102,3 +105,103 @@ def jax_grads_only(world: int, codec: str = "sign"):
         jopt.step(grads=jax.tree.map(jnp.asarray,
                                      stacked_grads(variables, world, s)))
     return jopt.params
+
+
+# -- the tiny BERT ----------------------------------------------------------------
+
+BERT_SEQ = 32
+#: TernGrad on the tiny BERT's step: the sublane layout where a leaf's
+#: size divides by 512, chunks of 2,560 elements from 10,240 (tok_emb,
+#: mlm_head and the qkv kernels, with ragged tails)
+TERN_KW = dict(use_pallas=True, scan_block=2560)
+ADAM = dict(lr=1e-3)
+
+
+@functools.lru_cache(maxsize=None)
+def jax_bert(dtype: str = "float32", attention: str = "flash"):
+    """The JAX ``BertMLM`` and its weights, from the dense twin's init
+    (the same parameters, without running the interpret-mode kernel)."""
+    def make(att):
+        return jm.BertMLM(jm.BertConfig.tiny(attention=att,
+                                             dtype=getattr(jnp, dtype)))
+    variables = jax.jit(make("full").init)(
+        jax.random.key(0), jnp.zeros((1, BERT_SEQ), jnp.int32))
+    return make(attention), jax.tree.map(np.asarray, variables)
+
+
+def torch_bert(dtype: str = "float32", attention: str = "flash"):
+    model = tm.BertMLM(tm.BertConfig.tiny(attention=attention,
+                                          dtype=getattr(torch, dtype)),
+                       device="cpu")
+    params_from_jax(jax_bert(dtype, attention)[1], model)
+    return model
+
+
+def bert_batch(seed: int = 0, batch: int = 2):
+    return next(tdata.synthetic_mlm(batch, BERT_SEQ, 1024, seed=seed,
+                                    device="cpu"))
+
+
+def bert_loss_fn(model):
+    """``loss_fn(params, batch)`` of the port's step: ``mlm_loss`` of the
+    model called with ``params``."""
+    def loss_fn(params, b):
+        logits = torch.func.functional_call(model, params, (b["tokens"],))
+        return tm.mlm_loss(logits, b["targets"], b["mask"])
+    return loss_fn
+
+
+def record_payloads(code, sink: list):
+    """Wrap ``code.encode`` so every payload it returns is appended to
+    ``sink`` (as numpy arrays), in the optimizer's leaf order."""
+    encode = code.encode
+
+    def recording(grad, state=(), rng=None):
+        payload, state = encode(grad, state, rng)
+        sink.append({k: v.detach().cpu().numpy().copy()
+                     for k, v in payload.items()})
+        return payload, state
+
+    code.encode = recording
+    return code
+
+
+def jax_replay_terngrad_adam(variables, names, steps, hyper=ADAM):
+    """The JAX package's parameters after running the port's TernGrad
+    payloads through the JAX codec's ``aggregate``/``agg_decode`` and the
+    JAX ``adam_update``. ``steps``: per step, per rank, the payloads of
+    the leaves ``names`` (port names, flax paths joined by dots) in
+    order."""
+    jc = jax_codec("terngrad", **TERN_KW)
+    hyper_cls, init, update = jax_optim.OPTIMIZERS["adam"]
+    params = jax.tree.map(jnp.asarray, variables)
+    state, h = init(params), hyper_cls(**hyper)
+    paths = [name.split(".") for name in names]
+    shapes = [np.shape(_get(variables["params"], p)) for p in paths]
+
+    @jax.jit
+    def aggregate(stacked):
+        grads = {}
+        for path, shape, st in zip(paths, shapes, stacked):
+            agg, meta = jc.aggregate(st, shape, jnp.float32)
+            _set(grads, path, jc.agg_decode(agg, meta, shape, jnp.float32))
+        return {"params": grads}
+
+    update = jax.jit(update, static_argnums=3)
+    for ranks in steps:
+        stacked = [{k: jnp.stack([jnp.asarray(r[i][k]) for r in ranks])
+                    for k in ranks[0][i]} for i in range(len(names))]
+        params, state = update(params, aggregate(stacked), state, h)
+    return params
+
+
+def _get(tree, path):
+    for key in path:
+        tree = tree[key]
+    return tree
+
+
+def _set(tree, path, value):
+    for key in path[:-1]:
+        tree = tree.setdefault(key, {})
+    tree[path[-1]] = value
