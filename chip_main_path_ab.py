@@ -1,0 +1,85 @@
+"""Same-card A/B of ``chip_smoke.py``'s ResNet main paths between two
+checkouts of the repository.
+
+    python3 chip_main_path_ab.py PARENT_DIR CHANGE_DIR [CODE ...]
+
+CODE is ``int8``, ``qsgd`` or ``ef_topk`` (default: all three). Each path
+runs from each checkout in a process of its own, through that checkout's
+own ``chip_smoke.run_main_path`` (5 loss steps, 1 grads-only step, the
+launch counts asserted, 1 profiled step), in turns: parent, change,
+change, parent, parent, change. Each run prints its ``main_path`` and
+``profile`` lines prefixed with ``ab=<parent|change> run=<i>``; the card's
+name and power limit come first. Needs one CUDA device.
+"""
+
+from __future__ import annotations
+
+import subprocess
+import sys
+
+SNIPPET = r"""
+import sys
+import torch
+import chip_smoke as C
+from pytorch_ps_mpi_tpu_torch import mesh
+from pytorch_ps_mpi_tpu_torch.models import ResNet18, ResNet50
+from pytorch_ps_mpi_tpu_torch.ops import topk as T
+
+code = sys.argv[1]
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = True
+torch.cuda.set_device(0)
+C.build_kernels()
+mesh.initialize_distributed(f"tcp://localhost:{C.free_port()}",
+                            world_size=1, rank=0, backend="nccl")
+try:
+    if code == "ef_topk":
+        model = ResNet50(num_classes=1000, seed=0, device="cuda")
+        # launches a leaf: 31 count passes before the radix select
+        per_leaf = getattr(T, "LAUNCHES", T.PASSES)
+        C.run_main_path(model, code, "imagenet", C.BATCH_IMAGENET,
+                        {"exact_topk": per_leaf * 53},
+                        "ResNet50-imagenet-gn-f32")
+    else:
+        model = ResNet18(num_classes=10, small_inputs=True, seed=0,
+                         device="cuda")
+        per = {"dequantize_int8": 62}
+        if code == "int8":
+            per["quantize_int8"] = 62
+        C.run_main_path(model, code, "cifar10", C.BATCH, per,
+                        "ResNet18-cifar-gn-f32")
+finally:
+    torch.distributed.destroy_process_group()
+"""
+
+
+def main() -> int:
+    if len(sys.argv) < 3:
+        print(__doc__, file=sys.stderr)
+        return 2
+    trees = {"parent": sys.argv[1], "change": sys.argv[2]}
+    codes = sys.argv[3:] or ["int8", "qsgd", "ef_topk"]
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip(), flush=True)
+    failed = 0
+    for code in codes:
+        for i, side in enumerate(["parent", "change", "change", "parent",
+                                  "parent", "change"]):
+            run = subprocess.run([sys.executable, "-c", SNIPPET, code],
+                                 cwd=trees[side], capture_output=True,
+                                 text=True)
+            for line in run.stdout.splitlines():
+                if line.startswith("phase=main_path"):
+                    print(f"ab={side} run={i} {line}", flush=True)
+                elif line.startswith("phase=profile"):
+                    print(f"ab={side} run={i} {line[:160]}", flush=True)
+            if run.returncode:
+                failed += 1
+                print(f"ab={side} run={i} code={code} failed:\n"
+                      f"{run.stderr[-2000:]}", flush=True)
+    return 1 if failed else 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -17,10 +17,15 @@ Phases, one line each; the script exits non-zero if any fails:
                - int8 quantize and dequantize-sum at ResNet-18's 62 leaves,
                  world 1 and world 8 (codes, scales and floats bit-exact;
                  NaN, ±Inf, ±0.0 and exact .5 ties);
-               - the top-k count pass and the whole exact top-k at
+               - int8 dequantize-sum also at n % 16 == 0, n % 16 == 4,
+                 odd n and a view that starts one byte in, and at the
+                 largest leaf (2,359,296 codes) at world 8;
+               - the top-k radix threshold and the whole exact top-k at
                  ResNet-50's 53 kernel-path leaves with k = round(0.01 n)
-                 (counts, index arrays and values bit-exact; heavy |x|
-                 ties, NaN, ±Inf, ±0.0);
+                 (histograms, thresholds, index arrays and values
+                 bit-exact; heavy |x| ties, NaN, ±Inf, ±0.0, all ties, all
+                 zeros, k = 1, k = n − 1, more NaNs than k, odd n from a
+                 misaligned view, run-to-run identity);
                - TernGrad's pack at BERT-base's 63 sublane-layout leaves as
                  the codec calls it (the two 23,440,896-element leaves in
                  chunks of 2**20), and its unpack-sum at world 1 and 8
@@ -81,6 +86,7 @@ import socket
 import statistics
 import subprocess
 import sys
+import time
 
 import torch
 
@@ -125,17 +131,43 @@ def _device_events(prof) -> list:
             if e.device_type == torch.autograd.DeviceType.CUDA]
 
 
-def device_ms(fn) -> float:
-    """Device time of the kernels one call of ``fn`` launches, summed
-    from torch.profiler's trace (no host time between launches)."""
+def _profiled(fn, cold: bool = False) -> list:
+    """The device rows of one call of ``fn`` after a warm-up call;
+    ``cold``: with the 50 MB L2 flushed just before."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
+    if cold:
+        torch.empty(2**27, dtype=torch.int8, device="cuda").fill_(1)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    return sum(e.self_device_time_total for e in _device_events(prof)) / 1e3
+    return _device_events(prof)
+
+
+def device_ms(fn, cold: bool = False) -> float:
+    """Device time of the kernels one call of ``fn`` launches, summed
+    from torch.profiler's trace (no host time between launches); ``cold``:
+    with the L2 flushed, so the inputs come from device memory as the byte
+    bound assumes."""
+    return sum(e.self_device_time_total for e in _profiled(fn, cold)) / 1e3
+
+
+def device_launches(fn) -> int:
+    """The device rows (kernels and memsets) one call of ``fn`` makes."""
+    return sum(e.count for e in _profiled(fn))
+
+
+def host_us(fn, calls: int = 20000) -> float:
+    """Host microseconds a call of ``fn`` (best of 3 runs of ``calls``)."""
+    best = math.inf
+    for _ in range(3):
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        best = min(best, (time.perf_counter() - t0) / calls * 1e6)
+    return best
 
 
 def free_port() -> int:
@@ -193,14 +225,7 @@ def timed(kern, plain, args, nbytes, library=None, reps=20, rounds=5,
 def _kernel_names(fn) -> str:
     """The device kernels one call of ``fn`` launches, from a profiler
     trace (which backend a library call chose)."""
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return json.dumps(sorted({e.key[:60] for e in _device_events(prof)}))
+    return json.dumps(sorted({e.key[:60] for e in _profiled(fn)}))
 
 
 def report(kernel: str, r: dict, **extra) -> None:
@@ -332,16 +357,30 @@ def check_quant_kernels(model) -> dict:
             same(q, rq, f"quantize_int8 codes at n={n} ({case})")
             same(s, rs, f"quantize_int8 scale at n={n} ({case})")
             cases += 1
+    # the dequantize-sum's three load widths: n % 16 == 0 (16 codes a
+    # thread), n % 16 == 4 (4 codes), odd n, and codes that start one byte
+    # into their buffer (so no row is aligned), at world 1 and 8
+    dequant_cases = 0
+    for n in sorted(set(sizes)) + [4099, 1000, 1028, 2_359_296 + 4]:
         for world in (1, 8):
-            qs = torch.randint(-127, 128, (world, n), generator=gen,
-                               device="cuda", dtype=torch.int8)
-            ss = torch.rand(world, generator=gen, device="cuda")
-            if n == 4099 and world == 8:
-                ss[3] = float("nan")  # a NaN scale poisons its sum
-            same(Q.dequant_sum(qs, ss), Q.dequant_sum_ref(qs, ss),
-                 f"dequant_sum at n={n}, world {world}")
+            for offset in (0, 1):
+                buf = torch.randint(-127, 128, (world * n + offset,),
+                                    generator=gen, device="cuda",
+                                    dtype=torch.int8)
+                qs = buf[offset:].view(world, n)
+                ss = torch.rand(world, generator=gen, device="cuda")
+                if n == 4099 and world == 8:
+                    ss[3] = float("nan")  # a NaN scale poisons its sum
+                same(Q.dequant_sum(qs, ss), Q.dequant_sum_ref(qs, ss),
+                     f"dequant_sum at n={n}, world {world}, offset {offset}")
+                if world == 1:
+                    same(Q.dequantize_int8(qs[0], ss[0]),
+                         Q.dequant_sum_ref(qs, ss),
+                         f"dequantize_int8 at n={n}, offset {offset}")
+                dequant_cases += 1
     phase("kernels", check="int8 bit-exact", sizes=len(set(sizes)) + 2,
-          quantize_cases=cases, dequant_worlds="1,8")
+          quantize_cases=cases, dequant_cases=dequant_cases,
+          dequant_worlds="1,8", dequant_widths="n%16==0,n%16==4,odd,offset 1")
 
     xs = [1e-2 * torch.randn(n, generator=gen, device="cuda") for n in sizes]
     quant_args = [(x,) for x in xs]
@@ -369,6 +408,26 @@ def check_quant_kernels(model) -> dict:
               lambda q, s: 12 * q.shape[1] + 4 * 8, reps=10, rounds=3)
     report("dequant_sum", dict(r, max_abs_err=0.0), leaves=len(sizes),
            world=8)
+    n = max(sizes)
+    big = [(torch.randint(-127, 128, (8, n), generator=gen, device="cuda",
+                          dtype=torch.int8),
+            torch.rand(8, generator=gen, device="cuda"))]
+    r = timed(Q.dequant_sum, Q.dequant_sum_ref, big,
+              lambda q, s: 12 * q.shape[1] + 4 * 8, reps=10, rounds=3)
+    cold = device_ms(lambda: Q.dequant_sum(*big[0]), cold=True)
+    report("dequant_sum", dict(r, max_abs_err=0.0), leaf=n, world=8,
+           cold_device_ms=f"{cold:.4f}",
+           cold_over_bound=f"{cold / r['bound_ms']:.2f}")
+    from pytorch_ps_mpi_tpu_torch.ops import _build
+
+    def current_stream():
+        return torch.cuda.current_stream(0).cuda_stream
+
+    phase("kernels", host="stream handle, us a call",
+          raw_stream=f"{host_us(lambda: _build.raw_stream(0)):.3f}",
+          current_stream=f"{host_us(current_stream):.3f}",
+          launches_per_call=device_launches(
+              lambda: Q.dequantize_int8(*payloads[0])))
     return results
 
 
@@ -390,57 +449,106 @@ def topk_leaves(model) -> list:
     return leaves
 
 
-def check_topk_kernels(leaves: list) -> dict:
-    """The top-k count kernel and the whole exact top-k against their
-    plain versions at ResNet-50's 53 kernel-path leaves, planted cases,
-    and timing."""
+def _topk_planted(case: str, gen):
+    """(x, k) of a planted case at the largest leaf's size."""
+    n, k = 2_359_296, 23_593
+    x = torch.randn(n, generator=gen, device="cuda")
+    if case == "heavy ties":
+        x = 0.25 * torch.randint(0, 4, (n,), generator=gen,
+                                 device="cuda").float()
+        x[::5] *= -1
+    elif case == "NaN, ±Inf, ±0.0":
+        x[[3, 70, 900, 901, 5, 6]] = torch.tensor(
+            [float("nan"), float("inf"), float("-inf"), float("nan"), -0.0,
+             0.0], device="cuda")
+    elif case == "all ties":
+        x.fill_(-1.5)
+    elif case == "all zeros":
+        x.zero_()
+    elif case == "k = 1":
+        k = 1
+    elif case == "k = n - 1":
+        k = n - 1
+    elif case == "more NaNs than k":
+        # quiet, signalling, negative and payload NaNs: all above Inf
+        nans = torch.tensor([0x7FC00000, 0x7F800001, -0x400000, 0x7FFFFFFF],
+                            dtype=torch.int32, device="cuda")
+        x[::40] = nans.repeat(n // 160 + 1)[:len(x[::40])].view(torch.float32)
+        x[7] = float("inf")
+    elif case == "odd n, misaligned":
+        x = x[1:-2]  # starts 4 bytes in: the scalar loads
+        n = x.numel()
+        k = int(round(0.01 * n))
+    return x, k
+
+
+TOPK_PLANTED = ("heavy ties", "NaN, ±Inf, ±0.0", "all ties", "all zeros",
+                "k = 1", "k = n - 1", "more NaNs than k", "odd n, misaligned")
+
+
+def check_topk_kernels(leaves: list):
+    """The top-k radix threshold and the whole exact top-k against their
+    plain versions at ResNet-50's 53 kernel-path leaves and the planted
+    cases, bit for bit, and timing. Returns (launches a call, results)."""
     from pytorch_ps_mpi_tpu_torch.ops import topk as T
 
     gen = torch.Generator(device="cuda").manual_seed(5)
 
     def check(x, k, what):
-        t, counts = T.kth_threshold(x, k)
-        rt, rcounts = T.kth_threshold(x, k, T.count_pass_ref)
-        if not (torch.equal(counts, rcounts) and torch.equal(t, rt)):
-            raise AssertionError(f"count passes differ: {what}")
+        t, hist = T.radix_threshold(x, k)
+        rt, rhist = T.radix_threshold_ref(x, k)
+        if not (torch.equal(hist, rhist) and torch.equal(t, rt)):
+            raise AssertionError(f"radix histograms or t differ: {what}")
         v, i = T.exact_topk(x, k)
         rv, ri = T.exact_topk_ref(x, k)
         if not (torch.equal(i, ri)
                 and torch.equal(v.view(torch.int32), rv.view(torch.int32))):
             raise AssertionError(f"exact_topk differs: {what}")
+        for _ in range(2):
+            if not torch.equal(T.exact_topk(x, k)[1], i):
+                raise AssertionError(f"exact_topk changed from run to run: "
+                                     f"{what}")
 
     for n, k in sorted(set(leaves)):
         check(torch.randn(n, generator=gen, device="cuda"), k, f"n={n}")
-    n, k = 2_359_296, 23_593
-    ties = 0.25 * torch.randint(0, 4, (n,), generator=gen,
-                                device="cuda").float()
-    ties[::5] *= -1
-    check(ties, k, "heavy ties")
-    planted = torch.randn(n, generator=gen, device="cuda")
-    planted[[3, 70, 900, 901, 5, 6]] = torch.tensor(
-        [float("nan"), float("inf"), float("-inf"), float("nan"), -0.0, 0.0],
-        device="cuda")
-    check(planted, k, "NaN, ±Inf, ±0.0")
+    for case in TOPK_PLANTED:
+        check(*_topk_planted(case, gen), case)
+    x = torch.randn(2_359_296, generator=gen, device="cuda")
+    launches = device_launches(lambda: T.exact_topk(x, 23_593))
+    if launches != T.LAUNCHES:
+        raise AssertionError(f"one exact_topk call made {launches} device "
+                             f"launches, not {T.LAUNCHES}")
     phase("kernels", check="topk bit-exact", sizes=len(set(leaves)),
-          planted="heavy ties; NaN, ±Inf, ±0.0")
+          planted="; ".join(TOPK_PLANTED), run_to_run="identical",
+          launches_per_call=launches)
 
     xs = [(torch.randn(n, generator=gen, device="cuda"), k)
           for n, k in leaves]
     r = timed(T.exact_topk, T.exact_topk_ref, xs,
               lambda x, k: 4 * x.numel() + 8 * k,
               library=lambda x, k: torch.topk(x.abs(), k), reps=5, rounds=3)
-    threshold = timed(lambda x, k: T.kth_threshold(x, k),
-                      lambda x, k: T.kth_threshold(x, k, T.count_pass_ref),
-                      xs, lambda x, k: 4 * x.numel() * T.PASSES,
-                      reps=5, rounds=3)
+    threshold = timed(T.radix_threshold, T.radix_threshold_ref, xs,
+                      lambda x, k: 4 * x.numel(), reps=5, rounds=3)
+    design_ms = sum(24 * x.numel() + 8 * k
+                    for x, k in xs) / HBM_BYTES_PER_S * 1e3
     results = {"exact_topk": dict(r, max_abs_err=0.0)}
     report("exact_topk", results["exact_topk"], leaves=len(leaves),
            library="torch.topk(x.abs(), k)",
-           design_bound_ms=f"{threshold['bound_ms']:.4f}",
-           count_passes_ms=f"{threshold['ms']:.4f}",
-           count_passes_device_ms=f"{threshold['device_ms']:.4f}",
-           count_launches_per_call=T.PASSES * len(leaves))
-    return results
+           design_bound_ms=f"{design_ms:.5f}",
+           threshold_ms=f"{threshold['ms']:.4f}",
+           threshold_device_ms=f"{threshold['device_ms']:.4f}",
+           threshold_plain_ms=f"{threshold['plain_ms']:.4f}",
+           launches_per_call=T.LAUNCHES)
+    big = [max(xs, key=lambda a: a[0].numel())]
+    r = timed(T.exact_topk, T.exact_topk_ref, big,
+              lambda x, k: 4 * x.numel() + 8 * k,
+              library=lambda x, k: torch.topk(x.abs(), k), reps=10, rounds=3)
+    (x, k), = big
+    report("exact_topk", dict(r, max_abs_err=0.0), leaf=x.numel(), k=k,
+           library="torch.topk(x.abs(), k)",
+           design_bound_ms=f"{(24 * x.numel() + 8 * k) / HBM_BYTES_PER_S * 1e3:.5f}",
+           cold_device_ms=f"{device_ms(lambda: T.exact_topk(x, k), True):.4f}")
+    return T.LAUNCHES, results
 
 
 # -- TernGrad pack / unpack-sum ---------------------------------------------------
@@ -748,9 +856,11 @@ def make_codec(name: str):
     return get_codec(name)
 
 
-def check_reference(model, code_name: str, model_name: str) -> None:
+def check_reference(model, code_name: str, model_name: str,
+                    exact: bool = False) -> None:
     """A grads-only step on the card against the same step on the CPU,
-    where every wrapper takes its plain version."""
+    where every wrapper takes its plain version; ``exact``: the same
+    arithmetic on both devices, so equal bit for bit."""
     from pytorch_ps_mpi_tpu_torch import SGD
 
     gen = torch.Generator().manual_seed(2)
@@ -768,6 +878,9 @@ def check_reference(model, code_name: str, model_name: str) -> None:
         a, b = cpu[k], gpu[k].cpu()
         torch.testing.assert_close(b, a, rtol=1e-6, atol=1e-7)
         worst = max(worst, float((a - b).abs().max()))
+    if exact and worst != 0.0:
+        raise AssertionError(f"SGD({code_name}) on the card differs from the "
+                             f"CPU by {worst}")
     phase("reference", step=f"grads-only SGD({code_name}) x2",
           model=model_name, rtol=1e-6, max_abs_diff=worst)
 
@@ -884,7 +997,7 @@ def kernel_counters() -> dict:
 
     return {"encode_signs": S.encode_signs, "pack_signs": S.pack_signs,
             "unpack_signs": S.unpack_signs, "quantize_int8": Q.quantize_int8,
-            "dequantize_int8": Q.dequant_sum, "exact_topk": T.count_pass,
+            "dequantize_int8": Q.dequant_sum, "exact_topk": T.exact_topk,
             "tern_pack": TG.tern_pack, "tern_unpack": TG.tern_unpack_sum,
             "flash_fwd": A.flash_fwd, "flash_bwd": A.flash_bwd}
 
@@ -1062,11 +1175,12 @@ def main() -> int:
     results = check_kernels(kernel_sizes(model))
     results.update(check_quant_kernels(model))
     leaves = topk_leaves(r50)
-    results.update(check_topk_kernels(leaves))
+    topk_launches, topk_results = check_topk_kernels(leaves)
+    results.update(topk_results)
     check_decode_sum(model)
     check_reference(model, "sign", "ResNet18-cifar-gn-f32")
-    check_reference(model, "int8", "ResNet18-cifar-gn-f32")
-    check_reference(r50, "ef_topk", "ResNet50-imagenet-gn-f32")
+    check_reference(model, "int8", "ResNet18-cifar-gn-f32", exact=True)
+    check_reference(r50, "ef_topk", "ResNet50-imagenet-gn-f32", exact=True)
     del r50
     bert = bert_base()
     results.update(check_tern_kernels(bert))
@@ -1085,7 +1199,7 @@ def main() -> int:
          {"quantize_int8": r18, "dequantize_int8": r18}),
         ("qsgd", resnet18, "cifar10", BATCH, {"dequantize_int8": r18}),
         ("ef_topk", resnet50, "imagenet", BATCH_IMAGENET,
-         {"exact_topk": 31 * len(leaves)}),
+         {"exact_topk": topk_launches * len(leaves)}),
     ]
     # BERT-base: 12 flash forward and 12 + 12 backward launches a loss
     # step, none in the grads-only step; TernGrad packs 61 leaves whole and

@@ -17,11 +17,11 @@ from pytorch_ps_mpi_tpu_torch.ops import topk as topk_ops
 class TopKCodec(Codec):
     """The constructor's keywords and their meanings are the JAX codec's.
 
-    - ``pallas=True`` selects by threshold refine (``ops/topk.py``: 31
-      count passes find the exact k-th |g|, then a compaction takes the
-      strict survivors and the first threshold ties in index order). On
-      the card the count pass is the CUDA kernel; the name ``pallas`` is
-      the JAX package's, kept so both packages take the same arguments.
+    - ``pallas=True`` selects by threshold (``ops/topk.py``: find the
+      exact k-th |g|, then a compaction takes the strict survivors and
+      the first threshold ties in index order). On the card both are the
+      CUDA radix select and compaction; the name ``pallas`` is the JAX
+      package's, kept so both packages take the same arguments.
     - Otherwise selection is a full stable sort of |g|: ``lax.top_k``'s
       result, ties lower index first.
     - ``approx=True`` asks for ``lax.approx_max_k``, which gives the exact

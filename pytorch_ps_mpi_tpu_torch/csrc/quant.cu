@@ -27,12 +27,12 @@
 // on that pattern is order-free, so the result is the same from run to run.
 //
 // Bound: memory. quantize reads x twice (absmax pass, quantize pass; the
-// function itself needs 4n + n + 4 bytes), dequant_sum reads W*n + 4W bytes
-// and writes 4n. Design for that bound: grid-stride loops, 16-byte vector
-// loads (float4 / char4 of 4 elements a thread) where the pointers are
-// aligned and n % 4 == 0, a scalar path otherwise; one atomicMax per
-// block. No tuning yet (no TMA, no persistent grid, no fusion of the two
-// quantize passes).
+// function itself needs 4n + n + 4 bytes): grid-stride loops, float4 loads
+// where x is aligned and n % 4 == 0, a scalar path otherwise, one atomicMax
+// per block; no tuning yet (no TMA, no fusion of the two passes).
+// dequant_sum reads W*n + 4W bytes and writes 4n: 4 codes a thread (a
+// coalesced 4-byte load per rank, a float4 store) where n % 4 == 0 and the
+// pointers are aligned, 1 otherwise; the grid sized to the leaf.
 //
 // Every entry point launches on the caller's stream, does not synchronise,
 // allocates nothing and returns cudaGetLastError().
@@ -122,33 +122,55 @@ quant_kernel(const float* __restrict__ x, long long n, bool vec,
   }
 }
 
+// V consecutive codes a thread (V = 4: one 4-byte load per rank and one
+// float4 store; V = 1: bytes), one group a thread, so each thread reads
+// each rank's scale once and a small leaf is one block. Row w starts at
+// q + w * n, so every row stays 4-byte aligned where n % 4 == 0 and q is.
+// 16 codes a thread (one 16-byte load per rank) measured slower at every
+// ResNet-18 leaf size, at world 1 and 8, with or without its sums staged
+// through shared memory for coalesced stores (chip_dequant_widths.py).
+template <int V>
 __global__ void __launch_bounds__(kThreads)
 dequant_sum_kernel(const int8_t* __restrict__ q, const float* __restrict__ scales,
-                   int world, long long n, bool vec, float* __restrict__ out) {
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  const long long tid = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (vec) {
-    float4* out4 = reinterpret_cast<float4*>(out);
-    for (long long i = tid; i < n / 4; i += stride) {
-      float4 acc = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-      for (int w = 0; w < world; ++w) {
-        const char4 c = reinterpret_cast<const char4*>(q + w * n)[i];
-        const float s = scales[w];
-        acc.x = __fadd_rn(acc.x, __fmul_rn(static_cast<float>(c.x), s));
-        acc.y = __fadd_rn(acc.y, __fmul_rn(static_cast<float>(c.y), s));
-        acc.z = __fadd_rn(acc.z, __fmul_rn(static_cast<float>(c.z), s));
-        acc.w = __fadd_rn(acc.w, __fmul_rn(static_cast<float>(c.w), s));
-      }
-      out4[i] = acc;
+                   int world, long long n, float* __restrict__ out) {
+  const long long g = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
+  if (g >= n / V) return;
+  float acc[V];
+#pragma unroll
+  for (int j = 0; j < V; ++j) acc[j] = 0.0f;
+#pragma unroll 4
+  for (int w = 0; w < world; ++w) {
+    const int8_t* row = q + static_cast<long long>(w) * n + g * V;
+    const float s = scales[w];
+    int8_t c[V];
+    if constexpr (V == 4) {
+      const char4 word = *reinterpret_cast<const char4*>(row);
+      c[0] = word.x;
+      c[1] = word.y;
+      c[2] = word.z;
+      c[3] = word.w;
+    } else {
+      c[0] = row[0];
     }
-  } else {
-    for (long long i = tid; i < n; i += stride) {
-      float acc = 0.0f;
-      for (int w = 0; w < world; ++w)
-        acc = __fadd_rn(acc, __fmul_rn(static_cast<float>(q[w * n + i]), scales[w]));
-      out[i] = acc;
-    }
+#pragma unroll
+    for (int j = 0; j < V; ++j)
+      acc[j] = __fadd_rn(acc[j], __fmul_rn(static_cast<float>(c[j]), s));
   }
+  if constexpr (V == 4) {
+    reinterpret_cast<float4*>(out)[g] = make_float4(acc[0], acc[1], acc[2], acc[3]);
+  } else {
+    out[g] = acc[0];
+  }
+}
+
+template <int V>
+int launch_dequant_sum(const void* q, const void* scales, int world, long long n,
+                       void* out, cudaStream_t st) {
+  const long long blocks = (n / V + kThreads - 1) / kThreads;
+  dequant_sum_kernel<V><<<static_cast<unsigned>(blocks), kThreads, 0, st>>>(
+      static_cast<const int8_t*>(q), static_cast<const float*>(scales), world, n,
+      static_cast<float*>(out));
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -178,13 +200,10 @@ int quant_int8(const void* x, void* q, void* scale, void* absmax_bits,
 int dequant_sum(const void* q, const void* scales, int world, long long n,
                 void* out, void* stream) {
   if (n <= 0 || world <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  const bool vec = n % 4 == 0 && aligned16(q) && aligned16(out);
-  const long long blocks = blocks_for(vec ? n / 4 : n);
-  dequant_sum_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
-                       static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int8_t*>(q), static_cast<const float*>(scales), world, n,
-      vec, static_cast<float*>(out));
-  return static_cast<int>(cudaGetLastError());
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (n % 4 == 0 && (reinterpret_cast<uintptr_t>(q) & 3u) == 0 && aligned16(out))
+    return launch_dequant_sum<4>(q, scales, world, n, out, st);
+  return launch_dequant_sum<1>(q, scales, world, n, out, st);
 }
 
 }  // extern "C"

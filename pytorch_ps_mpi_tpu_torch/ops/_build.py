@@ -6,7 +6,8 @@ Each ``csrc/<name>.cu`` (``sign``, ``quant``, ``topk``, ``tern``,
 (``_build/lib<name>.so``, listed in ``.gitignore``) and loaded with
 ``ctypes``. A library is built at its first use, from the package's own
 sources, and again whenever the source's hash changes; ``build`` can
-also compile several sources at once, one ``nvcc`` each. Nothing here
+also compile several sources at once, one ``nvcc`` each. ``launch``
+calls a loaded entry point on PyTorch's current stream. Nothing here
 runs at import time: the CPU tests import every module on a machine with
 no ``nvcc``.
 """
@@ -21,6 +22,8 @@ import subprocess
 import time
 from pathlib import Path
 from typing import Dict, Optional
+
+import torch
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -82,6 +85,31 @@ def build(*names: str) -> Dict[str, float]:
     if failed:
         raise RuntimeError("\n".join(failed))
     return seconds
+
+
+def raw_stream(index: int) -> int:
+    """The raw handle of PyTorch's current stream on CUDA device ``index``
+    (what ``torch.cuda.current_stream(index).cuda_stream`` gives, without
+    building a ``Stream`` object)."""
+    return torch._C._cuda_getCurrentRawStream(index)
+
+
+def launch(fn, index: int, *args) -> None:
+    """``fn(*args, stream)``: a C entry point called on the current stream
+    of CUDA device ``index`` (a tensor's ``get_device()``), with that device
+    made the current one only where it is not already. Raises
+    ``RuntimeError`` on a non-zero return (a CUDA error code). A small
+    kernel's call is mostly host cost, so this is the cheapest route to
+    the stream: no ``Stream`` object and, on the current device, no
+    ``torch.cuda.device`` context."""
+    if index == torch._C._cuda_getDevice():
+        err = fn(*args, raw_stream(index))
+    else:
+        with torch.cuda.device(index):
+            err = fn(*args, raw_stream(index))
+    if err:
+        raise RuntimeError(f"{fn.__name__}: CUDA launch failed with error "
+                           f"{err}")
 
 
 def load(name: str, signatures: Optional[dict] = None) -> ctypes.CDLL:

@@ -33,7 +33,12 @@ The design notes are in ``csrc/quant.cu``.
 
 A wrapper takes its plain version (``*_ref``) only for a CPU tensor. For
 a CUDA tensor it launches its kernel or raises; it never falls back.
-Each wrapper's ``launches`` attribute counts its kernel launches.
+Each wrapper's ``launches`` attribute counts its kernel launches;
+``dequantize_int8`` launches the ``dequant_sum`` kernel and counts in
+``dequant_sum.launches``. A small leaf's call is mostly host cost, so
+``dequant_sum`` and ``dequantize_int8`` check by attribute, allocate once
+and launch through ``_build.launch`` (the raw stream handle, one ctypes
+call).
 """
 
 from __future__ import annotations
@@ -116,31 +121,53 @@ def quantize_int8(flat: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 def dequant_sum(q: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
     """int8[world, n], float32[world] -> float32[n] = Σ_w f32(q_w)·s_w in
     rank order, without the ``[world, n]`` float intermediate."""
-    _check(q, torch.int8, 2, "dequant_sum")
-    _check(scales, torch.float32, 1, "dequant_sum")
-    if scales.shape[0] != q.shape[0] or scales.device != q.device:
-        raise ValueError(f"dequant_sum: {tuple(scales.shape)} scales on "
-                         f"{scales.device} for codes {tuple(q.shape)} on "
-                         f"{q.device}")
-    if q.device.type == "cpu":
+    # checks by attribute comparison: a small leaf's call is mostly host cost
+    if (q.dtype is not torch.int8 or q.dim() != 2 or q.numel() == 0
+            or scales.dtype is not torch.float32 or scales.dim() != 1
+            or scales.shape[0] != q.shape[0]
+            or scales.get_device() != q.get_device()):
+        raise ValueError(f"dequant_sum: expected int8[world, n] codes and "
+                         f"float32[world] scales on one device, got "
+                         f"{q.dtype}{tuple(q.shape)} on {q.device} and "
+                         f"{scales.dtype}{tuple(scales.shape)} on "
+                         f"{scales.device}")
+    if not q.is_cuda:
+        _check(q, torch.int8, 2, "dequant_sum")
         return dequant_sum_ref(q, scales)
-    q, scales = q.contiguous(), scales.contiguous()
-    dev = q.device
-    out = torch.empty(q.shape[1], dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        err = _lib().dequant_sum(q.data_ptr(), scales.data_ptr(), q.shape[0],
-                                 q.shape[1], out.data_ptr(),
-                                 torch.cuda.current_stream(dev).cuda_stream)
-    _raise_on(err, "dequant_sum")
+    if not q.is_contiguous():
+        q = q.contiguous()
+    if not scales.is_contiguous():
+        scales = scales.contiguous()
+    world, n = q.shape
+    out = torch.empty(n, dtype=torch.float32, device=q.device)
+    _build.launch(_lib().dequant_sum, q.get_device(), q.data_ptr(),
+                  scales.data_ptr(), world, n, out.data_ptr())
     dequant_sum.launches += 1
     return out
 
 
 def dequantize_int8(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
-    """int8[n], float32 scale -> float32[n] = f32(q)·scale (the JAX
-    signature): ``dequant_sum`` of one rank."""
-    return dequant_sum(q.reshape(1, -1),
-                       scale.reshape(1).to(torch.float32))
+    """int8[n], float32 scale (one element) -> float32[n] = f32(q)·scale
+    (the JAX signature): the ``dequant_sum`` kernel at world 1, counted in
+    ``dequant_sum.launches``."""
+    if (q.dtype is not torch.int8 or q.dim() != 1 or q.numel() == 0
+            or scale.dtype is not torch.float32 or scale.numel() != 1
+            or scale.get_device() != q.get_device()):
+        raise ValueError(f"dequantize_int8: expected int8[n] codes and a "
+                         f"float32 scale on one device, got "
+                         f"{q.dtype}{tuple(q.shape)} on {q.device} and "
+                         f"{scale.dtype}{tuple(scale.shape)} on "
+                         f"{scale.device}")
+    if not q.is_cuda:
+        _check(q, torch.int8, 1, "dequantize_int8")
+        return dequant_sum_ref(q.reshape(1, -1), scale.reshape(1))
+    if not q.is_contiguous():
+        q = q.contiguous()
+    out = torch.empty_like(q, dtype=torch.float32)
+    _build.launch(_lib().dequant_sum, q.get_device(), q.data_ptr(),
+                  scale.data_ptr(), 1, q.shape[0], out.data_ptr())
+    dequant_sum.launches += 1
+    return out
 
 
 quantize_int8.launches = 0

@@ -142,18 +142,42 @@ def test_quantize_takes_unaligned_views(cuda):
     assert torch.equal(q, rq) and torch.equal(s, rs)
 
 
+@pytest.mark.parametrize("offset", [0, 1])
 @pytest.mark.parametrize("world", [1, 8])
-@pytest.mark.parametrize("n", [7, 1024, 4099, 2359296])
-def test_dequant_sum_matches_the_rank_ordered_fold(cuda, n, world):
+@pytest.mark.parametrize("n", [7, 1024, 1028, 4099, 2359296])
+def test_dequant_sum_matches_the_rank_ordered_fold(cuda, n, world, offset):
+    # n % 16 == 0 and n % 16 == 4 take the 4-code loads; odd n and a view
+    # that starts one byte in take the scalar path
     gen = torch.Generator(device="cuda").manual_seed(n + world)
-    q = torch.randint(-127, 128, (world, n), generator=gen, device=cuda,
-                      dtype=torch.int8)
+    buf = torch.randint(-127, 128, (world * n + offset,), generator=gen,
+                        device=cuda, dtype=torch.int8)
+    q = buf[offset:].view(world, n)
     s = torch.rand(world, generator=gen, device=cuda)
+    if world == 8:
+        s[3] = float("nan")  # a NaN scale poisons its sum
+    before = Q.dequant_sum.launches
     got = Q.dequant_sum(q, s)
-    assert torch.equal(got, Q.dequant_sum_ref(q, s))
+    assert Q.dequant_sum.launches == before + 1
+    assert torch.equal(got.view(torch.int32),
+                       Q.dequant_sum_ref(q, s).view(torch.int32))
     if world == 1:
-        assert torch.equal(Q.dequantize_int8(q[0], s[0]),
-                           q[0].float() * s[0])
+        got = Q.dequantize_int8(q[0], s[0])
+        assert Q.dequant_sum.launches == before + 2
+        assert torch.equal(got, q[0].float() * s[0])
+
+
+def test_raw_stream_is_the_current_stream(cuda):
+    from pytorch_ps_mpi_tpu_torch.ops import _build
+
+    assert _build.raw_stream(0) == torch.cuda.current_stream(0).cuda_stream
+    side = torch.cuda.Stream()
+    with torch.cuda.stream(side):
+        assert _build.raw_stream(0) == side.cuda_stream
+        q = torch.randint(-127, 128, (4096,), device=cuda, dtype=torch.int8)
+        s = torch.tensor(0.5, device=cuda)
+        out = Q.dequantize_int8(q, s)
+    side.synchronize()
+    assert torch.equal(out, q.float() * 0.5)
 
 
 def test_quant_kernels_are_the_same_from_run_to_run(cuda):
@@ -167,24 +191,61 @@ def test_quant_kernels_are_the_same_from_run_to_run(cuda):
     assert all(torch.equal(Q.dequant_sum(q, s), first) for _ in range(3))
 
 
-# -- top-k threshold count ----------------------------------------------------
+# -- top-k radix select and compaction -----------------------------------------
+
+def _check_topk(x: torch.Tensor, k: int) -> None:
+    """The radix histograms and t, then the top-k, bit-exact against the
+    plain versions, with the launches each call counts."""
+    before = (T.radix_threshold.launches, T.exact_topk.launches)
+    t, hist = T.radix_threshold(x, k)
+    rt, rhist = T.radix_threshold_ref(x, k)
+    assert torch.equal(hist, rhist) and torch.equal(t, rt)
+    assert int(t) == int(T.kth_threshold(x, k)[0])
+    v, i = T.exact_topk(x, k)
+    assert (T.radix_threshold.launches, T.exact_topk.launches) == (
+        before[0] + T.THRESHOLD_LAUNCHES, before[1] + T.LAUNCHES)
+    rv, ri = T.exact_topk_ref(x, k)
+    assert torch.equal(i, ri)
+    assert torch.equal(v.view(torch.int32), rv.view(torch.int32))
+
 
 @pytest.mark.parametrize("n,k", [(8192, 82), (9216, 92), (100_003, 1000),
-                                 (2359296, 23593), (40_000, 1)])
+                                 (2359296, 23593), (40_000, 1),
+                                 (40_000, 39_999)])
 def test_count_passes_and_topk_match_plain_versions(cuda, n, k):
     x = torch.from_numpy(np.random.RandomState(n).randn(n).astype(
         np.float32)).to(cuda)
-    before = T.count_pass.launches
-    t, counts = T.kth_threshold(x, k)
-    assert T.count_pass.launches == before + T.PASSES
-    rt, rcounts = T.kth_threshold(x, k, T.count_pass_ref)
-    assert torch.equal(counts, rcounts) and torch.equal(t, rt)
-    v, i = T.exact_topk(x, k)
-    rv, ri = T.exact_topk_ref(x, k)
-    assert torch.equal(i, ri) and torch.equal(v, rv)
+    _check_topk(x, k)
     # the same value multiset as torch.topk
+    v, _ = T.exact_topk(x, k)
     ref = torch.topk(x.abs(), k).values.sort().values
     assert torch.equal(v.abs().sort().values, ref)
+
+
+@pytest.mark.parametrize("case", ["all_ties", "all_zeros", "more_nans_than_k",
+                                  "odd_n_misaligned", "float64"])
+def test_topk_planted_cases_match_plain_versions(cuda, case):
+    x = torch.from_numpy(np.random.RandomState(3).randn(100_001).astype(
+        np.float32)).to(cuda)
+    k = 1000
+    if case == "all_ties":
+        x.fill_(-1.5)
+    elif case == "all_zeros":
+        x.zero_()
+    elif case == "more_nans_than_k":
+        nans = torch.tensor([0x7FC00000, 0x7F800001, -0x400000, 0x7FFFFFFF],
+                            dtype=torch.int32, device=cuda).view(torch.float32)
+        x[::40] = nans.repeat(len(x[::40]) // 4 + 1)[:len(x[::40])]
+    elif case == "float64":
+        xd = x.double()
+        v, i = T.exact_topk(xd, k)
+        rv, ri = T.exact_topk_ref(xd, k)
+        assert torch.equal(i, ri) and torch.equal(v, rv)
+        assert v.dtype == torch.float64
+        return
+    elif case == "odd_n_misaligned":
+        x = x[1:-1]  # 99,999 elements that start 4 bytes in: scalar loads
+    _check_topk(x, k)
 
 
 def test_topk_heavy_ties_nan_and_signed_zero_match_plain_version(cuda):
@@ -203,7 +264,10 @@ def test_topk_heavy_ties_nan_and_signed_zero_match_plain_version(cuda):
 def test_topk_is_the_same_from_run_to_run(cuda):
     x = torch.randn(2359296, device=cuda)
     first = T.exact_topk(x, 23593)[1]
+    hist = T.radix_threshold(x, 23593)[1].clone()
     assert all(torch.equal(T.exact_topk(x, 23593)[1], first)
+               for _ in range(3))
+    assert all(torch.equal(T.radix_threshold(x, 23593)[1], hist)
                for _ in range(3))
 
 

@@ -1,5 +1,6 @@
-"""The port imports neither JAX nor the JAX package, and neither does
-``chip_smoke.py``; checked in a fresh interpreter."""
+"""The port imports neither JAX nor the JAX package, and neither do
+``chip_smoke.py`` and the other chip scripts; checked in a fresh
+interpreter."""
 
 from __future__ import annotations
 
@@ -15,7 +16,7 @@ ROOT = Path(__file__).resolve().parent.parent
 _PROBE = """
 import importlib, json, pkgutil, sys
 import pytorch_ps_mpi_tpu_torch as pkg
-import chip_smoke
+import chip_smoke, chip_dequant_widths, chip_main_path_ab
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
 for name in names:
     importlib.import_module(name)
