@@ -1,13 +1,15 @@
-"""Same-card A/B of ``chip_smoke.py``'s ResNet main paths between two
-checkouts of the repository.
+"""Same-card A/B of ``chip_smoke.py``'s main paths between two checkouts
+of the repository.
 
     python3 chip_main_path_ab.py PARENT_DIR CHANGE_DIR [CODE ...]
 
-CODE is ``int8``, ``qsgd`` or ``ef_topk`` (default: all three). Each path
-runs from each checkout in a process of its own, through that checkout's
-own ``chip_smoke.run_main_path`` (5 loss steps, 1 grads-only step, the
-launch counts asserted, 1 profiled step), in turns: parent, change,
-change, parent, parent, change. Each run prints its ``main_path`` and
+CODE is ``int8``, ``qsgd`` or ``ef_topk`` (ResNets, through each
+checkout's ``chip_smoke.run_main_path``) or ``bert_identity`` or
+``bert_terngrad`` (BERT-base MLM b4 s512 bf16 with flash attention,
+through its ``chip_smoke.run_bert_path``); default: the three ResNet
+codes. Each path runs from each checkout in a process of its own (5
+loss steps, 1 grads-only step, the launch counts asserted, 1 profiled
+step), in turns: parent, change, change, parent, parent, change. Each run prints its ``main_path`` and
 ``profile`` lines prefixed with ``ab=<parent|change> run=<i>``; the card's
 name and power limit come first. Needs one CUDA device.
 """
@@ -22,7 +24,8 @@ import sys
 import torch
 import chip_smoke as C
 from pytorch_ps_mpi_tpu_torch import mesh
-from pytorch_ps_mpi_tpu_torch.models import ResNet18, ResNet50
+from pytorch_ps_mpi_tpu_torch.models import (BertConfig, BertMLM, ResNet18,
+                                             ResNet50)
 from pytorch_ps_mpi_tpu_torch.ops import topk as T
 
 code = sys.argv[1]
@@ -33,7 +36,18 @@ C.build_kernels()
 mesh.initialize_distributed(f"tcp://localhost:{C.free_port()}",
                             world_size=1, rank=0, backend="nccl")
 try:
-    if code == "ef_topk":
+    if code.startswith("bert_"):
+        # 12 flash forward and 12 + 12 backward launches a loss step;
+        # TernGrad packs 61 leaves whole and 2 in 23 chunks, unpack-sums 63
+        flash = {"flash_fwd": 12, "flash_bwd": 24}
+        tern = {"tern_pack": 61 + 2 * 23, "tern_unpack": 63}
+        model = BertMLM(BertConfig(dtype=torch.bfloat16, attention="flash"),
+                        seed=0, device="cuda")
+        if code == "bert_identity":
+            C.run_bert_path(model, "identity", flash, {})
+        else:
+            C.run_bert_path(model, "terngrad", {**flash, **tern}, tern)
+    elif code == "ef_topk":
         model = ResNet50(num_classes=1000, seed=0, device="cuda")
         # launches a leaf: 31 count passes before the radix select
         per_leaf = getattr(T, "LAUNCHES", T.PASSES)

@@ -7,9 +7,12 @@ Phases, one line each; the script exits non-zero if any fails:
 1. device    -- requires a CUDA device; prints the card's name and power
                limit as nvidia-smi reports them.
 2. build     -- compiles ``pytorch_ps_mpi_tpu_torch/csrc/{sign,quant,
-               topk,tern,attention}.cu`` with nvcc for sm_90a, one nvcc per
-               source, all started together, and prints the seconds each
-               took.
+               topk,tern,attention,attention_tc}.cu`` with nvcc for sm_90a,
+               one nvcc per source, all started together, and prints the
+               seconds each took, ptxas's registers and spills of each
+               tensor-core flash kernel, and the count of HGMMA/HMMA
+               instructions in the attention libraries' SASS (where the
+               toolkit has ``cuobjdump``).
 3. kernels   -- each kernel against its plain PyTorch version on the card,
                at the main paths' leaf sizes, with planted cases:
                - the sign kernels at ResNet-18's 20 kernel-path leaves
@@ -32,11 +35,15 @@ Phases, one line each; the script exits non-zero if any fails:
                  (bytes and floats bit-exact; ±0.0, NaN, ±Inf, |x| == s,
                  u24 == p24, the top random bit);
                - the flash forward and backward at [b=4, l=512, h=12, d=64]
-                 in bf16 and float32, non-causal, causal, with a k offset
-                 that leaves rows without a visible key, and an lse
-                 cotangent (float32 to rtol 1e-5 forward and 1e-4
-                 backward; bf16 to 2**-6 of each output's largest
-                 magnitude, see ``check_flash_kernels``).
+                 in bf16 (tensor cores) and float32 (CUDA cores),
+                 non-causal, causal, with a k offset that leaves rows
+                 without a visible key, and an lse cotangent (float32 to
+                 rtol 1e-5 forward and 1e-4 backward; bf16 to 2**-6 of
+                 each output's largest magnitude, see
+                 ``check_flash_kernels``); in bf16 also every head dim
+                 (8–128, causal and not), a ragged length whose
+                 neighbouring heads hold 1e4 (nothing may leak), and
+                 run-to-run identity of o, lse, dq, dk and dv.
                Times each over the main path's calls in sequence: ``ms``
                is the wrapper's call (median of CUDA-event timings, host
                launch cost included), ``device_ms`` the kernels' own time
@@ -45,8 +52,10 @@ Phases, one line each; the script exits non-zero if any fails:
                over 3.35 TB/s and its operations over 989 TFLOP/s (bf16
                tensor cores), ``library_ms`` one PyTorch call computing the
                same function where there is one (never called by the
-               port). ``attention`` then times the dense attention of
-               ``attention="full"`` against flash at BERT-base's shape.
+               port; for flash each SDPA backend that takes the shape is
+               timed too, forward and backward alone). ``attention`` then
+               times the dense attention of ``attention="full"`` against
+               flash at BERT-base's shape.
 4. decode_sum -- 8 stacked sign payloads for every ResNet-18 leaf through
                ``SignCodec.decode_sum``; bit-exact against the plain fold.
 5. reference -- grads-only steps on the card against the same steps on the
@@ -192,12 +201,42 @@ def check_device() -> str:
     return smi
 
 
-def build_kernels() -> None:
+def build_kernels(report: bool = False) -> None:
+    """Build every source (``report``: with ptxas's report, printed for
+    the tensor-core flash kernels, and the attention libraries' counts of
+    tensor-core instructions)."""
+    import re
+
     from pytorch_ps_mpi_tpu_torch.ops import _build
 
-    seconds = _build.build(*_build.SOURCES)
+    seconds = _build.build(*_build.SOURCES, report=report)
     for name, s in seconds.items():
         phase("build", source=f"csrc/{name}.cu", nvcc_s=f"{s:.2f}")
+    if not report:
+        return
+    kernel = None
+    for line in _build.REPORTS.get("attention_tc", "").splitlines():
+        found = re.search(r"(flash_\w+_tc)ILi(\d+)ELi(\d+)E", line)
+        if found:
+            kernel, spills = f"{found[1]}<{found[2]},{found[3]}>", ""
+        elif kernel and "spill" in line:
+            spills = line.strip()
+        elif kernel and "Used" in line:
+            phase("build", ptxas=kernel,
+                  registers=re.search(r"Used (\d+) registers", line)[1],
+                  spills=repr(spills))
+            kernel = None
+    cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    for name in ("attention_tc", "attention"):
+        lib = _build.BUILD_DIR / f"lib{name}.so"
+        if not os.path.exists(cuobjdump):
+            phase("build", sass=f"lib{name}.so", counts="not available")
+            continue
+        sass = subprocess.run([cuobjdump, "-sass", str(lib)],
+                              capture_output=True, text=True).stdout
+        phase("build", sass=f"lib{name}.so",
+              HGMMA=len(re.findall(r"\bHGMMA\.", sass)),
+              HMMA=len(re.findall(r"\bHMMA\.", sass)))
 
 
 def timed(kern, plain, args, nbytes, library=None, reps=20, rounds=5,
@@ -740,6 +779,7 @@ def check_flash_kernels() -> dict:
           shape=f"[{BERT_BATCH * BERT_HEADS},{BERT_SEQ},{BERT_HEAD_DIM}]",
           dtypes="bf16,f32", bf16_fwd_err=worst["flash_fwd"],
           bf16_bwd_err=worst["flash_bwd"])
+    check_flash_tensor_cores(gen)
 
     layers = 12
     sets = [_flash_inputs(torch.bfloat16, gen) for _ in range(layers)]
@@ -758,6 +798,7 @@ def check_flash_kernels() -> dict:
     results["flash_fwd"] = dict(r, max_abs_err=worst["flash_fwd"])
     report("flash_fwd", results["flash_fwd"], calls=layers,
            library="scaled_dot_product_attention forward")
+    sdpa_backends(sets)
 
     bwd_args = []
     for q, k, v, g, _ in sets:
@@ -786,6 +827,8 @@ def check_flash_kernels() -> dict:
     report("flash_bwd", results["flash_bwd"], calls=layers,
            library="scaled_dot_product_attention backward alone")
 
+    flash_host(scale)
+
     # the "full" crossover: BERT's dense attention against the kernel, one
     # layer's [b, l, h, d] in bf16, forward and forward + backward
     from pytorch_ps_mpi_tpu_torch.models.bert import dense_attention
@@ -812,6 +855,133 @@ def check_flash_kernels() -> dict:
           dense_fwd_bwd_ms=f"{cuda_ms(fwd_bwd(dense), 5, 3):.4f}",
           flash_fwd_bwd_ms=f"{cuda_ms(fwd_bwd(flash), 5, 3):.4f}")
     return results
+
+
+def flash_host(scale: float) -> None:
+    """Host µs a call of the flash wrappers and their pieces, at [1, 64,
+    64] bf16 where the device's part is a few µs: the forward and
+    backward wrappers, SDPA's forward, one ``torch.empty_like``, and the
+    ctypes call of ``flash_fwd_bf16`` alone (a plan it refuses at once)."""
+    from pytorch_ps_mpi_tpu_torch.ops import _build
+    from pytorch_ps_mpi_tpu_torch.ops import attention as A
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    q, k, v, g, _ = _flash_inputs(torch.bfloat16, gen, b=1, l=64, h=1)
+    o, lse = A.flash_fwd(q, k, v, 0, 0, False, scale)
+    fn = A._lib(torch.bfloat16).flash_fwd_bf16
+    ptrs = [t.data_ptr() for t in (q, k, v, o, lse)]
+    q4, k4, v4 = (t.view(1, 1, 64, -1) for t in (q, k, v))
+    calls = 5000
+    us = {
+        "fwd_wrapper": host_us(lambda: A.flash_fwd(q, k, v, 0, 0, False,
+                                                   scale), calls),
+        "bwd_wrapper": host_us(lambda: A.flash_bwd(q, k, v, o, lse, g, None,
+                                                   0, 0, False, scale), calls),
+        "sdpa_fwd": host_us(lambda: torch.nn.functional
+                            .scaled_dot_product_attention(q4, k4, v4), calls),
+        "empty_like": host_us(lambda: torch.empty_like(q), calls),
+        "ctypes_call": host_us(lambda: fn(*ptrs, 1, 64, 64, 64, 0, 0, 0,
+                                          scale, 0, 0, _build.raw_stream(0)),
+                               calls),
+    }
+    phase("kernels", host_us="flash at [1,64,64] bf16",
+          **{k: f"{v:.2f}" for k, v in us.items()})
+
+
+def _flash_both(q, k, v, g, g_lse, causal=False):
+    """o, lse, dq, dk, dv of the kernels (forward, then backward)."""
+    from pytorch_ps_mpi_tpu_torch.ops import attention as A
+
+    scale = q.shape[-1] ** -0.5
+    o, lse = A.flash_fwd(q, k, v, 0, 0, causal, scale)
+    return (o, lse) + A.flash_bwd(q, k, v, o, lse, g, g_lse, 0, 0, causal,
+                                  scale)
+
+
+def check_flash_tensor_cores(gen) -> None:
+    """The bf16 (tensor-core) kernels at the phase's b, l and h: every head
+    dim, causal and not, against the plain versions (2**-6 of each
+    output's largest magnitude); a ragged length (500 = 7 tiles + 52
+    rows) whose odd heads' k and v are then set to 1e4, after which the
+    even heads' outputs must be the same bit for bit; and o, lse, dq, dk,
+    dv bit for bit the same over 3 more runs at the main path's shape."""
+    from pytorch_ps_mpi_tpu_torch.ops import attention as A
+
+    worst, cases = 0.0, 0
+    for d in A.HEAD_DIMS:
+        for causal in (False, True):
+            q, k, v, g, g_lse = _flash_inputs(torch.bfloat16, gen, d=d)
+            got = _flash_both(q, k, v, g, g_lse, causal)
+            scale = d ** -0.5
+            tag = f"bf16 d={d} causal={causal}"
+            ro, rlse = A.flash_fwd_ref(q, k, v, 0, 0, causal, scale)
+            want = A.flash_bwd_ref(q, k, v, got[0], got[1], g, g_lse, 0, 0,
+                                   causal, scale)
+            _flash_err(got[1], rlse, torch.float32, f"lse, {tag}", False)
+            for a, b, n in zip(got[:1] + got[2:], (ro,) + want,
+                               ("o", "dq", "dk", "dv")):
+                err = _flash_err(a, b, torch.bfloat16, f"{n}, {tag}", n != "o")
+                worst = max(worst, err / float(b.float().abs().max()))
+            cases += 1
+    q, k, v, g, g_lse = _flash_inputs(torch.bfloat16, gen, l=500)
+    clean = _flash_both(q, k, v, g, g_lse)
+    k[1::2], v[1::2] = 1e4, 1e4
+    poisoned = _flash_both(q, k, v, g, g_lse)
+    for a, b in zip(clean, poisoned):
+        if not (torch.equal(a[0::2], b[0::2])
+                and bool(torch.isfinite(b.float()).all())):
+            raise AssertionError("a ragged tile read its neighbouring head")
+    q, k, v, g, g_lse = _flash_inputs(torch.bfloat16, gen)
+    first = _flash_both(q, k, v, g, g_lse)
+    for _ in range(3):
+        if not all(torch.equal(a, b) for a, b in
+                   zip(_flash_both(q, k, v, g, g_lse), first)):
+            raise AssertionError("flash differs from run to run")
+    phase("kernels", check="flash bf16 on the tensor cores",
+          head_dims=",".join(map(str, A.HEAD_DIMS)), cases=cases,
+          worst_rel_err=f"{worst:.3e}", tolerance="2**-6",
+          ragged_neighbour="l=500, odd heads 1e4: even heads bit-equal",
+          run_to_run="o,lse,dq,dk,dv bit-equal over 4 runs")
+
+
+SDPA_BACKENDS = ("FLASH_ATTENTION", "EFFICIENT_ATTENTION", "CUDNN_ATTENTION")
+
+
+def sdpa_backends(sets) -> None:
+    """The yardstick per SDPA backend: the 12 calls' forward and, alone,
+    backward under ``torch.nn.attention.sdpa_kernel`` (CUDA-event ms,
+    summed over the calls as ``timed`` does); "unsupported" where the
+    backend does not take the shape. Never called by the port."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+
+    def total(calls) -> str:
+        return f"{sum(cuda_ms(c, 5, 3) for c in calls):.4f}"
+
+    fwd, bwd = {}, {}
+    for name in SDPA_BACKENDS:
+        try:
+            with sdpa_kernel(getattr(SDPBackend, name)):
+                fwd_calls, bwd_calls = [], []
+                for q, k, v, g, _ in sets:
+                    x = [t.view(BERT_BATCH, BERT_HEADS, *t.shape[1:])
+                         for t in (q, k, v, g)]
+                    ins = [t.detach().requires_grad_() for t in x[:3]]
+                    out = sdpa(*ins)
+                    fwd_calls.append(lambda x=x: sdpa(*x[:3]))
+                    bwd_calls.append(lambda o=out, i=ins, g=x[3]:
+                                     torch.autograd.grad(o, i, g,
+                                                         retain_graph=True))
+                fwd[name], bwd[name] = total(fwd_calls), total(bwd_calls)
+        except RuntimeError as err:  # the backend does not take the shape
+            fwd[name] = bwd[name] = "unsupported"
+            phase("kernels", sdpa_backend=name,
+                  unsupported=repr(str(err)[:80]))
+    phase("kernels", yardstick="sdpa backends", direction="forward",
+          calls=len(sets), **fwd)
+    phase("kernels", yardstick="sdpa backends", direction="backward alone",
+          calls=len(sets), **bwd)
 
 
 # -- decode_sum and the reference steps -----------------------------------------
@@ -1139,9 +1309,10 @@ SOURCES = {
     "exact_topk": ("topk.cu", "pytorch_ps_mpi_tpu/ops/topk_pallas.py:67"),
     "tern_pack": ("tern.cu", "pytorch_ps_mpi_tpu/ops/tern_pallas.py:61"),
     "tern_unpack": ("tern.cu", "pytorch_ps_mpi_tpu/ops/tern_pallas.py:97"),
-    "flash_fwd": ("attention.cu",
+    # bf16, the main path's type (float32: attention.cu, the CUDA cores)
+    "flash_fwd": ("attention_tc.cu",
                   "pytorch_ps_mpi_tpu/ops/attention_pallas.py:143"),
-    "flash_bwd": ("attention.cu",
+    "flash_bwd": ("attention_tc.cu",
                   "pytorch_ps_mpi_tpu/ops/attention_pallas.py:267"),
 }
 
@@ -1169,7 +1340,7 @@ def main() -> int:
         return BertMLM(BertConfig(dtype=torch.bfloat16, attention="flash"),
                        seed=0, device="cuda")
 
-    build_kernels()
+    build_kernels(report=True)
     model = resnet18()
     r50 = resnet50()
     results = check_kernels(kernel_sizes(model))

@@ -1,15 +1,16 @@
 """Build and load the port's CUDA kernels.
 
 Each ``csrc/<name>.cu`` (``sign``, ``quant``, ``topk``, ``tern``,
-``attention``; :data:`SOURCES`) is compiled by
+``attention``, ``attention_tc``; :data:`SOURCES`) is compiled by
 ``nvcc`` for ``sm_90a`` into a shared library with a plain C interface
 (``_build/lib<name>.so``, listed in ``.gitignore``) and loaded with
 ``ctypes``. A library is built at its first use, from the package's own
 sources, and again whenever the source's hash changes; ``build`` can
-also compile several sources at once, one ``nvcc`` each. ``launch``
-calls a loaded entry point on PyTorch's current stream. Nothing here
-runs at import time: the CPU tests import every module on a machine with
-no ``nvcc``.
+also compile several sources at once, one ``nvcc`` each, and keep
+ptxas's report of each kernel (registers, spills). ``launch`` calls a
+loaded entry point on PyTorch's current stream (the flash, top-k and
+dequantize wrappers use it). Nothing here runs at import time: the CPU
+tests import every module on a machine with no ``nvcc``.
 """
 
 from __future__ import annotations
@@ -32,9 +33,11 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
 #: every kernel source of the package, by name
-SOURCES = ("sign", "quant", "topk", "tern", "attention")
+SOURCES = ("sign", "quant", "topk", "tern", "attention", "attention_tc")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
+#: ptxas's report of each source built with ``report=True`` in this process
+REPORTS: Dict[str, str] = {}
 
 
 def _nvcc() -> str:
@@ -55,22 +58,26 @@ def _paths(name: str):
         BUILD_DIR / f"lib{name}.sha256"
 
 
-def build(*names: str) -> Dict[str, float]:
+def build(*names: str, report: bool = False) -> Dict[str, float]:
     """Compile each ``csrc/<name>.cu`` whose library is missing or stale,
     one ``nvcc`` per source, all started together. Returns, per source,
     the seconds from the start until its build was collected (0.0 for a
-    library that was up to date)."""
+    library that was up to date). ``report``: also pass ``-Xptxas -v``
+    and keep ptxas's lines in :data:`REPORTS` (a library that was up to
+    date is rebuilt for them)."""
     t0 = time.perf_counter()
     seconds, running = {}, {}
     for name in names:
         src, digest, lib, stamp = _paths(name)
-        if lib.exists() and stamp.exists() and stamp.read_text() == digest:
+        if not report and lib.exists() and stamp.exists() and \
+                stamp.read_text() == digest:
             seconds[name] = 0.0
             continue
         BUILD_DIR.mkdir(exist_ok=True)
         tmp = BUILD_DIR / f"lib{name}.{os.getpid()}.so"
         proc = subprocess.Popen(
-            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+            [_nvcc(), *NVCC_FLAGS, *(("-Xptxas", "-v") if report else ()),
+             "-o", str(tmp), str(src)],
             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
         running[name] = (proc, tmp, lib, stamp, digest)
     failed = []
@@ -82,6 +89,8 @@ def build(*names: str) -> Dict[str, float]:
             continue
         os.replace(tmp, lib)
         stamp.write_text(digest)
+        if report:
+            REPORTS[name] = err
     if failed:
         raise RuntimeError("\n".join(failed))
     return seconds

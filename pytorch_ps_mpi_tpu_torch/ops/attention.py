@@ -5,20 +5,28 @@ The attention of ``BertMLM`` with ``attention="flash"``. The wrappers
 replace the Pallas TPU kernels of
 ``pytorch_ps_mpi_tpu/ops/attention_pallas.py``:
 
-=================  =================================================  =================
-wrapper            replaces                                           kernel
-=================  =================================================  =================
-``flash_fwd``      ``_fwd`` (``attention_pallas.py:143``, the         ``csrc/attention.cu``
-                   ``pallas_call`` at ``:150``)                       ``flash_fwd``
-``flash_bwd``      ``_bwd`` (``:267``): the dq ``pallas_call``        ``flash_bwd_dq``,
-                   (``:281``) and the dk/dv one (``:301``)            ``flash_bwd_dkv``
-=================  =================================================  =================
+=================  ============================================  ==========================
+wrapper            replaces                                      kernels (bf16 / float32)
+=================  ============================================  ==========================
+``flash_fwd``      ``_fwd`` (``attention_pallas.py:143``, the    ``flash_fwd_bf16`` /
+                   ``pallas_call`` at ``:150``)                  ``flash_fwd_f32``
+``flash_bwd``      ``_bwd`` (``:267``): the dq ``pallas_call``   ``flash_bwd_dq_*``, then
+                   (``:281``) and the dk/dv one (``:301``)       ``flash_bwd_dkv_*``
+=================  ============================================  ==========================
+
+The dtype picks the source (:data:`SOURCES`, :func:`kernel_source`):
+bf16 runs on the tensor cores (``csrc/attention_tc.cu``: ``wgmma`` fed
+by TMA), float32 on the CUDA cores (``csrc/attention.cu``), since the
+tensor cores would take float32 as TF32.
 
 :func:`flash_attention` is the public function on ``[b, l, h, d]``
 tensors (``attention_pallas.py:405-446``); a ``torch.autograd.Function``
 joins the forward and backward kernels on ``[b·h, l, d]`` tensors, and
 the backward takes a cotangent for the returned logsumexp too
-(``dm = rowsum(g_out·out) − g_lse``), which ring attention needs.
+(``dm = rowsum(g_out·out) − g_lse``), which ring attention needs. The dq
+kernel computes ``dm`` and writes it to a float32 ``[b·h, l]`` buffer
+that the dk/dv kernel reads, so the backward is two launches and no
+PyTorch arithmetic.
 
 Semantics, the Pallas kernels': scores in float32, a causal mask in
 global coordinates from the runtime offsets (``k_off + col <= q_off +
@@ -31,16 +39,21 @@ meaning for when a shape tiles (``_pick_block``): a length that is not
 a multiple of the type's minimal tile (8 for float32, 16 for bf16) takes
 the dense plain path, as in the JAX package.
 
-Bound and design: see ``csrc/attention.cu``. A wrapper takes its plain
-version (``*_ref``) only for CPU tensors. For CUDA tensors it launches
-its kernels or raises; it never falls back. ``flash_fwd.launches``
-counts forward launches, ``flash_bwd.launches`` the dq and dk/dv
-launches (two a backward).
+The tensor-core kernels' host-side arithmetic (tile layout and swizzle
+by head dim, tensor maps, grid, shared memory) lives here in pure
+functions (``tc_*``); the kernels check the rows and shared-memory bytes
+they are given against their own and refuse a mismatch. Bound and
+design: see the sources' notes. A wrapper takes its plain version
+(``*_ref``) only for CPU tensors. For CUDA tensors it launches its
+kernels through ``_build.launch`` (the raw stream handle) or raises; it
+never falls back. ``flash_fwd.launches`` counts forward launches,
+``flash_bwd.launches`` the dq and dk/dv launches (two a backward).
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional, Tuple
 
 import torch
@@ -54,15 +67,92 @@ _MASK_THRESH = -1e29  # "this score was masked"
 BLOCK = 64
 #: head dims the kernels are built for
 HEAD_DIMS = (8, 16, 32, 64, 128)
+#: the source whose kernels serve each dtype
+SOURCES = {torch.bfloat16: "attention_tc", torch.float32: "attention"}
+#: rows of q (forward, dq) or of k (dk/dv) a block of each bf16 kernel
+#: owns: 64 for each consumer warpgroup
+TC_BLOCK_ROWS = {"fwd": 64, "dq": 64, "dkv": 64}
+#: stages of the ring that streams the other axis's tiles
+TC_STAGES = 2
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
-    "flash_fwd": (_I, [_P] * 5 + [_I] * 7 + [_F, _I, _P]),
-    "flash_bwd_dq": (_I, [_P] * 7 + [_I] * 7 + [_F, _I, _P]),
-    "flash_bwd_dkv": (_I, [_P] * 8 + [_I] * 7 + [_F, _I, _P]),
+    "attention": {
+        "flash_fwd_f32": (_I, [_P] * 5 + [_I] * 7 + [_F, _P]),
+        "flash_bwd_dq_f32": (_I, [_P] * 9 + [_I] * 7 + [_F, _P]),
+        "flash_bwd_dkv_f32": (_I, [_P] * 8 + [_I] * 7 + [_F, _P]),
+    },
+    "attention_tc": {
+        "flash_fwd_bf16": (_I, [_P] * 5 + [_I] * 7 + [_F, _I, _I, _P]),
+        "flash_bwd_dq_bf16": (_I, [_P] * 9 + [_I] * 7 + [_F, _I, _I, _P]),
+        "flash_bwd_dkv_bf16": (_I, [_P] * 8 + [_I] * 7 + [_F, _I, _I, _P]),
+    },
 }
+
+
+def kernel_source(dtype: torch.dtype) -> str:
+    """The ``csrc/`` source whose kernels serve ``dtype``:
+    ``attention_tc`` (tensor cores) for bf16, ``attention`` (CUDA cores)
+    for float32."""
+    if dtype not in SOURCES:
+        raise ValueError(f"no flash kernel for {dtype}")
+    return SOURCES[dtype]
+
+
+# -- the tensor-core kernels' plan (bf16) ------------------------------------------
+
+def tc_layout(d: int) -> dict:
+    """A 64-row bf16 tile of head dim ``d`` in shared memory, as TMA
+    writes it and the ``wgmma`` descriptors read it: ``d`` below 16 is
+    zero-padded to 16 columns; a row of up to 64 columns is one panel,
+    d = 128 two; the swizzle spans a panel's row (128, 64 or 32 bytes)."""
+    if d not in HEAD_DIMS:
+        raise ValueError(f"the kernels take head dims {HEAD_DIMS}, got {d}")
+    cols = max(d, 16)
+    panel = min(cols, 64)
+    return {"cols": cols, "panel": panel, "panels": cols // panel,
+            "swizzle_bytes": 2 * panel, "k_steps": cols // 16,
+            "tile_bytes": BLOCK * cols * 2}
+
+
+def tc_tensor_map(bh: int, length: int, d: int) -> dict:
+    """The TMA map that ``make_map`` in ``csrc/attention_tc.cu`` encodes
+    for a contiguous bf16 ``[bh, length, d]`` tensor: 3D (d, length, bh)
+    so that rows past ``length`` are zero-filled rather than the next
+    head's, byte strides of dims 1 and 2 (TMA takes multiples of 16), and
+    a box of one panel by 64 rows of one head."""
+    lay = tc_layout(d)
+    return {"dims": (d, length, bh), "strides": (2 * d, 2 * d * length),
+            "box": (lay["panel"], BLOCK, 1),
+            "swizzle_bytes": lay["swizzle_bytes"]}
+
+
+def tc_smem_bytes(kind: str, d: int, rows: int) -> int:
+    """Dynamic shared memory of a block of the bf16 ``kind`` kernel
+    (``fwd``, ``dq`` or ``dkv``) owning ``rows`` rows: 1,024 bytes of
+    alignment slack, its own tiles (q; q and dO; k and v), two tiles a
+    stage of the ring (k and v; q and dO), the dq kernel's dm rows, and
+    an 8-byte mbarrier for its own tiles and one a stage."""
+    tile = tc_layout(d)["tile_bytes"]
+    groups = rows // BLOCK
+    own = groups if kind == "fwd" else 2 * groups
+    extra = 4 * rows if kind == "dq" else 0
+    return 1024 + (own + 2 * TC_STAGES) * tile + extra + 8 * (1 + TC_STAGES)
+
+
+def tc_grid(kind: str, bh: int, lq: int, lk: int, rows: int) -> tuple:
+    """(blocks over the owned axis, bh): q rows for the forward and dq,
+    k rows for dk/dv."""
+    length = lk if kind == "dkv" else lq
+    return (-(-length // rows), bh)
+
+
+@functools.lru_cache(maxsize=None)
+def _tc_plan(kind: str, d: int) -> Tuple[int, int]:
+    rows = TC_BLOCK_ROWS[kind]
+    return rows, tc_smem_bytes(kind, d, rows)
 
 
 # -- tiling rules (the JAX package's) ------------------------------------------
@@ -132,8 +222,10 @@ def flash_fwd_ref(q3, k3, v3, q_off: int, k_off: int, causal: bool,
 
 
 def _dm(out3, g_out3, g_lse) -> torch.Tensor:
-    """rowsum(g_out·out) − g_lse in float32, ``[bh, lq]``."""
-    return (g_out3.float() * out3.float()).sum(dim=-1) - g_lse.float()
+    """rowsum(g_out·out) − g_lse in float32, ``[bh, lq]`` (``g_lse`` None:
+    a zero cotangent)."""
+    d = (g_out3.float() * out3.float()).sum(dim=-1)
+    return d if g_lse is None else d - g_lse.float()
 
 
 def flash_bwd_ref(q3, k3, v3, out3, lse, g_out3, g_lse, q_off: int,
@@ -154,54 +246,57 @@ def flash_bwd_ref(q3, k3, v3, out3, lse, g_out3, g_lse, q_off: int,
 
 # -- kernel wrappers -------------------------------------------------------------
 
-def _lib() -> ctypes.CDLL:
-    return _build.load("attention", _SIGNATURES)
+def _lib(dtype: torch.dtype) -> ctypes.CDLL:
+    name = kernel_source(dtype)
+    return _build.load(name, _SIGNATURES[name])
 
 
 def _check_qkv(q3, k3, v3, what: str) -> None:
-    if not (q3.dim() == k3.dim() == v3.dim() == 3):
-        raise ValueError(f"{what}: expected [bh, l, d] tensors")
-    if q3.dtype not in (torch.float32, torch.bfloat16) or not (
-            q3.dtype == k3.dtype == v3.dtype):
+    # by attribute: a call's checks are host cost on every layer
+    dt = q3.dtype
+    if (dt is not torch.float32 and dt is not torch.bfloat16) or \
+            k3.dtype is not dt or v3.dtype is not dt:
         raise ValueError(f"{what}: q, k, v must all be float32 or bfloat16, "
                          f"got {q3.dtype}, {k3.dtype}, {v3.dtype}")
-    bh, _, d = q3.shape
-    if k3.shape != v3.shape or k3.shape[0] != bh or k3.shape[2] != d:
-        raise ValueError(f"{what}: q {tuple(q3.shape)}, k {tuple(k3.shape)}, "
-                         f"v {tuple(v3.shape)} do not fit")
-    if not (q3.device == k3.device == v3.device):
+    qs, ks = q3.shape, k3.shape
+    if len(qs) != 3 or len(ks) != 3 or ks != v3.shape or ks[0] != qs[0] \
+            or ks[2] != qs[2]:
+        raise ValueError(f"{what}: expected [bh, l, d] tensors that fit, got "
+                         f"q {tuple(qs)}, k {tuple(ks)}, v {tuple(v3.shape)}")
+    dev = q3.get_device()
+    if k3.get_device() != dev or v3.get_device() != dev:
         raise ValueError(f"{what}: q, k, v must share a device")
-    if q3.device.type == "cuda" and d not in HEAD_DIMS:
+    if dev >= 0 and qs[2] not in HEAD_DIMS:
         raise ValueError(f"{what}: the kernels take head dims {HEAD_DIMS}, "
-                         f"got {d}")
+                         f"got {qs[2]}")
 
 
-def _raise_on(err: int, what: str) -> None:
-    if err:
-        raise RuntimeError(f"{what}: CUDA launch failed with error {err}")
-
-
-def _stream(dev) -> int:
-    return torch.cuda.current_stream(dev).cuda_stream
+def _dense(x: torch.Tensor) -> torch.Tensor:
+    """``x`` contiguous and 16-byte aligned (TMA's rule for a base
+    address; a view that starts inside its storage may not be)."""
+    if not x.is_contiguous():
+        x = x.contiguous()
+    return x.clone() if x.data_ptr() % 16 else x
 
 
 def flash_fwd(q3, k3, v3, q_off: int, k_off: int, causal: bool,
               scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
     """``[bh, l, d]`` q, k, v -> ``(o, lse[bh, lq])``."""
     _check_qkv(q3, k3, v3, "flash_fwd")
-    if q3.device.type == "cpu":
+    if not q3.is_cuda:
         return flash_fwd_ref(q3, k3, v3, q_off, k_off, causal, scale)
-    q3, k3, v3 = q3.contiguous(), k3.contiguous(), v3.contiguous()
+    q3, k3, v3 = _dense(q3), _dense(k3), _dense(v3)
     bh, lq, d = q3.shape
     o = torch.empty_like(q3)
-    lse = torch.empty(bh, lq, dtype=torch.float32, device=q3.device)
-    with torch.cuda.device(q3.device):
-        err = _lib().flash_fwd(
-            q3.data_ptr(), k3.data_ptr(), v3.data_ptr(), o.data_ptr(),
+    lse = torch.empty((bh, lq), dtype=torch.float32, device=q3.device)
+    args = (q3.data_ptr(), k3.data_ptr(), v3.data_ptr(), o.data_ptr(),
             lse.data_ptr(), bh, lq, k3.shape[1], d, int(q_off), int(k_off),
-            int(causal), float(scale), int(q3.dtype == torch.bfloat16),
-            _stream(q3.device))
-    _raise_on(err, "flash_fwd")
+            int(causal), float(scale))
+    if q3.dtype is torch.bfloat16:
+        _build.launch(_lib(q3.dtype).flash_fwd_bf16, q3.get_device(), *args,
+                      *_tc_plan("fwd", d))
+    else:
+        _build.launch(_lib(q3.dtype).flash_fwd_f32, q3.get_device(), *args)
     flash_fwd.launches += 1
     return o, lse
 
@@ -209,34 +304,39 @@ def flash_fwd(q3, k3, v3, q_off: int, k_off: int, causal: bool,
 def flash_bwd(q3, k3, v3, out3, lse, g_out3, g_lse, q_off: int, k_off: int,
               causal: bool, scale: float):
     """``(dq, dk, dv)`` for the cotangents ``g_out3`` of ``out3`` and
-    ``g_lse`` of ``lse``: the dq kernel, then the dk/dv kernel."""
+    ``g_lse`` of ``lse`` (None: zero): the dq kernel, which also writes
+    ``dm``, then the dk/dv kernel."""
     _check_qkv(q3, k3, v3, "flash_bwd")
-    if q3.device.type == "cpu":
+    if not q3.is_cuda:
         return flash_bwd_ref(q3, k3, v3, out3, lse, g_out3, g_lse, q_off,
                              k_off, causal, scale)
-    q3, k3, v3 = q3.contiguous(), k3.contiguous(), v3.contiguous()
-    g_out3 = g_out3.to(q3.dtype).contiguous()
+    dt = q3.dtype
+    q3, k3, v3 = _dense(q3), _dense(k3), _dense(v3)
+    out3, g_out3 = _dense(out3.to(dt)), _dense(g_out3.to(dt))
     lse = lse.contiguous()
-    dm = _dm(out3, g_out3, g_lse).contiguous()
+    if g_lse is not None:  # held until the launch: the kernel reads it
+        g_lse = g_lse.to(torch.float32).contiguous()
     bh, lq, d = q3.shape
     lk = k3.shape[1]
+    dm = torch.empty((bh, lq), dtype=torch.float32, device=q3.device)
     dq = torch.empty_like(q3)
     dk, dv = torch.empty_like(k3), torch.empty_like(v3)
-    tail = (bh, lq, lk, d, int(q_off), int(k_off), int(causal), float(scale),
-            int(q3.dtype == torch.bfloat16), _stream(q3.device))
-    with torch.cuda.device(q3.device):
-        lib = _lib()
-        err = lib.flash_bwd_dq(q3.data_ptr(), k3.data_ptr(), v3.data_ptr(),
-                               g_out3.data_ptr(), lse.data_ptr(),
-                               dm.data_ptr(), dq.data_ptr(), *tail)
-        _raise_on(err, "flash_bwd_dq")
-        flash_bwd.launches += 1
-        err = lib.flash_bwd_dkv(q3.data_ptr(), k3.data_ptr(), v3.data_ptr(),
-                                g_out3.data_ptr(), lse.data_ptr(),
-                                dm.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-                                *tail)
-        _raise_on(err, "flash_bwd_dkv")
-        flash_bwd.launches += 1
+    tail = (bh, lq, lk, d, int(q_off), int(k_off), int(causal), float(scale))
+    lib, dev = _lib(dt), q3.get_device()
+    bf16 = dt is torch.bfloat16
+    _build.launch(lib.flash_bwd_dq_bf16 if bf16 else lib.flash_bwd_dq_f32,
+                  dev, q3.data_ptr(), k3.data_ptr(), v3.data_ptr(),
+                  out3.data_ptr(), g_out3.data_ptr(), lse.data_ptr(),
+                  0 if g_lse is None else g_lse.data_ptr(), dm.data_ptr(),
+                  dq.data_ptr(), *tail,
+                  *(_tc_plan("dq", d) if bf16 else ()))
+    flash_bwd.launches += 1
+    _build.launch(lib.flash_bwd_dkv_bf16 if bf16 else lib.flash_bwd_dkv_f32,
+                  dev, q3.data_ptr(), k3.data_ptr(), v3.data_ptr(),
+                  g_out3.data_ptr(), lse.data_ptr(), dm.data_ptr(),
+                  dk.data_ptr(), dv.data_ptr(), *tail,
+                  *(_tc_plan("dkv", d) if bf16 else ()))
+    flash_bwd.launches += 1
     return dq, dk, dv
 
 
@@ -252,11 +352,15 @@ class _Flash(torch.autograd.Function):
         out, lse = flash_fwd(q3, k3, v3, q_off, k_off, causal, scale)
         ctx.save_for_backward(q3, k3, v3, out, lse)
         ctx.args = (q_off, k_off, causal, scale)
+        # an unused lse (BERT) gets no zero cotangent: the kernel takes None
+        ctx.set_materialize_grads(False)
         return out, lse
 
     @staticmethod
     def backward(ctx, g_out, g_lse):
         q3, k3, v3, out, lse = ctx.saved_tensors
+        if g_out is None:
+            g_out = torch.zeros_like(out)
         dq, dk, dv = flash_bwd(q3, k3, v3, out, lse, g_out, g_lse, *ctx.args)
         return dq, dk, dv, None, None, None, None
 

@@ -6,7 +6,9 @@ Tolerances are the JAX tests' own (``tests/test_attention_pallas.py``):
 rtol 2e-5 for outputs and logsumexp (the JAX kernel's online softmax
 rescales tile by tile, the plain version normalizes once), rtol 1e-4 /
 atol 1e-5 for gradients. The CUDA kernels are held to the plain versions
-in ``test_torch_cuda_kernels.py``.
+in ``test_torch_cuda_kernels.py``; the tensor-core kernels' host-side
+plan (tile layout, tensor maps, grid, shared memory, which dtype takes
+which source) is checked here.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ import jax
 import jax.numpy as jnp
 
 from pytorch_ps_mpi_tpu.ops import attention_pallas as jattn
+from pytorch_ps_mpi_tpu_torch.ops import _build
 from pytorch_ps_mpi_tpu_torch.ops import attention as A
 
 
@@ -147,3 +150,123 @@ def test_wrappers_check_their_inputs():
     before = A.flash_fwd.launches
     A.flash_fwd(q, q, q, 0, 0, False, 1.0)
     assert A.flash_fwd.launches == before
+
+
+# -- the tensor-core kernels' host-side plan (bf16) ------------------------------
+
+SMEM_LIMIT = 232448  # shared memory a block may use on the H100 (bytes)
+
+
+def test_each_dtype_takes_its_kernels():
+    # bf16 on the tensor cores, float32 on the CUDA cores (not TF32)
+    assert A.kernel_source(torch.bfloat16) == "attention_tc"
+    assert A.kernel_source(torch.float32) == "attention"
+    assert set(A.SOURCES.values()) <= set(_build.SOURCES)
+    with pytest.raises(ValueError):
+        A.kernel_source(torch.float16)
+
+
+@pytest.mark.parametrize("d,cols,panels,swizzle,k_steps", [
+    (8, 16, 1, 32, 1),      # zero-padded to one k16 step
+    (16, 16, 1, 32, 1),
+    (32, 32, 1, 64, 2),
+    (64, 64, 1, 128, 4),
+    (128, 128, 2, 128, 8),  # two 64-column panels
+])
+def test_tile_layout_swizzle_and_padding_by_head_dim(d, cols, panels,
+                                                     swizzle, k_steps):
+    lay = A.tc_layout(d)
+    assert (lay["cols"], lay["panels"], lay["swizzle_bytes"],
+            lay["k_steps"]) == (cols, panels, swizzle, k_steps)
+    # a panel's row is exactly the swizzle span, and a tile keeps the
+    # 1,024-byte alignment of the 128B swizzle atom for the next tile
+    assert lay["panel"] * 2 == swizzle
+    assert lay["tile_bytes"] == A.BLOCK * cols * 2
+    assert lay["tile_bytes"] % 1024 == 0
+
+
+def test_tile_layout_refuses_other_head_dims():
+    for d in (4, 24, 48, 96, 256):
+        with pytest.raises(ValueError):
+            A.tc_layout(d)
+
+
+@pytest.mark.parametrize("d", A.HEAD_DIMS)
+@pytest.mark.parametrize("bh,length", [(48, 512), (2, 96), (3, 1), (1, 77)])
+def test_tensor_map_strides_box_and_dims(d, bh, length):
+    tm = A.tc_tensor_map(bh, length, d)
+    # 3D, innermost first, so that rows past `length` are out of bounds
+    # (zero-filled) instead of the next head's
+    assert tm["dims"] == (d, length, bh)
+    assert all(s % 16 == 0 for s in tm["strides"])
+    assert tm["strides"] == (2 * d, 2 * d * length)
+    inner, rows, heads = tm["box"]
+    assert (rows, heads) == (A.BLOCK, 1)
+    assert inner * 2 == tm["swizzle_bytes"] and inner <= 256
+    # a d below 16 is read as 16 columns: TMA fills the rest with zeros
+    assert inner * A.tc_layout(d)["panels"] == max(d, 16)
+
+
+@pytest.mark.parametrize("kind", ["fwd", "dq", "dkv"])
+@pytest.mark.parametrize("rows", [64, 128])
+@pytest.mark.parametrize("d", A.HEAD_DIMS)
+def test_shared_memory_fits_a_block(kind, rows, d):
+    smem = A.tc_smem_bytes(kind, d, rows)
+    assert smem <= SMEM_LIMIT
+    tile = A.tc_layout(d)["tile_bytes"]
+    own = rows // A.BLOCK * (1 if kind == "fwd" else 2)
+    assert smem >= (own + 2 * A.TC_STAGES) * tile + 1024
+
+
+def test_shared_memory_at_bert_base():
+    # d = 64: 8 KiB tiles; the forward holds q and two stages of k, v
+    assert A.tc_smem_bytes("fwd", 64, 64) == 1024 + 5 * 8192 + 24
+    assert A.tc_smem_bytes("dq", 64, 64) == 1024 + 6 * 8192 + 256 + 24
+    assert A.tc_smem_bytes("dkv", 64, 128) == 1024 + 8 * 8192 + 24
+
+
+@pytest.mark.parametrize("kind", ["fwd", "dq", "dkv"])
+@pytest.mark.parametrize("lq,lk", [(512, 512), (96, 96), (1, 200), (130, 64)])
+@pytest.mark.parametrize("rows", [64, 128])
+def test_grid_covers_the_owned_axis_once(kind, lq, lk, rows):
+    x, y = A.tc_grid(kind, 7, lq, lk, rows)
+    length = lk if kind == "dkv" else lq
+    assert y == 7 and x * rows >= length > (x - 1) * rows
+
+
+def test_block_rows_are_whole_warpgroups():
+    assert set(A.TC_BLOCK_ROWS) == {"fwd", "dq", "dkv"}
+    assert all(r in (64, 128) for r in A.TC_BLOCK_ROWS.values())
+
+
+def test_wrappers_align_views_for_tma():
+    base = torch.zeros(2 * 32 * 16 + 1, dtype=torch.bfloat16)
+    view = base[1:].view(2, 32, 16)   # starts 2 bytes into its storage
+    assert view.data_ptr() % 16
+    dense = A._dense(view)
+    assert dense.data_ptr() % 16 == 0 and torch.equal(dense, view)
+    aligned = torch.zeros(2, 32, 16, dtype=torch.bfloat16)
+    assert A._dense(aligned) is aligned
+
+
+def test_an_unused_lse_reaches_the_backward_as_none(monkeypatch):
+    # BERT uses only o: the backward then takes no zero lse cotangent
+    seen = []
+    real = A.flash_bwd
+
+    def spy(*args):
+        seen.append(args[6])
+        return real(*args)
+
+    monkeypatch.setattr(A, "flash_bwd", spy)
+    q, k, v = (torch.from_numpy(a).requires_grad_() for a in _qkv(seed=11))
+    A.flash_attention(q, k, v, causal=True).sum().backward()
+    assert seen == [None]
+    grads = [t.grad.clone() for t in (q, k, v)]
+    for t in (q, k, v):
+        t.grad = None
+    o, lse = A.flash_attention(q, k, v, causal=True, return_lse=True)
+    (o.sum() + 0 * lse.sum()).backward()
+    assert seen[1] is not None
+    for got, want in zip((q.grad, k.grad, v.grad), grads):
+        torch.testing.assert_close(got, want, rtol=0, atol=0)

@@ -9,7 +9,11 @@ Packed bytes, unpacked floats and decode_sum are bit-exact; the |x| sum
 agrees to rtol 1e-6 (per-block partials, then a fixed-order sum of the
 partials, against PyTorch's own reduction order). Int8 codes, scales and
 dequantize-sums, top-k counts, index arrays and values are bit-exact,
-and the same from run to run.
+and the same from run to run. Flash attention: float32 to rtol 1e-5
+forward and 1e-4 backward, bf16 (the tensor-core kernels, every head
+dim) to 2**-6 of each output's largest magnitude; a ragged tile reads
+nothing of the next head, and o, lse, dq, dk, dv are the same from run
+to run, bit for bit.
 """
 
 from __future__ import annotations
@@ -440,3 +444,86 @@ def test_flash_attention_autograd_on_the_card_matches_the_cpu(cuda):
 
     for got, want in zip(run(cuda), run("cpu")):
         torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+
+
+def _bf16_set(gen, bh, l, d, device):
+    q, k, v, g = (torch.randn(bh, l, d, generator=gen, device=device)
+                  .to(torch.bfloat16) for _ in range(4))
+    return q, k, v, g, torch.randn(bh, l, generator=gen, device=device)
+
+
+def _fwd_bwd(q, k, v, g, g_lse, qo=0, ko=0, causal=False):
+    scale = q.shape[-1] ** -0.5
+    o, lse = A.flash_fwd(q, k, v, qo, ko, causal, scale)
+    return (o, lse) + A.flash_bwd(q, k, v, o, lse, g, g_lse, qo, ko, causal,
+                                  scale)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("d", A.HEAD_DIMS)
+def test_flash_bf16_every_head_dim_matches_plain_version(cuda, d, causal):
+    # the tensor-core kernels at every head dim the wrapper takes, with a
+    # ragged length (200 = 3 tiles + 8 rows)
+    gen = torch.Generator(device="cuda").manual_seed(d)
+    q, k, v, g, g_lse = _bf16_set(gen, 6, 200, d, cuda)
+    got = _fwd_bwd(q, k, v, g, g_lse, causal=causal)
+    scale = d ** -0.5
+    ro, rlse = A.flash_fwd_ref(q, k, v, 0, 0, causal, scale)
+    _close(got[0], ro, torch.bfloat16)
+    torch.testing.assert_close(got[1], rlse, rtol=1e-5, atol=1e-5)
+    want = A.flash_bwd_ref(q, k, v, got[0], got[1], g, g_lse, 0, 0, causal,
+                           scale)
+    for a, b in zip(got[2:], want):
+        _close(a, b, torch.bfloat16)
+
+
+def test_flash_bf16_ragged_tile_reads_nothing_of_the_next_head(cuda):
+    # rows past l of head 0 are head 1's in memory: with k and v of head 1
+    # at 1e4, head 0's outputs must equal those of head 0 alone, bit for bit
+    gen = torch.Generator(device="cuda").manual_seed(96)
+    q, k, v, g, g_lse = _bf16_set(gen, 2, 96, 128, cuda)
+    k[1], v[1] = 1e4, 1e4
+    both = _fwd_bwd(q, k, v, g, g_lse)
+    alone = _fwd_bwd(*(t[:1].clone() for t in (q, k, v, g, g_lse)))
+    for a, b in zip(both, alone):
+        assert torch.isfinite(a[:1].float()).all()
+        assert torch.equal(a[:1], b)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_is_the_same_from_run_to_run(cuda, dtype):
+    # no atomics: o, lse, dq, dk and dv are each written by one block
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    q, k, v, g, g_lse = (t.to(dtype) if t.dim() == 3 else t
+                         for t in _bf16_set(gen, 48, 512, 64, cuda))
+    first = _fwd_bwd(q, k, v, g, g_lse, causal=True)
+    for _ in range(3):
+        for a, b in zip(_fwd_bwd(q, k, v, g, g_lse, causal=True), first):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype,kernels,not_in", [
+    (torch.bfloat16, ("flash_fwd_tc", "flash_bwd_dq_tc", "flash_bwd_dkv_tc"),
+     "_kernel"),
+    (torch.float32, ("flash_fwd_kernel", "flash_bwd_dq_kernel",
+                     "flash_bwd_dkv_kernel"), "_tc"),
+])
+def test_flash_dtype_takes_its_kernels(cuda, dtype, kernels, not_in):
+    # bf16 runs on the tensor-core kernels (attention_tc.cu), float32 on
+    # the CUDA-core ones (attention.cu): the kernel names in a trace
+    from torch.profiler import ProfilerActivity, profile
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    q, k, v, g, _ = (t.to(dtype) for t in _bf16_set(gen, 4, 128, 64, cuda))
+    _fwd_bwd(q, k, v, g, None)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        _fwd_bwd(q, k, v, g, None)
+        torch.cuda.synchronize()
+    names = [e.key for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    flash = [n for n in names if "flash" in n]
+    assert len(flash) == 3, names
+    for kern in kernels:
+        assert any(kern in n for n in flash), (kern, flash)
+    assert not any(not_in in n for n in flash), flash
