@@ -6,12 +6,15 @@ of the repository.
 CODE is ``int8``, ``qsgd`` or ``ef_topk`` (ResNets, through each
 checkout's ``chip_smoke.run_main_path``) or ``bert_identity`` or
 ``bert_terngrad`` (BERT-base MLM b4 s512 bf16 with flash attention,
-through its ``chip_smoke.run_bert_path``); default: the three ResNet
-codes. Each path runs from each checkout in a process of its own (5
-loss steps, 1 grads-only step, the launch counts asserted, 1 profiled
-step), in turns: parent, change, change, parent, parent, change. Each run prints its ``main_path`` and
-``profile`` lines prefixed with ``ab=<parent|change> run=<i>``; the card's
-name and power limit come first. Needs one CUDA device.
+through its ``chip_smoke.run_bert_path``) or ``flash`` (BERT-base's 12
+bf16 flash attention calls at [48, 512, 64], forward and backward, the
+device ms of each kernel from 5 profiled rounds); default: the three
+ResNet codes. Each path runs from each checkout in a process of its own
+(5 loss steps, 1 grads-only step, the launch counts asserted, 1 profiled
+step), in turns: parent, change, change, parent, parent, change. Each
+run prints its ``main_path``, ``profile`` or ``flash_ab`` lines prefixed
+with ``ab=<parent|change> run=<i>``; the card's name and power limit
+come first. Needs one CUDA device.
 """
 
 from __future__ import annotations
@@ -36,7 +39,20 @@ C.build_kernels()
 mesh.initialize_distributed(f"tcp://localhost:{C.free_port()}",
                             world_size=1, rank=0, backend="nccl")
 try:
-    if code.startswith("bert_"):
+    if code == "flash":
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        sets = [C._flash_inputs(torch.bfloat16, gen) for _ in range(12)]
+
+        def step():
+            for q, k, v, g, _ in sets:
+                C._flash_both(q, k, v, g, None)
+
+        for _ in range(5):
+            events = C._profiled(step)
+            print("phase=flash_ab calls=12 " + " ".join(
+                f"{n}_device_ms={sum(e.self_device_time_total for e in events if f'flash_{n}_tc' in e.key) / 1e3:.4f}"
+                for n in ("fwd", "bwd_dq", "bwd_dkv")), flush=True)
+    elif code.startswith("bert_"):
         # 12 flash forward and 12 + 12 backward launches a loss step;
         # TernGrad packs 61 leaves whole and 2 in 23 chunks, unpack-sums 63
         flash = {"flash_fwd": 12, "flash_bwd": 24}
@@ -84,7 +100,7 @@ def main() -> int:
                                  cwd=trees[side], capture_output=True,
                                  text=True)
             for line in run.stdout.splitlines():
-                if line.startswith("phase=main_path"):
+                if line.startswith(("phase=main_path", "phase=flash_ab")):
                     print(f"ab={side} run={i} {line}", flush=True)
                 elif line.startswith("phase=profile"):
                     print(f"ab={side} run={i} {line[:160]}", flush=True)

@@ -201,24 +201,22 @@ def check_device() -> str:
     return smi
 
 
-def build_kernels(report: bool = False) -> None:
-    """Build every source (``report``: with ptxas's report, printed for
-    the tensor-core flash kernels, and the attention libraries' counts of
-    tensor-core instructions)."""
+def build_kernels() -> None:
+    """Build every source (0.00 s for a library that is up to date), then
+    print ptxas's report of the tensor-core flash kernels and the
+    attention libraries' counts of tensor-core instructions."""
     import re
 
     from pytorch_ps_mpi_tpu_torch.ops import _build
 
-    seconds = _build.build(*_build.SOURCES, report=report)
+    seconds = _build.build(*_build.SOURCES)
     for name, s in seconds.items():
         phase("build", source=f"csrc/{name}.cu", nvcc_s=f"{s:.2f}")
-    if not report:
-        return
     kernel = None
-    for line in _build.REPORTS.get("attention_tc", "").splitlines():
-        found = re.search(r"(flash_\w+_tc)ILi(\d+)ELi(\d+)E", line)
+    for line in _build.ptxas_report("attention_tc").splitlines():
+        found = re.search(r"(flash_\w+_tc)ILi(\d+)EE", line)
         if found:
-            kernel, spills = f"{found[1]}<{found[2]},{found[3]}>", ""
+            kernel, spills = f"{found[1]}<{found[2]}>", ""
         elif kernel and "spill" in line:
             spills = line.strip()
         elif kernel and "Used" in line:
@@ -861,14 +859,15 @@ def flash_host(scale: float) -> None:
     """Host µs a call of the flash wrappers and their pieces, at [1, 64,
     64] bf16 where the device's part is a few µs: the forward and
     backward wrappers, SDPA's forward, one ``torch.empty_like``, and the
-    ctypes call of ``flash_fwd_bf16`` alone (a plan it refuses at once)."""
+    ctypes call of ``flash_fwd_bf16`` alone (with bh = 0, which it
+    refuses at once)."""
     from pytorch_ps_mpi_tpu_torch.ops import _build
     from pytorch_ps_mpi_tpu_torch.ops import attention as A
 
     gen = torch.Generator(device="cuda").manual_seed(3)
     q, k, v, g, _ = _flash_inputs(torch.bfloat16, gen, b=1, l=64, h=1)
     o, lse = A.flash_fwd(q, k, v, 0, 0, False, scale)
-    fn = A._lib(torch.bfloat16).flash_fwd_bf16
+    fn = A._kernels(torch.bfloat16)[0]
     ptrs = [t.data_ptr() for t in (q, k, v, o, lse)]
     q4, k4, v4 = (t.view(1, 1, 64, -1) for t in (q, k, v))
     calls = 5000
@@ -880,8 +879,8 @@ def flash_host(scale: float) -> None:
         "sdpa_fwd": host_us(lambda: torch.nn.functional
                             .scaled_dot_product_attention(q4, k4, v4), calls),
         "empty_like": host_us(lambda: torch.empty_like(q), calls),
-        "ctypes_call": host_us(lambda: fn(*ptrs, 1, 64, 64, 64, 0, 0, 0,
-                                          scale, 0, 0, _build.raw_stream(0)),
+        "ctypes_call": host_us(lambda: fn(*ptrs, 0, 64, 64, 64, 0, 0, 0,
+                                          scale, _build.raw_stream(0)),
                                calls),
     }
     phase("kernels", host_us="flash at [1,64,64] bf16",
@@ -1340,7 +1339,7 @@ def main() -> int:
         return BertMLM(BertConfig(dtype=torch.bfloat16, attention="flash"),
                        seed=0, device="cuda")
 
-    build_kernels(report=True)
+    build_kernels()
     model = resnet18()
     r50 = resnet50()
     results = check_kernels(kernel_sizes(model))

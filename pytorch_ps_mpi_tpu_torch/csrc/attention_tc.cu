@@ -24,18 +24,18 @@
 // function needs 5 products, 8.05 GFLOP (8.1 us), against 25.4 MB (7.6 us):
 // operations bound it.
 //
-// Design. A block has NWG consumer warpgroups (128 threads each); each owns
-// 64 rows: q rows for the forward and dq, k rows for dk/dv. The wrapper
-// runs NWG = 1: at BERT-base's shape 64-row blocks (384 of them) beat
-// 128-row ones (192) in every kernel (chip_flash_tiles.py), and the dk/dv
+// Design. A block is one consumer warpgroup (128 threads) and owns 64 rows:
+// q rows for the forward and dq, k rows for dk/dv. At BERT-base's shape
+// these 384 blocks beat 128-row blocks of two warpgroups sharing each
+// streamed tile (192 blocks) in every kernel (PERF.md), and the dk/dv
 // kernel at d <= 64 is held to 168 registers so that 3 blocks share an SM
 // and the 384 run in one wave. Thread 0 also acts as the producer: it
 // loads the block's own tiles once and streams the other axis through a
 // ring of two stages with TMA (cp.async.bulk.tensor, 3D maps (d, l, bh) so
 // that rows past l are zero-filled rather than the next head's), each
 // stage completing on an mbarrier; the copy of tile t + 2 is issued once
-// every warpgroup is done with tile t, so one tile is always in flight
-// while the warpgroups compute. Every product is a
+// the warpgroup is done with tile t, so one tile is always in flight
+// while it computes. Every product is a
 // wgmma.mma_async m64nNk16 with bf16 operands and f32 accumulators:
 //   forward: S = Q K^T (A and B K-major in shared memory, N = 64),
 //            O += P V (P from registers, V as an MN-major B, N = d);
@@ -66,9 +66,10 @@
 // of a quad. Columns past lk (rows past lq in dk/dv) are masked by index:
 // TMA's zero fill would give them a score of 0, not -1e30.
 //
-// Every entry point launches on the caller's stream, does not synchronise,
-// allocates nothing and returns a cudaError_t (or 10000 + a CUresult when a
-// tensor map cannot be encoded).
+// Every entry point computes its own grid, shared memory and tensor maps,
+// launches on the caller's stream, does not synchronise, allocates nothing
+// and returns a cudaError_t (or 10000 + a CUresult when a tensor map cannot
+// be encoded).
 
 #include <cuda.h>
 #include <cudaTypedefs.h>
@@ -80,13 +81,13 @@ namespace {
 
 using bf16 = __nv_bfloat16;
 
-constexpr int kRows = 64;  // rows of every tile and of a warpgroup's slice
+constexpr int kRows = 64;  // rows of every tile, and rows a block owns
 constexpr int kStages = 2;
 constexpr float kMasked = -1e30f;
 constexpr float kThresh = -1e29f;
 constexpr float kLog2e = 1.4426950408889634f;
 
-// A [64][D] bf16 tile in shared memory (the wrapper's ``tc_layout``).
+// A [64][D] bf16 tile in shared memory.
 template <int D>
 struct Tile {
   static constexpr int kCols = D < 16 ? 16 : D;           // padded row
@@ -103,19 +104,20 @@ struct Tile {
       : kRowBytes == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
                         : CU_TENSOR_MAP_SWIZZLE_32B;
   static_assert(kCols % 16 == 0 && kPanels * kPanel == kCols, "head dim");
+  static_assert(D * 2 % 16 == 0, "TMA takes strides in multiples of 16 bytes");
 };
 
-// Shared memory of each kernel (the wrapper's ``tc_smem_bytes``): 1024
-// bytes of alignment slack, the tiles, the dq kernel's dm rows, and the
-// mbarriers (one for the block's own tiles, one a stage).
-template <int D, int NWG>
+// Shared memory of each kernel: 1024 bytes of alignment slack, the block's
+// own tiles (q; q and dO; k and v), two tiles a stage of the ring, the dq
+// kernel's dm rows, and the mbarriers (one for the own tiles, one a stage).
+template <int D>
 struct Smem {
   static constexpr int kTile = Tile<D>::kBytes;
   static constexpr int kBars = 8 * (1 + kStages);
-  static constexpr int kFwd = 1024 + (NWG + 2 * kStages) * kTile + kBars;
-  static constexpr int kDq =
-      1024 + (2 * NWG + 2 * kStages) * kTile + 4 * kRows * NWG + kBars;
-  static constexpr int kDkv = 1024 + (2 * NWG + 2 * kStages) * kTile + kBars;
+  static constexpr int kFwd = 1024 + (1 + 2 * kStages) * kTile + kBars;
+  static constexpr int kDq = 1024 + (2 + 2 * kStages) * kTile + 4 * kRows + kBars;
+  static constexpr int kDkv = 1024 + (2 + 2 * kStages) * kTile + kBars;
+  static_assert(kDq <= 232448 && kDkv <= 232448, "an SM's shared memory");
 };
 
 // -- PTX: shared memory, mbarriers, TMA -----------------------------------------
@@ -363,14 +365,13 @@ __device__ __forceinline__ float quad_sum(float v) {
 // lane l in warp w of its warpgroup is row 16w + l/4 + 8h, column
 // 8j + 2(l%4) + e.
 
-// Number of 64-row tiles of the other axis that a block of `rows` rows at
-// row0 walks: forward and dq (k tiles [0, n)).
-__device__ __forceinline__ int k_tiles_visible(int row0, int rows, int lk,
-                                               int q_off, int k_off,
-                                               bool causal) {
+// Number of 64-row k tiles that the forward or dq block of the q rows from
+// row0 walks (k tiles [0, n)).
+__device__ __forceinline__ int k_tiles_visible(int row0, int lk, int q_off,
+                                               int k_off, bool causal) {
   const int tiles = (lk + kRows - 1) / kRows;
   if (!causal) return tiles;
-  const int lim = q_off + row0 + rows - 1 - k_off;  // last visible key
+  const int lim = q_off + row0 + kRows - 1 - k_off;  // last visible key
   return lim < 0 ? 0 : min(tiles, lim / kRows + 1);
 }
 
@@ -382,8 +383,8 @@ __device__ __forceinline__ int q_tile_first(int col0, int q_off, int k_off,
   return x <= 0 ? 0 : (x + kRows - 1) / kRows;
 }
 
-template <int D, int NWG>
-__global__ void __launch_bounds__(NWG * 128, 1)
+template <int D>
+__global__ void __launch_bounds__(128, 1)
 flash_fwd_tc(const __grid_constant__ CUtensorMap tq,
              const __grid_constant__ CUtensorMap tk,
              const __grid_constant__ CUtensorMap tv, bf16* __restrict__ o,
@@ -393,13 +394,12 @@ flash_fwd_tc(const __grid_constant__ CUtensorMap tq,
   extern __shared__ uint8_t smem_raw[];
   uint8_t* sq = reinterpret_cast<uint8_t*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
-  uint8_t* sk = sq + NWG * L::kBytes;
+  uint8_t* sk = sq + L::kBytes;
   uint8_t* sv = sk + kStages * L::kBytes;
   uint64_t* bars = reinterpret_cast<uint64_t*>(sv + kStages * L::kBytes);
-  const int tid = threadIdx.x, wg = tid / 128, warp = (tid % 128) / 32,
-            lane = tid % 32;
-  const int bh = blockIdx.y, q0 = blockIdx.x * kRows * NWG;
-  const int n = k_tiles_visible(q0, kRows * NWG, lk, q_off, k_off, causal);
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int bh = blockIdx.y, q0 = blockIdx.x * kRows;
+  const int n = k_tiles_visible(q0, lk, q_off, k_off, causal);
   if (tid == 0) {
 #pragma unroll
     for (int i = 0; i < 1 + kStages; ++i) mbar_init(&bars[i], 1);
@@ -407,18 +407,15 @@ flash_fwd_tc(const __grid_constant__ CUtensorMap tq,
   }
   __syncthreads();
   if (tid == 0) {
-    mbar_expect_tx(&bars[0], NWG * L::kBytes);
-    for (int g = 0; g < NWG; ++g)
-      tma_tile<D>(&tq, sq + g * L::kBytes, &bars[0], q0 + g * kRows, bh);
+    mbar_expect_tx(&bars[0], L::kBytes);
+    tma_tile<D>(&tq, sq, &bars[0], q0, bh);
     for (int t = 0; t < kStages && t < n; ++t) {
       mbar_expect_tx(&bars[1 + t], 2 * L::kBytes);
       tma_tile<D>(&tk, sk + t * L::kBytes, &bars[1 + t], t * kRows, bh);
       tma_tile<D>(&tv, sv + t * L::kBytes, &bars[1 + t], t * kRows, bh);
     }
   }
-  const uint8_t* my_q = sq + wg * L::kBytes;
-  const int wrow0 = q0 + wg * kRows;               // the warpgroup's first row
-  const int row0 = wrow0 + warp * 16 + lane / 4;   // the thread's rows: +0, +8
+  const int row0 = q0 + warp * 16 + lane / 4;  // the thread's rows: +0, +8
   const int col_in = 2 * (lane % 4);
   float m[2] = {kMasked, kMasked}, l[2] = {0.0f, 0.0f};
   float acc[D / 2];
@@ -434,12 +431,12 @@ flash_fwd_tc(const __grid_constant__ CUtensorMap tq,
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < L::kKSteps; ++kk)
-      Mma<64>::ss(sc, desc_k<D>(my_q, kk), desc_k<D>(ks, kk), kk > 0);
+      Mma<64>::ss(sc, desc_k<D>(sq, kk), desc_k<D>(ks, kk), kk > 0);
     wgmma_commit();
     wgmma_wait_all();
     const int k0 = t * kRows;
     const bool need_mask =
-        k0 + kRows > lk || (causal && k_off + k0 + kRows - 1 > q_off + wrow0);
+        k0 + kRows > lk || (causal && k_off + k0 + kRows - 1 > q_off + q0);
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int row = row0 + 8 * h;
@@ -482,7 +479,7 @@ flash_fwd_tc(const __grid_constant__ CUtensorMap tq,
     for (int kk = 0; kk < 4; ++kk) Mma<D>::rs(acc, pa + 4 * kk, desc_mn<D>(vs, kk));
     wgmma_commit();
     wgmma_wait_all();
-    __syncthreads();  // every warpgroup is done with stage s
+    __syncthreads();  // every warp is done with stage s
     if (tid == 0 && t + kStages < n) {
       mbar_expect_tx(&bars[1 + s], 2 * L::kBytes);
       tma_tile<D>(&tk, sk + s * L::kBytes, &bars[1 + s], (t + kStages) * kRows, bh);
@@ -505,8 +502,8 @@ flash_fwd_tc(const __grid_constant__ CUtensorMap tq,
   }
 }
 
-template <int D, int NWG>
-__global__ void __launch_bounds__(NWG * 128, 1)
+template <int D>
+__global__ void __launch_bounds__(128, 1)
 flash_bwd_dq_tc(const __grid_constant__ CUtensorMap tq,
                 const __grid_constant__ CUtensorMap tk,
                 const __grid_constant__ CUtensorMap tv,
@@ -519,15 +516,14 @@ flash_bwd_dq_tc(const __grid_constant__ CUtensorMap tq,
   extern __shared__ uint8_t smem_raw[];
   uint8_t* sq = reinterpret_cast<uint8_t*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
-  uint8_t* sdo = sq + NWG * L::kBytes;
-  uint8_t* sk = sdo + NWG * L::kBytes;
+  uint8_t* sdo = sq + L::kBytes;
+  uint8_t* sk = sdo + L::kBytes;
   uint8_t* sv = sk + kStages * L::kBytes;
   float* dm_s = reinterpret_cast<float*>(sv + kStages * L::kBytes);
-  uint64_t* bars = reinterpret_cast<uint64_t*>(dm_s + kRows * NWG);
-  const int tid = threadIdx.x, wg = tid / 128, warp = (tid % 128) / 32,
-            lane = tid % 32;
-  const int bh = blockIdx.y, q0 = blockIdx.x * kRows * NWG;
-  const int n = k_tiles_visible(q0, kRows * NWG, lk, q_off, k_off, causal);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(dm_s + kRows);
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int bh = blockIdx.y, q0 = blockIdx.x * kRows;
+  const int n = k_tiles_visible(q0, lk, q_off, k_off, causal);
   if (tid == 0) {
 #pragma unroll
     for (int i = 0; i < 1 + kStages; ++i) mbar_init(&bars[i], 1);
@@ -535,11 +531,9 @@ flash_bwd_dq_tc(const __grid_constant__ CUtensorMap tq,
   }
   __syncthreads();
   if (tid == 0) {
-    mbar_expect_tx(&bars[0], 2 * NWG * L::kBytes);
-    for (int g = 0; g < NWG; ++g) {
-      tma_tile<D>(&tq, sq + g * L::kBytes, &bars[0], q0 + g * kRows, bh);
-      tma_tile<D>(&tdo, sdo + g * L::kBytes, &bars[0], q0 + g * kRows, bh);
-    }
+    mbar_expect_tx(&bars[0], 2 * L::kBytes);
+    tma_tile<D>(&tq, sq, &bars[0], q0, bh);
+    tma_tile<D>(&tdo, sdo, &bars[0], q0, bh);
     for (int t = 0; t < kStages && t < n; ++t) {
       mbar_expect_tx(&bars[1 + t], 2 * L::kBytes);
       tma_tile<D>(&tk, sk + t * L::kBytes, &bars[1 + t], t * kRows, bh);
@@ -572,10 +566,7 @@ flash_bwd_dq_tc(const __grid_constant__ CUtensorMap tq,
     }
   }
   __syncthreads();
-  const uint8_t* my_q = sq + wg * L::kBytes;
-  const uint8_t* my_do = sdo + wg * L::kBytes;
-  const int wrow0 = q0 + wg * kRows;
-  const int rloc = wg * kRows + warp * 16 + lane / 4;
+  const int rloc = warp * 16 + lane / 4;  // the thread's rows: +0, +8
   const int row0 = q0 + rloc;
   const int col_in = 2 * (lane % 4);
   float lse_r[2], dm_r[2];
@@ -598,15 +589,15 @@ flash_bwd_dq_tc(const __grid_constant__ CUtensorMap tq,
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < L::kKSteps; ++kk)
-      Mma<64>::ss(sc, desc_k<D>(my_q, kk), desc_k<D>(ks, kk), kk > 0);
+      Mma<64>::ss(sc, desc_k<D>(sq, kk), desc_k<D>(ks, kk), kk > 0);
 #pragma unroll
     for (int kk = 0; kk < L::kKSteps; ++kk)
-      Mma<64>::ss(dp, desc_k<D>(my_do, kk), desc_k<D>(vs, kk), kk > 0);
+      Mma<64>::ss(dp, desc_k<D>(sdo, kk), desc_k<D>(vs, kk), kk > 0);
     wgmma_commit();
     wgmma_wait_all();
     const int k0 = t * kRows;
     const bool need_mask =
-        k0 + kRows > lk || (causal && k_off + k0 + kRows - 1 > q_off + wrow0);
+        k0 + kRows > lk || (causal && k_off + k0 + kRows - 1 > q_off + q0);
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int row = row0 + 8 * h;
@@ -649,10 +640,10 @@ flash_bwd_dq_tc(const __grid_constant__ CUtensorMap tq,
   }
 }
 
-// one warpgroup at d <= 64 is held to 168 registers, so that 3 blocks fit
-// an SM and BERT-base's 384 blocks run in one wave over 132 SMs
-template <int D, int NWG>
-__global__ void __launch_bounds__(NWG * 128, NWG == 1 && D <= 64 ? 3 : 1)
+// at d <= 64 held to 168 registers, so that 3 blocks fit an SM and
+// BERT-base's 384 blocks run in one wave over 132 SMs
+template <int D>
+__global__ void __launch_bounds__(128, D <= 64 ? 3 : 1)
 flash_bwd_dkv_tc(const __grid_constant__ CUtensorMap tq,
                  const __grid_constant__ CUtensorMap tk,
                  const __grid_constant__ CUtensorMap tv,
@@ -664,13 +655,12 @@ flash_bwd_dkv_tc(const __grid_constant__ CUtensorMap tq,
   extern __shared__ uint8_t smem_raw[];
   uint8_t* sk = reinterpret_cast<uint8_t*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
-  uint8_t* sv = sk + NWG * L::kBytes;
-  uint8_t* sq = sv + NWG * L::kBytes;
+  uint8_t* sv = sk + L::kBytes;
+  uint8_t* sq = sv + L::kBytes;
   uint8_t* sdo = sq + kStages * L::kBytes;
   uint64_t* bars = reinterpret_cast<uint64_t*>(sdo + kStages * L::kBytes);
-  const int tid = threadIdx.x, wg = tid / 128, warp = (tid % 128) / 32,
-            lane = tid % 32;
-  const int bh = blockIdx.y, k0 = blockIdx.x * kRows * NWG;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int bh = blockIdx.y, k0 = blockIdx.x * kRows;
   const int qtiles = (lq + kRows - 1) / kRows;
   const int first = q_tile_first(k0, q_off, k_off, causal);
   const int n = qtiles > first ? qtiles - first : 0;
@@ -681,20 +671,16 @@ flash_bwd_dkv_tc(const __grid_constant__ CUtensorMap tq,
   }
   __syncthreads();
   if (tid == 0) {
-    mbar_expect_tx(&bars[0], 2 * NWG * L::kBytes);
-    for (int g = 0; g < NWG; ++g) {
-      tma_tile<D>(&tk, sk + g * L::kBytes, &bars[0], k0 + g * kRows, bh);
-      tma_tile<D>(&tv, sv + g * L::kBytes, &bars[0], k0 + g * kRows, bh);
-    }
+    mbar_expect_tx(&bars[0], 2 * L::kBytes);
+    tma_tile<D>(&tk, sk, &bars[0], k0, bh);
+    tma_tile<D>(&tv, sv, &bars[0], k0, bh);
     for (int t = 0; t < kStages && t < n; ++t) {
       mbar_expect_tx(&bars[1 + t], 2 * L::kBytes);
       tma_tile<D>(&tq, sq + t * L::kBytes, &bars[1 + t], (first + t) * kRows, bh);
       tma_tile<D>(&tdo, sdo + t * L::kBytes, &bars[1 + t], (first + t) * kRows, bh);
     }
   }
-  const uint8_t* my_k = sk + wg * L::kBytes;
-  const uint8_t* my_v = sv + wg * L::kBytes;
-  const int krow0 = k0 + wg * kRows + warp * 16 + lane / 4;  // +0, +8
+  const int krow0 = k0 + warp * 16 + lane / 4;  // the thread's rows: +0, +8
   const int col_in = 2 * (lane % 4);
   const float* lse_b = lse + static_cast<long long>(bh) * lq;
   const float* dm_b = dm + static_cast<long long>(bh) * lq;
@@ -712,14 +698,14 @@ flash_bwd_dkv_tc(const __grid_constant__ CUtensorMap tq,
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < L::kKSteps; ++kk)
-      Mma<64>::ss(st, desc_k<D>(my_k, kk), desc_k<D>(qs, kk), kk > 0);
+      Mma<64>::ss(st, desc_k<D>(sk, kk), desc_k<D>(qs, kk), kk > 0);
 #pragma unroll
     for (int kk = 0; kk < L::kKSteps; ++kk)
-      Mma<64>::ss(dpt, desc_k<D>(my_v, kk), desc_k<D>(dos, kk), kk > 0);
+      Mma<64>::ss(dpt, desc_k<D>(sv, kk), desc_k<D>(dos, kk), kk > 0);
     wgmma_commit();
     wgmma_wait_all();
     const bool need_mask =
-        q0 + kRows > lq || (causal && k_off + k0 + wg * kRows + kRows - 1 > q_off + q0);
+        q0 + kRows > lq || (causal && k_off + k0 + kRows - 1 > q_off + q0);
     // column by column (lse and dm are per q row, a column here), each
     // pair of p and ds packed into its A fragment as soon as it is made
     uint32_t pa[16], da[16];
@@ -801,7 +787,7 @@ PFN_cuTensorMapEncodeTiled encode_fn() {
 }
 
 // The 3D map (d, l, bh) of a contiguous bf16 [bh, l, d] tensor, a box of one
-// panel by 64 rows of one head (the wrapper's ``tc_tensor_map``).
+// panel by 64 rows of one head.
 template <int D>
 int make_map(CUtensorMap* map, const void* base, int l, int bh) {
   using L = Tile<D>;
@@ -826,7 +812,6 @@ struct Args {
   void *o, *lse, *dm, *dq, *dk, *dv;
   int bh, lq, lk, q_off, k_off, causal;
   float scale;
-  int rows, smem;  // the wrapper's plan: rows a block, shared memory bytes
   cudaStream_t stream;
 };
 
@@ -847,14 +832,14 @@ int prepare(K kern, int smem, unsigned* ready) {
   return 0;
 }
 
-template <int D, int NWG>
+// One block a 64-row tile of the owned axis (q for the forward and dq, k for
+// dk/dv) of each head.
+template <int D>
 int launch(int which, const Args& a) {
-  using S = Smem<D, NWG>;
+  using S = Smem<D>;
   const int smem = which == 0 ? S::kFwd : which == 1 ? S::kDq : S::kDkv;
-  if (a.smem != smem) return static_cast<int>(cudaErrorInvalidValue);
-  const int rows = kRows * NWG;
-  const dim3 grid(((which == 2 ? a.lk : a.lq) + rows - 1) / rows, a.bh);
-  static unsigned ready[3] = {0, 0, 0};  // this <D, NWG>'s three kernels
+  const dim3 grid(((which == 2 ? a.lk : a.lq) + kRows - 1) / kRows, a.bh);
+  static unsigned ready[3] = {0, 0, 0};  // this <D>'s three kernels
   CUtensorMap tq, tk, tv, tdo;
   int err = make_map<D>(&tq, a.q, a.lq, a.bh);
   if (!err) err = make_map<D>(&tk, a.k, a.lk, a.bh);
@@ -862,24 +847,24 @@ int launch(int which, const Args& a) {
   if (!err && which != 0) err = make_map<D>(&tdo, a.dout, a.lq, a.bh);
   if (err) return err;
   if (which == 0) {
-    auto kern = flash_fwd_tc<D, NWG>;
+    auto kern = flash_fwd_tc<D>;
     if ((err = prepare(kern, smem, &ready[which]))) return err;
-    kern<<<grid, NWG * 128, smem, a.stream>>>(
+    kern<<<grid, 128, smem, a.stream>>>(
         tq, tk, tv, static_cast<bf16*>(a.o), static_cast<float*>(a.lse), a.lq,
         a.lk, a.q_off, a.k_off, a.causal, a.scale);
   } else if (which == 1) {
-    auto kern = flash_bwd_dq_tc<D, NWG>;
+    auto kern = flash_bwd_dq_tc<D>;
     if ((err = prepare(kern, smem, &ready[which]))) return err;
-    kern<<<grid, NWG * 128, smem, a.stream>>>(
+    kern<<<grid, 128, smem, a.stream>>>(
         tq, tk, tv, tdo, static_cast<const bf16*>(a.out),
         static_cast<const bf16*>(a.dout), static_cast<const float*>(a.lse_in),
         static_cast<const float*>(a.g_lse), static_cast<float*>(a.dm),
         static_cast<bf16*>(a.dq), a.lq, a.lk, a.q_off, a.k_off, a.causal,
         a.scale);
   } else {
-    auto kern = flash_bwd_dkv_tc<D, NWG>;
+    auto kern = flash_bwd_dkv_tc<D>;
     if ((err = prepare(kern, smem, &ready[which]))) return err;
-    kern<<<grid, NWG * 128, smem, a.stream>>>(
+    kern<<<grid, 128, smem, a.stream>>>(
         tq, tk, tv, tdo, static_cast<const float*>(a.lse_in),
         static_cast<const float*>(a.dm), static_cast<bf16*>(a.dk),
         static_cast<bf16*>(a.dv), a.lq, a.lk, a.q_off, a.k_off, a.causal,
@@ -891,14 +876,12 @@ int launch(int which, const Args& a) {
 int run(int which, int d, const Args& a) {
   if (a.bh <= 0 || a.lq <= 0 || a.lk <= 0 || a.bh > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int key = d * 1000 + a.rows;
-  switch (key) {
-    case 8064: return launch<8, 1>(which, a);
-    case 16064: return launch<16, 1>(which, a);
-    case 32064: return launch<32, 1>(which, a);
-    case 64064: return launch<64, 1>(which, a);
-    case 64128: return launch<64, 2>(which, a);
-    case 128064: return launch<128, 1>(which, a);
+  switch (d) {
+    case 8: return launch<8>(which, a);
+    case 16: return launch<16>(which, a);
+    case 32: return launch<32>(which, a);
+    case 64: return launch<64>(which, a);
+    case 128: return launch<128>(which, a);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -908,16 +891,13 @@ int run(int which, int d, const Args& a) {
 extern "C" {
 
 // q: bf16[bh, lq, d], k, v: bf16[bh, lk, d], all contiguous and 16-byte
-// aligned; o: bf16[bh, lq, d], lse: f32[bh, lq]. rows and smem are the
-// wrapper's plan (rows a block, shared memory bytes) and must match the
-// kernel's.
+// aligned; o: bf16[bh, lq, d], lse: f32[bh, lq].
 int flash_fwd_bf16(const void* q, const void* k, const void* v, void* o,
                    void* lse, int bh, int lq, int lk, int d, int q_off,
-                   int k_off, int causal, float scale, int rows, int smem,
-                   void* stream) {
+                   int k_off, int causal, float scale, void* stream) {
   Args a{q, k, v, nullptr, nullptr, nullptr, nullptr,
          o, lse, nullptr, nullptr, nullptr, nullptr,
-         bh, lq, lk, q_off, k_off, causal, scale, rows, smem,
+         bh, lq, lk, q_off, k_off, causal, scale,
          static_cast<cudaStream_t>(stream)};
   return run(0, d, a);
 }
@@ -929,10 +909,10 @@ int flash_bwd_dq_bf16(const void* q, const void* k, const void* v,
                       const void* out, const void* dout, const void* lse,
                       const void* g_lse, void* dm, void* dq, int bh, int lq,
                       int lk, int d, int q_off, int k_off, int causal,
-                      float scale, int rows, int smem, void* stream) {
+                      float scale, void* stream) {
   Args a{q, k, v, out, dout, lse, g_lse,
          nullptr, nullptr, dm, dq, nullptr, nullptr,
-         bh, lq, lk, q_off, k_off, causal, scale, rows, smem,
+         bh, lq, lk, q_off, k_off, causal, scale,
          static_cast<cudaStream_t>(stream)};
   return run(1, d, a);
 }
@@ -941,11 +921,11 @@ int flash_bwd_dq_bf16(const void* q, const void* k, const void* v,
 int flash_bwd_dkv_bf16(const void* q, const void* k, const void* v,
                        const void* dout, const void* lse, const void* dm,
                        void* dk, void* dv, int bh, int lq, int lk, int d,
-                       int q_off, int k_off, int causal, float scale, int rows,
-                       int smem, void* stream) {
+                       int q_off, int k_off, int causal, float scale,
+                       void* stream) {
   Args a{q, k, v, nullptr, dout, lse, nullptr,
          nullptr, nullptr, const_cast<void*>(dm), nullptr, dk, dv,
-         bh, lq, lk, q_off, k_off, causal, scale, rows, smem,
+         bh, lq, lk, q_off, k_off, causal, scale,
          static_cast<cudaStream_t>(stream)};
   return run(2, d, a);
 }

@@ -6,8 +6,9 @@ Each ``csrc/<name>.cu`` (``sign``, ``quant``, ``topk``, ``tern``,
 (``_build/lib<name>.so``, listed in ``.gitignore``) and loaded with
 ``ctypes``. A library is built at its first use, from the package's own
 sources, and again whenever the source's hash changes; ``build`` can
-also compile several sources at once, one ``nvcc`` each, and keep
-ptxas's report of each kernel (registers, spills). ``launch`` calls a
+also compile several sources at once, one ``nvcc`` each. ptxas's report
+of each kernel (registers, spills) is kept beside its library
+(:func:`ptxas_report`). ``launch`` calls a
 loaded entry point on PyTorch's current stream (the flash, top-k and
 dequantize wrappers use it). Nothing here runs at import time: the CPU
 tests import every module on a machine with no ``nvcc``.
@@ -36,8 +37,6 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 SOURCES = ("sign", "quant", "topk", "tern", "attention", "attention_tc")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
-#: ptxas's report of each source built with ``report=True`` in this process
-REPORTS: Dict[str, str] = {}
 
 
 def _nvcc() -> str:
@@ -58,26 +57,34 @@ def _paths(name: str):
         BUILD_DIR / f"lib{name}.sha256"
 
 
-def build(*names: str, report: bool = False) -> Dict[str, float]:
+def _report_path(name: str) -> Path:
+    return BUILD_DIR / f"lib{name}.ptxas"
+
+
+def ptxas_report(name: str) -> str:
+    """ptxas's report (``-Xptxas -v``) of the last build of
+    ``csrc/<name>.cu``: registers, shared memory and spills per kernel."""
+    path = _report_path(name)
+    return path.read_text() if path.exists() else ""
+
+
+def build(*names: str) -> Dict[str, float]:
     """Compile each ``csrc/<name>.cu`` whose library is missing or stale,
-    one ``nvcc`` per source, all started together. Returns, per source,
-    the seconds from the start until its build was collected (0.0 for a
-    library that was up to date). ``report``: also pass ``-Xptxas -v``
-    and keep ptxas's lines in :data:`REPORTS` (a library that was up to
-    date is rebuilt for them)."""
+    one ``nvcc`` per source, all started together, each keeping ptxas's
+    report beside its library. Returns, per source, the seconds from the
+    start until its build was collected (0.0 for a library that was up
+    to date)."""
     t0 = time.perf_counter()
     seconds, running = {}, {}
     for name in names:
         src, digest, lib, stamp = _paths(name)
-        if not report and lib.exists() and stamp.exists() and \
-                stamp.read_text() == digest:
+        if lib.exists() and stamp.exists() and stamp.read_text() == digest:
             seconds[name] = 0.0
             continue
         BUILD_DIR.mkdir(exist_ok=True)
         tmp = BUILD_DIR / f"lib{name}.{os.getpid()}.so"
         proc = subprocess.Popen(
-            [_nvcc(), *NVCC_FLAGS, *(("-Xptxas", "-v") if report else ()),
-             "-o", str(tmp), str(src)],
+            [_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", str(tmp), str(src)],
             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
         running[name] = (proc, tmp, lib, stamp, digest)
     failed = []
@@ -88,9 +95,8 @@ def build(*names: str, report: bool = False) -> Dict[str, float]:
             failed.append(f"nvcc failed on {name}.cu:\n{err}")
             continue
         os.replace(tmp, lib)
+        _report_path(name).write_text(err)
         stamp.write_text(digest)
-        if report:
-            REPORTS[name] = err
     if failed:
         raise RuntimeError("\n".join(failed))
     return seconds

@@ -39,11 +39,9 @@ meaning for when a shape tiles (``_pick_block``): a length that is not
 a multiple of the type's minimal tile (8 for float32, 16 for bf16) takes
 the dense plain path, as in the JAX package.
 
-The tensor-core kernels' host-side arithmetic (tile layout and swizzle
-by head dim, tensor maps, grid, shared memory) lives here in pure
-functions (``tc_*``); the kernels check the rows and shared-memory bytes
-they are given against their own and refuse a mismatch. Bound and
-design: see the sources' notes. A wrapper takes its plain version
+Each entry point computes its own grid, shared memory and (bf16) TMA
+tensor maps; the wrappers pass pointers, shapes and the stream. Bound
+and design: see the sources' notes. A wrapper takes its plain version
 (``*_ref``) only for CPU tensors. For CUDA tensors it launches its
 kernels through ``_build.launch`` (the raw stream handle) or raises; it
 never falls back. ``flash_fwd.launches`` counts forward launches,
@@ -67,29 +65,17 @@ _MASK_THRESH = -1e29  # "this score was masked"
 BLOCK = 64
 #: head dims the kernels are built for
 HEAD_DIMS = (8, 16, 32, 64, 128)
-#: the source whose kernels serve each dtype
-SOURCES = {torch.bfloat16: "attention_tc", torch.float32: "attention"}
-#: rows of q (forward, dq) or of k (dk/dv) a block of each bf16 kernel
-#: owns: 64 for each consumer warpgroup
-TC_BLOCK_ROWS = {"fwd": 64, "dq": 64, "dkv": 64}
-#: stages of the ring that streams the other axis's tiles
-TC_STAGES = 2
+#: the source whose kernels serve each dtype, and its entry points'
+#: suffix
+SOURCES = {torch.bfloat16: ("attention_tc", "bf16"),
+           torch.float32: ("attention", "f32")}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
-_SIGNATURES = {
-    "attention": {
-        "flash_fwd_f32": (_I, [_P] * 5 + [_I] * 7 + [_F, _P]),
-        "flash_bwd_dq_f32": (_I, [_P] * 9 + [_I] * 7 + [_F, _P]),
-        "flash_bwd_dkv_f32": (_I, [_P] * 8 + [_I] * 7 + [_F, _P]),
-    },
-    "attention_tc": {
-        "flash_fwd_bf16": (_I, [_P] * 5 + [_I] * 7 + [_F, _I, _I, _P]),
-        "flash_bwd_dq_bf16": (_I, [_P] * 9 + [_I] * 7 + [_F, _I, _I, _P]),
-        "flash_bwd_dkv_bf16": (_I, [_P] * 8 + [_I] * 7 + [_F, _I, _I, _P]),
-    },
-}
+# the forward, dq and dk/dv entry points: pointers, then bh, lq, lk, d,
+# q_off, k_off, causal, scale and the stream
+_ARGTYPES = ([_P] * 5, [_P] * 9, [_P] * 8)
 
 
 def kernel_source(dtype: torch.dtype) -> str:
@@ -98,61 +84,7 @@ def kernel_source(dtype: torch.dtype) -> str:
     for float32."""
     if dtype not in SOURCES:
         raise ValueError(f"no flash kernel for {dtype}")
-    return SOURCES[dtype]
-
-
-# -- the tensor-core kernels' plan (bf16) ------------------------------------------
-
-def tc_layout(d: int) -> dict:
-    """A 64-row bf16 tile of head dim ``d`` in shared memory, as TMA
-    writes it and the ``wgmma`` descriptors read it: ``d`` below 16 is
-    zero-padded to 16 columns; a row of up to 64 columns is one panel,
-    d = 128 two; the swizzle spans a panel's row (128, 64 or 32 bytes)."""
-    if d not in HEAD_DIMS:
-        raise ValueError(f"the kernels take head dims {HEAD_DIMS}, got {d}")
-    cols = max(d, 16)
-    panel = min(cols, 64)
-    return {"cols": cols, "panel": panel, "panels": cols // panel,
-            "swizzle_bytes": 2 * panel, "k_steps": cols // 16,
-            "tile_bytes": BLOCK * cols * 2}
-
-
-def tc_tensor_map(bh: int, length: int, d: int) -> dict:
-    """The TMA map that ``make_map`` in ``csrc/attention_tc.cu`` encodes
-    for a contiguous bf16 ``[bh, length, d]`` tensor: 3D (d, length, bh)
-    so that rows past ``length`` are zero-filled rather than the next
-    head's, byte strides of dims 1 and 2 (TMA takes multiples of 16), and
-    a box of one panel by 64 rows of one head."""
-    lay = tc_layout(d)
-    return {"dims": (d, length, bh), "strides": (2 * d, 2 * d * length),
-            "box": (lay["panel"], BLOCK, 1),
-            "swizzle_bytes": lay["swizzle_bytes"]}
-
-
-def tc_smem_bytes(kind: str, d: int, rows: int) -> int:
-    """Dynamic shared memory of a block of the bf16 ``kind`` kernel
-    (``fwd``, ``dq`` or ``dkv``) owning ``rows`` rows: 1,024 bytes of
-    alignment slack, its own tiles (q; q and dO; k and v), two tiles a
-    stage of the ring (k and v; q and dO), the dq kernel's dm rows, and
-    an 8-byte mbarrier for its own tiles and one a stage."""
-    tile = tc_layout(d)["tile_bytes"]
-    groups = rows // BLOCK
-    own = groups if kind == "fwd" else 2 * groups
-    extra = 4 * rows if kind == "dq" else 0
-    return 1024 + (own + 2 * TC_STAGES) * tile + extra + 8 * (1 + TC_STAGES)
-
-
-def tc_grid(kind: str, bh: int, lq: int, lk: int, rows: int) -> tuple:
-    """(blocks over the owned axis, bh): q rows for the forward and dq,
-    k rows for dk/dv."""
-    length = lk if kind == "dkv" else lq
-    return (-(-length // rows), bh)
-
-
-@functools.lru_cache(maxsize=None)
-def _tc_plan(kind: str, d: int) -> Tuple[int, int]:
-    rows = TC_BLOCK_ROWS[kind]
-    return rows, tc_smem_bytes(kind, d, rows)
+    return SOURCES[dtype][0]
 
 
 # -- tiling rules (the JAX package's) ------------------------------------------
@@ -246,9 +178,15 @@ def flash_bwd_ref(q3, k3, v3, out3, lse, g_out3, g_lse, q_off: int,
 
 # -- kernel wrappers -------------------------------------------------------------
 
-def _lib(dtype: torch.dtype) -> ctypes.CDLL:
+@functools.lru_cache(maxsize=None)
+def _kernels(dtype: torch.dtype) -> tuple:
+    """The forward, dq and dk/dv entry points that serve ``dtype``."""
     name = kernel_source(dtype)
-    return _build.load(name, _SIGNATURES[name])
+    entries = [f"flash_{k}_{SOURCES[dtype][1]}"
+               for k in ("fwd", "bwd_dq", "bwd_dkv")]
+    lib = _build.load(name, {e: (_I, ptrs + [_I] * 7 + [_F, _P])
+                             for e, ptrs in zip(entries, _ARGTYPES)})
+    return tuple(getattr(lib, e) for e in entries)
 
 
 def _check_qkv(q3, k3, v3, what: str) -> None:
@@ -292,11 +230,7 @@ def flash_fwd(q3, k3, v3, q_off: int, k_off: int, causal: bool,
     args = (q3.data_ptr(), k3.data_ptr(), v3.data_ptr(), o.data_ptr(),
             lse.data_ptr(), bh, lq, k3.shape[1], d, int(q_off), int(k_off),
             int(causal), float(scale))
-    if q3.dtype is torch.bfloat16:
-        _build.launch(_lib(q3.dtype).flash_fwd_bf16, q3.get_device(), *args,
-                      *_tc_plan("fwd", d))
-    else:
-        _build.launch(_lib(q3.dtype).flash_fwd_f32, q3.get_device(), *args)
+    _build.launch(_kernels(q3.dtype)[0], q3.get_device(), *args)
     flash_fwd.launches += 1
     return o, lse
 
@@ -322,20 +256,16 @@ def flash_bwd(q3, k3, v3, out3, lse, g_out3, g_lse, q_off: int, k_off: int,
     dq = torch.empty_like(q3)
     dk, dv = torch.empty_like(k3), torch.empty_like(v3)
     tail = (bh, lq, lk, d, int(q_off), int(k_off), int(causal), float(scale))
-    lib, dev = _lib(dt), q3.get_device()
-    bf16 = dt is torch.bfloat16
-    _build.launch(lib.flash_bwd_dq_bf16 if bf16 else lib.flash_bwd_dq_f32,
-                  dev, q3.data_ptr(), k3.data_ptr(), v3.data_ptr(),
+    _, bwd_dq, bwd_dkv = _kernels(dt)
+    dev = q3.get_device()
+    _build.launch(bwd_dq, dev, q3.data_ptr(), k3.data_ptr(), v3.data_ptr(),
                   out3.data_ptr(), g_out3.data_ptr(), lse.data_ptr(),
                   0 if g_lse is None else g_lse.data_ptr(), dm.data_ptr(),
-                  dq.data_ptr(), *tail,
-                  *(_tc_plan("dq", d) if bf16 else ()))
+                  dq.data_ptr(), *tail)
     flash_bwd.launches += 1
-    _build.launch(lib.flash_bwd_dkv_bf16 if bf16 else lib.flash_bwd_dkv_f32,
-                  dev, q3.data_ptr(), k3.data_ptr(), v3.data_ptr(),
+    _build.launch(bwd_dkv, dev, q3.data_ptr(), k3.data_ptr(), v3.data_ptr(),
                   g_out3.data_ptr(), lse.data_ptr(), dm.data_ptr(),
-                  dk.data_ptr(), dv.data_ptr(), *tail,
-                  *(_tc_plan("dkv", d) if bf16 else ()))
+                  dk.data_ptr(), dv.data_ptr(), *tail)
     flash_bwd.launches += 1
     return dq, dk, dv
 

@@ -6,9 +6,8 @@ Tolerances are the JAX tests' own (``tests/test_attention_pallas.py``):
 rtol 2e-5 for outputs and logsumexp (the JAX kernel's online softmax
 rescales tile by tile, the plain version normalizes once), rtol 1e-4 /
 atol 1e-5 for gradients. The CUDA kernels are held to the plain versions
-in ``test_torch_cuda_kernels.py``; the tensor-core kernels' host-side
-plan (tile layout, tensor maps, grid, shared memory, which dtype takes
-which source) is checked here.
+in ``test_torch_cuda_kernels.py``; which dtype takes which source, the
+wrappers' checks and the views they hand to TMA are checked here.
 """
 
 from __future__ import annotations
@@ -152,91 +151,81 @@ def test_wrappers_check_their_inputs():
     assert A.flash_fwd.launches == before
 
 
-# -- the tensor-core kernels' host-side plan (bf16) ------------------------------
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("d", A.HEAD_DIMS)
+def test_forward_and_lse_match_jax_at_every_kernel_head_dim(d, causal):
+    # every head dim the CUDA kernels are built for (8 is zero-padded to 16
+    # on the tensor cores), held here through the plain versions
+    q, k, v = _qkv(lq=16, lk=32, h=1, d=d, seed=d)
+    _, o, lse = _port(q, k, v, causal, 16, 0, grad=False)
+    jo, jlse = _jax(q, k, v, causal, 16, 0)
+    np.testing.assert_allclose(o.numpy(), np.asarray(jo), rtol=2e-5, atol=2e-5)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(jlse), rtol=2e-5,
+                               atol=2e-5)
 
-SMEM_LIMIT = 232448  # shared memory a block may use on the H100 (bytes)
+
+@pytest.mark.parametrize("d", A.HEAD_DIMS)
+def test_gradients_match_jax_at_every_kernel_head_dim(d):
+    q, k, v = _qkv(b=1, lq=16, lk=16, h=1, d=d, seed=d + 1)
+    ts, o, _ = _port(q, k, v, True, 0, 0, grad=True)
+    grads = torch.autograd.grad((o ** 2).sum(), ts)
+
+    def lf(q, k, v):
+        return jnp.sum(jattn.flash_attention(q, k, v, causal=True, block_q=8,
+                                             block_k=8) ** 2)
+
+    jq, jk, jv = (jnp.asarray(a) for a in (q, k, v))
+    # dp = dO·vᵀ and dm = rowsum(dO·o) reduce over d and then cancel in
+    # dp − dm: the gradients' absolute tolerance, 1e-5 up to d = 16 as in
+    # the JAX tests, grows with d
+    atol = 1e-5 * max(1, d // 16)
+    for got, want in zip(grads, jax.grad(lf, (0, 1, 2))(jq, jk, jv)):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4,
+                                   atol=atol)
 
 
 def test_each_dtype_takes_its_kernels():
     # bf16 on the tensor cores, float32 on the CUDA cores (not TF32)
     assert A.kernel_source(torch.bfloat16) == "attention_tc"
     assert A.kernel_source(torch.float32) == "attention"
-    assert set(A.SOURCES.values()) <= set(_build.SOURCES)
+    assert {src for src, _ in A.SOURCES.values()} <= set(_build.SOURCES)
     with pytest.raises(ValueError):
         A.kernel_source(torch.float16)
 
 
-@pytest.mark.parametrize("d,cols,panels,swizzle,k_steps", [
-    (8, 16, 1, 32, 1),      # zero-padded to one k16 step
-    (16, 16, 1, 32, 1),
-    (32, 32, 1, 64, 2),
-    (64, 64, 1, 128, 4),
-    (128, 128, 2, 128, 8),  # two 64-column panels
+@pytest.mark.parametrize("shapes,dtypes", [
+    (((2, 32, 16), (2, 32, 8), (2, 32, 8)), None),     # head dims differ
+    (((2, 32, 16), (3, 32, 16), (3, 32, 16)), None),   # b·h differs
+    (((2, 32, 16), (2, 32, 16), (2, 24, 16)), None),   # k and v differ
+    (((32, 16), (32, 16), (32, 16)), None),            # not [bh, l, d]
+    (None, (torch.float16,) * 3),                      # no kernel
+    (None, (torch.bfloat16, torch.float32, torch.float32)),  # mixed
 ])
-def test_tile_layout_swizzle_and_padding_by_head_dim(d, cols, panels,
-                                                     swizzle, k_steps):
-    lay = A.tc_layout(d)
-    assert (lay["cols"], lay["panels"], lay["swizzle_bytes"],
-            lay["k_steps"]) == (cols, panels, swizzle, k_steps)
-    # a panel's row is exactly the swizzle span, and a tile keeps the
-    # 1,024-byte alignment of the 128B swizzle atom for the next tile
-    assert lay["panel"] * 2 == swizzle
-    assert lay["tile_bytes"] == A.BLOCK * cols * 2
-    assert lay["tile_bytes"] % 1024 == 0
+def test_both_wrappers_refuse_inputs_that_do_not_fit(shapes, dtypes):
+    shapes = shapes or ((2, 32, 16),) * 3
+    dtypes = dtypes or (torch.float32,) * 3
+    q, k, v = (torch.zeros(s, dtype=t) for s, t in zip(shapes, dtypes))
+    before = (A.flash_fwd.launches, A.flash_bwd.launches)
+    with pytest.raises(ValueError):
+        A.flash_fwd(q, k, v, 0, 0, False, 1.0)
+    with pytest.raises(ValueError):
+        A.flash_bwd(q, k, v, q, q[..., 0], q, None, 0, 0, False, 1.0)
+    assert (A.flash_fwd.launches, A.flash_bwd.launches) == before
 
 
-def test_tile_layout_refuses_other_head_dims():
-    for d in (4, 24, 48, 96, 256):
-        with pytest.raises(ValueError):
-            A.tc_layout(d)
-
-
-@pytest.mark.parametrize("d", A.HEAD_DIMS)
-@pytest.mark.parametrize("bh,length", [(48, 512), (2, 96), (3, 1), (1, 77)])
-def test_tensor_map_strides_box_and_dims(d, bh, length):
-    tm = A.tc_tensor_map(bh, length, d)
-    # 3D, innermost first, so that rows past `length` are out of bounds
-    # (zero-filled) instead of the next head's
-    assert tm["dims"] == (d, length, bh)
-    assert all(s % 16 == 0 for s in tm["strides"])
-    assert tm["strides"] == (2 * d, 2 * d * length)
-    inner, rows, heads = tm["box"]
-    assert (rows, heads) == (A.BLOCK, 1)
-    assert inner * 2 == tm["swizzle_bytes"] and inner <= 256
-    # a d below 16 is read as 16 columns: TMA fills the rest with zeros
-    assert inner * A.tc_layout(d)["panels"] == max(d, 16)
-
-
-@pytest.mark.parametrize("kind", ["fwd", "dq", "dkv"])
-@pytest.mark.parametrize("rows", [64, 128])
-@pytest.mark.parametrize("d", A.HEAD_DIMS)
-def test_shared_memory_fits_a_block(kind, rows, d):
-    smem = A.tc_smem_bytes(kind, d, rows)
-    assert smem <= SMEM_LIMIT
-    tile = A.tc_layout(d)["tile_bytes"]
-    own = rows // A.BLOCK * (1 if kind == "fwd" else 2)
-    assert smem >= (own + 2 * A.TC_STAGES) * tile + 1024
-
-
-def test_shared_memory_at_bert_base():
-    # d = 64: 8 KiB tiles; the forward holds q and two stages of k, v
-    assert A.tc_smem_bytes("fwd", 64, 64) == 1024 + 5 * 8192 + 24
-    assert A.tc_smem_bytes("dq", 64, 64) == 1024 + 6 * 8192 + 256 + 24
-    assert A.tc_smem_bytes("dkv", 64, 128) == 1024 + 8 * 8192 + 24
-
-
-@pytest.mark.parametrize("kind", ["fwd", "dq", "dkv"])
-@pytest.mark.parametrize("lq,lk", [(512, 512), (96, 96), (1, 200), (130, 64)])
-@pytest.mark.parametrize("rows", [64, 128])
-def test_grid_covers_the_owned_axis_once(kind, lq, lk, rows):
-    x, y = A.tc_grid(kind, 7, lq, lk, rows)
-    length = lk if kind == "dkv" else lq
-    assert y == 7 and x * rows >= length > (x - 1) * rows
-
-
-def test_block_rows_are_whole_warpgroups():
-    assert set(A.TC_BLOCK_ROWS) == {"fwd", "dq", "dkv"}
-    assert all(r in (64, 128) for r in A.TC_BLOCK_ROWS.values())
+@pytest.mark.parametrize("causal", [False, True])
+def test_no_lse_cotangent_is_a_zero_one(causal):
+    # the dq kernel folds dm = rowsum(dO·o) − g_lse; None stands for zeros
+    q, k, v = (torch.from_numpy(a).transpose(1, 2).reshape(4, 32, 16)
+               for a in _qkv(seed=13))
+    o, lse = A.flash_fwd(q, k, v, 0, 0, causal, 0.25)
+    g = torch.from_numpy(np.random.RandomState(14).randn(4, 32, 16)
+                         .astype(np.float32))
+    got = A.flash_bwd(q, k, v, o, lse, g, None, 0, 0, causal, 0.25)
+    want = A.flash_bwd(q, k, v, o, lse, g, torch.zeros_like(lse), 0, 0,
+                       causal, 0.25)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
 
 
 def test_wrappers_align_views_for_tma():
