@@ -3,18 +3,21 @@ of the repository.
 
     python3 chip_main_path_ab.py PARENT_DIR CHANGE_DIR [CODE ...]
 
-CODE is ``int8``, ``qsgd`` or ``ef_topk`` (ResNets, through each
-checkout's ``chip_smoke.run_main_path``) or ``bert_identity`` or
+CODE is ``sign``, ``int8``, ``qsgd`` or ``ef_topk`` (ResNets, through
+each checkout's ``chip_smoke.run_main_path``) or ``bert_identity`` or
 ``bert_terngrad`` (BERT-base MLM b4 s512 bf16 with flash attention,
 through its ``chip_smoke.run_bert_path``) or ``flash`` (BERT-base's 12
 bf16 flash attention calls at [48, 512, 64], forward and backward, the
-device ms of each kernel from 5 profiled rounds); default: the three
-ResNet codes. Each path runs from each checkout in a process of its own
-(5 loss steps, 1 grads-only step, the launch counts asserted, 1 profiled
-step), in turns: parent, change, change, parent, parent, change. Each
-run prints its ``main_path``, ``profile`` or ``flash_ab`` lines prefixed
-with ``ab=<parent|change> run=<i>``; the card's name and power limit
-come first. Needs one CUDA device.
+device ms of each kernel from 5 profiled rounds) or ``codec`` (one
+ResNet-18 step's 62 ``quantize_int8`` and 20 ``encode_signs`` calls: the
+device ms and device rows from 5 profiled rounds, and the calls' ms by
+CUDA events, host launch cost included); default: ``int8``, ``qsgd``
+and ``ef_topk``. Each path runs from each checkout in a process of its
+own (5 loss steps, 1 grads-only step, the launch counts asserted, 1
+profiled step), in turns: parent, change, change, parent, parent,
+change. Each run prints its ``main_path``, ``profile``, ``flash_ab`` or
+``codec_ab`` lines prefixed with ``ab=<parent|change> run=<i>``; the
+card's name and power limit come first. Needs one CUDA device.
 """
 
 from __future__ import annotations
@@ -52,6 +55,32 @@ try:
             print("phase=flash_ab calls=12 " + " ".join(
                 f"{n}_device_ms={sum(e.self_device_time_total for e in events if f'flash_{n}_tc' in e.key) / 1e3:.4f}"
                 for n in ("fwd", "bwd_dq", "bwd_dkv")), flush=True)
+    elif code == "codec":
+        from pytorch_ps_mpi_tpu_torch.ops import quant as Q
+        from pytorch_ps_mpi_tpu_torch.ops import sign as S
+
+        model = ResNet18(num_classes=10, small_inputs=True, seed=0,
+                         device="cuda")
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        xs = [1e-2 * torch.randn(p.numel(), generator=gen, device="cuda")
+              for p in model.parameters()]
+        calls = {"quantize_int8": (Q.quantize_int8, xs),
+                 "encode_signs": (S.encode_signs,
+                                  [x for x in xs if x.numel() % 1024 == 0])}
+        for _ in range(5):
+            fields = []
+            for name, (fn, args) in calls.items():
+                def step(fn=fn, args=args):
+                    for x in args:
+                        fn(x)
+
+                events = C._profiled(step)
+                fields += [
+                    f"{name}_calls={len(args)}",
+                    f"{name}_device_ms={sum(e.self_device_time_total for e in events) / 1e3:.4f}",
+                    f"{name}_rows={sum(e.count for e in events)}",
+                    f"{name}_ms={C.cuda_ms(step, reps=5, rounds=3):.4f}"]
+            print("phase=codec_ab " + " ".join(fields), flush=True)
     elif code.startswith("bert_"):
         # 12 flash forward and 12 + 12 backward launches a loss step;
         # TernGrad packs 61 leaves whole and 2 in 23 chunks, unpack-sums 63
@@ -73,7 +102,10 @@ try:
     else:
         model = ResNet18(num_classes=10, small_inputs=True, seed=0,
                          device="cuda")
-        per = {"dequantize_int8": 62}
+        if code == "sign":
+            per = {"encode_signs": 20, "unpack_signs": 20}
+        else:
+            per = {"dequantize_int8": 62}
         if code == "int8":
             per["quantize_int8"] = 62
         C.run_main_path(model, code, "cifar10", C.BATCH, per,
@@ -100,7 +132,8 @@ def main() -> int:
                                  cwd=trees[side], capture_output=True,
                                  text=True)
             for line in run.stdout.splitlines():
-                if line.startswith(("phase=main_path", "phase=flash_ab")):
+                if line.startswith(("phase=main_path", "phase=flash_ab",
+                                    "phase=codec_ab")):
                     print(f"ab={side} run={i} {line}", flush=True)
                 elif line.startswith("phase=profile"):
                     print(f"ab={side} run={i} {line[:160]}", flush=True)

@@ -15,11 +15,18 @@ Phases, one line each; the script exits non-zero if any fails:
                toolkit has ``cuobjdump``).
 3. kernels   -- each kernel against its plain PyTorch version on the card,
                at the main paths' leaf sizes, with planted cases:
-               - the sign kernels at ResNet-18's 20 kernel-path leaves
-                 (bytes bit-exact, |x| sum within rtol 1e-6, -0.0 and NaN);
+               - the sign kernels at ResNet-18's 20 kernel-path leaves, at
+                 one row below, at and above the rows one encode block
+                 sums, and past the co-resident grid (bytes bit-exact, |x|
+                 sum within rtol 1e-6, -0.0 and NaN);
                - int8 quantize and dequantize-sum at ResNet-18's 62 leaves,
-                 world 1 and world 8 (codes, scales and floats bit-exact;
-                 NaN, ±Inf, ±0.0 and exact .5 ties);
+                 world 1 and world 8, and quantize also one below, at and
+                 above its tile and past the co-resident grid (codes,
+                 scales and floats bit-exact; NaN, ±Inf, ±0.0 and exact .5
+                 ties);
+               - for the one-launch quantize and sign encode: the grid each
+                 leaf size takes, one device row a call (asserted), and the
+                 largest leaf's cold device ms against its byte bound;
                - int8 dequantize-sum also at n % 16 == 0, n % 16 == 4,
                  odd n and a view that starts one byte in, and at the
                  largest leaf (2,359,296 codes) at world 8;
@@ -290,7 +297,9 @@ def check_kernels(sizes: list) -> dict:
     from pytorch_ps_mpi_tpu_torch.ops import sign as S
 
     gen = torch.Generator(device="cuda").manual_seed(0)
-    cases = sorted(set(sizes)) + [S.GROUP, 13 * S.GROUP]
+    one, past = sign_edge_rows()
+    cases = sorted(set(sizes)) + [S.GROUP, 13 * S.GROUP] + [
+        r * S.GROUP for r in (one - 1, one, one + 1, past) if r > 0]
     max_err = {"encode_signs": 0.0, "pack_signs": 0.0, "unpack_signs": 0.0}
     for n in cases:
         for planted in (False, True):
@@ -344,7 +353,47 @@ def check_kernels(sizes: list) -> dict:
     sum_ms = sum(cuda_ms(lambda: torch.sum(x.abs())) for x in xs)
     phase("kernels", yardstick="torch.sum(x.abs()) over the 20 leaves",
           ms=f"{sum_ms:.4f}")
+    lib = S._lib()
+    one_launch_design(
+        "encode_signs", S.encode_signs, xs,
+        lambda n: lib.sign_encode_grid(n // S.GROUP, 1),
+        lambda n: 4 * n + n // 8 + 4,
+        rows_per_block_pass=S._rows_per_block(), one_block_rows=one,
+        cases=len(cases))
     return results
+
+
+def sign_edge_rows() -> tuple:
+    """The most packed rows one encode block sums, and the rows one past
+    the co-resident grid's first pass over them."""
+    from pytorch_ps_mpi_tpu_torch.ops import sign as S
+
+    lib = S._lib()
+    one = next(r for r in range(1, 1 << 16)
+               if lib.sign_encode_grid(r + 1, 1) != 1)
+    return one, lib.sign_encode_grid(1 << 40, 1) * S._rows_per_block() + 3
+
+
+def one_launch_design(kernel: str, fn, xs: list, grid, nbytes,
+                      **tile) -> None:
+    """The one-launch design of ``fn`` at the main path's leaves: the
+    grid it chose for each leaf size, the device rows of one call (each
+    must be 1: no memset, no second kernel) and the largest leaf's cold
+    device ms against its byte bound."""
+    by_size = {x.numel(): x for x in xs}
+    rows = {n: device_launches(lambda: fn(x)) for n, x in by_size.items()}
+    if set(rows.values()) != {1}:
+        raise AssertionError(f"{kernel}: device rows a call {rows}, not 1")
+    n = max(by_size)
+    cold = device_ms(lambda: fn(by_size[n]), cold=True)
+    bound = nbytes(n) / HBM_BYTES_PER_S * 1e3
+    phase("kernels", kernel=kernel, design="one launch a call", **tile,
+          block=256, device_rows_per_call=1,
+          grids=json.dumps({m: grid(m) for m in sorted(by_size)},
+                           separators=(",", ":")),
+          largest_leaf=n, cold_device_ms=f"{cold:.4f}",
+          bound_ms=f"{bound:.5f}", share_of_bound=f"{bound / cold:.3f}",
+          alternative="not measured")
 
 
 # -- int8 quantize / dequantize-sum --------------------------------------------
@@ -385,7 +434,10 @@ def check_quant_kernels(model) -> dict:
             raise AssertionError(f"{what} differs from its plain version")
 
     cases = 0
-    for n in sorted(set(sizes)) + [4099, 1000]:
+    tile = Q._tile()
+    past = Q._lib().quant_int8_grid(1 << 40) * tile + 4099
+    for n in sorted(set(sizes)) + [4099, 1000, tile - 1, tile, tile + 1,
+                                   past]:
         for case in (("plain", "ties", "signed_zero", "nan", "inf",
                       "neg_inf", "zeros") if n >= 16 else ("plain",)):
             x = 1e-2 * _int8_planted(n, case, gen)
@@ -415,7 +467,7 @@ def check_quant_kernels(model) -> dict:
                          Q.dequant_sum_ref(qs, ss),
                          f"dequantize_int8 at n={n}, offset {offset}")
                 dequant_cases += 1
-    phase("kernels", check="int8 bit-exact", sizes=len(set(sizes)) + 2,
+    phase("kernels", check="int8 bit-exact", sizes=len(set(sizes)) + 6,
           quantize_cases=cases, dequant_cases=dequant_cases,
           dequant_worlds="1,8", dequant_widths="n%16==0,n%16==4,odd,offset 1")
 
@@ -423,9 +475,9 @@ def check_quant_kernels(model) -> dict:
     quant_args = [(x,) for x in xs]
     payloads = [Q.quantize_int8_ref(x) for x in xs]
     results = {}
-    r = timed(Q.quantize_int8, Q.quantize_int8_ref, quant_args,
-              lambda x: 5 * x.numel() + 4)
-    results["quantize_int8"] = dict(r, max_abs_err=0.0)
+    r_q = timed(Q.quantize_int8, Q.quantize_int8_ref, quant_args,
+                lambda x: 5 * x.numel() + 4)
+    results["quantize_int8"] = dict(r_q, max_abs_err=0.0)
     report("quantize_int8", results["quantize_int8"], leaves=len(sizes))
     yard = sum(cuda_ms(lambda: torch.amax(x.abs())) for x in xs)
     phase("kernels", yardstick="torch.amax(x.abs()) over the 62 leaves",
@@ -438,6 +490,11 @@ def check_quant_kernels(model) -> dict:
     results["dequantize_int8"] = dict(r, max_abs_err=0.0)
     report("dequantize_int8", results["dequantize_int8"], leaves=len(sizes),
            world=1, library="torch.mul(q, scale)")
+    phase("kernels", host="quantize_int8 wrapper over dequantize_int8's",
+          ratio=f"{r_q['ms'] / r['ms']:.3f}")
+    one_launch_design("quantize_int8", Q.quantize_int8, xs,
+                      Q._lib().quant_int8_grid, lambda n: 5 * n + 4,
+                      tile_floats=tile)
 
     stacks = [(torch.stack([q] * 8), torch.stack([s] * 8))
               for q, s in payloads]

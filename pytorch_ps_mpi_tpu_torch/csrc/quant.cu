@@ -2,12 +2,11 @@
 // with a plain C interface.
 //
 // Replace the Pallas TPU kernels of pytorch_ps_mpi_tpu/ops/quant_pallas.py:
-//   quant_absmax + quant_apply <- quantize_int8 (_absmax_kernel, pallas_call
-//                                 :84; _quant_kernel, pallas_call :97)
-//   dequant_sum                <- dequantize_int8 (_dequant_kernel, pallas_call
-//                                 :130) at world 1, and the codec's
-//                                 einsum("wn,w->n") aggregation
-//                                 (codecs/quant.py:61-65) at world W
+//   quant_int8   <- quantize_int8 (_absmax_kernel, pallas_call :84;
+//                   _quant_kernel, pallas_call :97), both in one launch
+//   dequant_sum  <- dequantize_int8 (_dequant_kernel, pallas_call :130) at
+//                   world 1, and the codec's einsum("wn,w->n") aggregation
+//                   (codecs/quant.py:61-65) at world W
 //
 // Semantics (the JAX package's, as XLA compiles it in its jitted step and
 // in its Pallas kernel):
@@ -23,28 +22,55 @@
 //
 // The absmax is a max over the int32 bit patterns of |x|: for non-negative
 // floats integer order is value order, and NaN's pattern lies above Inf's,
-// so NaN wins as jnp.max makes it win (fmaxf would drop it). An atomicMax
-// on that pattern is order-free, so the result is the same from run to run.
+// so NaN wins as jnp.max makes it win (fmaxf would drop it). A max is
+// order-free, so the result is the same from run to run.
 //
-// Bound: memory. quantize reads x twice (absmax pass, quantize pass; the
-// function itself needs 4n + n + 4 bytes): grid-stride loops, float4 loads
-// where x is aligned and n % 4 == 0, a scalar path otherwise, one atomicMax
-// per block; no tuning yet (no TMA, no fusion of the two passes).
+// Bound: memory. quantize needs 4n + n + 4 bytes; it reads x from device
+// memory once and makes one device launch a call, with no memset:
+//  - n <= kTile: one block. It stages x in shared memory (a cp.async.bulk
+//    copy completing on an mbarrier where x is 16-byte aligned, scalar
+//    loads otherwise), reduces the bit-pattern max, computes s and
+//    quantizes from shared memory with char4 stores. No scratch, no
+//    barrier across blocks.
+//  - n > kTile: one cooperative launch of min(ceil(n / kTile), co-resident
+//    blocks) blocks. Each block stages its first tile, reduces it and
+//    writes its max to its own slot; the grid syncs once
+//    (cg::this_grid().sync()); every block reduces all slots in index
+//    order (nothing to zero first), then quantizes its staged tile. The
+//    co-resident count is cudaOccupancyMaxActiveBlocksPerMultiprocessor x
+//    the SM count, computed once per device and cached here.
+//  - Past grid x kTile elements (n > co-resident x kTile: 1,056 x 4,096 =
+//    4,325,376 at 8 blocks an SM on 132 SMs) a block's further tiles are
+//    read for the max and read a second time to quantize.
+// kTile (4,096 floats, 16 KB a block) was picked by chip_codec_tiles.py:
+// it is where one block's load of a tile stops being cheaper than the
+// grid barrier (PERF.md). A failed occupancy query, or 0 co-resident
+// blocks, is an error; nothing falls back.
 // dequant_sum reads W*n + 4W bytes and writes 4n: 4 codes a thread (a
 // coalesced 4-byte load per rank, a float4 store) where n % 4 == 0 and the
 // pointers are aligned, 1 otherwise; the grid sized to the leaf.
 //
 // Every entry point launches on the caller's stream, does not synchronise,
-// allocates nothing and returns cudaGetLastError().
+// allocates nothing and returns a cudaError_t (0 on success).
 
+#include <atomic>
+#include <cooperative_groups.h>
 #include <cstdint>
 #include <cuda_runtime.h>
 
+namespace cg = cooperative_groups;
+
 namespace {
 
+#ifndef QUANT_TILE  // set only by chip_codec_tiles.py, to measure others
+#define QUANT_TILE 4096
+#endif
+constexpr int kTile = QUANT_TILE;  // floats a block stages
 constexpr int kThreads = 256;
-constexpr long long kMaxBlocks = 132 * 16;  // 16 resident blocks per SM
-constexpr float kInv127 = 1.0f / 127.0f;    // rounded to f32 at compile time
+constexpr int kMaxDevices = 64;
+constexpr float kInv127 = 1.0f / 127.0f;  // rounded to f32 at compile time
+static_assert(kTile % (4 * kThreads) == 0 && kTile * 4 <= 48 * 1024,
+              "whole float4 passes, in static shared memory");
 
 __device__ __forceinline__ float scale_from_bits(int bits) {
   const float s = __fmul_rn(__int_as_float(bits), kInv127);
@@ -62,64 +88,157 @@ __device__ __forceinline__ int abs_bits(float v) {
   return __float_as_int(v) & 0x7fffffff;
 }
 
-long long blocks_for(long long work) {
-  const long long b = (work + kThreads - 1) / kThreads;
-  return b < 1 ? 1 : (b > kMaxBlocks ? kMaxBlocks : b);
+__device__ __forceinline__ int abs_bits4(float4 v) {
+  return max(max(abs_bits(v.x), abs_bits(v.y)), max(abs_bits(v.z), abs_bits(v.w)));
 }
 
-bool aligned16(const void* p) {
+__device__ __forceinline__ char4 quant4(float4 v, float s) {
+  return make_char4(quant1(v.x, s), quant1(v.y, s), quant1(v.z, s), quant1(v.w, s));
+}
+
+__host__ __device__ __forceinline__ bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
 }
 
-__global__ void __launch_bounds__(kThreads)
-absmax_kernel(const float* __restrict__ x, long long n, bool vec,
-              int* __restrict__ absmax_bits) {
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  const long long tid = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  int m = 0;
-  if (vec) {
-    const float4* x4 = reinterpret_cast<const float4*>(x);
-    for (long long i = tid; i < n / 4; i += stride) {
-      const float4 v = x4[i];
-      m = max(m, max(max(abs_bits(v.x), abs_bits(v.y)),
-                     max(abs_bits(v.z), abs_bits(v.w))));
-    }
-  } else {
-    for (long long i = tid; i < n; i += stride) m = max(m, abs_bits(x[i]));
+// -- PTX: mbarrier and the 1D bulk copy (kept here: each source stands alone)
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// len floats of src into tile: the 16-byte multiple by one bulk copy where
+// src is 16-byte aligned (vec), the rest by scalar loads; every thread of
+// the block calls it and may read the tile when it returns
+__device__ __forceinline__ void stage(const float* __restrict__ src, int len, bool vec,
+                                      float* tile, uint64_t* bar) {
+  const int bulk = vec ? (len & ~3) : 0;
+  if (bulk && threadIdx.x == 0) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_u32(bar))
+                 : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                     smem_u32(bar)),
+                 "r"(bulk * 4)
+                 : "memory");
+    asm volatile(
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+        "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(tile)),
+        "l"(src), "r"(bulk * 4), "r"(smem_u32(bar))
+        : "memory");
   }
-  for (int off = 16; off > 0; off >>= 1)
-    m = max(m, __shfl_xor_sync(0xffffffffu, m, off));
-  __shared__ int smem[kThreads / 32];
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  if (lane == 0) smem[warp] = m;
+  for (int i = bulk + threadIdx.x; i < len; i += kThreads) tile[i] = src[i];
+  __syncthreads();  // the scalar part, and the barrier's init for the wait
+  if (bulk) mbar_wait(bar, 0);
+}
+
+// the max of v over the block, in every thread
+__device__ __forceinline__ int block_max(int v, int* red) {
+  for (int off = 16; off > 0; off >>= 1) v = max(v, __shfl_xor_sync(0xffffffffu, v, off));
+  __syncthreads();  // red's last readers are done
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
   __syncthreads();
-  if (warp == 0) {
-    m = (lane < kThreads / 32) ? smem[lane] : 0;
-    for (int off = 16; off > 0; off >>= 1)
-      m = max(m, __shfl_xor_sync(0xffffffffu, m, off));
-    if (lane == 0) atomicMax(absmax_bits, m);
+  v = red[0];
+#pragma unroll
+  for (int w = 1; w < kThreads / 32; ++w) v = max(v, red[w]);
+  return v;
+}
+
+// max|x| bits of x[0, len) (shared or global memory; float4 loads where
+// vec: x 16-byte aligned)
+__device__ __forceinline__ int range_max(const float* __restrict__ x, int len, bool vec) {
+  int m = 0;
+  const int len4 = vec ? (len & ~3) : 0;
+  for (int i = 4 * threadIdx.x; i < len4; i += 4 * kThreads)
+    m = max(m, abs_bits4(*reinterpret_cast<const float4*>(x + i)));
+  for (int i = len4 + threadIdx.x; i < len; i += kThreads) m = max(m, abs_bits(x[i]));
+  return m;
+}
+
+// q[0, len) from x[0, len) (shared or global memory; float4 loads and char4
+// stores where vec: x 16-byte and q 4-byte aligned)
+__device__ __forceinline__ void range_quant(const float* x, int len, bool vec, float s,
+                                            int8_t* __restrict__ q) {
+  const int len4 = vec ? (len & ~3) : 0;
+  for (int i = 4 * threadIdx.x; i < len4; i += 4 * kThreads)
+    *reinterpret_cast<char4*>(q + i) = quant4(*reinterpret_cast<const float4*>(x + i), s);
+  for (int i = len4 + threadIdx.x; i < len; i += kThreads) q[i] = quant1(x[i], s);
+}
+
+// kGrid false: one block, n <= kTile. kGrid true: a cooperative grid, each
+// block's first tile staged, slots[gridDim.x] the blocks' maxima.
+template <bool kGrid>
+__global__ void __launch_bounds__(kThreads)
+quant_kernel(const float* __restrict__ x, long long n, int8_t* __restrict__ q,
+             float* __restrict__ scale_out, int* __restrict__ slots) {
+  __shared__ alignas(128) float tile[kTile];
+  __shared__ alignas(8) uint64_t bar;
+  __shared__ int red[kThreads / 32];
+  const bool vec = aligned16(x);
+  const long long start = static_cast<long long>(blockIdx.x) * kTile;
+  const int len = static_cast<int>(min(static_cast<long long>(kTile), n - start));
+  stage(x + start, len, vec, tile, &bar);
+  int m = range_max(tile, len, true);
+  if constexpr (kGrid) {  // tiles past the grid's first: read here and again below
+    for (long long t = start + static_cast<long long>(gridDim.x) * kTile; t < n;
+         t += static_cast<long long>(gridDim.x) * kTile)
+      m = max(m, range_max(x + t, static_cast<int>(min(static_cast<long long>(kTile), n - t)),
+                           vec));
+  }
+  m = block_max(m, red);
+  if constexpr (kGrid) {
+    if (threadIdx.x == 0) slots[blockIdx.x] = m;
+    cg::this_grid().sync();
+    m = 0;
+    for (int i = threadIdx.x; i < static_cast<int>(gridDim.x); i += kThreads)
+      m = max(m, __ldcg(slots + i));
+    m = block_max(m, red);
+  }
+  const float s = scale_from_bits(m);
+  if (blockIdx.x == 0 && threadIdx.x == 0) *scale_out = s;
+  range_quant(tile, len, true, s, q + start);
+  if constexpr (kGrid) {
+    for (long long t = start + static_cast<long long>(gridDim.x) * kTile; t < n;
+         t += static_cast<long long>(gridDim.x) * kTile)
+      range_quant(x + t, static_cast<int>(min(static_cast<long long>(kTile), n - t)), vec, s,
+                  q + t);
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
-quant_kernel(const float* __restrict__ x, long long n, bool vec,
-             const int* __restrict__ absmax_bits, int8_t* __restrict__ q,
-             float* __restrict__ scale_out) {
-  const float s = scale_from_bits(*absmax_bits);
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  const long long tid = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (tid == 0) *scale_out = s;
-  if (vec) {
-    const float4* x4 = reinterpret_cast<const float4*>(x);
-    char4* q4 = reinterpret_cast<char4*>(q);
-    for (long long i = tid; i < n / 4; i += stride) {
-      const float4 v = x4[i];
-      q4[i] = make_char4(quant1(v.x, s), quant1(v.y, s), quant1(v.z, s),
-                         quant1(v.w, s));
-    }
-  } else {
-    for (long long i = tid; i < n; i += stride) q[i] = quant1(x[i], s);
+// blocks of quant_kernel<true> that fit on the current device at once
+// (0 with the error in *err where the query fails)
+int quant_coresident(cudaError_t* err) {
+  static std::atomic<int> cache[kMaxDevices];
+  int dev = 0;
+  *err = cudaGetDevice(&dev);
+  if (*err != cudaSuccess) return 0;
+  if (dev < kMaxDevices) {
+    const int c = cache[dev].load(std::memory_order_relaxed);
+    if (c > 0) return c;
   }
+  int per_sm = 0, sms = 0;
+  *err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, quant_kernel<true>, kThreads, 0);
+  if (*err == cudaSuccess)
+    *err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (*err != cudaSuccess) return 0;
+  if (per_sm * sms <= 0) {
+    *err = cudaErrorCooperativeLaunchTooLarge;
+    return 0;
+  }
+  if (dev < kMaxDevices) cache[dev].store(per_sm * sms, std::memory_order_relaxed);
+  return per_sm * sms;
 }
 
 // V consecutive codes a thread (V = 4: one 4-byte load per rank and one
@@ -177,23 +296,41 @@ int launch_dequant_sum(const void* q, const void* scales, int world, long long n
 
 extern "C" {
 
-// x: f32[n]; q: i8[n] out; scale: f32[1] out; absmax_bits: i32[1] scratch.
-int quant_int8(const void* x, void* q, void* scale, void* absmax_bits,
-               long long n, void* stream) {
-  if (n <= 0) return static_cast<int>(cudaErrorInvalidValue);
+// Floats quant_int8 stages a block (the wrapper sizes its buffer by it).
+int quant_int8_tile() { return kTile; }
+
+// The grid quant_int8 launches for n elements on the current device: 1 for
+// one block, the cooperative grid otherwise; the negated cudaError_t where
+// the occupancy query fails.
+long long quant_int8_grid(long long n) {
+  const long long tiles = (n + kTile - 1) / kTile;
+  if (tiles <= 1) return 1;
+  cudaError_t err;
+  const int cap = quant_coresident(&err);
+  if (cap <= 0) return -static_cast<long long>(err);
+  return tiles < cap ? tiles : cap;
+}
+
+// x: f32[n]. out: one buffer, 16-byte aligned: i8 codes [0, n), the f32
+// scale at byte round_up(n, 4), then i32 slots[grid] (grid <=
+// ceil(n / kTile), only where n > kTile).
+int quant_int8(const void* x, void* out, long long n, void* stream) {
+  if (n <= 0 || !aligned16(out)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const bool vec = n % 4 == 0 && aligned16(x) && aligned16(q);
-  const long long blocks = blocks_for(vec ? n / 4 : n);
-  cudaError_t err = cudaMemsetAsync(absmax_bits, 0, sizeof(int), st);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  absmax_kernel<<<static_cast<unsigned>(blocks), kThreads, 0, st>>>(
-      static_cast<const float*>(x), n, vec, static_cast<int*>(absmax_bits));
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  quant_kernel<<<static_cast<unsigned>(blocks), kThreads, 0, st>>>(
-      static_cast<const float*>(x), n, vec, static_cast<const int*>(absmax_bits),
-      static_cast<int8_t*>(q), static_cast<float*>(scale));
-  return static_cast<int>(cudaGetLastError());
+  const float* xp = static_cast<const float*>(x);
+  int8_t* q = static_cast<int8_t*>(out);
+  float* scale = reinterpret_cast<float*>(q + ((n + 3) & ~3LL));
+  int* slots = reinterpret_cast<int*>(scale + 1);
+  const long long grid = quant_int8_grid(n);
+  if (grid < 0) return static_cast<int>(-grid);
+  if (grid == 1) {
+    quant_kernel<false><<<1, kThreads, 0, st>>>(xp, n, q, scale, nullptr);
+    return static_cast<int>(cudaGetLastError());
+  }
+  void* args[] = {&xp, &n, &q, &scale, &slots};
+  return static_cast<int>(cudaLaunchCooperativeKernel(
+      reinterpret_cast<const void*>(&quant_kernel<true>), dim3(static_cast<unsigned>(grid)),
+      dim3(kThreads), args, 0, st));
 }
 
 // q: i8[world, n] (row-major); scales: f32[world]; out: f32[n].

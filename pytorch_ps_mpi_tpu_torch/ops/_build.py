@@ -9,8 +9,8 @@ sources, and again whenever the source's hash changes; ``build`` can
 also compile several sources at once, one ``nvcc`` each. ptxas's report
 of each kernel (registers, spills) is kept beside its library
 (:func:`ptxas_report`). ``launch`` calls a
-loaded entry point on PyTorch's current stream (the flash, top-k and
-dequantize wrappers use it). Nothing here runs at import time: the CPU
+loaded entry point on PyTorch's current stream (the flash, top-k, sign
+and int8 wrappers use it). Nothing here runs at import time: the CPU
 tests import every module on a machine with no ``nvcc``.
 """
 

@@ -154,21 +154,24 @@ def flash_fwd_ref(q3, k3, v3, q_off: int, k_off: int, causal: bool,
 
 
 def _dm(out3, g_out3, g_lse) -> torch.Tensor:
-    """rowsum(g_out·out) − g_lse in float32, ``[bh, lq]`` (``g_lse`` None:
+    """rowsum(g_out·out) − g_lse in float64, ``[bh, lq]`` (``g_lse`` None:
     a zero cotangent)."""
-    d = (g_out3.float() * out3.float()).sum(dim=-1)
-    return d if g_lse is None else d - g_lse.float()
+    d = (g_out3.double() * out3.double()).sum(dim=-1)
+    return d if g_lse is None else d - g_lse.double()
 
 
 def flash_bwd_ref(q3, k3, v3, out3, lse, g_out3, g_lse, q_off: int,
                   k_off: int, causal: bool, scale: float):
     """``(dq, dk, dv)`` in the input type: the backward kernels' function
     in dense passes, ``p`` and ``ds`` rounded to the input type before
-    their products."""
+    their products. ``dp = g_out·vᵀ`` and ``dm``, two reductions over d
+    that cancel in ``dp − dm``, are taken in float64: in float32 they put
+    this version twice as far from a float64 evaluation as the Pallas
+    kernels at d = 128 (``test_gradients_at_d128_hold_to_float64``)."""
     dt = q3.dtype
     s = _scores(q3, k3, q_off, k_off, causal, scale)
     p = torch.where(s > _MASK_THRESH, torch.exp(s - lse[..., None]), 0.0)
-    dp = torch.matmul(g_out3.float(), v3.float().transpose(1, 2))
+    dp = torch.matmul(g_out3.double(), v3.double().transpose(1, 2))
     ds = (p * (dp - _dm(out3, g_out3, g_lse)[..., None])).to(dt).float()
     dq = torch.matmul(ds, k3.float()) * scale
     dk = torch.matmul(ds.transpose(1, 2), q3.float()) * scale

@@ -9,7 +9,7 @@ wrapper              replaces                                     kernel
 ===================  ===========================================  =====================
 ``quantize_int8``    ``quantize_int8`` (``quant_pallas.py:64``:   ``csrc/quant.cu``
                      ``_absmax_kernel`` ``:84``, ``_quant_kernel``  ``quant_int8``
-                     ``:97``)
+                     ``:97``), both in one launch
 ``dequant_sum``      ``dequantize_int8`` (``:118``, ``:130``) at  ``dequant_sum``
                      world 1, and ``_ScaleFoldedInt8``'s
                      ``einsum("wn,w->n")`` (``codecs/quant.py:61``)
@@ -27,23 +27,24 @@ codes 0 (XLA's float-to-int8 conversion), and the dequantize-sum
 ``Σ_w f32(q_w)·s_w`` taken in rank order. The kernels take every size
 n > 0; there is no size at which a plain path takes over on the card.
 
-Bound: memory. Quantize needs 5n + 4 bytes and reads x twice (absmax
-pass, then quantize pass); dequantize-sum needs (W + 4)·n + 4W bytes.
-The design notes are in ``csrc/quant.cu``.
+Bound: memory. Quantize needs 5n + 4 bytes and reads x once, in one
+device launch (one block up to the kernel's tile, a cooperative grid
+with one grid barrier above it); dequantize-sum needs (W + 4)·n + 4W
+bytes. The design notes are in ``csrc/quant.cu``.
 
 A wrapper takes its plain version (``*_ref``) only for a CPU tensor. For
 a CUDA tensor it launches its kernel or raises; it never falls back.
 Each wrapper's ``launches`` attribute counts its kernel launches;
 ``dequantize_int8`` launches the ``dequant_sum`` kernel and counts in
 ``dequant_sum.launches``. A small leaf's call is mostly host cost, so
-``dequant_sum`` and ``dequantize_int8`` check by attribute, allocate once
-and launch through ``_build.launch`` (the raw stream handle, one ctypes
-call).
+every wrapper checks by attribute, allocates once and launches through
+``_build.launch`` (the raw stream handle, one ctypes call).
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Tuple
 
 import torch
@@ -52,7 +53,9 @@ from pytorch_ps_mpi_tpu_torch.ops import _build
 
 _P = ctypes.c_void_p
 _SIGNATURES = {
-    "quant_int8": (ctypes.c_int, [_P, _P, _P, _P, ctypes.c_longlong, _P]),
+    "quant_int8": (ctypes.c_int, [_P, _P, ctypes.c_longlong, _P]),
+    "quant_int8_tile": (ctypes.c_int, []),
+    "quant_int8_grid": (ctypes.c_longlong, [ctypes.c_longlong]),
     "dequant_sum": (ctypes.c_int, [_P, _P, ctypes.c_int, ctypes.c_longlong,
                                    _P, _P]),
 }
@@ -92,30 +95,37 @@ def _check(x: torch.Tensor, dtype: torch.dtype, dim: int, what: str) -> None:
         raise ValueError(f"{what}: unsupported device {x.device}")
 
 
-def _raise_on(err: int, what: str) -> None:
-    if err:
-        raise RuntimeError(f"{what}: CUDA launch failed with error {err}")
+@functools.lru_cache(maxsize=None)
+def _tile() -> int:
+    """Floats one block of the quantize kernel stages."""
+    return _lib().quant_int8_tile()
 
 
 def quantize_int8(flat: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """float32[n] -> (int8[n] codes, float32 scale), the scale computed on
-    the device (no host sync)."""
-    _check(flat, torch.float32, 1, "quantize_int8")
-    if flat.device.type == "cpu":
+    the device (no host sync). On the card both are views of one buffer:
+    the codes, the scale at the next 4-byte boundary, then one int32 slot
+    a block where the cooperative grid needs them."""
+    # checks by attribute comparison: a small leaf's call is mostly host cost
+    if flat.dtype is not torch.float32 or flat.dim() != 1 \
+            or flat.shape[0] == 0:
+        raise ValueError(f"quantize_int8: expected a non-empty 1-D "
+                         f"torch.float32 tensor, got "
+                         f"{flat.dtype}{tuple(flat.shape)}")
+    if not flat.is_cuda:
+        _check(flat, torch.float32, 1, "quantize_int8")
         return quantize_int8_ref(flat)
-    flat = flat.contiguous()
-    dev = flat.device
-    q = torch.empty(flat.numel(), dtype=torch.int8, device=dev)
-    scale = torch.empty((), dtype=torch.float32, device=dev)
-    scratch = torch.empty((), dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
-        err = _lib().quant_int8(flat.data_ptr(), q.data_ptr(),
-                                scale.data_ptr(), scratch.data_ptr(),
-                                flat.numel(),
-                                torch.cuda.current_stream(dev).cuda_stream)
-    _raise_on(err, "quant_int8")
+    if not flat.is_contiguous():
+        flat = flat.contiguous()
+    n = flat.shape[0]
+    tile = _tile()
+    words = (n + 3) // 4  # the scale's word
+    buf = torch.empty(words + 1 + (0 if n <= tile else -(-n // tile)),
+                      dtype=torch.float32, device=flat.device)
+    _build.launch(_lib().quant_int8, flat.get_device(), flat.data_ptr(),
+                  buf.data_ptr(), n)
     quantize_int8.launches += 1
-    return q, scale
+    return buf.view(torch.int8)[:n], buf[words]
 
 
 def dequant_sum(q: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:

@@ -7,7 +7,7 @@ kernel of ``pytorch_ps_mpi_tpu/ops/sign_pallas.py``:
 wrapper             replaces                                        kernel
 ==================  ==============================================  ==========
 ``encode_signs``    ``encode_signs`` (``sign_pallas.py:68``,        ``csrc/sign.cu`` ``sign_encode``
-                    ``_encode_kernel`` ``:46``): pack + Σ|x|         (with sum)
+                    ``_encode_kernel`` ``:46``): pack + Σ|x|         (with sum), one launch
 ``pack_signs``      ``pack_signs`` (``:104``, ``_pack_kernel``      ``sign_encode``
                     ``:30``)                                         (no sum)
 ``unpack_signs``    ``unpack_signs`` (``:131``, ``_unpack_kernel``  ``sign_unpack``
@@ -20,17 +20,23 @@ Layout, the TPU kernels' own: the flat float input is viewed as
 
 Bound: memory. Encode moves 4n + n/8 bytes, unpack m + 32m; at the
 H100's 3.35 TB/s every ResNet-18 leaf is a few microseconds of traffic,
-so launch overhead dominates (20 encode launches a step). The design
-notes are in ``csrc/sign.cu``; fusing the launches is later work.
+so launch overhead dominates (20 encode launches a step). Encode is one
+device launch a call, its Σ|x| finished inside it (one block for a small
+leaf, a cooperative grid with one grid barrier above that). The design
+notes are in ``csrc/sign.cu``.
 
 A wrapper takes its plain version (``*_ref``) only for a CPU tensor. For
 a CUDA tensor it launches its kernel or raises; it never falls back.
-Each wrapper's ``launches`` attribute counts its kernel launches.
+Each wrapper's ``launches`` attribute counts its kernel launches. A small
+leaf's call is mostly host cost, so every wrapper checks by attribute,
+allocates once and launches through ``_build.launch`` (the raw stream
+handle, one ctypes call).
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Tuple
 
 import torch
@@ -42,9 +48,11 @@ GROUP = 8 * LANE  # one packed row of 128 bytes encodes 1024 signs
 
 _P = ctypes.c_void_p
 _SIGNATURES = {
-    "sign_encode_partials": (ctypes.c_longlong, [ctypes.c_longlong]),
-    "sign_encode": (ctypes.c_int, [_P, _P, _P, _P, ctypes.c_longlong,
-                                   ctypes.c_int, _P]),
+    "sign_encode": (ctypes.c_int, [_P, _P, ctypes.c_longlong, ctypes.c_int,
+                                   _P]),
+    "sign_encode_rows_per_block": (ctypes.c_int, []),
+    "sign_encode_grid": (ctypes.c_longlong, [ctypes.c_longlong,
+                                             ctypes.c_int]),
     "sign_unpack": (ctypes.c_int, [_P, _P, ctypes.c_longlong, _P]),
 }
 
@@ -80,61 +88,58 @@ def _lib() -> ctypes.CDLL:
 
 
 def _check(x: torch.Tensor, dtype: torch.dtype, multiple: int, what: str):
-    if x.dim() != 1 or x.dtype != dtype or x.numel() == 0 \
-            or x.numel() % multiple:
+    # by attribute comparison: a small leaf's call is mostly host cost
+    if x.dtype is not dtype or x.dim() != 1 or x.shape[0] == 0 \
+            or x.shape[0] % multiple:
         raise ValueError(
             f"{what}: expected a non-empty 1-D {dtype} tensor with a size "
             f"divisible by {multiple}, got {x.dtype}{tuple(x.shape)}")
-    if x.device.type not in ("cpu", "cuda"):
+    if not x.is_cuda and x.device.type != "cpu":
         raise ValueError(f"{what}: unsupported device {x.device}")
 
 
-def _raise_on(err: int, what: str) -> None:
-    if err:
-        raise RuntimeError(f"{what}: CUDA launch failed with error {err}")
+@functools.lru_cache(maxsize=None)
+def _rows_per_block() -> int:
+    """Packed rows one block of the encode kernel covers a pass."""
+    return _lib().sign_encode_rows_per_block()
 
 
-def _encode(flat: torch.Tensor, with_sum: bool):
-    flat = flat.contiguous()
-    rows = flat.numel() // GROUP
-    lib = _lib()
-    dev = flat.device
-    packed = torch.empty(rows * LANE, dtype=torch.uint8, device=dev)
-    partials = total = None
+def _encode(flat: torch.Tensor, with_sum: bool) -> torch.Tensor:
+    """One buffer of float32 words: the packed bytes, and with the sum the
+    total and one slot a block of the cooperative grid."""
+    if not flat.is_contiguous():
+        flat = flat.contiguous()
+    rows = flat.shape[0] // GROUP
+    words = rows * (LANE // 4)
     if with_sum:
-        # per-block partials, reduced in a fixed order by a second kernel
-        partials = torch.empty(lib.sign_encode_partials(rows),
-                               dtype=torch.float32, device=dev)
-        total = torch.empty((), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        err = lib.sign_encode(
-            flat.data_ptr(), packed.data_ptr(),
-            partials.data_ptr() if with_sum else None,
-            total.data_ptr() if with_sum else None,
-            rows, int(with_sum), torch.cuda.current_stream(dev).cuda_stream)
-    _raise_on(err, "sign_encode")
-    return packed, total
+        words += 1 - (-rows // _rows_per_block())
+    buf = torch.empty(words, dtype=torch.float32, device=flat.device)
+    _build.launch(_lib().sign_encode, flat.get_device(), flat.data_ptr(),
+                  buf.data_ptr(), rows, int(with_sum))
+    return buf
 
 
 def encode_signs(flat: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """float32[n] (n % 1024 == 0) -> (uint8[n/8] packed bits, float32 Σ|x|)
     in one read of the gradient. The sum is taken per block and then
     over blocks in a fixed order, so it may differ from ``torch.sum`` in
-    the last ulps (as the TPU kernel's does, ``sign_pallas.py:73-76``)."""
+    the last ulps (as the TPU kernel's does, ``sign_pallas.py:73-76``).
+    On the card both are views of one buffer."""
     _check(flat, torch.float32, GROUP, "encode_signs")
-    if flat.device.type == "cpu":
+    if not flat.is_cuda:
         return encode_signs_ref(flat)
-    out = _encode(flat, with_sum=True)
+    buf = _encode(flat, with_sum=True)
     encode_signs.launches += 1
-    return out
+    m = flat.shape[0] // 8
+    return buf.view(torch.uint8)[:m], buf[m // 4]
 
 
 def pack_signs(flat: torch.Tensor) -> torch.Tensor:
     """float32[n] (n % 1024 == 0) -> uint8[n/8] of packed sign bits."""
     _check(flat, torch.float32, GROUP, "pack_signs")
-    if flat.device.type == "cpu":
+    if not flat.is_cuda:
         return pack_signs_ref(flat)
-    packed, _ = _encode(flat, with_sum=False)
+    packed = _encode(flat, with_sum=False).view(torch.uint8)
     pack_signs.launches += 1
     return packed
 
@@ -142,16 +147,14 @@ def pack_signs(flat: torch.Tensor) -> torch.Tensor:
 def unpack_signs(packed: torch.Tensor) -> torch.Tensor:
     """uint8[m] (m % 128 == 0) -> float32[8m] of ±1."""
     _check(packed, torch.uint8, LANE, "unpack_signs")
-    if packed.device.type == "cpu":
+    if not packed.is_cuda:
         return unpack_signs_ref(packed)
-    packed = packed.contiguous()
-    out = torch.empty(packed.numel() * 8, dtype=torch.float32,
-                      device=packed.device)
-    with torch.cuda.device(packed.device):
-        err = _lib().sign_unpack(
-            packed.data_ptr(), out.data_ptr(), packed.numel(),
-            torch.cuda.current_stream(packed.device).cuda_stream)
-    _raise_on(err, "sign_unpack")
+    if not packed.is_contiguous():
+        packed = packed.contiguous()
+    m = packed.shape[0]
+    out = torch.empty(8 * m, dtype=torch.float32, device=packed.device)
+    _build.launch(_lib().sign_unpack, packed.get_device(), packed.data_ptr(),
+                  out.data_ptr(), m)
     unpack_signs.launches += 1
     return out
 

@@ -184,6 +184,39 @@ def test_gradients_match_jax_at_every_kernel_head_dim(d):
                                    atol=atol)
 
 
+def _float64_grads(q, k, v, causal: bool):
+    """dq, dk, dv of sum(o²) by dense attention in float64 (autograd)."""
+    ts = [torch.from_numpy(a).double().requires_grad_() for a in (q, k, v)]
+    s = torch.einsum("bqhd,bkhd->bhqk", ts[0], ts[1]) * q.shape[-1] ** -0.5
+    if causal:
+        keep = torch.ones(s.shape[-2:], dtype=torch.bool).tril()
+        s = s.masked_fill(~keep, -torch.inf)
+    o = torch.einsum("bhqk,bkhd->bqhd", torch.softmax(s, -1), ts[2])
+    return torch.autograd.grad((o ** 2).sum(), ts)
+
+
+@pytest.mark.parametrize("seed", [129, 7, 11])
+def test_gradients_at_d128_hold_to_float64(seed):
+    # both float32 sides against a float64 evaluation, at the JAX tests'
+    # atol 1e-5 (the gradients' largest magnitudes are 8–16): the port's
+    # plain backward and the Pallas _bwd_dq_kernel/_bwd_dkv_kernel
+    # (interpret mode). With dp and dm in float32 the port's drifted by
+    # up to 1.9e-5, the Pallas kernels' by 8.3e-6.
+    q, k, v = _qkv(b=1, lq=16, lk=16, h=1, d=128, seed=seed)
+    ts, o, _ = _port(q, k, v, True, 0, 0, grad=True)
+    port = torch.autograd.grad((o ** 2).sum(), ts)
+
+    def lf(q, k, v):
+        return jnp.sum(jattn.flash_attention(q, k, v, causal=True, block_q=8,
+                                             block_k=8) ** 2)
+
+    pallas = jax.grad(lf, (0, 1, 2))(*(jnp.asarray(a) for a in (q, k, v)))
+    for got, ref, want in zip(port, pallas, _float64_grads(q, k, v, True)):
+        want = want.numpy()
+        np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-5)
+        np.testing.assert_allclose(np.asarray(ref), want, rtol=0, atol=1e-5)
+
+
 def test_each_dtype_takes_its_kernels():
     # bf16 on the tensor cores, float32 on the CUDA cores (not TF32)
     assert A.kernel_source(torch.bfloat16) == "attention_tc"

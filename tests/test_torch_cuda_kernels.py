@@ -7,7 +7,10 @@ it:
 
 Packed bytes, unpacked floats and decode_sum are bit-exact; the |x| sum
 agrees to rtol 1e-6 (per-block partials, then a fixed-order sum of the
-partials, against PyTorch's own reduction order). Int8 codes, scales and
+partials inside the same launch, against PyTorch's own reduction order)
+and is the same from run to run. Quantize and sign encode are one
+device row a call in the profiler, at the kernels' tile, one past it and
+past the co-resident grid. Int8 codes, scales and
 dequantize-sums, top-k counts, index arrays and values are bit-exact,
 and the same from run to run. Flash attention: float32 to rtol 1e-5
 forward and 1e-4 backward, bf16 (the tensor-core kernels, every head
@@ -193,6 +196,151 @@ def test_quant_kernels_are_the_same_from_run_to_run(cuda):
     s = torch.rand(8, device=cuda)
     first = Q.dequant_sum(q, s)
     assert all(torch.equal(Q.dequant_sum(q, s), first) for _ in range(3))
+
+
+# -- the one-launch quantize and sign encode ----------------------------------
+# Each call is one device launch: one block up to the kernel's tile, a
+# cooperative grid with one grid barrier above it, and past the grid's
+# co-resident tiles a second read of the tiles a block could not stage.
+
+def _device_rows(fn) -> list:
+    """The device rows (kernels and memsets) of one call of ``fn``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.key for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            for _ in range(e.count)]
+
+
+def _quant_size(size: str) -> int:
+    tile = Q._tile()
+    cap = Q._lib().quant_int8_grid(1 << 40)  # the co-resident blocks
+    return {"tile-1": tile - 1, "tile": tile, "tile+1": tile + 1,
+            "multi-block": 100_003, "past-grid": cap * tile + 4099}[size]
+
+
+QUANT_SIZES = ["tile-1", "tile", "tile+1", "multi-block", "past-grid"]
+
+
+@pytest.mark.parametrize("case", ["plain", "ties", "nan", "inf", "zeros"])
+@pytest.mark.parametrize("size", QUANT_SIZES)
+def test_one_launch_quantize_matches_plain_version(cuda, size, case):
+    n = _quant_size(size)
+    grid = Q._lib().quant_int8_grid(n)
+    assert (grid == 1) == (n <= Q._tile()) and grid > 0
+    x = _int8_input(n, case, cuda)
+    before = Q.quantize_int8.launches
+    q, s = Q.quantize_int8(x)
+    assert Q.quantize_int8.launches == before + 1
+    rq, rs = Q.quantize_int8_ref(x)
+    assert q.shape == (n,) and s.shape == ()
+    assert torch.equal(q, rq)
+    assert torch.equal(s.view(torch.int32), rs.view(torch.int32))
+
+
+@pytest.mark.parametrize("size", QUANT_SIZES)
+def test_quantize_takes_unaligned_views_on_every_path(cuda, size):
+    n = _quant_size(size)
+    x = _int8_input(n + 1, "ties", cuda)[1:]
+    assert x.data_ptr() % 16
+    q, s = Q.quantize_int8(x)
+    rq, rs = Q.quantize_int8_ref(x)
+    assert torch.equal(q, rq)
+    assert torch.equal(s.view(torch.int32), rs.view(torch.int32))
+
+
+def _sign_rows(size: str) -> int:
+    lib = S._lib()
+    one = next(r for r in range(1, 1 << 16)
+               if lib.sign_encode_grid(r + 1, 1) != 1)
+    cap = lib.sign_encode_grid(1 << 40, 1) * S._rows_per_block()
+    return {"tile-1": one - 1, "tile": one, "tile+1": one + 1,
+            "multi-block": 2304, "past-grid": cap + 3}[size]
+
+
+SIGN_SIZES = ["tile-1", "tile", "tile+1", "multi-block", "past-grid"]
+
+
+@pytest.mark.parametrize("case", ["plain", "planted", "unaligned"])
+@pytest.mark.parametrize("size", SIGN_SIZES)
+def test_one_launch_encode_matches_plain_version(cuda, size, case):
+    rows = _sign_rows(size)
+    assert rows >= 1
+    n = rows * S.GROUP
+    if case == "unaligned":
+        x = _grad(n + 1, False, cuda)[1:]
+        assert x.data_ptr() % 16
+    else:
+        x = _grad(n, False, cuda)
+    if case == "planted":  # ±0.0, NaN, ±Inf
+        x[0], x[1], x[128], x[129], x[n - 1] = (
+            -0.0, float("nan"), 0.0, float("inf"), -float("inf"))
+    before = S.encode_signs.launches
+    packed, total = S.encode_signs(x)
+    assert S.encode_signs.launches == before + 1
+    ref_packed, ref_total = S.encode_signs_ref(x)
+    assert packed.shape == (n // 8,) and total.shape == ()
+    assert torch.equal(packed, ref_packed)
+    assert torch.equal(S.pack_signs(x), ref_packed)
+    if case == "planted":
+        assert torch.isnan(total)
+        assert int(packed[0]) & 0b11 == 0b11   # -0.0 and +0.0 pack as +
+        assert int(packed[1]) & 0b11 == 0b10   # NaN as 0, +Inf as +
+    else:
+        torch.testing.assert_close(total, ref_total, rtol=1e-6, atol=0)
+
+
+@pytest.mark.parametrize("size", ["tile+1", "past-grid"])
+def test_one_launch_outputs_are_the_same_from_run_to_run(cuda, size):
+    x = _int8_input(_quant_size(size), "plain", cuda)
+    q0, s0 = Q.quantize_int8(x)
+    for _ in range(3):
+        q, s = Q.quantize_int8(x)
+        assert torch.equal(q, q0)
+        assert torch.equal(s.view(torch.int32), s0.view(torch.int32))
+    x = _grad(_sign_rows(size) * S.GROUP, False, cuda)
+    p0, t0 = S.encode_signs(x)
+    for _ in range(3):
+        p, t = S.encode_signs(x)
+        assert torch.equal(p, p0)
+        assert torch.equal(t.view(torch.int32), t0.view(torch.int32))
+
+
+@pytest.mark.parametrize("size", ["tile", "tile+1", "past-grid"])
+@pytest.mark.parametrize("which", ["quantize_int8", "encode_signs",
+                                   "pack_signs", "unpack_signs"])
+def test_each_call_is_one_device_row(cuda, which, size):
+    if which == "quantize_int8":
+        x = _int8_input(_quant_size(size), "plain", cuda)
+    else:
+        x = _grad(_sign_rows(size) * S.GROUP, False, cuda)
+        if which == "unpack_signs":
+            x = S.pack_signs(x)
+    rows = _device_rows(lambda: getattr(Q if which == "quantize_int8"
+                                        else S, which)(x))
+    assert len(rows) == 1, rows
+    assert "emset" not in rows[0] and "emcpy" not in rows[0], rows
+
+
+def test_codec_wrappers_launch_on_the_current_stream(cuda):
+    side = torch.cuda.Stream()
+    x = _grad(2304 * S.GROUP, False, cuda)
+    torch.cuda.synchronize()
+    with torch.cuda.stream(side):
+        packed, total = S.encode_signs(x)
+        signs = S.unpack_signs(packed)
+        q, s = Q.quantize_int8(x)
+    side.synchronize()
+    ref_packed, ref_total = S.encode_signs_ref(x)
+    assert torch.equal(packed, ref_packed)
+    torch.testing.assert_close(total, ref_total, rtol=1e-6, atol=0)
+    assert torch.equal(signs, S.unpack_signs_ref(ref_packed))
+    assert torch.equal(q, Q.quantize_int8_ref(x)[0])
 
 
 # -- top-k radix select and compaction -----------------------------------------
