@@ -1,18 +1,16 @@
-"""Measures the compile-time tiles of the one-launch int8 quantize and
-sign encode kernels on one NVIDIA GPU.
+"""Measures the compile-time tile of the one-launch int8 quantize kernel
+on one NVIDIA GPU.
 
     python3 chip_codec_tiles.py
 
 Builds ``pytorch_ps_mpi_tpu_torch/csrc/quant.cu`` once for each
-``QUANT_TILE`` (floats one block stages) and ``csrc/sign.cu`` once for each
-``SIGN_ONE_BLOCK_ROWS`` (the packed rows up to which one block sums a
-leaf), one nvcc each, all started together, into the package's
-git-ignored build directory. Each build is held bit-exact to the plain
-versions at ResNet-18's leaves, then timed in two rounds, the variants in
-turn and then in reverse:
+``QUANT_TILE`` (floats one block holds), one nvcc each, all started
+together, into the package's git-ignored build directory. Each build is
+held bit-exact to the plain version at ResNet-18's 62 leaves, then timed
+in two rounds, the variants in turn and then in reverse:
 
-- ``step_device_ms``: the device time of one step's calls (the 62 int8
-  leaves, or the 20 sign leaves) from a profiler trace;
+- ``step_device_ms``: the device time of one step's 62 calls from a
+  profiler trace;
 - ``cold_largest_ms``: the 2,359,296-element leaf with the L2 flushed;
 - ``one_block_us`` / ``grid_us``: one call at the largest size one block
   takes, and one at the next size, which takes the cooperative grid
@@ -31,112 +29,82 @@ import torch
 
 import chip_smoke as C
 
-QUANT_TILES = (2048, 4096, 8192)
-SIGN_ONE_BLOCK_ROWS = (8, 16, 32, 64)
+QUANT_TILES = (4096, 8192, 16384)
 
 
 def build_variants() -> dict:
-    """(source, macro value) -> library path, all nvcc runs in parallel."""
+    """tile -> library path, all nvcc runs in parallel."""
     from pytorch_ps_mpi_tpu_torch.ops import _build
 
     out = _build.BUILD_DIR / "variants"
     out.mkdir(parents=True, exist_ok=True)
     jobs = {}
-    for name, macro, values in (("quant", "QUANT_TILE", QUANT_TILES),
-                                ("sign", "SIGN_ONE_BLOCK_ROWS",
-                                 SIGN_ONE_BLOCK_ROWS)):
-        for v in values:
-            lib = out / f"lib{name}_{v}.so"
-            jobs[name, v] = (lib, subprocess.Popen(
-                [_build._nvcc(), *_build.NVCC_FLAGS, f"-D{macro}={v}",
-                 "-o", str(lib), str(_build.CSRC / f"{name}.cu")],
-                stderr=subprocess.PIPE, text=True))
+    for tile in QUANT_TILES:
+        lib = out / f"libquant_{tile}.so"
+        jobs[tile] = (lib, subprocess.Popen(
+            [_build._nvcc(), *_build.NVCC_FLAGS, f"-DQUANT_TILE={tile}",
+             "-Xptxas", "-v", "-o", str(lib), str(_build.CSRC / "quant.cu")],
+            stderr=subprocess.PIPE, text=True))
     libs = {}
-    for key, (lib, proc) in jobs.items():
+    for tile, (lib, proc) in jobs.items():
         _, err = proc.communicate()
         if proc.returncode:
-            raise RuntimeError(f"nvcc failed on {key}:\n{err}")
-        libs[key] = lib
+            raise RuntimeError(f"nvcc failed at tile {tile}:\n{err}")
+        regs = [l.split("Used ")[1].split(",")[0] for l in err.splitlines()
+                if "Used" in l and "smem" not in l]
+        C.phase("tiles", tile=tile, ptxas=repr(regs))
+        libs[tile] = lib
     return libs
 
 
-def use(name: str, path) -> None:
-    """Make ``path`` the library behind the ``name`` wrappers."""
+def use(path) -> None:
+    """Make ``path`` the library behind the quantize wrapper."""
     from pytorch_ps_mpi_tpu_torch.ops import _build
     from pytorch_ps_mpi_tpu_torch.ops import quant as Q
-    from pytorch_ps_mpi_tpu_torch.ops import sign as S
 
-    mod = Q if name == "quant" else S
     cdll = ctypes.CDLL(str(path))
-    for fn, (restype, argtypes) in mod._SIGNATURES.items():
+    for fn, (restype, argtypes) in Q._SIGNATURES.items():
         getattr(cdll, fn).restype = restype
         getattr(cdll, fn).argtypes = argtypes
-    _build._LIBS[name] = cdll
+    _build._LIBS["quant"] = cdll
     Q._tile.cache_clear()
-    S._rows_per_block.cache_clear()
-
-
-def warm_us(fn) -> float:
-    return C.device_ms(fn) * 1e3
 
 
 def main() -> int:
     C.check_device()
     from pytorch_ps_mpi_tpu_torch.models import ResNet18
     from pytorch_ps_mpi_tpu_torch.ops import quant as Q
-    from pytorch_ps_mpi_tpu_torch.ops import sign as S
 
     libs = build_variants()
     model = ResNet18(num_classes=10, small_inputs=True, seed=0, device="cuda")
     sizes = [p.numel() for p in model.parameters()]
     gen = torch.Generator(device="cuda").manual_seed(0)
     xs = [1e-2 * torch.randn(n, generator=gen, device="cuda") for n in sizes]
-    signs = [x for x in xs if x.numel() % S.GROUP == 0]
     big = max(xs, key=torch.Tensor.numel)
-    for x in xs:  # every variant bit-exact at every leaf
-        for (name, v), path in libs.items():
-            use(name, path)
-            if name == "quant":
-                q, s = Q.quantize_int8(x)
-                rq, rs = Q.quantize_int8_ref(x)
-                ok = torch.equal(q, rq) and torch.equal(s, rs)
-            elif x.numel() % S.GROUP == 0:
-                p, t = S.encode_signs(x)
-                rp, rt = S.encode_signs_ref(x)
-                ok = torch.equal(p, rp) and bool(
-                    (t - rt).abs() <= 1e-6 * rt.abs())
-            else:
-                ok = True
-            if not ok:
-                raise AssertionError(f"{name} {v} differs at n={x.numel()}")
+    for tile, path in libs.items():  # every variant bit-exact at every leaf
+        use(path)
+        for x in xs + [torch.randn(tile + 1, generator=gen, device="cuda")]:
+            q, s = Q.quantize_int8(x)
+            rq, rs = Q.quantize_int8_ref(x)
+            if not (torch.equal(q, rq) and torch.equal(s, rs)):
+                raise AssertionError(f"tile {tile} differs at n={x.numel()}")
+
+    def step():
+        for x in xs:
+            Q.quantize_int8(x)
+
     order = list(libs)
-    for rnd, keys in enumerate((order, order[::-1])):
-        for name, v in keys:
-            use(name, libs[name, v])
-            if name == "quant":
-                def step():
-                    for x in xs:
-                        Q.quantize_int8(x)
-                one = torch.randn(v, generator=gen, device="cuda")
-                two = torch.randn(v + 1, generator=gen, device="cuda")
-                pair = (lambda: Q.quantize_int8(one),
-                        lambda: Q.quantize_int8(two))
-                cold = C.device_ms(lambda: Q.quantize_int8(big), cold=True)
-            else:
-                def step():
-                    for x in signs:
-                        S.encode_signs(x)
-                one = torch.randn(v * S.GROUP, generator=gen, device="cuda")
-                two = torch.randn((v + 1) * S.GROUP, generator=gen,
-                                  device="cuda")
-                pair = (lambda: S.encode_signs(one),
-                        lambda: S.encode_signs(two))
-                cold = C.device_ms(lambda: S.encode_signs(big), cold=True)
-            C.phase("tiles", round=rnd, source=f"{name}.cu",
-                    value=v, step_device_ms=f"{C.device_ms(step):.4f}",
-                    cold_largest_ms=f"{cold:.4f}",
-                    one_block_us=f"{warm_us(pair[0]):.3f}",
-                    grid_us=f"{warm_us(pair[1]):.3f}")
+    for rnd, tiles in enumerate((order, order[::-1])):
+        for tile in tiles:
+            use(libs[tile])
+            one = torch.randn(tile, generator=gen, device="cuda")
+            two = torch.randn(tile + 1, generator=gen, device="cuda")
+            C.phase("tiles", round=rnd, tile=tile,
+                    grid_cap=Q._lib().quant_int8_grid(1 << 40),
+                    step_device_ms=f"{C.device_ms(step):.4f}",
+                    cold_largest_ms=f"{C.device_ms(lambda: Q.quantize_int8(big), cold=True):.4f}",
+                    one_block_us=f"{C.device_ms(lambda: Q.quantize_int8(one)) * 1e3:.3f}",
+                    grid_us=f"{C.device_ms(lambda: Q.quantize_int8(two)) * 1e3:.3f}")
     return 0
 
 

@@ -149,17 +149,28 @@ def _device_events(prof) -> list:
 
 def _profiled(fn, cold: bool = False) -> list:
     """The device rows of one call of ``fn`` after a warm-up call;
-    ``cold``: with the 50 MB L2 flushed just before."""
+    ``cold``: with the 50 MB L2 flushed just before. The trace's window
+    opens and closes 5 ms away from the work: late in a long process,
+    traces whose kernels sat at the window's edges lost them (a single
+    kernel's trace came back empty, a three-kernel one kept the middle
+    kernel). A trace with no device row at all is taken again, at most
+    twice, and then the run fails."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
-    if cold:
-        torch.empty(2**27, dtype=torch.int8, device="cuda").fill_(1)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
+    for _ in range(3):
+        if cold:
+            torch.empty(2**27, dtype=torch.int8, device="cuda").fill_(1)
         torch.cuda.synchronize()
-    return _device_events(prof)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            time.sleep(0.005)
+            fn()
+            torch.cuda.synchronize()
+            time.sleep(0.005)
+        rows = _device_events(prof)
+        if rows:
+            return rows
+    raise AssertionError("three profiler traces held no device row")
 
 
 def device_ms(fn, cold: bool = False) -> float:

@@ -27,25 +27,29 @@
 //
 // Bound: memory. quantize needs 4n + n + 4 bytes; it reads x from device
 // memory once and makes one device launch a call, with no memset:
-//  - n <= kTile: one block. It stages x in shared memory (a cp.async.bulk
-//    copy completing on an mbarrier where x is 16-byte aligned, scalar
-//    loads otherwise), reduces the bit-pattern max, computes s and
-//    quantizes from shared memory with char4 stores. No scratch, no
-//    barrier across blocks.
+//  - n <= kTile: one block. Its threads load the tile into registers
+//    (kQuads float4s each, 16-byte loads where x is 16-byte aligned,
+//    scalar loads otherwise), the block reduces the bit-pattern max and
+//    computes s, and the threads quantize what they hold with char4
+//    stores. No scratch, no barrier across blocks.
 //  - n > kTile: one cooperative launch of min(ceil(n / kTile), co-resident
-//    blocks) blocks. Each block stages its first tile, reduces it and
-//    writes its max to its own slot; the grid syncs once
+//    blocks) blocks. Each block loads its first tile the same way, reduces
+//    it and writes its max to its own slot; the grid syncs once
 //    (cg::this_grid().sync()); every block reduces all slots in index
-//    order (nothing to zero first), then quantizes its staged tile. The
+//    order (nothing to zero first), then quantizes the tile it holds. The
 //    co-resident count is cudaOccupancyMaxActiveBlocksPerMultiprocessor x
 //    the SM count, computed once per device and cached here.
-//  - Past grid x kTile elements (n > co-resident x kTile: 1,056 x 4,096 =
-//    4,325,376 at 8 blocks an SM on 132 SMs) a block's further tiles are
-//    read for the max and read a second time to quantize.
-// kTile (4,096 floats, 16 KB a block) was picked by chip_codec_tiles.py:
-// it is where one block's load of a tile stops being cheaper than the
-// grid barrier (PERF.md). A failed occupancy query, or 0 co-resident
-// blocks, is an error; nothing falls back.
+//  - Past grid x kTile elements (n > co-resident x kTile) a block's further
+//    tiles are read for the max and read a second time to quantize. On an
+//    H100 (48 registers a thread, 5 blocks an SM: 660 blocks) that starts
+//    past 2,703,360 elements; ResNet-18's largest leaf holds 2,359,296.
+// Measured on an H100 (PERF.md): holding the tile in registers took 3%
+// less device time over ResNet-18's 62 leaves than staging it in shared
+// memory by a cp.async.bulk copy on an mbarrier (the first design), and
+// kTile = 4,096 beat 8,192 and 16,384 there (chip_codec_tiles.py). A
+// 2-block grid costs ~1.5 us more than one block: the grid barrier and the
+// slot reads after it. A failed occupancy query, or 0 co-resident blocks,
+// is an error; nothing falls back.
 // dequant_sum reads W*n + 4W bytes and writes 4n: 4 codes a thread (a
 // coalesced 4-byte load per rank, a float4 store) where n % 4 == 0 and the
 // pointers are aligned, 1 otherwise; the grid sized to the leaf.
@@ -65,12 +69,12 @@ namespace {
 #ifndef QUANT_TILE  // set only by chip_codec_tiles.py, to measure others
 #define QUANT_TILE 4096
 #endif
-constexpr int kTile = QUANT_TILE;  // floats a block stages
+constexpr int kTile = QUANT_TILE;  // floats a block holds
 constexpr int kThreads = 256;
+constexpr int kQuads = kTile / (4 * kThreads);  // float4s a thread holds
 constexpr int kMaxDevices = 64;
 constexpr float kInv127 = 1.0f / 127.0f;  // rounded to f32 at compile time
-static_assert(kTile % (4 * kThreads) == 0 && kTile * 4 <= 48 * 1024,
-              "whole float4 passes, in static shared memory");
+static_assert(kTile % (4 * kThreads) == 0, "whole float4s a thread");
 
 __device__ __forceinline__ float scale_from_bits(int bits) {
   const float s = __fmul_rn(__int_as_float(bits), kInv127);
@@ -100,48 +104,44 @@ __host__ __device__ __forceinline__ bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
 }
 
-// -- PTX: mbarrier and the 1D bulk copy (kept here: each source stands alone)
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(smem_u32(bar)), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-// len floats of src into tile: the 16-byte multiple by one bulk copy where
-// src is 16-byte aligned (vec), the rest by scalar loads; every thread of
-// the block calls it and may read the tile when it returns
-__device__ __forceinline__ void stage(const float* __restrict__ src, int len, bool vec,
-                                      float* tile, uint64_t* bar) {
-  const int bulk = vec ? (len & ~3) : 0;
-  if (bulk && threadIdx.x == 0) {
-    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_u32(bar))
-                 : "memory");
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-                     smem_u32(bar)),
-                 "r"(bulk * 4)
-                 : "memory");
-    asm volatile(
-        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-        "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(tile)),
-        "l"(src), "r"(bulk * 4), "r"(smem_u32(bar))
-        : "memory");
+// this thread's quads of the tile x[0, len): quad j holds x[4 * (threadIdx.x
+// + j * kThreads) ...]. Where x is 16-byte aligned and len % 4 == 0 (every
+// tile of such a leaf) each quad is one 16-byte load, all issued before
+// any is used; otherwise scalar loads. Lanes past len read 0, which no
+// max|x| can lose to.
+__device__ __forceinline__ void load_quads(const float* __restrict__ x, int len, bool vec,
+                                           float4 (&v)[kQuads]) {
+  if (vec && (len & 3) == 0) {
+#pragma unroll
+    for (int j = 0; j < kQuads; ++j) {
+      const int i = 4 * (threadIdx.x + j * kThreads);
+      v[j] = i < len ? *reinterpret_cast<const float4*>(x + i) : make_float4(0, 0, 0, 0);
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < kQuads; ++j) {
+      const int i = 4 * (threadIdx.x + j * kThreads);
+      v[j] = make_float4(i < len ? x[i] : 0.0f, i + 1 < len ? x[i + 1] : 0.0f,
+                         i + 2 < len ? x[i + 2] : 0.0f, i + 3 < len ? x[i + 3] : 0.0f);
+    }
   }
-  for (int i = bulk + threadIdx.x; i < len; i += kThreads) tile[i] = src[i];
-  __syncthreads();  // the scalar part, and the barrier's init for the wait
-  if (bulk) mbar_wait(bar, 0);
+}
+
+// q[0, len) from this thread's quads: char4 stores (q is 4-byte aligned),
+// byte stores for a partial last quad
+__device__ __forceinline__ void quant_quads(const float4 (&v)[kQuads], int len, float s,
+                                            int8_t* __restrict__ q) {
+#pragma unroll
+  for (int j = 0; j < kQuads; ++j) {
+    const int i = 4 * (threadIdx.x + j * kThreads);
+    if (i + 4 <= len) {
+      *reinterpret_cast<char4*>(q + i) = quant4(v[j], s);
+    } else if (i < len) {
+      q[i] = quant1(v[j].x, s);
+      if (i + 1 < len) q[i + 1] = quant1(v[j].y, s);
+      if (i + 2 < len) q[i + 2] = quant1(v[j].z, s);
+    }
+  }
 }
 
 // the max of v over the block, in every thread
@@ -156,8 +156,7 @@ __device__ __forceinline__ int block_max(int v, int* red) {
   return v;
 }
 
-// max|x| bits of x[0, len) (shared or global memory; float4 loads where
-// vec: x 16-byte aligned)
+// max|x| bits of x[0, len) (global memory; float4 loads where vec)
 __device__ __forceinline__ int range_max(const float* __restrict__ x, int len, bool vec) {
   int m = 0;
   const int len4 = vec ? (len & ~3) : 0;
@@ -167,10 +166,10 @@ __device__ __forceinline__ int range_max(const float* __restrict__ x, int len, b
   return m;
 }
 
-// q[0, len) from x[0, len) (shared or global memory; float4 loads and char4
-// stores where vec: x 16-byte and q 4-byte aligned)
-__device__ __forceinline__ void range_quant(const float* x, int len, bool vec, float s,
-                                            int8_t* __restrict__ q) {
+// q[0, len) from x[0, len) (global memory; float4 loads and char4 stores
+// where vec)
+__device__ __forceinline__ void range_quant(const float* __restrict__ x, int len, bool vec,
+                                            float s, int8_t* __restrict__ q) {
   const int len4 = vec ? (len & ~3) : 0;
   for (int i = 4 * threadIdx.x; i < len4; i += 4 * kThreads)
     *reinterpret_cast<char4*>(q + i) = quant4(*reinterpret_cast<const float4*>(x + i), s);
@@ -178,22 +177,24 @@ __device__ __forceinline__ void range_quant(const float* x, int len, bool vec, f
 }
 
 // kGrid false: one block, n <= kTile. kGrid true: a cooperative grid, each
-// block's first tile staged, slots[gridDim.x] the blocks' maxima.
+// block's first tile held in its threads' registers, slots[gridDim.x] the
+// blocks' maxima.
 template <bool kGrid>
 __global__ void __launch_bounds__(kThreads)
 quant_kernel(const float* __restrict__ x, long long n, int8_t* __restrict__ q,
              float* __restrict__ scale_out, int* __restrict__ slots) {
-  __shared__ alignas(128) float tile[kTile];
-  __shared__ alignas(8) uint64_t bar;
   __shared__ int red[kThreads / 32];
   const bool vec = aligned16(x);
   const long long start = static_cast<long long>(blockIdx.x) * kTile;
   const int len = static_cast<int>(min(static_cast<long long>(kTile), n - start));
-  stage(x + start, len, vec, tile, &bar);
-  int m = range_max(tile, len, true);
+  float4 v[kQuads];
+  load_quads(x + start, len, vec, v);
+  int m = 0;
+#pragma unroll
+  for (int j = 0; j < kQuads; ++j) m = max(m, abs_bits4(v[j]));
+  const long long stride = static_cast<long long>(gridDim.x) * kTile;
   if constexpr (kGrid) {  // tiles past the grid's first: read here and again below
-    for (long long t = start + static_cast<long long>(gridDim.x) * kTile; t < n;
-         t += static_cast<long long>(gridDim.x) * kTile)
+    for (long long t = start + stride; t < n; t += stride)
       m = max(m, range_max(x + t, static_cast<int>(min(static_cast<long long>(kTile), n - t)),
                            vec));
   }
@@ -208,10 +209,9 @@ quant_kernel(const float* __restrict__ x, long long n, int8_t* __restrict__ q,
   }
   const float s = scale_from_bits(m);
   if (blockIdx.x == 0 && threadIdx.x == 0) *scale_out = s;
-  range_quant(tile, len, true, s, q + start);
+  quant_quads(v, len, s, q + start);
   if constexpr (kGrid) {
-    for (long long t = start + static_cast<long long>(gridDim.x) * kTile; t < n;
-         t += static_cast<long long>(gridDim.x) * kTile)
+    for (long long t = start + stride; t < n; t += stride)
       range_quant(x + t, static_cast<int>(min(static_cast<long long>(kTile), n - t)), vec, s,
                   q + t);
   }
@@ -296,7 +296,7 @@ int launch_dequant_sum(const void* q, const void* scales, int world, long long n
 
 extern "C" {
 
-// Floats quant_int8 stages a block (the wrapper sizes its buffer by it).
+// Floats one quant_int8 block holds (the wrapper sizes its buffer by it).
 int quant_int8_tile() { return kTile; }
 
 // The grid quant_int8 launches for n elements on the current device: 1 for

@@ -18,8 +18,8 @@
 //    per load) and one 4-byte store of its 4 packed bytes. A block of 256
 //    threads covers 8 rows a pass; x not 16-byte aligned takes scalar loads.
 //  - Each thread sums its |x| in a fixed order, then the block in a fixed
-//    tree. rows <= kOneBlockRows: one block loops over every pass and
-//    writes the total; no scratch, no barrier across blocks.
+//    tree. rows <= 8: one block (one pass) writes the total; no scratch,
+//    no barrier across blocks.
 //  - Larger: one cooperative launch of min(ceil(rows / 8), co-resident)
 //    blocks (cudaOccupancyMaxActiveBlocksPerMultiprocessor x the SM count,
 //    cached per device), looping over passes. Each block writes its partial
@@ -31,7 +31,10 @@
 //    ceil(rows / 8) blocks.
 // The TPU kernel carried the sum across its sequential grid in an SMEM
 // scalar; CUDA blocks run in no order, hence the slots and the barrier.
-// kOneBlockRows was picked by chip_codec_tiles.py (PERF.md). A failed
+// One block up to 8 rows (one pass) was picked by measurement on an H100:
+// one block looping up to 16, 32 or 64 rows took as long or longer over
+// ResNet-18's 20 leaves (PERF.md). A 9-row grid costs ~1.5 us more than an
+// 8-row block: the grid barrier and the slot reads after it. A failed
 // occupancy query, or 0 co-resident blocks, is an error.
 // unpack: one thread per packed byte, eight coalesced f32 stores.
 //
@@ -47,14 +50,11 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-#ifndef SIGN_ONE_BLOCK_ROWS  // set only by chip_codec_tiles.py
-#define SIGN_ONE_BLOCK_ROWS 32
-#endif
 constexpr int kLane = 128;                 // lanes per packed row
 constexpr int kGroup = 8 * kLane;          // elements per packed row
 constexpr int kThreads = 256;
 constexpr int kRowsPerPass = kThreads / 32;  // 32 threads x 4 lanes a row
-constexpr int kOneBlockRows = SIGN_ONE_BLOCK_ROWS;
+constexpr int kOneBlockRows = kRowsPerPass;  // one block sums one pass
 constexpr int kMaxDevices = 64;
 
 __device__ __forceinline__ float block_sum(float v, float* red) {

@@ -82,6 +82,28 @@ def test_quantize_matches_jax(n, case):
         assert not q.numpy().any()
 
 
+# The quantize kernel's edges (``csrc/quant.cu``): one block up to its tile
+# of TILE floats, a cooperative grid above it, and past the grid's
+# co-resident tiles (GRID_TILES on the H100) a second read. The card tests
+# hold the kernel to the plain version at the same sizes.
+TILE = 4096
+GRID_TILES = 660
+EDGE_SIZES = [TILE - 1, TILE, TILE + 1, 100_003, GRID_TILES * TILE + 4099]
+
+
+@pytest.mark.parametrize("case", ["plain", "ties", "nan", "inf", "zeros"])
+@pytest.mark.parametrize("n", EDGE_SIZES)
+def test_quantize_matches_jax_at_the_kernels_edges(n, case):
+    x = _grad(n, case)
+    q, s = Q.quantize_int8(torch.from_numpy(x))
+    jq, js = quant_pallas.quantize_int8(jnp.asarray(x))
+    np.testing.assert_array_equal(q.numpy(), np.asarray(jq))
+    _same_floats(np.asarray(s.numpy()), np.asarray(js, np.float32))
+    p = _jit_encode(jnp.asarray(x))
+    np.testing.assert_array_equal(q.numpy(), np.asarray(p["q"]))
+    _same_floats(np.asarray(s.numpy()), np.asarray(p["scale"], np.float32))
+
+
 def test_scale_matches_jax_over_magnitudes():
     # 400 gradients whose max|x| spans 1e-14..1e8: the scale and the
     # codes equal the jitted JAX encode's, the floor 1e-12 included

@@ -45,6 +45,29 @@ def test_encode_and_pack_match_pallas(n, planted):
         np.testing.assert_allclose(float(total), float(jtotal), rtol=1e-6)
 
 
+# The encode kernel's edges (``csrc/sign.cu``), in packed rows of 1024:
+# one block sums up to ONE_BLOCK_ROWS rows, a cooperative grid above that,
+# looping past its co-resident blocks' first pass (GRID_ROWS on the
+# H100). The card tests hold the kernel to the plain version there.
+ONE_BLOCK_ROWS = 8
+GRID_ROWS = 1056 * 8
+EDGE_ROWS = [ONE_BLOCK_ROWS - 1, ONE_BLOCK_ROWS, ONE_BLOCK_ROWS + 1, 2304,
+             GRID_ROWS + 3]
+
+
+@pytest.mark.parametrize("planted", [False, True])
+@pytest.mark.parametrize("rows", EDGE_ROWS)
+def test_encode_matches_pallas_at_the_kernels_edges(rows, planted):
+    x = _grad(rows * 1024, planted)
+    packed, total = S.encode_signs_ref(torch.from_numpy(x))
+    jpacked, jtotal = sign_pallas.encode_signs(jnp.asarray(x))
+    np.testing.assert_array_equal(packed.numpy(), np.asarray(jpacked))
+    if planted:
+        assert np.isnan(float(total)) and np.isnan(float(jtotal))
+    else:
+        np.testing.assert_allclose(float(total), float(jtotal), rtol=1e-6)
+
+
 @pytest.mark.parametrize("m", [128, 1152, 128 * 13])
 def test_unpack_matches_pallas(m):
     p = np.random.RandomState(m).randint(0, 256, size=m).astype(np.uint8)
