@@ -149,12 +149,11 @@ def _device_events(prof) -> list:
 
 def _profiled(fn, cold: bool = False) -> list:
     """The device rows of one call of ``fn`` after a warm-up call;
-    ``cold``: with the 50 MB L2 flushed just before. The trace's window
-    opens and closes 5 ms away from the work: late in a long process,
-    traces whose kernels sat at the window's edges lost them (a single
-    kernel's trace came back empty, a three-kernel one kept the middle
-    kernel). A trace with no device row at all is taken again, at most
-    twice, and then the run fails."""
+    ``cold``: with the 50 MB L2 flushed just before. Every ``fn`` here
+    launches work, yet a trace of one call now and then comes back
+    without its kernel (seen for single cooperative launches on an H100):
+    an empty trace is taken again, at most twice, and then fails the
+    run."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -163,10 +162,8 @@ def _profiled(fn, cold: bool = False) -> list:
             torch.empty(2**27, dtype=torch.int8, device="cuda").fill_(1)
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            time.sleep(0.005)
             fn()
             torch.cuda.synchronize()
-            time.sleep(0.005)
         rows = _device_events(prof)
         if rows:
             return rows
@@ -387,12 +384,13 @@ def sign_edge_rows() -> tuple:
 
 def one_launch_design(kernel: str, fn, xs: list, grid, nbytes,
                       **tile) -> None:
-    """The one-launch design of ``fn`` at the main path's leaves: the
-    grid it chose for each leaf size, the device rows of one call (each
-    must be 1: no memset, no second kernel) and the largest leaf's cold
-    device ms against its byte bound."""
+    """The one-launch design of ``fn`` at the main path's leaves: for each
+    leaf size the grid it chose and one call's device µs (warm), the
+    device rows of one call (each must be 1: no memset, no second kernel)
+    and the largest leaf's cold device ms against its byte bound."""
     by_size = {x.numel(): x for x in xs}
-    rows = {n: device_launches(lambda: fn(x)) for n, x in by_size.items()}
+    traces = {n: _profiled(lambda: fn(x)) for n, x in by_size.items()}
+    rows = {n: sum(e.count for e in t) for n, t in traces.items()}
     if set(rows.values()) != {1}:
         raise AssertionError(f"{kernel}: device rows a call {rows}, not 1")
     n = max(by_size)
@@ -402,9 +400,12 @@ def one_launch_design(kernel: str, fn, xs: list, grid, nbytes,
           block=256, device_rows_per_call=1,
           grids=json.dumps({m: grid(m) for m in sorted(by_size)},
                            separators=(",", ":")),
+          device_us=json.dumps(
+              {m: round(sum(e.self_device_time_total for e in traces[m]), 3)
+               for m in sorted(by_size)}, separators=(",", ":")),
           largest_leaf=n, cold_device_ms=f"{cold:.4f}",
           bound_ms=f"{bound:.5f}", share_of_bound=f"{bound / cold:.3f}",
-          alternative="not measured")
+          alternative="programmatic dependent launch: not measured")
 
 
 # -- int8 quantize / dequantize-sum --------------------------------------------

@@ -46,7 +46,7 @@
 // Measured on an H100 (PERF.md): holding the tile in registers took 3%
 // less device time over ResNet-18's 62 leaves than staging it in shared
 // memory by a cp.async.bulk copy on an mbarrier (the first design), and
-// kTile = 4,096 beat 8,192 and 16,384 there (chip_codec_tiles.py). A
+// kTile = 4,096 beat 8,192 and 16,384 there (each built and timed). A
 // 2-block grid costs ~1.5 us more than one block: the grid barrier and the
 // slot reads after it. A failed occupancy query, or 0 co-resident blocks,
 // is an error; nothing falls back.
@@ -66,10 +66,7 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-#ifndef QUANT_TILE  // set only by chip_codec_tiles.py, to measure others
-#define QUANT_TILE 4096
-#endif
-constexpr int kTile = QUANT_TILE;  // floats a block holds
+constexpr int kTile = 4096;  // floats a block holds
 constexpr int kThreads = 256;
 constexpr int kQuads = kTile / (4 * kThreads);  // float4s a thread holds
 constexpr int kMaxDevices = 64;

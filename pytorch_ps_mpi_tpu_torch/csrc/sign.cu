@@ -54,7 +54,6 @@ constexpr int kLane = 128;                 // lanes per packed row
 constexpr int kGroup = 8 * kLane;          // elements per packed row
 constexpr int kThreads = 256;
 constexpr int kRowsPerPass = kThreads / 32;  // 32 threads x 4 lanes a row
-constexpr int kOneBlockRows = kRowsPerPass;  // one block sums one pass
 constexpr int kMaxDevices = 64;
 
 __device__ __forceinline__ float block_sum(float v, float* red) {
@@ -174,7 +173,7 @@ int sign_encode_rows_per_block() { return kRowsPerPass; }
 long long sign_encode_grid(long long rows, int with_sum) {
   const long long passes = (rows + kRowsPerPass - 1) / kRowsPerPass;
   if (!with_sum) return passes;
-  if (rows <= kOneBlockRows) return 1;
+  if (rows <= kRowsPerPass) return 1;  // one block sums one pass
   cudaError_t err;
   const int cap = encode_coresident(&err);
   if (cap <= 0) return -static_cast<long long>(err);

@@ -97,7 +97,7 @@ def _check(x: torch.Tensor, dtype: torch.dtype, dim: int, what: str) -> None:
 
 @functools.lru_cache(maxsize=None)
 def _tile() -> int:
-    """Floats one block of the quantize kernel stages."""
+    """Floats one block of the quantize kernel holds."""
     return _lib().quant_int8_tile()
 
 
@@ -120,8 +120,7 @@ def quantize_int8(flat: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     n = flat.shape[0]
     tile = _tile()
     words = (n + 3) // 4  # the scale's word
-    buf = torch.empty(words + 1 + (0 if n <= tile else -(-n // tile)),
-                      dtype=torch.float32, device=flat.device)
+    buf = flat.new_empty(words + 1 + (0 if n <= tile else -(-n // tile)))
     _build.launch(_lib().quant_int8, flat.get_device(), flat.data_ptr(),
                   buf.data_ptr(), n)
     quantize_int8.launches += 1

@@ -113,7 +113,7 @@ def _encode(flat: torch.Tensor, with_sum: bool) -> torch.Tensor:
     words = rows * (LANE // 4)
     if with_sum:
         words += 1 - (-rows // _rows_per_block())
-    buf = torch.empty(words, dtype=torch.float32, device=flat.device)
+    buf = flat.new_empty(words)
     _build.launch(_lib().sign_encode, flat.get_device(), flat.data_ptr(),
                   buf.data_ptr(), rows, int(with_sum))
     return buf
@@ -152,7 +152,7 @@ def unpack_signs(packed: torch.Tensor) -> torch.Tensor:
     if not packed.is_contiguous():
         packed = packed.contiguous()
     m = packed.shape[0]
-    out = torch.empty(8 * m, dtype=torch.float32, device=packed.device)
+    out = packed.new_empty(8 * m, dtype=torch.float32)
     _build.launch(_lib().sign_unpack, packed.get_device(), packed.data_ptr(),
                   out.data_ptr(), m)
     unpack_signs.launches += 1

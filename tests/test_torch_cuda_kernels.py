@@ -36,6 +36,17 @@ from pytorch_ps_mpi_tpu_torch.ops import topk as T
 pytestmark = pytest.mark.cuda
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _built():
+    # every library first, as chip_smoke.py builds them: in runs that
+    # compiled libraries between profiled tests, a later trace lost
+    # kernel records (1 of 3 flash kernels seen)
+    if torch.cuda.is_available():
+        from pytorch_ps_mpi_tpu_torch.ops import _build
+
+        _build.build(*_build.SOURCES)
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
@@ -203,29 +214,26 @@ def test_quant_kernels_are_the_same_from_run_to_run(cuda):
 # cooperative grid with one grid barrier above it, and past the grid's
 # co-resident tiles a second read of the tiles a block could not stage.
 
-def _device_rows(fn) -> list:
+def _device_rows(fn, launches: int = 1) -> list:
     """The device rows (kernels and memsets) of one call of ``fn``, by
-    name, after a warm-up call. The trace's window opens and closes 5 ms
-    away from the work: late in a long process, kernels at a window's
-    edges went missing from its trace. A trace with no row at all is
-    taken again, at most twice."""
-    import time
-
+    name, after a warm-up call. A trace now and then comes back without
+    some of the call's kernels (on an H100: a single cooperative launch's
+    trace empty, a flash trace with 1 of its 3 kernels), so a trace with
+    fewer rows than the ``launches`` the call makes is taken again, at
+    most twice; the caller asserts on the last one."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     for _ in range(3):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            time.sleep(0.005)
             fn()
             torch.cuda.synchronize()
-            time.sleep(0.005)
         rows = [e.key for e in prof.key_averages()
                 if e.device_type == torch.autograd.DeviceType.CUDA
                 for _ in range(e.count)]
-        if rows:
-            return rows
+        if len(rows) >= launches:
+            break
     return rows
 
 
@@ -673,7 +681,7 @@ def test_flash_dtype_takes_its_kernels(cuda, dtype, kernels, not_in):
     # the CUDA-core ones (attention.cu): the kernel names in a trace
     gen = torch.Generator(device="cuda").manual_seed(1)
     q, k, v, g, _ = (t.to(dtype) for t in _bf16_set(gen, 4, 128, 64, cuda))
-    names = _device_rows(lambda: _fwd_bwd(q, k, v, g, None))
+    names = _device_rows(lambda: _fwd_bwd(q, k, v, g, None), launches=3)
     flash = [n for n in names if "flash" in n]
     assert len(flash) == 3, names
     for kern in kernels:
