@@ -11,12 +11,14 @@ bf16 flash attention calls at [48, 512, 64], forward and backward, the
 device ms of each kernel from 5 profiled rounds) or ``codec`` (one
 ResNet-18 step's 62 ``quantize_int8`` and 20 ``encode_signs`` calls: the
 device ms and device rows from 5 profiled rounds, and the calls' ms by
-CUDA events, host launch cost included); default: ``int8``, ``qsgd``
-and ``ef_topk``. Each path runs from each checkout in a process of its
+CUDA events, host launch cost included) or ``decode``
+(``SignCodec.decode_sum`` over ResNet-18's 20 kernel-layout leaves at
+world 1 and 8, the same figures and the unpack launches counted);
+default: ``int8``, ``qsgd`` and ``ef_topk``. Each path runs from each checkout in a process of its
 own (5 loss steps, 1 grads-only step, the launch counts asserted, 1
 profiled step), in turns: parent, change, change, parent, parent,
-change. Each run prints its ``main_path``, ``profile``, ``flash_ab`` or
-``codec_ab`` lines prefixed with ``ab=<parent|change> run=<i>``; the
+change. Each run prints its ``main_path``, ``profile``, ``flash_ab``,
+``codec_ab`` or ``decode_ab`` lines prefixed with ``ab=<parent|change> run=<i>``; the
 card's name and power limit come first. Needs one CUDA device.
 """
 
@@ -81,6 +83,44 @@ try:
                     f"{name}_rows={sum(e.count for e in events)}",
                     f"{name}_ms={C.cuda_ms(step, reps=5, rounds=3):.4f}"]
             print("phase=codec_ab " + " ".join(fields), flush=True)
+    elif code == "decode":
+        from pytorch_ps_mpi_tpu_torch.codecs import get_codec
+        from pytorch_ps_mpi_tpu_torch.ops import sign as S
+
+        # the parent has no unpack_signs_sum: count what each tree has
+        counters = [getattr(S, n) for n in ("unpack_signs", "unpack_signs_sum")
+                    if hasattr(S, n)]
+        model = ResNet18(num_classes=10, small_inputs=True, seed=0,
+                         device="cuda")
+        sign = get_codec("sign")
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        shapes = [tuple(p.shape) for p in model.parameters()
+                  if p.numel() % 1024 == 0]
+        for world in (1, 8):
+            calls = []
+            for shape in shapes:
+                payloads = [sign.encode(1e-2 * torch.randn(
+                    shape, generator=gen, device="cuda"))[0]
+                    for _ in range(world)]
+                calls.append(({k: torch.stack([p[k] for p in payloads])
+                               for k in ("packed", "scale")}, shape))
+
+            def step():
+                for stacked, shape in calls:
+                    sign.decode_sum(stacked, shape, torch.float32)
+
+            for _ in range(5):
+                events = C._profiled(step)
+                for c in counters:
+                    c.launches = 0
+                step()
+                torch.cuda.synchronize()
+                print(f"phase=decode_ab world={world} leaves={len(calls)} "
+                      f"device_ms={sum(e.self_device_time_total for e in events) / 1e3:.4f} "
+                      f"rows={sum(e.count for e in events)} "
+                      f"launches={sum(c.launches for c in counters)} "
+                      f"ms={C.cuda_ms(step, reps=5, rounds=3):.4f}",
+                      flush=True)
     elif code.startswith("bert_"):
         # 12 flash forward and 12 + 12 backward launches a loss step;
         # TernGrad packs 61 leaves whole and 2 in 23 chunks, unpack-sums 63
@@ -103,7 +143,11 @@ try:
         model = ResNet18(num_classes=10, small_inputs=True, seed=0,
                          device="cuda")
         if code == "sign":
-            per = {"encode_signs": 20, "unpack_signs": 20}
+            from pytorch_ps_mpi_tpu_torch.ops import sign as S
+
+            unpack = ("unpack_signs_sum" if hasattr(S, "unpack_signs_sum")
+                      else "unpack_signs")
+            per = {"encode_signs": 20, unpack: 20}
         else:
             per = {"dequantize_int8": 62}
         if code == "int8":
@@ -133,7 +177,7 @@ def main() -> int:
                                  text=True)
             for line in run.stdout.splitlines():
                 if line.startswith(("phase=main_path", "phase=flash_ab",
-                                    "phase=codec_ab")):
+                                    "phase=codec_ab", "phase=decode_ab")):
                     print(f"ab={side} run={i} {line}", flush=True)
                 elif line.startswith("phase=profile"):
                     print(f"ab={side} run={i} {line[:160]}", flush=True)

@@ -18,15 +18,20 @@ Phases, one line each; the script exits non-zero if any fails:
                - the sign kernels at ResNet-18's 20 kernel-path leaves, at
                  one row below, at and above the rows one encode block
                  sums, and past the co-resident grid (bytes bit-exact, |x|
-                 sum within rtol 1e-6, -0.0 and NaN);
+                 sum within rtol 1e-6, -0.0 and NaN); the unpack-sum
+                 there at world 1 and 8 with zero, subnormal, +Inf and NaN
+                 scales, sums below the smallest normal float and a view
+                 one byte into its buffer (bit-exact, NaN by position),
+                 timed over the 20 leaves at each world;
                - int8 quantize and dequantize-sum at ResNet-18's 62 leaves,
                  world 1 and world 8, and quantize also one below, at and
                  above its tile and past the co-resident grid (codes,
                  scales and floats bit-exact; NaN, ±Inf, ±0.0 and exact .5
                  ties);
-               - for the one-launch quantize and sign encode: the grid each
-                 leaf size takes, one device row a call (asserted), and the
-                 largest leaf's cold device ms against its byte bound;
+               - for the one-launch quantize, sign encode and unpack-sum:
+                 the grid each leaf size takes, one device row a call
+                 (asserted), and the largest leaf's cold device ms against
+                 its byte bound;
                - int8 dequantize-sum also at n % 16 == 0, n % 16 == 4,
                  odd n and a view that starts one byte in, and at the
                  largest leaf (2,359,296 codes) at world 8;
@@ -63,8 +68,10 @@ Phases, one line each; the script exits non-zero if any fails:
                timed too, forward and backward alone). ``attention`` then
                times the dense attention of ``attention="full"`` against
                flash at BERT-base's shape.
-4. decode_sum -- 8 stacked sign payloads for every ResNet-18 leaf through
-               ``SignCodec.decode_sum``; bit-exact against the plain fold.
+4. decode_sum -- 1 and 8 stacked sign payloads for every ResNet-18 leaf
+               through ``SignCodec.decode_sum``: bit-exact against the
+               plain fold, one device row a kernel-layout leaf (asserted),
+               and its ms and device ms over the 20 kernel leaves.
 5. reference -- grads-only steps on the card against the same steps on the
                CPU (the plain versions), rtol 1e-6: SGD(sign) and
                SGD(int8) on ResNet-18, SGD(ef∘topk) on ResNet-50, and
@@ -358,6 +365,7 @@ def check_kernels(sizes: list) -> dict:
         r["max_abs_err"] = max_err[name]
         results[name] = r
         report(name, r, leaves=len(sizes), cases=2 * len(cases))
+    results["unpack_signs_sum"] = check_unpack_sum(sizes, cases, gen)
     sum_ms = sum(cuda_ms(lambda: torch.sum(x.abs())) for x in xs)
     phase("kernels", yardstick="torch.sum(x.abs()) over the 20 leaves",
           ms=f"{sum_ms:.4f}")
@@ -369,6 +377,77 @@ def check_kernels(sizes: list) -> dict:
         rows_per_block_pass=S._rows_per_block(), one_block_rows=one,
         cases=len(cases))
     return results
+
+
+def _unpack_sum_case(m: int, world: int, case: str, gen) -> tuple:
+    """Packed bits [world, m] and float32 scales [world] on the card:
+    ``planted``: rank 0's scale 0.0 (each -0 folds to +0), then a
+    subnormal and scales within [1, 2) x the smallest normal float, whose
+    sums fall below it (flushed); ``nonfinite``: +Inf, and NaN in rank 5;
+    ``unaligned``: a view one byte into its buffer."""
+    offset = 1 if case == "unaligned" else 0
+    buf = torch.randint(0, 256, (world * m + offset,), generator=gen,
+                        device="cuda", dtype=torch.uint8)
+    scales = torch.rand(world, generator=gen, device="cuda") + 0.1
+    tiny = torch.finfo(torch.float32).tiny
+    planted = {"planted": [0.0, 3e-39] + [tiny * (1 + w / 16)
+                                          for w in range(1, 7)],
+               "nonfinite": [math.inf, 0.5, 0.25, 2.0, 1.0, math.nan, 0.5,
+                             0.125]}
+    if case in planted:
+        scales = torch.tensor(planted[case][:world], device="cuda")
+    return buf[offset:].view(world, m), scales
+
+
+def _same_bits(got: torch.Tensor, want: torch.Tensor) -> bool:
+    """NaN at the same places, every other element bit for bit."""
+    nan = torch.isnan(want)
+    return (torch.equal(torch.isnan(got), nan)
+            and torch.equal(got[~nan].view(torch.int32),
+                            want[~nan].view(torch.int32)))
+
+
+def check_unpack_sum(sizes: list, cases: list, gen) -> dict:
+    """``unpack_signs_sum`` at world 1 and 8: bit-exact against its plain
+    version at every sign case size, plain, planted, non-finite and
+    unaligned; then over the 20 leaves at each world its times, one
+    device row a call and the largest leaf's cold share of its bound.
+    Returns the world-1 row (the main path's world)."""
+    from pytorch_ps_mpi_tpu_torch.ops import sign as S
+
+    checked = 0
+    for world in (1, 8):
+        for n in cases:
+            for case in ("plain", "planted", "nonfinite", "unaligned"):
+                packed, scales = _unpack_sum_case(n // 8, world, case, gen)
+                got = S.unpack_signs_sum(packed, scales)
+                if not _same_bits(got, S.unpack_signs_sum_ref(packed,
+                                                              scales)):
+                    raise AssertionError(f"unpack_signs_sum differs at "
+                                         f"n={n}, world={world}, {case}")
+                if case == "planted" and world == 1 \
+                        and torch.signbit(got).any():
+                    raise AssertionError("a -0 survived the fold from +0")
+                checked += 1
+    rows = {}
+    for world in (1, 8):
+        args = [_unpack_sum_case(n // 8, world, "plain", gen)
+                for n in sizes]
+        r = timed(lambda p, s: S.unpack_signs_sum(p, s),
+                  lambda p, s: S.unpack_signs_sum_ref(p, s), args,
+                  lambda p, s: p.numel() + 4 * s.numel() + 32 * p.shape[1])
+        r["max_abs_err"] = 0.0  # bit-exact, asserted above
+        report("unpack_signs_sum", r, world=world, leaves=len(sizes),
+               cases=checked)
+        scales = args[0][1]
+        one_launch_design(
+            "unpack_signs_sum", lambda p: S.unpack_signs_sum(p, scales),
+            [p for p, _ in args],
+            lambda n: -(-n // world // S.LANE // 8),
+            lambda n: n + 4 * world + 32 * n // world, world=world,
+            sizes_in="packed bytes, world x m")
+        rows[world] = r
+    return rows[1]
 
 
 def sign_edge_rows() -> tuple:
@@ -1055,32 +1134,60 @@ def sdpa_backends(sets) -> None:
 # -- decode_sum and the reference steps -----------------------------------------
 
 def check_decode_sum(model) -> None:
-    """8 workers' sign payloads for every leaf through decode_sum: the
-    kernel path bit-exact against the plain fold."""
+    """1 and 8 workers' sign payloads for every leaf through decode_sum:
+    the kernel path bit-exact against the plain fold of ``unpack_signs_ref
+    * scale``; one device row a kernel-layout leaf (the rank-by-rank fold
+    made 1 + 3 x world); decode_sum's time over the 20 kernel leaves."""
     from pytorch_ps_mpi_tpu_torch.codecs import get_codec
     from pytorch_ps_mpi_tpu_torch.ops import sign as S
 
     code = get_codec("sign")
     gen = torch.Generator(device="cuda").manual_seed(1)
-    workers, leaves = 8, 0
-    for p in model.parameters():
-        shape = tuple(p.shape)
-        payloads = [code.encode(torch.randn(shape, generator=gen,
-                                            device="cuda"))[0]
-                    for _ in range(workers)]
-        stacked = {k: torch.stack([pl[k] for pl in payloads])
-                   for k in ("packed", "scale")}
-        got = code.decode_sum(stacked, shape, torch.float32)
-        if p.numel() % S.GROUP == 0:
-            want = torch.zeros(shape, device="cuda")
-            for r in range(workers):
-                want.add_((S.unpack_signs_ref(stacked["packed"][r])
-                           * stacked["scale"][r]).reshape(shape))
-            if not torch.equal(got, want):
-                raise AssertionError(f"decode_sum differs, shape {shape}")
-            leaves += 1
-    phase("decode_sum", workers=workers, kernel_leaves=leaves,
-          all_leaves=len(list(model.parameters())), bit_exact=True)
+    for workers in (1, 8):
+        calls = []
+        for p in model.parameters():
+            shape = tuple(p.shape)
+            payloads = [code.encode(torch.randn(shape, generator=gen,
+                                                device="cuda"))[0]
+                        for _ in range(workers)]
+            stacked = {k: torch.stack([pl[k] for pl in payloads])
+                       for k in ("packed", "scale")}
+            got = code.decode_sum(stacked, shape, torch.float32)
+            if p.numel() % S.GROUP == 0:
+                want = torch.zeros(shape, device="cuda")
+                for r in range(workers):
+                    want.add_((S.unpack_signs_ref(stacked["packed"][r])
+                               * stacked["scale"][r]).reshape(shape))
+                if not torch.equal(got, want):
+                    raise AssertionError(f"decode_sum differs, shape {shape}"
+                                         f", {workers} workers")
+                calls.append((stacked, shape))
+
+        def step():
+            for stacked, shape in calls:
+                code.decode_sum(stacked, shape, torch.float32)
+
+        # one trace of the 20 calls; a trace short of rows (the profiler
+        # loses records now and then) is taken again, at most twice
+        for _ in range(3):
+            events = _profiled(step)
+            rows = sum(e.count for e in events)
+            if rows >= len(calls):
+                break
+        names = {e.key for e in events}
+        if rows != len(calls) or not all("sign_unpack_sum" in k
+                                         for k in names):
+            raise AssertionError(f"decode_sum: {rows} device rows ({names}) "
+                                 f"for {len(calls)} kernel leaves, not 1 a "
+                                 f"leaf")
+        nbytes = sum(st["packed"].numel() + 4 * workers
+                     + 32 * st["packed"].shape[1] for st, _ in calls)
+        busy = sum(e.self_device_time_total for e in events) / 1e3
+        phase("decode_sum", workers=workers, kernel_leaves=len(calls),
+              all_leaves=len(list(model.parameters())), bit_exact=True,
+              device_rows=rows, ms=f"{cuda_ms(step):.4f}",
+              device_ms=f"{busy:.4f}",
+              bound_ms=f"{nbytes / HBM_BYTES_PER_S * 1e3:.5f}")
 
 
 def make_codec(name: str):
@@ -1234,7 +1341,9 @@ def kernel_counters() -> dict:
     from pytorch_ps_mpi_tpu_torch.ops import tern as TG
 
     return {"encode_signs": S.encode_signs, "pack_signs": S.pack_signs,
-            "unpack_signs": S.unpack_signs, "quantize_int8": Q.quantize_int8,
+            "unpack_signs": S.unpack_signs,
+            "unpack_signs_sum": S.unpack_signs_sum,
+            "quantize_int8": Q.quantize_int8,
             "dequantize_int8": Q.dequant_sum, "exact_topk": T.exact_topk,
             "tern_pack": TG.tern_pack, "tern_unpack": TG.tern_unpack_sum,
             "flash_fwd": A.flash_fwd, "flash_bwd": A.flash_bwd}
@@ -1370,6 +1479,9 @@ SOURCES = {
     "encode_signs": ("sign.cu", "pytorch_ps_mpi_tpu/ops/sign_pallas.py:68"),
     "pack_signs": ("sign.cu", "pytorch_ps_mpi_tpu/ops/sign_pallas.py:104"),
     "unpack_signs": ("sign.cu", "pytorch_ps_mpi_tpu/ops/sign_pallas.py:131"),
+    # with the codec's scale and rank-ordered fold (codecs/sign.py:89-96)
+    "unpack_signs_sum": ("sign.cu",
+                         "pytorch_ps_mpi_tpu/ops/sign_pallas.py:131"),
     "quantize_int8": ("quant.cu",
                       "pytorch_ps_mpi_tpu/ops/quant_pallas.py:64"),
     "dequantize_int8": ("quant.cu",
@@ -1433,7 +1545,7 @@ def main() -> int:
     runs = [
         ("identity", resnet18, "cifar10", BATCH, {}),
         ("sign", lambda: model, "cifar10", BATCH,
-         {"encode_signs": 20, "unpack_signs": 20 * WORLD}),
+         {"encode_signs": 20, "unpack_signs_sum": 20}),
         ("int8", resnet18, "cifar10", BATCH,
          {"quantize_int8": r18, "dequantize_int8": r18}),
         ("qsgd", resnet18, "cifar10", BATCH, {"dequantize_int8": r18}),
@@ -1467,6 +1579,7 @@ def main() -> int:
     finally:
         torch.distributed.destroy_process_group()
     launches.setdefault("pack_signs", 0)
+    launches.setdefault("unpack_signs", 0)
 
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda",

@@ -70,13 +70,26 @@ class SignCodec(Codec):
     def decode(self, payload, shape, dtype):
         n = numel(shape)
         if self._kernel_ok(n):
-            signs = sign_ops.unpack_signs(payload["packed"])
-            return (signs * payload["scale"]).to(dtype).reshape(shape)
+            # the decode-sum of one rank, as tern_unpack is
+            g = sign_ops.unpack_signs_sum(payload["packed"].reshape(1, -1),
+                                          payload["scale"].reshape(1))
+            return g.to(dtype).reshape(shape)
         bits = (payload["packed"][:, None] & _bit_weights(
             payload["packed"].device)[None, :]) > 0
-        scale = payload["scale"]
+        scale = sign_ops.flush_subnormals(payload["scale"])
         g = torch.where(bits.reshape(-1)[:n], scale, -scale).to(dtype)
         return g.reshape(shape)
+
+    def decode_sum(self, payloads, shape, dtype):
+        """A float32 kernel-layout leaf: one ``unpack_signs_sum`` launch,
+        bit for bit the JAX package's rank-ordered ``lax.scan`` fold
+        (subnormals flushed as there). Any other leaf or dtype keeps the
+        base class's fold, which casts each rank to ``dtype`` before it
+        adds (so a bf16 leaf cannot take the float32 kernel)."""
+        if self._kernel_ok(numel(shape)) and dtype == torch.float32:
+            return sign_ops.unpack_signs_sum(
+                payloads["packed"], payloads["scale"]).reshape(shape)
+        return super().decode_sum(payloads, shape, dtype)
 
     def payload_bits(self, shape, dtype):
         return _packed_len(numel(shape)) * 8 + 32

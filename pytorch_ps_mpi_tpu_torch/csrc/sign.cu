@@ -3,14 +3,19 @@
 // Replace the Pallas TPU kernels of pytorch_ps_mpi_tpu/ops/sign_pallas.py:
 //   sign_encode(with_sum=1) <- encode_signs / _encode_kernel  (pack + sum|x|)
 //   sign_encode(with_sum=0) <- pack_signs   / _pack_kernel    (pack only)
-//   sign_unpack             <- unpack_signs / _unpack_kernel  (bits -> +-1)
+//   sign_unpack_sum         <- unpack_signs / _unpack_kernel  (bits -> +-1)
+//                              at world 1 (sign_unpack), and the codec's
+//                              decode_sum: the rank-ordered fold of
+//                              unpack_signs(p_w) * s_w (codecs/sign.py:89-96
+//                              in a lax.scan, codecs/base.py:170-186)
 //
 // Layout (the TPU kernels' own): the flat f32 input is viewed as
 // [rows, 8, 128]; bit s of packed byte [r, lane] is x[r*1024 + s*128 + lane]
 // >= 0 (so -0.0 packs as +, NaN as 0).
 //
-// Bound: all three are memory-bound elementwise or reduction work. encode
-// reads 4n bytes and writes n/8 (+4); unpack reads m bytes and writes 32m.
+// Bound: all are memory-bound elementwise or reduction work. encode reads
+// 4n bytes and writes n/8 (+4); unpack-sum reads W*m + 4W bytes and writes
+// 32m (n = 8m).
 // At H100 SXM's 3.35 TB/s a ResNet-18 leaf of 2.36 M elements is ~2.9 us
 // of traffic, about the cost of a launch, so encode is one launch a call:
 //  - A thread covers 4 lanes of a packed row: eight float4 loads (one per
@@ -36,7 +41,17 @@
 // ResNet-18's 20 leaves (PERF.md). A 9-row grid costs ~1.5 us more than an
 // 8-row block: the grid barrier and the slot reads after it. A failed
 // occupancy query, or 0 co-resident blocks, is an error.
-// unpack: one thread per packed byte, eight coalesced f32 stores.
+// unpack-sum writes its 4n bytes once, in one ordinary launch of
+// ceil(rows / 8) blocks, one warp a packed row: a block needs nothing of
+// another, so there is no grid barrier and nothing to zero. A thread holds
+// 4 lanes x 8 sublanes of accumulators and makes one 32-bit load a rank
+// (byte loads where a view of a gathered buffer starts off a 4-byte
+// boundary). Each rank adds +-s_w, selected (+-1 * s is exact), in rank
+// order from +0.0f: bit for bit the fold from zeros, where 0 + (-0) = +0.
+// The adds are add.rn.ftz.f32: the JAX package's decode-sum flushes
+// subnormal inputs and results to a zero of their sign (XLA's CPU runtime
+// runs with denormals off), so a subnormal scale or partial sum flushes
+// here as it does there.
 //
 // Every entry point launches on the caller's stream, does not
 // synchronise, allocates nothing and returns a cudaError_t (0 on success).
@@ -146,17 +161,80 @@ int encode_coresident(cudaError_t* err) {
   return per_sm * sms;
 }
 
+__device__ __forceinline__ float add_ftz(float a, float b) {
+  // a + b rounded to nearest, subnormal inputs and result flushed to a
+  // zero of their sign, as the JAX package's f32 decode-sum adds
+  float c;
+  asm("add.rn.ftz.f32 %0, %1, %2;" : "=f"(c) : "f"(a), "f"(b));
+  return c;
+}
+
+// bytes lane4 .. lane4 + 3 of one packed row, as one 32-bit word (byte j
+// in bits 8j .. 8j + 7): one load where the rows are 4-byte aligned,
+// four byte loads in a view that starts elsewhere
+__device__ __forceinline__ unsigned row_word(const uint8_t* __restrict__ p, bool vec) {
+  if (vec) return __ldg(reinterpret_cast<const unsigned*>(p));
+  return static_cast<unsigned>(__ldg(p)) | static_cast<unsigned>(__ldg(p + 1)) << 8 |
+         static_cast<unsigned>(__ldg(p + 2)) << 16 | static_cast<unsigned>(__ldg(p + 3)) << 24;
+}
+
+// out[r*1024 + s*128 + lane] = fold over w in rank order, from +0.0f, of
+// (bit s of packed[w, r*128 + lane] ? s_w : -s_w); kScale false: world 1
+// and s_0 = 1 (the +-1 of unpack_signs, +0 + +-1 being +-1). One warp a
+// packed row, 4 lanes a thread: one 32-bit load a rank (a warp reads the
+// rank's 128-byte row), 32 float accumulators in registers, the loads of
+// rank w + 1 issued before the adds of rank w, then one float4 store a
+// sublane (a warp writes 8 x 512 contiguous bytes).
+template <bool kScale>
 __global__ void __launch_bounds__(kThreads)
-sign_unpack_kernel(const uint8_t* __restrict__ packed, float* __restrict__ out,
-                   long long m) {
-  const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= m) return;
-  const long long r = i / kLane;
-  const int lane = static_cast<int>(i % kLane);
-  const unsigned b = packed[i];
-  float* dst = out + r * kGroup + lane;
+sign_unpack_sum_kernel(const uint8_t* __restrict__ packed, const float* __restrict__ scales,
+                       int world, long long m, float* __restrict__ out) {
+  const long long r = static_cast<long long>(blockIdx.x) * kRowsPerPass + (threadIdx.x >> 5);
+  if (r >= m / kLane) return;
+  const int lane4 = (threadIdx.x & 31) * 4;
+  const bool vec = (reinterpret_cast<uintptr_t>(packed) & 3u) == 0;  // m % 128 == 0
+  const uint8_t* src = packed + r * kLane + lane4;
+  float acc[8][4];
 #pragma unroll
-  for (int s = 0; s < 8; ++s) dst[s * kLane] = ((b >> s) & 1u) ? 1.0f : -1.0f;
+  for (int s = 0; s < 8; ++s)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[s][j] = 0.0f;
+  unsigned word = row_word(src, vec);
+  float sw = kScale ? __ldg(scales) : 1.0f;
+  for (int w = 0; w < world; ++w) {
+    unsigned next = 0;
+    float next_s = 0.0f;
+    if (w + 1 < world) {
+      next = row_word(src + static_cast<long long>(w + 1) * m, vec);
+      next_s = kScale ? __ldg(scales + w + 1) : 1.0f;
+    }
+#pragma unroll
+    for (int s = 0; s < 8; ++s)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        acc[s][j] = add_ftz(acc[s][j], ((word >> (8 * j + s)) & 1u) ? sw : -sw);
+    word = next;
+    sw = next_s;
+  }
+  float* dst = out + r * kGroup + lane4;
+#pragma unroll
+  for (int s = 0; s < 8; ++s)
+    *reinterpret_cast<float4*>(dst + s * kLane) =
+        make_float4(acc[s][0], acc[s][1], acc[s][2], acc[s][3]);
+}
+
+template <bool kScale>
+int launch_unpack_sum(const void* packed, const void* scales, int world, long long m, void* out,
+                      void* stream) {
+  if (m <= 0 || m % kLane || world <= 0 || (reinterpret_cast<uintptr_t>(out) & 15u))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long rows = m / kLane;
+  sign_unpack_sum_kernel<kScale>
+      <<<static_cast<unsigned>((rows + kRowsPerPass - 1) / kRowsPerPass), kThreads, 0,
+         static_cast<cudaStream_t>(stream)>>>(static_cast<const uint8_t*>(packed),
+                                              static_cast<const float*>(scales), world, m,
+                                              static_cast<float*>(out));
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -207,14 +285,16 @@ int sign_encode(const void* x, void* out, long long rows, int with_sum, void* st
   return static_cast<int>(cudaGetLastError());
 }
 
-// packed: u8[m] (m % 128 == 0); out: f32[8m].
+// packed: u8[m] (m % 128 == 0); out: f32[8m], 16-byte aligned, of +-1.
 int sign_unpack(const void* packed, void* out, long long m, void* stream) {
-  if (m <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  const long long blocks = (m + kThreads - 1) / kThreads;
-  sign_unpack_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
-                       static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(packed), static_cast<float*>(out), m);
-  return static_cast<int>(cudaGetLastError());
+  return launch_unpack_sum<false>(packed, nullptr, 1, m, out, stream);
+}
+
+// packed: u8[world, m] row-major (m % 128 == 0), any byte offset; scales:
+// f32[world]; out: f32[8m], 16-byte aligned.
+int sign_unpack_sum(const void* packed, const void* scales, int world, long long m, void* out,
+                    void* stream) {
+  return launch_unpack_sum<true>(packed, scales, world, m, out, stream);
 }
 
 }  // extern "C"

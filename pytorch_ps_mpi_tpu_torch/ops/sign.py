@@ -3,27 +3,34 @@
 The hot path of ``SignCodec``. Each wrapper replaces one Pallas TPU
 kernel of ``pytorch_ps_mpi_tpu/ops/sign_pallas.py``:
 
-==================  ==============================================  ==========
-wrapper             replaces                                        kernel
-==================  ==============================================  ==========
-``encode_signs``    ``encode_signs`` (``sign_pallas.py:68``,        ``csrc/sign.cu`` ``sign_encode``
-                    ``_encode_kernel`` ``:46``): pack + Σ|x|         (with sum), one launch
-``pack_signs``      ``pack_signs`` (``:104``, ``_pack_kernel``      ``sign_encode``
-                    ``:30``)                                         (no sum)
-``unpack_signs``    ``unpack_signs`` (``:131``, ``_unpack_kernel``  ``sign_unpack``
-                    ``:37``)
-==================  ==============================================  ==========
+====================  ==========================================  ====================
+wrapper               replaces                                    kernel
+====================  ==========================================  ====================
+``encode_signs``      ``encode_signs`` (``sign_pallas.py:68``,    ``csrc/sign.cu``
+                      ``_encode_kernel`` ``:46``): pack + Σ|x|     ``sign_encode``
+                                                                  (with sum), one launch
+``pack_signs``        ``pack_signs`` (``:104``, ``_pack_kernel``  ``sign_encode``
+                      ``:30``)                                     (no sum)
+``unpack_signs``      ``unpack_signs`` (``:131``,                 ``sign_unpack``
+                      ``_unpack_kernel`` ``:37``)                  (no scale)
+``unpack_signs_sum``  ``unpack_signs`` of each rank, times its    ``sign_unpack_sum``
+                      scale, folded in rank order: the codec's
+                      decode-sum (``codecs/sign.py:89-96`` in
+                      the ``lax.scan`` of ``codecs/base.py:170``)
+====================  ==========================================  ====================
 
 Layout, the TPU kernels' own: the flat float input is viewed as
 ``[rows, 8, 128]`` and bit ``s`` of packed byte ``[r, lane]`` holds
 ``x[r*1024 + s*128 + lane] >= 0`` — so −0.0 packs as +, NaN as 0.
 
-Bound: memory. Encode moves 4n + n/8 bytes, unpack m + 32m; at the
-H100's 3.35 TB/s every ResNet-18 leaf is a few microseconds of traffic,
-so launch overhead dominates (20 encode launches a step). Encode is one
-device launch a call, its Σ|x| finished inside it (one block for a small
-leaf, a cooperative grid with one grid barrier above that). The design
-notes are in ``csrc/sign.cu``.
+Bound: memory. Encode moves 4n + n/8 bytes, unpack-sum W·m + 4W + 32m;
+at the H100's 3.35 TB/s every ResNet-18 leaf is a few microseconds of
+traffic, so launch overhead dominates (20 encode and 20 unpack-sum
+launches a step). Encode is one device launch a call, its Σ|x| finished
+inside it (one block for a small leaf, a cooperative grid with one grid
+barrier above that); unpack-sum is one ordinary launch a leaf at any
+world size, writing the sum once. The design notes are in
+``csrc/sign.cu``.
 
 A wrapper takes its plain version (``*_ref``) only for a CPU tensor. For
 a CUDA tensor it launches its kernel or raises; it never falls back.
@@ -54,6 +61,8 @@ _SIGNATURES = {
     "sign_encode_grid": (ctypes.c_longlong, [ctypes.c_longlong,
                                              ctypes.c_int]),
     "sign_unpack": (ctypes.c_int, [_P, _P, ctypes.c_longlong, _P]),
+    "sign_unpack_sum": (ctypes.c_int, [_P, _P, ctypes.c_int,
+                                       ctypes.c_longlong, _P, _P]),
 }
 
 
@@ -79,6 +88,27 @@ def unpack_signs_ref(packed: torch.Tensor) -> torch.Tensor:
     p = packed.reshape(-1, 1, LANE)
     bits = (p & _weights(packed.device)) > 0
     return torch.where(bits, 1.0, -1.0).to(torch.float32).reshape(-1)
+
+
+def flush_subnormals(x: torch.Tensor) -> torch.Tensor:
+    """Subnormals to a zero of their sign, as the JAX package's float32
+    arithmetic runs on the CPU (XLA's runtime turns denormals off)."""
+    tiny = torch.finfo(torch.float32).tiny
+    return torch.where(x.abs() < tiny, x * 0.0, x)
+
+
+def unpack_signs_sum_ref(packed: torch.Tensor,
+                         scales: torch.Tensor) -> torch.Tensor:
+    """uint8[W, m], float32[W] -> float32[8m]: the left fold of
+    ``unpack_signs_ref(packed[w]) * scales[w]`` from zeros in rank order,
+    each product and sum flushed as the JAX package's ``lax.scan`` fold
+    computes it."""
+    acc = torch.zeros(8 * packed.shape[1], dtype=torch.float32,
+                      device=packed.device)
+    for w in range(packed.shape[0]):
+        acc = flush_subnormals(
+            acc + flush_subnormals(unpack_signs_ref(packed[w]) * scales[w]))
+    return acc
 
 
 # -- kernel wrappers -------------------------------------------------------
@@ -159,6 +189,43 @@ def unpack_signs(packed: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def unpack_signs_sum(packed: torch.Tensor,
+                     scales: torch.Tensor) -> torch.Tensor:
+    """uint8[W, m] (m % 128 == 0), float32[W] -> float32[8m]: the
+    rank-ordered sum of each rank's ±scale, bit for bit the fold of
+    ``unpack_signs(packed[w]) * scales[w]`` from zeros (``_ref``), in one
+    launch that writes the sum once. A view that starts off a 4-byte
+    boundary is read in place."""
+    # checks by attribute comparison: a small leaf's call is mostly host cost
+    if (packed.dtype is not torch.uint8 or packed.dim() != 2
+            or packed.shape[1] == 0 or packed.shape[1] % LANE
+            or scales.dtype is not torch.float32 or scales.dim() != 1
+            or scales.shape[0] != packed.shape[0] or packed.shape[0] == 0
+            or scales.get_device() != packed.get_device()):
+        raise ValueError(
+            f"unpack_signs_sum: expected uint8[world, m] (m % {LANE} == 0) "
+            f"and float32[world] scales on one device, got "
+            f"{packed.dtype}{tuple(packed.shape)} on {packed.device} and "
+            f"{scales.dtype}{tuple(scales.shape)} on {scales.device}")
+    if not packed.is_cuda:
+        if packed.device.type != "cpu":
+            raise ValueError(
+                f"unpack_signs_sum: unsupported device {packed.device}")
+        return unpack_signs_sum_ref(packed, scales)
+    if not packed.is_contiguous():
+        packed = packed.contiguous()
+    if not scales.is_contiguous():
+        scales = scales.contiguous()
+    world, m = packed.shape
+    out = packed.new_empty(8 * m, dtype=torch.float32)
+    _build.launch(_lib().sign_unpack_sum, packed.get_device(),
+                  packed.data_ptr(), scales.data_ptr(), world, m,
+                  out.data_ptr())
+    unpack_signs_sum.launches += 1
+    return out
+
+
 encode_signs.launches = 0
 pack_signs.launches = 0
 unpack_signs.launches = 0
+unpack_signs_sum.launches = 0

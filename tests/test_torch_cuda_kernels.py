@@ -5,12 +5,14 @@ it:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda_kernels.py
 
-Packed bytes, unpacked floats and decode_sum are bit-exact; the |x| sum
-agrees to rtol 1e-6 (per-block partials, then a fixed-order sum of the
-partials inside the same launch, against PyTorch's own reduction order)
-and is the same from run to run. Quantize and sign encode are one
-device row a call in the profiler, at the kernels' tile, one past it and
-past the co-resident grid. Int8 codes, scales and
+Packed bytes, unpacked floats, the unpack-sum at world 1 and 8 (zero,
+subnormal, infinite and NaN scales, sums below the smallest normal
+float; NaN compared by position) and decode_sum are bit-exact; the |x|
+sum agrees to rtol 1e-6 (per-block partials, then a fixed-order sum of
+the partials inside the same launch, against PyTorch's own reduction
+order) and is the same from run to run. Quantize, sign encode and
+unpack-sum are one device row a call in the profiler, at the kernels'
+tile, one past it and past the co-resident grid. Int8 codes, scales and
 dequantize-sums, top-k counts, index arrays and values are bit-exact,
 and the same from run to run. Flash attention: float32 to rtol 1e-5
 forward and 1e-4 backward, bf16 (the tensor-core kernels, every head
@@ -84,18 +86,81 @@ def test_encode_sum_is_the_same_from_run_to_run(cuda):
     assert len(totals) == 1
 
 
+@pytest.mark.parametrize("world", [1, 8])
 @pytest.mark.parametrize("n", [1000, 9216, 36864])
-def test_decode_sum_kernel_path_matches_plain_fold(cuda, n):
+def test_decode_sum_kernel_path_matches_plain_fold(cuda, n, world):
     code = get_codec("sign")
     gen = torch.Generator(device="cuda").manual_seed(n)
     payloads = [code.encode(torch.randn(n, generator=gen, device=cuda))[0]
-                for _ in range(8)]
+                for _ in range(world)]
     stacked = {k: torch.stack([p[k] for p in payloads])
                for k in ("packed", "scale")}
+    before = S.unpack_signs_sum.launches
     got = code.decode_sum(stacked, (n,), torch.float32)
+    # one launch a kernel-layout leaf at any world; none for n = 1000
+    assert S.unpack_signs_sum.launches == before + (n % S.GROUP == 0)
     cpu = {k: v.cpu() for k, v in stacked.items()}
     want = code.decode_sum(cpu, (n,), torch.float32)
     assert torch.equal(got.cpu(), want)
+
+
+# -- the sign unpack-sum ---------------------------------------------------------
+
+def _unpack_sum_input(m: int, world: int, case: str, device):
+    """Packed bits [world, m] and float32 scales [world]. ``planted``:
+    rank 0's scale 0.0 (every -0 folds to +0), and at world 8 a subnormal
+    and six scales within [1, 2) x the smallest normal float, whose sums
+    fall below it (flushed); ``nonfinite``: +Inf, and at world 8 NaN in
+    another rank; ``unaligned``: a view one byte into its buffer."""
+    gen = torch.Generator(device="cuda").manual_seed(m + world)
+    offset = 1 if case == "unaligned" else 0
+    buf = torch.randint(0, 256, (world * m + offset,), generator=gen,
+                        device=device, dtype=torch.uint8)
+    packed = buf[offset:].view(world, m)
+    scales = torch.rand(world, generator=gen, device=device) + 0.1
+    tiny = torch.finfo(torch.float32).tiny
+    planted = {"planted": [0.0, 3e-39] + [tiny * (1 + w / 16)
+                                          for w in range(1, 7)],
+               "nonfinite": [float("inf"), 0.5, 0.25, 2.0, 1.0,
+                             float("nan"), 0.5, 0.125]}
+    if case in planted:
+        scales = torch.tensor(planted[case][:world], device=device)
+    return packed, scales
+
+
+def _same_bits(got: torch.Tensor, want: torch.Tensor) -> bool:
+    nan = torch.isnan(want)
+    return (torch.equal(torch.isnan(got), nan)
+            and torch.equal(got[~nan].view(torch.int32),
+                            want[~nan].view(torch.int32)))
+
+
+@pytest.mark.parametrize("case", ["plain", "planted", "nonfinite",
+                                  "unaligned"])
+@pytest.mark.parametrize("world", [1, 8])
+@pytest.mark.parametrize("m", [128, 384, 294_912])
+def test_unpack_signs_sum_matches_plain_version(cuda, m, world, case):
+    packed, scales = _unpack_sum_input(m, world, case, cuda)
+    if case == "unaligned":
+        assert packed.data_ptr() % 4
+    before = S.unpack_signs_sum.launches
+    got = S.unpack_signs_sum(packed, scales)
+    assert S.unpack_signs_sum.launches == before + 1
+    assert got.shape == (8 * m,) and got.dtype == torch.float32
+    assert _same_bits(got, S.unpack_signs_sum_ref(packed, scales))
+    if case == "planted" and world == 1:  # scale 0.0: no -0 survives
+        assert not torch.signbit(got).any()
+    if world == 1:
+        assert torch.equal(S.unpack_signs(packed[0]),
+                           S.unpack_signs_ref(packed[0]))
+
+
+def test_unpack_signs_sum_is_the_same_from_run_to_run(cuda):
+    packed, scales = _unpack_sum_input(294_912, 8, "plain", cuda)
+    first = S.unpack_signs_sum(packed, scales)
+    for _ in range(3):
+        got = S.unpack_signs_sum(packed, scales)
+        assert torch.equal(got.view(torch.int32), first.view(torch.int32))
 
 
 def _ef_topk():
@@ -333,16 +398,20 @@ def test_one_launch_outputs_are_the_same_from_run_to_run(cuda, size):
 
 @pytest.mark.parametrize("size", ["tile", "tile+1", "past-grid"])
 @pytest.mark.parametrize("which", ["quantize_int8", "encode_signs",
-                                   "pack_signs", "unpack_signs"])
+                                   "pack_signs", "unpack_signs",
+                                   "unpack_signs_sum"])
 def test_each_call_is_one_device_row(cuda, which, size):
     if which == "quantize_int8":
-        x = _int8_input(_quant_size(size), "plain", cuda)
+        args = (_int8_input(_quant_size(size), "plain", cuda),)
     else:
-        x = _grad(_sign_rows(size) * S.GROUP, False, cuda)
+        args = (_grad(_sign_rows(size) * S.GROUP, False, cuda),)
         if which == "unpack_signs":
-            x = S.pack_signs(x)
+            args = (S.pack_signs(args[0]),)
+        elif which == "unpack_signs_sum":  # world 8
+            packed = S.pack_signs(args[0])
+            args = (torch.stack([packed] * 8), torch.rand(8, device=cuda))
     rows = _device_rows(lambda: getattr(Q if which == "quantize_int8"
-                                        else S, which)(x))
+                                        else S, which)(*args))
     assert len(rows) == 1, rows
     assert "emset" not in rows[0] and "emcpy" not in rows[0], rows
 
@@ -354,12 +423,15 @@ def test_codec_wrappers_launch_on_the_current_stream(cuda):
     with torch.cuda.stream(side):
         packed, total = S.encode_signs(x)
         signs = S.unpack_signs(packed)
+        summed = S.unpack_signs_sum(packed.view(1, -1), total.view(1))
         q, s = Q.quantize_int8(x)
     side.synchronize()
     ref_packed, ref_total = S.encode_signs_ref(x)
     assert torch.equal(packed, ref_packed)
     torch.testing.assert_close(total, ref_total, rtol=1e-6, atol=0)
     assert torch.equal(signs, S.unpack_signs_ref(ref_packed))
+    assert torch.equal(summed, S.unpack_signs_sum_ref(packed.view(1, -1),
+                                                      total.view(1)))
     assert torch.equal(q, Q.quantize_int8_ref(x)[0])
 
 

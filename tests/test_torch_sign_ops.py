@@ -3,7 +3,12 @@ Pallas kernels (interpret mode on the CPU). The CUDA kernels are held to
 these plain versions in ``test_torch_cuda_kernels.py``.
 
 Packed bytes and unpacked floats are bit-exact; the |x| sum agrees to
-rtol 1e-6, since the two sides add in another order.
+rtol 1e-6, since the two sides add in another order. The unpack-sum
+and the codec's decode_sum are bit-exact against the JAX codec's
+``decode_sum`` (Pallas ``unpack_signs`` in interpret mode, then the
+``lax.scan`` fold), NaN compared by position: with zero, subnormal,
+infinite and NaN scales, and with sums that fall below the smallest
+normal float, which the JAX side flushes to a zero of their sign.
 """
 
 from __future__ import annotations
@@ -14,7 +19,9 @@ import torch
 
 import jax.numpy as jnp
 
+from pytorch_ps_mpi_tpu.codecs.sign import SignCodec as JaxSignCodec
 from pytorch_ps_mpi_tpu.ops import sign_pallas
+from pytorch_ps_mpi_tpu_torch.codecs import get_codec
 from pytorch_ps_mpi_tpu_torch.ops import sign as S
 
 
@@ -78,16 +85,23 @@ def test_unpack_matches_pallas(m):
     np.testing.assert_array_equal(roundtrip.numpy(), p)
 
 
+def _launches():
+    return (S.encode_signs.launches, S.pack_signs.launches,
+            S.unpack_signs.launches, S.unpack_signs_sum.launches)
+
+
 def test_wrappers_take_the_plain_version_on_cpu_without_counting():
     x = torch.from_numpy(_grad(2048, False))
-    before = (S.encode_signs.launches, S.pack_signs.launches,
-              S.unpack_signs.launches)
+    before = _launches()
     packed, total = S.encode_signs(x)
     torch.testing.assert_close(total, x.abs().sum(), rtol=0, atol=0)
     assert torch.equal(S.pack_signs(x), packed)
     assert torch.equal(S.unpack_signs(packed), torch.where(x >= 0, 1.0, -1.0))
-    assert (S.encode_signs.launches, S.pack_signs.launches,
-            S.unpack_signs.launches) == before
+    scales = torch.tensor([0.5, 2.0])
+    stacked = torch.stack([packed, packed.flip(0)])
+    assert torch.equal(S.unpack_signs_sum(stacked, scales),
+                       S.unpack_signs_sum_ref(stacked, scales))
+    assert _launches() == before
 
 
 @pytest.mark.parametrize("bad", [
@@ -101,3 +115,119 @@ def test_encode_rejects_what_the_kernel_does_not_take(bad):
 def test_unpack_rejects_ragged_rows():
     with pytest.raises(ValueError):
         S.unpack_signs(torch.zeros(100, dtype=torch.uint8))
+
+
+# -- the unpack-sum and the codec's decode_sum ----------------------------------
+
+TINY = float(np.finfo(np.float32).tiny)
+SCALE_CASES = ["plain", "zero", "subnormal", "inf", "nan", "underflow"]
+
+
+def _unpack_sum_inputs(world: int, m: int, case: str):
+    """Packed bits and float32 scales for ``world`` ranks from a seed; one
+    rank's scale planted (0.0: every -0 product must fold to +0; a
+    subnormal; +Inf; NaN), or every scale within [1, 2) x the smallest
+    normal float, so that partial sums fall below it."""
+    rs = np.random.RandomState(1000 * world + m)
+    packed = rs.randint(0, 256, size=(world, m)).astype(np.uint8)
+    scales = rs.uniform(0.1, 2.0, size=world).astype(np.float32)
+    planted = {"zero": 0.0, "subnormal": 3e-39, "inf": np.inf,
+               "nan": np.nan}
+    if case in planted:
+        scales[world // 2] = planted[case]
+    elif case == "underflow":  # distinct, so that +s_0 - s_1 is subnormal
+        scales = (TINY * (1 + rs.permutation(world + 1)[:world] / 16)
+                  ).astype(np.float32)
+    return packed, scales
+
+
+def _jax_decode_sum(packed, scales, shape, dtype=jnp.float32):
+    return np.asarray(JaxSignCodec(use_pallas=True).decode_sum(
+        {"packed": jnp.asarray(packed), "scale": jnp.asarray(scales)},
+        shape, dtype))
+
+
+def _same_bits(got: np.ndarray, want: np.ndarray) -> None:
+    """NaN at the same places, every other element bit for bit."""
+    nan = np.isnan(want)
+    np.testing.assert_array_equal(np.isnan(got), nan)
+    np.testing.assert_array_equal(got[~nan].view(np.int32),
+                                  want[~nan].view(np.int32))
+
+
+@pytest.mark.parametrize("case", SCALE_CASES)
+@pytest.mark.parametrize("m", [128, 384, 4608])
+@pytest.mark.parametrize("world", [1, 2, 3, 8])
+def test_unpack_sum_matches_the_jax_fold_bit_for_bit(world, m, case):
+    packed, scales = _unpack_sum_inputs(world, m, case)
+    got = S.unpack_signs_sum_ref(torch.from_numpy(packed),
+                                 torch.from_numpy(scales)).numpy()
+    want = _jax_decode_sum(packed, scales, (8 * m,))
+    _same_bits(got, want)
+    if case == "zero" and world == 1:  # +0 + (-0): no -0 survives
+        assert not np.signbit(got).any()
+    if case == "underflow" and world > 1:  # some partial sums were flushed
+        signs = np.where(np.unpackbits(packed.reshape(world, -1, 1, 128),
+                                       axis=2, bitorder="little"), 1.0, -1.0)
+        exact = (signs * scales.astype(np.float64)[:, None, None, None]
+                 ).sum(axis=0).reshape(-1)
+        assert (got != exact).any()
+
+
+@pytest.mark.parametrize("shape", [(4, 1024), (1000,)])
+@pytest.mark.parametrize("world", [1, 4])
+def test_codec_decode_sum_matches_jax_on_both_layouts(shape, world):
+    # (4, 1024): the kernel layout, one unpack-sum; (1000,): eight
+    # consecutive elements a byte, the base class's fold
+    jc = JaxSignCodec(use_pallas=True)
+    g = np.random.RandomState(world).randn(world, *shape).astype(np.float32)
+    payloads = [jc.encode(jnp.asarray(x))[0] for x in g]
+    stacked = {k: np.stack([np.asarray(p[k]) for p in payloads])
+               for k in ("packed", "scale")}
+    # a subnormal scale decodes to zeros, a zero scale's -0 folds to +0
+    stacked["scale"][:2] = [3e-39, 0.0][:world]
+    want = _jax_decode_sum(stacked["packed"], stacked["scale"], shape)
+    got = get_codec("sign").decode_sum(
+        {k: torch.from_numpy(v) for k, v in stacked.items()}, shape,
+        torch.float32)
+    assert got.shape == shape
+    _same_bits(got.numpy(), want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bf16_kernel_leaf_keeps_the_fold(monkeypatch, dtype):
+    world, m = 3, 384
+    packed, scales = _unpack_sum_inputs(world, m, "plain")
+    worlds = []
+
+    def spy(p, s):
+        worlds.append(p.shape[0])
+        return S.unpack_signs_sum_ref(p, s)
+
+    monkeypatch.setattr(S, "unpack_signs_sum", spy)
+    got = get_codec("sign").decode_sum(
+        {"packed": torch.from_numpy(packed), "scale": torch.from_numpy(scales)},
+        (8 * m,), dtype)
+    jdtype = jnp.float32 if dtype == torch.float32 else jnp.bfloat16
+    want = _jax_decode_sum(packed, scales, (8 * m,), jdtype)
+    assert got.dtype == dtype
+    # float32: one unpack-sum of every rank; bf16: one a rank, each cast
+    # to bf16 before the fold adds it, as the JAX fold does
+    assert worlds == ([world] if dtype == torch.float32 else [1] * world)
+    assert torch.equal(got.to(torch.float32),
+                       torch.tensor(np.asarray(want, np.float32)))
+
+
+@pytest.mark.parametrize("packed,scales", [
+    (torch.zeros(2, 100, dtype=torch.uint8), torch.ones(2)),
+    (torch.zeros(2, 128, dtype=torch.uint8), torch.ones(3)),
+    (torch.zeros(2, 128, dtype=torch.uint8), torch.ones(1)),
+    (torch.zeros(2, 128, dtype=torch.int8), torch.ones(2)),
+    (torch.zeros(2, 128, dtype=torch.uint8), torch.ones(2, dtype=torch.float64)),
+    (torch.zeros(256, dtype=torch.uint8), torch.ones(1)),
+    (torch.zeros(0, 128, dtype=torch.uint8), torch.ones(0)),
+], ids=["ragged-m", "scales-past-world", "scales-short-of-world",
+        "int8-bits", "float64-scales", "1-d-bits", "no-rank"])
+def test_unpack_sum_rejects_what_the_kernel_does_not_take(packed, scales):
+    with pytest.raises(ValueError):
+        S.unpack_signs_sum(packed, scales)
