@@ -46,7 +46,9 @@
 // another, so there is no grid barrier and nothing to zero. A thread holds
 // 4 lanes x 8 sublanes of accumulators and makes one 32-bit load a rank
 // (byte loads where a view of a gathered buffer starts off a 4-byte
-// boundary). Each rank adds +-s_w, selected (+-1 * s is exact), in rank
+// boundary), 8 ranks' loads issued before the first add: the kernel is
+// load-latency bound, and a first design that kept one rank's load in
+// flight took ~2 us more a call at world 8 (PERF.md). Each rank adds +-s_w, selected (+-1 * s is exact), in rank
 // order from +0.0f: bit for bit the fold from zeros, where 0 + (-0) = +0.
 // The adds are add.rn.ftz.f32: the JAX package's decode-sum flushes
 // subnormal inputs and results to a zero of their sign (XLA's CPU runtime
@@ -70,6 +72,11 @@ constexpr int kGroup = 8 * kLane;          // elements per packed row
 constexpr int kThreads = 256;
 constexpr int kRowsPerPass = kThreads / 32;  // 32 threads x 4 lanes a row
 constexpr int kMaxDevices = 64;
+constexpr int kRankBatch = 8;  // unpack-sum: rank loads in flight at once
+constexpr int kSubs = 8;       // unpack-sum: sublanes a thread holds
+constexpr int kRowThreads = 32 * (8 / kSubs);         // threads a packed row
+constexpr int kUnpackRows = kThreads / kRowThreads;   // packed rows a block
+static_assert(8 % kSubs == 0 && kThreads % kRowThreads == 0, "whole rows a block");
 
 __device__ __forceinline__ float block_sum(float v, float* red) {
   // fixed-order block reduction: warp butterfly, then warp 0 over warps
@@ -182,43 +189,51 @@ __device__ __forceinline__ unsigned row_word(const uint8_t* __restrict__ p, bool
 // (bit s of packed[w, r*128 + lane] ? s_w : -s_w); kScale false: world 1
 // and s_0 = 1 (the +-1 of unpack_signs, +0 + +-1 being +-1). One warp a
 // packed row, 4 lanes a thread: one 32-bit load a rank (a warp reads the
-// rank's 128-byte row), 32 float accumulators in registers, the loads of
-// rank w + 1 issued before the adds of rank w, then one float4 store a
-// sublane (a warp writes 8 x 512 contiguous bytes).
+// rank's 128-byte row), 32 float accumulators in registers, then one
+// float4 store a sublane (a warp writes 8 x 512 contiguous bytes). The
+// loads of kRankBatch ranks, and their scales, are all issued before the
+// first add, so up to world 8 a thread waits for one load latency, not
+// one a rank.
 template <bool kScale>
 __global__ void __launch_bounds__(kThreads)
 sign_unpack_sum_kernel(const uint8_t* __restrict__ packed, const float* __restrict__ scales,
                        int world, long long m, float* __restrict__ out) {
-  const long long r = static_cast<long long>(blockIdx.x) * kRowsPerPass + (threadIdx.x >> 5);
+  const int t = threadIdx.x % kRowThreads;
+  const long long r = static_cast<long long>(blockIdx.x) * kUnpackRows + threadIdx.x / kRowThreads;
   if (r >= m / kLane) return;
-  const int lane4 = (threadIdx.x & 31) * 4;
+  const int lane4 = (t & 31) * 4;
+  const int s0 = (t >> 5) * kSubs;  // this thread's first sublane
   const bool vec = (reinterpret_cast<uintptr_t>(packed) & 3u) == 0;  // m % 128 == 0
   const uint8_t* src = packed + r * kLane + lane4;
-  float acc[8][4];
+  float acc[kSubs][4];
 #pragma unroll
-  for (int s = 0; s < 8; ++s)
+  for (int s = 0; s < kSubs; ++s)
 #pragma unroll
     for (int j = 0; j < 4; ++j) acc[s][j] = 0.0f;
-  unsigned word = row_word(src, vec);
-  float sw = kScale ? __ldg(scales) : 1.0f;
-  for (int w = 0; w < world; ++w) {
-    unsigned next = 0;
-    float next_s = 0.0f;
-    if (w + 1 < world) {
-      next = row_word(src + static_cast<long long>(w + 1) * m, vec);
-      next_s = kScale ? __ldg(scales + w + 1) : 1.0f;
+  for (int w0 = 0; w0 < world; w0 += kRankBatch) {
+    unsigned word[kRankBatch];
+    float sw[kRankBatch];
+#pragma unroll
+    for (int k = 0; k < kRankBatch; ++k) {
+      if (w0 + k < world) {
+        word[k] = row_word(src + static_cast<long long>(w0 + k) * m, vec) >> s0;
+        sw[k] = kScale ? __ldg(scales + w0 + k) : 1.0f;
+      }
     }
 #pragma unroll
-    for (int s = 0; s < 8; ++s)
+    for (int k = 0; k < kRankBatch; ++k) {
+      if (w0 + k < world) {
 #pragma unroll
-      for (int j = 0; j < 4; ++j)
-        acc[s][j] = add_ftz(acc[s][j], ((word >> (8 * j + s)) & 1u) ? sw : -sw);
-    word = next;
-    sw = next_s;
+        for (int s = 0; s < kSubs; ++s)
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            acc[s][j] = add_ftz(acc[s][j], ((word[k] >> (8 * j + s)) & 1u) ? sw[k] : -sw[k]);
+      }
+    }
   }
-  float* dst = out + r * kGroup + lane4;
+  float* dst = out + r * kGroup + s0 * kLane + lane4;
 #pragma unroll
-  for (int s = 0; s < 8; ++s)
+  for (int s = 0; s < kSubs; ++s)
     *reinterpret_cast<float4*>(dst + s * kLane) =
         make_float4(acc[s][0], acc[s][1], acc[s][2], acc[s][3]);
 }
@@ -230,7 +245,7 @@ int launch_unpack_sum(const void* packed, const void* scales, int world, long lo
     return static_cast<int>(cudaErrorInvalidValue);
   const long long rows = m / kLane;
   sign_unpack_sum_kernel<kScale>
-      <<<static_cast<unsigned>((rows + kRowsPerPass - 1) / kRowsPerPass), kThreads, 0,
+      <<<static_cast<unsigned>((rows + kUnpackRows - 1) / kUnpackRows), kThreads, 0,
          static_cast<cudaStream_t>(stream)>>>(static_cast<const uint8_t*>(packed),
                                               static_cast<const float*>(scales), world, m,
                                               static_cast<float*>(out));
