@@ -154,27 +154,45 @@ def _device_events(prof) -> list:
             if e.device_type == torch.autograd.DeviceType.CUDA]
 
 
+#: runtime calls that put one row on the device: a kernel, memset or copy
+_LAUNCH_CALLS = ("cudaLaunch", "cuLaunch", "cudaMemset", "cuMemset",
+                 "cudaMemcpy", "cuMemcpy")
+_LEAD = 64  # spin kernels that open every trace, there to be dropped
+
+
 def _profiled(fn, cold: bool = False) -> list:
-    """The device rows of one call of ``fn`` after a warm-up call;
-    ``cold``: with the 50 MB L2 flushed just before. Every ``fn`` here
-    launches work, yet a trace of one call now and then comes back
-    without its kernel (seen for single cooperative launches on an H100):
-    an empty trace is taken again, at most twice, and then fails the
-    run."""
+    """The device rows of one call of ``fn``, in launch order, after a
+    warm-up call; ``cold``: with the 50 MB L2 flushed just before. Late
+    in a long run of this script on an H100 the profiler dropped the
+    first device rows of a trace (all of a one-kernel trace, the first of
+    20 decode_sum calls; PR 7), while it still recorded every runtime
+    launch call. So each trace opens with ``_LEAD`` spin kernels, and is
+    whole only when its other device rows match the launch calls made
+    after them; a trace short of rows is taken again, at most twice, and
+    then fails the run."""
     from torch.profiler import ProfilerActivity, profile
 
+    cuda = torch.autograd.DeviceType.CUDA
     fn()
     for _ in range(3):
         if cold:
             torch.empty(2**27, dtype=torch.int8, device="cuda").fill_(1)
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(_LEAD):
+                torch.cuda._sleep(1)
             fn()
             torch.cuda.synchronize()
-        rows = _device_events(prof)
-        if rows:
+        events = prof.events()
+        rows = sorted((e for e in events if e.device_type == cuda
+                       and "spin_kernel" not in e.name),
+                      key=lambda e: e.time_range.start)
+        launched = sum(e.name.startswith(_LAUNCH_CALLS) for e in events
+                       if e.device_type != cuda) - _LEAD
+        if rows and len(rows) == launched:
             return rows
-    raise AssertionError("three profiler traces held no device row")
+    raise AssertionError(f"three profiler traces lost device rows: "
+                         f"{len(rows)} of {launched} launched")
 
 
 def device_ms(fn, cold: bool = False) -> float:
@@ -187,7 +205,7 @@ def device_ms(fn, cold: bool = False) -> float:
 
 def device_launches(fn) -> int:
     """The device rows (kernels and memsets) one call of ``fn`` makes."""
-    return sum(e.count for e in _profiled(fn))
+    return len(_profiled(fn))
 
 
 def host_us(fn, calls: int = 20000) -> float:
@@ -464,24 +482,26 @@ def sign_edge_rows() -> tuple:
 def one_launch_design(kernel: str, fn, xs: list, grid, nbytes,
                       **tile) -> None:
     """The one-launch design of ``fn`` at the main path's leaves: for each
-    leaf size the grid it chose and one call's device µs (warm), the
-    device rows of one call (each must be 1: no memset, no second kernel)
-    and the largest leaf's cold device ms against its byte bound."""
+    leaf size the grid it chose and one call's device µs (warm), from one
+    trace of one call a size, which must hold one device row a call (no
+    memset, no second kernel), and the largest leaf's cold device ms
+    against its byte bound."""
     by_size = {x.numel(): x for x in xs}
-    traces = {n: _profiled(lambda: fn(x)) for n, x in by_size.items()}
-    rows = {n: sum(e.count for e in t) for n, t in traces.items()}
-    if set(rows.values()) != {1}:
-        raise AssertionError(f"{kernel}: device rows a call {rows}, not 1")
-    n = max(by_size)
+    sizes = sorted(by_size)
+    rows = _profiled(lambda: [fn(by_size[n]) for n in sizes])
+    if len(rows) != len(sizes):
+        raise AssertionError(f"{kernel}: {len(rows)} device rows for "
+                             f"{len(sizes)} calls, not 1 a call")
+    n = sizes[-1]
     cold = device_ms(lambda: fn(by_size[n]), cold=True)
     bound = nbytes(n) / HBM_BYTES_PER_S * 1e3
     phase("kernels", kernel=kernel, design="one launch a call", **tile,
           block=256, device_rows_per_call=1,
-          grids=json.dumps({m: grid(m) for m in sorted(by_size)},
+          grids=json.dumps({m: grid(m) for m in sizes},
                            separators=(",", ":")),
           device_us=json.dumps(
-              {m: round(sum(e.self_device_time_total for e in traces[m]), 3)
-               for m in sorted(by_size)}, separators=(",", ":")),
+              {m: round(e.self_device_time_total, 3)
+               for m, e in zip(sizes, rows)}, separators=(",", ":")),
           largest_leaf=n, cold_device_ms=f"{cold:.4f}",
           bound_ms=f"{bound:.5f}", share_of_bound=f"{bound / cold:.3f}",
           alternative="programmatic dependent launch: not measured")
@@ -1167,14 +1187,9 @@ def check_decode_sum(model) -> None:
             for stacked, shape in calls:
                 code.decode_sum(stacked, shape, torch.float32)
 
-        # one trace of the 20 calls; a trace short of rows (the profiler
-        # loses records now and then) is taken again, at most twice
-        for _ in range(3):
-            events = _profiled(step)
-            rows = sum(e.count for e in events)
-            if rows >= len(calls):
-                break
-        names = {e.key for e in events}
+        events = _profiled(step)
+        rows = len(events)
+        names = {e.name for e in events}
         if rows != len(calls) or not all("sign_unpack_sum" in k
                                          for k in names):
             raise AssertionError(f"decode_sum: {rows} device rows ({names}) "
@@ -1524,8 +1539,6 @@ def main() -> int:
     model = resnet18()
     r50 = resnet50()
     results = check_kernels(kernel_sizes(model))
-    # before the other kernels' traces: late in this process the profiler
-    # dropped one of decode_sum's 20 rows in every retake (H100, PR 7)
     check_decode_sum(model)
     results.update(check_quant_kernels(model))
     leaves = topk_leaves(r50)

@@ -76,16 +76,17 @@ class SignCodec(Codec):
             return g.to(dtype).reshape(shape)
         bits = (payload["packed"][:, None] & _bit_weights(
             payload["packed"].device)[None, :]) > 0
-        scale = sign_ops.flush_subnormals(payload["scale"])
+        scale = payload["scale"]
         g = torch.where(bits.reshape(-1)[:n], scale, -scale).to(dtype)
         return g.reshape(shape)
 
     def decode_sum(self, payloads, shape, dtype):
         """A float32 kernel-layout leaf: one ``unpack_signs_sum`` launch,
-        bit for bit the JAX package's rank-ordered ``lax.scan`` fold
-        (subnormals flushed as there). Any other leaf or dtype keeps the
+        bit for bit the JAX package's rank-ordered ``lax.scan`` fold,
+        subnormals flushed as there. Any other leaf or dtype keeps the
         base class's fold, which casts each rank to ``dtype`` before it
-        adds (so a bf16 leaf cannot take the float32 kernel)."""
+        adds (so a bf16 leaf cannot take the float32 kernel) and keeps
+        subnormals (ROADMAP queue 3 item 8)."""
         if self._kernel_ok(numel(shape)) and dtype == torch.float32:
             return sign_ops.unpack_signs_sum(
                 payloads["packed"], payloads["scale"]).reshape(shape)

@@ -46,10 +46,13 @@
 // another, so there is no grid barrier and nothing to zero. A thread holds
 // 4 lanes x 8 sublanes of accumulators and makes one 32-bit load a rank
 // (byte loads where a view of a gathered buffer starts off a 4-byte
-// boundary), 8 ranks' loads issued before the first add: the kernel is
-// load-latency bound, and a first design that kept one rank's load in
-// flight took ~2 us more a call at world 8 (PERF.md). Each rank adds +-s_w, selected (+-1 * s is exact), in rank
-// order from +0.0f: bit for bit the fold from zeros, where 0 + (-0) = +0.
+// boundary), 8 ranks' loads issued before the first add (a first design
+// that kept one rank's load in flight took 22% more device time at world
+// 8, PERF.md). Past the load, a rank costs its 32 adds and the bit work
+// that signs them, which grows a call's time with the world more than its
+// bytes do (PERF.md). Each rank adds +-s_w (s_w with its sign bit set from
+// the packed bit: +-1 * s is exact) in rank order from +0.0f: bit for bit
+// the fold from zeros, where 0 + (-0) = +0.
 // The adds are add.rn.ftz.f32: the JAX package's decode-sum flushes
 // subnormal inputs and results to a zero of their sign (XLA's CPU runtime
 // runs with denormals off), so a subnormal scale or partial sum flushes
@@ -73,10 +76,6 @@ constexpr int kThreads = 256;
 constexpr int kRowsPerPass = kThreads / 32;  // 32 threads x 4 lanes a row
 constexpr int kMaxDevices = 64;
 constexpr int kRankBatch = 8;  // unpack-sum: rank loads in flight at once
-constexpr int kSubs = 8;       // unpack-sum: sublanes a thread holds
-constexpr int kRowThreads = 32 * (8 / kSubs);         // threads a packed row
-constexpr int kUnpackRows = kThreads / kRowThreads;   // packed rows a block
-static_assert(8 % kSubs == 0 && kThreads % kRowThreads == 0, "whole rows a block");
 
 __device__ __forceinline__ float block_sum(float v, float* red) {
   // fixed-order block reduction: warp butterfly, then warp 0 over warps
@@ -198,16 +197,14 @@ template <bool kScale>
 __global__ void __launch_bounds__(kThreads)
 sign_unpack_sum_kernel(const uint8_t* __restrict__ packed, const float* __restrict__ scales,
                        int world, long long m, float* __restrict__ out) {
-  const int t = threadIdx.x % kRowThreads;
-  const long long r = static_cast<long long>(blockIdx.x) * kUnpackRows + threadIdx.x / kRowThreads;
+  const long long r = static_cast<long long>(blockIdx.x) * kRowsPerPass + (threadIdx.x >> 5);
   if (r >= m / kLane) return;
-  const int lane4 = (t & 31) * 4;
-  const int s0 = (t >> 5) * kSubs;  // this thread's first sublane
+  const int lane4 = (threadIdx.x & 31) * 4;
   const bool vec = (reinterpret_cast<uintptr_t>(packed) & 3u) == 0;  // m % 128 == 0
   const uint8_t* src = packed + r * kLane + lane4;
-  float acc[kSubs][4];
+  float acc[8][4];
 #pragma unroll
-  for (int s = 0; s < kSubs; ++s)
+  for (int s = 0; s < 8; ++s)
 #pragma unroll
     for (int j = 0; j < 4; ++j) acc[s][j] = 0.0f;
   for (int w0 = 0; w0 < world; w0 += kRankBatch) {
@@ -216,24 +213,30 @@ sign_unpack_sum_kernel(const uint8_t* __restrict__ packed, const float* __restri
 #pragma unroll
     for (int k = 0; k < kRankBatch; ++k) {
       if (w0 + k < world) {
-        word[k] = row_word(src + static_cast<long long>(w0 + k) * m, vec) >> s0;
+        word[k] = row_word(src + static_cast<long long>(w0 + k) * m, vec);
         sw[k] = kScale ? __ldg(scales + w0 + k) : 1.0f;
       }
     }
 #pragma unroll
     for (int k = 0; k < kRankBatch; ++k) {
       if (w0 + k < world) {
+        // -s_w where the bit is clear: s_w's sign bit flipped by the
+        // complement's bit moved to bit 31 (a shift and a lop3; a select
+        // of s_w or -s_w took 9% more device time at world 8, PERF.md)
+        const unsigned neg = ~word[k];
+        const unsigned sbits = __float_as_uint(sw[k]);
 #pragma unroll
-        for (int s = 0; s < kSubs; ++s)
+        for (int s = 0; s < 8; ++s)
 #pragma unroll
           for (int j = 0; j < 4; ++j)
-            acc[s][j] = add_ftz(acc[s][j], ((word[k] >> (8 * j + s)) & 1u) ? sw[k] : -sw[k]);
+            acc[s][j] = add_ftz(acc[s][j],
+                                __uint_as_float(((neg << (31 - 8 * j - s)) & 0x80000000u) ^ sbits));
       }
     }
   }
-  float* dst = out + r * kGroup + s0 * kLane + lane4;
+  float* dst = out + r * kGroup + lane4;
 #pragma unroll
-  for (int s = 0; s < kSubs; ++s)
+  for (int s = 0; s < 8; ++s)
     *reinterpret_cast<float4*>(dst + s * kLane) =
         make_float4(acc[s][0], acc[s][1], acc[s][2], acc[s][3]);
 }
@@ -245,7 +248,7 @@ int launch_unpack_sum(const void* packed, const void* scales, int world, long lo
     return static_cast<int>(cudaErrorInvalidValue);
   const long long rows = m / kLane;
   sign_unpack_sum_kernel<kScale>
-      <<<static_cast<unsigned>((rows + kUnpackRows - 1) / kUnpackRows), kThreads, 0,
+      <<<static_cast<unsigned>((rows + kRowsPerPass - 1) / kRowsPerPass), kThreads, 0,
          static_cast<cudaStream_t>(stream)>>>(static_cast<const uint8_t*>(packed),
                                               static_cast<const float*>(scales), world, m,
                                               static_cast<float*>(out));

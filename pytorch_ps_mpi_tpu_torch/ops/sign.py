@@ -90,7 +90,7 @@ def unpack_signs_ref(packed: torch.Tensor) -> torch.Tensor:
     return torch.where(bits, 1.0, -1.0).to(torch.float32).reshape(-1)
 
 
-def flush_subnormals(x: torch.Tensor) -> torch.Tensor:
+def _flush_subnormals(x: torch.Tensor) -> torch.Tensor:
     """Subnormals to a zero of their sign, as the JAX package's float32
     arithmetic runs on the CPU (XLA's runtime turns denormals off)."""
     tiny = torch.finfo(torch.float32).tiny
@@ -106,8 +106,8 @@ def unpack_signs_sum_ref(packed: torch.Tensor,
     acc = torch.zeros(8 * packed.shape[1], dtype=torch.float32,
                       device=packed.device)
     for w in range(packed.shape[0]):
-        acc = flush_subnormals(
-            acc + flush_subnormals(unpack_signs_ref(packed[w]) * scales[w]))
+        acc = _flush_subnormals(
+            acc + _flush_subnormals(unpack_signs_ref(packed[w]) * scales[w]))
     return acc
 
 

@@ -174,24 +174,47 @@ def test_unpack_sum_matches_the_jax_fold_bit_for_bit(world, m, case):
         assert (got != exact).any()
 
 
-@pytest.mark.parametrize("shape", [(4, 1024), (1000,)])
-@pytest.mark.parametrize("world", [1, 4])
-def test_codec_decode_sum_matches_jax_on_both_layouts(shape, world):
-    # (4, 1024): the kernel layout, one unpack-sum; (1000,): eight
-    # consecutive elements a byte, the base class's fold
+def _codec_payloads(world: int, shape) -> dict:
+    """The JAX codec's payloads of ``world`` gradients, stacked."""
     jc = JaxSignCodec(use_pallas=True)
     g = np.random.RandomState(world).randn(world, *shape).astype(np.float32)
     payloads = [jc.encode(jnp.asarray(x))[0] for x in g]
-    stacked = {k: np.stack([np.asarray(p[k]) for p in payloads])
-               for k in ("packed", "scale")}
-    # a subnormal scale decodes to zeros, a zero scale's -0 folds to +0
-    stacked["scale"][:2] = [3e-39, 0.0][:world]
+    return {k: np.stack([np.asarray(p[k]) for p in payloads])
+            for k in ("packed", "scale")}
+
+
+@pytest.mark.parametrize("shape", [(4, 1024), (1000,)])
+@pytest.mark.parametrize("world", [1, 4])
+def test_codec_decode_sum_matches_jax_on_both_layouts(shape, world):
+    # (4, 1024): the kernel layout, one unpack-sum, where a subnormal scale
+    # decodes to zeros as in the JAX fold; (1000,): eight consecutive
+    # elements a byte, the base class's fold. Both fold a zero scale's -0
+    # to +0.
+    stacked = _codec_payloads(world, shape)
+    planted = [3e-39] if world == 1 else [0.0, 3e-39]
+    if shape == (1000,):
+        planted = [0.0]
+    stacked["scale"][:len(planted)] = planted
     want = _jax_decode_sum(stacked["packed"], stacked["scale"], shape)
     got = get_codec("sign").decode_sum(
         {k: torch.from_numpy(v) for k, v in stacked.items()}, shape,
         torch.float32)
     assert got.shape == shape
     _same_bits(got.numpy(), want)
+
+
+def test_flat_layout_fold_keeps_the_subnormals_jax_flushes():
+    # the documented difference of ROADMAP queue 3 item 8: the base
+    # class's fold in PyTorch keeps a subnormal scale's values, where the
+    # JAX fold (XLA's CPU runtime, denormals off) adds zeros
+    stacked = _codec_payloads(1, (1000,))
+    stacked["scale"][0] = 3e-39
+    want = _jax_decode_sum(stacked["packed"], stacked["scale"], (1000,))
+    got = get_codec("sign").decode_sum(
+        {k: torch.from_numpy(v) for k, v in stacked.items()}, (1000,),
+        torch.float32).numpy()
+    assert not want.any()
+    np.testing.assert_array_equal(np.abs(got), np.float32(3e-39))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
