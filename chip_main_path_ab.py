@@ -14,12 +14,13 @@ device ms and device rows from 5 profiled rounds, and the calls' ms by
 CUDA events, host launch cost included) or ``decode``
 (``SignCodec.decode_sum`` over ResNet-18's 20 kernel-layout leaves at
 world 1 and 8, the same figures and the unpack launches counted);
-default: ``int8``, ``qsgd`` and ``ef_topk``. Each path runs from each checkout in a process of its
-own (5 loss steps, 1 grads-only step, the launch counts asserted, 1
-profiled step), in turns: parent, change, change, parent, parent,
-change. Each run prints its ``main_path``, ``profile``, ``flash_ab``,
-``codec_ab`` or ``decode_ab`` lines prefixed with ``ab=<parent|change> run=<i>``; the
-card's name and power limit come first. Needs one CUDA device.
+default: ``int8``, ``qsgd`` and ``ef_topk``. Each path runs from each
+checkout in a process of its own (5 loss steps, 1 grads-only step, the
+launch counts asserted, 1 profiled step), in turns: parent, change,
+change, parent, parent, change. Each run prints its ``main_path``,
+``profile``, ``flash_ab``, ``codec_ab`` or ``decode_ab`` lines prefixed
+with ``ab=<parent|change> run=<i>``; the card's name and power limit
+come first. Needs one CUDA device.
 """
 
 from __future__ import annotations
@@ -88,7 +89,8 @@ try:
         from pytorch_ps_mpi_tpu_torch.ops import sign as S
 
         # the parent has no unpack_signs_sum: count what each tree has
-        counters = [getattr(S, n) for n in ("unpack_signs", "unpack_signs_sum")
+        counters = [getattr(S, n) for n in ("unpack_signs",
+                                            "unpack_signs_sum")
                     if hasattr(S, n)]
         model = ResNet18(num_classes=10, small_inputs=True, seed=0,
                          device="cuda")

@@ -165,7 +165,7 @@ def _profiled(fn, cold: bool = False) -> list:
     warm-up call; ``cold``: with the 50 MB L2 flushed just before. Late
     in a long run of this script on an H100 the profiler dropped the
     first device rows of a trace (all of a one-kernel trace, the first of
-    20 decode_sum calls; PR 7), while it still recorded every runtime
+    20 decode_sum calls; PERF.md §7), while it still recorded every runtime
     launch call. So each trace opens with ``_LEAD`` spin kernels, and is
     whole only when its other device rows match the launch calls made
     after them; a trace short of rows is taken again, at most twice, and
