@@ -1,7 +1,7 @@
 """Gradient codecs: the pluggable compression surface
 (``pytorch_ps_mpi_tpu/codecs``). This package registers ``identity``,
 ``bf16``, ``f16``, ``sign``, ``int8``, ``qsgd``, ``topk``, ``ef`` and
-``terngrad``; the others follow in ROADMAP queue 1 item 3."""
+``terngrad``; the others follow in ROADMAP queue 1 item 2."""
 
 from pytorch_ps_mpi_tpu_torch.codecs.base import Codec, get_codec, register_codec
 from pytorch_ps_mpi_tpu_torch.codecs.identity import IdentityCodec

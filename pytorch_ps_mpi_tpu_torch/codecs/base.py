@@ -14,7 +14,7 @@ The counterpart of ``pytorch_ps_mpi_tpu/codecs/base.py``:
 - ``aggregate``/``agg_decode``: the compressed-domain sum for codecs whose
   algebra is exact (identity, casts). The streaming host-side forms
   (``agg_init``/``agg_fold``/``agg_finalize``) belong to the async wire
-  and come with it (ROADMAP queue 1 item 7);
+  and come with it (ROADMAP queue 1 item 5);
 - ``init_state(shape, dtype, device)``: per-leaf codec state (error
   feedback's residual memory), made on the leaf's device;
 - ``payload_bits(shape, dtype)``.
@@ -84,8 +84,8 @@ class Codec:
     supports_psum: bool = False
     #: codecs that consume randomness (random-k, QSGD)
     needs_rng: bool = False
-    #: shape-agnostic and stateless: flat-bucket aggregation may encode one
-    #: bucket instead of many leaves (bucketing is a later slice)
+    #: shape-agnostic and stateless: flat-bucket aggregation
+    #: (``MPI_PS(bucket_mb=...)``) encodes one bucket instead of many leaves
     bucketable: bool = False
     #: codecs whose aggregation is a collective protocol (PowerSGD)
     supports_fused_allreduce: bool = False

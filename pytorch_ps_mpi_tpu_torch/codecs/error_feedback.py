@@ -7,7 +7,7 @@ biased codecs (sign, top-k). The memory is explicit codec state, one
 tensor per leaf on the parameter's device; the optimizer threads it
 through the step and its ``state_dict`` carries it. The per-hop form
 (``HopErrorFeedback``) belongs to the aggregation tree (ROADMAP queue 1
-item 8).
+item 7).
 """
 
 from __future__ import annotations

@@ -178,7 +178,7 @@ class TernGradCodec(Codec):
     def _streaming(self, what: str) -> NotImplementedError:
         return NotImplementedError(
             f"TernGradCodec.{what} (the streaming host-side fold) is not "
-            "ported yet: ROADMAP queue 1 item 7 (the async wire)")
+            "ported yet: ROADMAP queue 1 item 5 (the async wire)")
 
     def agg_init(self, shape, dtype):
         raise self._streaming("agg_init")

@@ -30,10 +30,12 @@ SCHEMA_KEYS = (
 
 def schema_dict(*, msg_bytes: float, packaged_bytes: float,
                 wire_lowering: str, wire_bytes_per_worker: float,
+                bucket_count: float, bucket_bytes_total: float,
                 agg_launches: float) -> Dict[str, Union[float, str]]:
     """A fresh metrics dict: the byte fields are static per optimizer,
     the timing fields start at 0 and the step fills what it observes.
-    Bucketing is not ported yet, so its two fields stay 0."""
+    ``bucket_count`` 0 means the per-leaf path; ``agg_launches`` is the
+    aggregation's units a step (buckets, or leaves)."""
     return {
         "code_wait": 0.0,
         "iallgather_prepare_time": 0.0,
@@ -45,7 +47,7 @@ def schema_dict(*, msg_bytes: float, packaged_bytes: float,
         "packaged_bytes": float(packaged_bytes),
         "wire_lowering": wire_lowering,
         "wire_bytes_per_worker": float(wire_bytes_per_worker),
-        "bucket_count": 0.0,
-        "bucket_bytes_total": 0.0,
+        "bucket_count": float(bucket_count),
+        "bucket_bytes_total": float(bucket_bytes_total),
         "agg_launches": float(agg_launches),
     }

@@ -428,5 +428,5 @@ def test_terngrad_encode_draws_from_the_generator_and_streams_wait():
     for call in (lambda: code.agg_init((4,), torch.float32),
                  lambda: code.agg_fold({}, a),
                  lambda: code.agg_finalize({}, (4,), torch.float32)):
-        with pytest.raises(NotImplementedError, match="queue 1 item 7"):
+        with pytest.raises(NotImplementedError, match="queue 1 item 5"):
             call()

@@ -18,7 +18,9 @@ and the same from run to run. Flash attention: float32 to rtol 1e-5
 forward and 1e-4 backward, bf16 (the tensor-core kernels, every head
 dim) to 2**-6 of each output's largest magnitude; a ragged tile reads
 nothing of the next head, and o, lse, dq, dk, dv are the same from run
-to run, bit for bit.
+to run, bit for bit. The int8 and sign codecs on ResNet-18's buckets at
+``bucket_mb=16`` (payloads, decode-sums and two bucketed steps of either
+mode) against their plain versions on the CPU.
 """
 
 from __future__ import annotations
@@ -187,6 +189,60 @@ def test_step_on_the_card_matches_the_cpu(cuda, code):
     for k in shapes:
         torch.testing.assert_close(gpu[k].cpu(), cpu[k], rtol=1e-6,
                                    atol=1e-7)
+
+
+@pytest.mark.parametrize("mode", ["allgather", "leader"])
+@pytest.mark.parametrize("code", ["sign", "int8"])
+def test_codecs_on_resnet18_buckets_match_plain_versions(cuda, code, mode):
+    # ResNet-18's leaves in the JAX leaf order at bucket_mb=16: 4 buckets,
+    # 2 of them in the sign kernels' layout. Each bucket's payload and
+    # one-rank decode-sum on the card against the plain versions on the
+    # CPU (sign's |x| sum to rtol 1e-6, all else bit-exact), then two
+    # bucketed steps of either mode (int8 bit-exact, sign rtol 1e-6)
+    from pytorch_ps_mpi_tpu_torch.models import ResNet18
+    from pytorch_ps_mpi_tpu_torch.utils.interop import jax_leaf_order
+
+    model = ResNet18(num_classes=10, small_inputs=True, seed=0, device="cpu")
+    named = dict(model.named_parameters())
+    cpu = {n: named[n].detach().clone() for n in jax_leaf_order(model)}
+    gpu = {n: p.to(cuda) for n, p in cpu.items()}
+    opts = [SGD(p, lr=0.01, momentum=0.9, code=get_codec(code),
+                bucket_mb=16, mode=mode, device=d)
+            for p, d in ((cpu, "cpu"), (gpu, "cuda"))]
+    plan = opts[1]._bucket_plan
+    assert [b.size for b in plan.buckets] == [3961802, 2493440, 2359296,
+                                              2359424]
+    codec = get_codec(code)
+    gen = torch.Generator().manual_seed(0)
+    for b in plan.buckets:
+        x = 1e-2 * torch.randn(b.size, generator=gen)
+        want, _ = codec.encode(x)
+        got, _ = codec.encode(x.to(cuda))
+        for key in want:
+            if code == "sign" and key == "scale":
+                torch.testing.assert_close(got[key].cpu(), want[key],
+                                           rtol=1e-6, atol=0)
+            else:
+                assert torch.equal(got[key].cpu(), want[key]), key
+        stacked = {k: v[None] for k, v in got.items()}
+        summed = codec.decode_sum(stacked, (b.size,), torch.float32)
+        plain = codec.decode_sum({k: v.cpu() for k, v in stacked.items()},
+                                 (b.size,), torch.float32)
+        assert torch.equal(summed.cpu(), plain)
+    counter = S.encode_signs if code == "sign" else Q.quantize_int8
+    before = counter.launches
+    for _ in range(2):
+        grads = {k: 1e-2 * torch.randn((1,) + tuple(p.shape), generator=gen)
+                 for k, p in cpu.items()}
+        opts[0].step(grads=grads)
+        opts[1].step(grads={k: g.to(cuda) for k, g in grads.items()})
+    assert counter.launches - before == 2 * (2 if code == "sign" else 4)
+    for k in cpu:
+        if code == "int8":
+            assert torch.equal(gpu[k].cpu(), cpu[k]), k
+        else:
+            torch.testing.assert_close(gpu[k].cpu(), cpu[k], rtol=1e-6,
+                                       atol=1e-7)
 
 
 # -- int8 quantize / dequantize-sum ------------------------------------------

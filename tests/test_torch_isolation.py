@@ -44,7 +44,7 @@ def test_probe_imported_every_module_of_the_port(probe):
                  "utils.interop", "utils.metrics", "ops.quant", "ops.topk",
                  "codecs.quant", "codecs.topk", "codecs.error_feedback",
                  "ops.tern", "ops.attention", "codecs.terngrad",
-                 "models.bert"):
+                 "models.bert", "bucketing"):
         assert f"pytorch_ps_mpi_tpu_torch.{name}" in probe["modules"], name
 
 

@@ -16,7 +16,9 @@ through ``step(loss_fn=...)``: the port's payloads, run through the JAX
 codec's ``aggregate``/``agg_decode`` and the JAX ``adam_update``, give
 the port's parameters to rtol 1e-6 after 2 steps (BERT keeps
 flax's layouts, so a payload is the same array in both packages).
-(d) the options this slice does not port raise ``NotImplementedError``.
+(d) the options the port does not have yet raise ``NotImplementedError``
+    (``bucket_mb`` and ``mode="leader"`` are in ``test_torch_bucketing.py``
+    and ``test_torch_leader.py``).
 (e) the default ``device="cuda"`` raises when there is no GPU.
 Also: the grads-only options (average, clip_norm, weight decay, bf16
 psum, Adam, Adafactor, int8, error feedback around top-k) on a small MLP
@@ -235,8 +237,8 @@ def test_error_feedback_memory_lives_on_the_param_device_and_round_trips():
 
 
 @pytest.mark.parametrize("kw", [
-    dict(mode="leader"), dict(bucket_mb=4.0), dict(numerics=True),
-    dict(param_specs={}), dict(instrument=True), dict(axis_name=("a", "b")),
+    dict(numerics=True), dict(param_specs={}), dict(instrument=True),
+    dict(axis_name=("a", "b")),
 ])
 def test_unported_options_raise(kw):
     _, model = mlp_pair()

@@ -21,19 +21,14 @@ after 2 steps.
 
 from __future__ import annotations
 
-import os
-import socket
-import subprocess
-import sys
-
 import numpy as np
 import pytest
 import torch
 
-from torch_parity import (ROOT, STEPS, assert_params_close, jax_bert,
+from torch_parity import (STEPS, assert_params_close, jax_bert,
                           jax_grads_only, jax_replay_terngrad_adam,
-                          jax_resnet, stacked_grads, torch_bert, torch_grads,
-                          torch_resnet)
+                          jax_resnet, spawn_ranks, stacked_grads, torch_bert,
+                          torch_grads, torch_resnet)
 
 
 _WORKER = """
@@ -96,29 +91,6 @@ torch.distributed.destroy_process_group()
 """
 
 
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        return s.getsockname()[1]
-
-
-def _spawn(tmp_path, script: str, world: int, args) -> None:
-    port = _free_port()
-    env = {**os.environ,
-           "PYTHONPATH": os.pathsep.join([str(ROOT), str(ROOT / "tests")])}
-    procs = [subprocess.Popen(
-        [sys.executable, "-c", script, str(r), str(world), str(port),
-         *map(str, args)], cwd=ROOT, env=env,
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        for r in range(world)]
-    try:
-        outs = [p.communicate(timeout=120)[0] for p in procs]
-    finally:
-        for p in procs:
-            p.kill()
-    assert [p.returncode for p in procs] == [0] * world, outs
-
-
 def _world2_run(tmp_path, codec: str) -> None:
     world = 2
     model = torch_resnet()
@@ -131,7 +103,7 @@ def _world2_run(tmp_path, codec: str) -> None:
             arrays[f"g{s}:{n}"] = g.numpy()
     src, dst = tmp_path / "in.npz", tmp_path / "out.npz"
     np.savez(src, **arrays)
-    _spawn(tmp_path, _WORKER, world, (src, dst, STEPS, codec))
+    spawn_ranks(_WORKER, world, (src, dst, STEPS, codec))
     got = np.load(dst)
     with torch.no_grad():
         for n, p in model.named_parameters():
@@ -156,7 +128,7 @@ def test_adam_terngrad_loss_fn_step_on_tiny_bert_matches_jax_world2_gloo(
     src, dst = tmp_path / "bert.npz", tmp_path / "sent"
     np.savez(src, **{n: p.detach().numpy()
                      for n, p in model.named_parameters()})
-    _spawn(tmp_path, _BERT_WORKER, world, (src, dst, steps))
+    spawn_ranks(_BERT_WORKER, world, (src, dst, steps))
     outs = [np.load(f"{dst}.{r}.npz") for r in range(world)]
     names = [str(n) for n in outs[0]["names"]]
     per_rank = [[{k: out[f"{i}:{k}"] for k in ("packed", "scale")}

@@ -1,12 +1,16 @@
 """Shared inputs of the port's step parity tests (``test_torch_ps*.py``):
 the width-32 ResNet-18, a small MLP and the tiny BERT on both sides,
 seeded numpy gradients in both layouts, the codecs the step tests use,
-the JAX package's grads-only runs, and the JAX aggregate-and-Adam replay
-of the port's TernGrad payloads."""
+the JAX package's grads-only runs, the JAX aggregate-and-Adam replay
+of the port's TernGrad payloads, and the launcher of the gloo spawns."""
 
 from __future__ import annotations
 
 import functools
+import os
+import socket
+import subprocess
+import sys
 from pathlib import Path
 
 import numpy as np
@@ -44,6 +48,28 @@ def torch_resnet():
                         device="cpu")
     params_from_jax(jax_resnet()[1], model)
     return model
+
+
+def spawn_ranks(script: str, world: int, args) -> None:
+    """Run ``script`` (``python -c``) in ``world`` processes on the CPU,
+    each given ``rank world port *args``, with the repo and ``tests/`` on
+    the path; every one must exit 0 within 120 s."""
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    env = {**os.environ,
+           "PYTHONPATH": os.pathsep.join([str(ROOT), str(ROOT / "tests")])}
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", script, str(r), str(world), str(port),
+         *map(str, args)], cwd=ROOT, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(world)]
+    try:
+        outs = [p.communicate(timeout=120)[0] for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    assert [p.returncode for p in procs] == [0] * world, outs
 
 
 def mlp_pair(seed: int = 0, features=(48, 10)):
