@@ -14,8 +14,11 @@ Phases, one line each; the script exits non-zero if any fails:
                instructions in the attention libraries' SASS (where the
                toolkit has ``cuobjdump``).
 3. kernels   -- each kernel against its plain PyTorch version on the card,
-               at the main paths' leaf sizes, with planted cases:
-               - the sign kernels at ResNet-18's 20 kernel-path leaves, at
+               at the main paths' leaf sizes and the sizes of their
+               buckets at bucket_mb=16 (the plan over the JAX leaf
+               order), with planted cases:
+               - the sign kernels at ResNet-18's 20 kernel-path leaves and
+                 its 2 kernel-layout buckets, at
                  one row below, at and above the rows one encode block
                  sums, and past the co-resident grid (bytes bit-exact, |x|
                  sum within rtol 1e-6, -0.0 and NaN); the unpack-sum
@@ -23,8 +26,9 @@ Phases, one line each; the script exits non-zero if any fails:
                  scales, sums below the smallest normal float and a view
                  one byte into its buffer (bit-exact, NaN by position),
                  timed over the 20 leaves at each world;
-               - int8 quantize and dequantize-sum at ResNet-18's 62 leaves,
-                 world 1 and world 8, and quantize also one below, at and
+               - int8 quantize and dequantize-sum at ResNet-18's 62 leaves
+                 and 4 buckets, world 1 and world 8, and quantize also one
+                 below, at and
                  above its tile and past the co-resident grid (codes,
                  scales and floats bit-exact; NaN, ±Inf, ±0.0 and exact .5
                  ties);
@@ -41,9 +45,10 @@ Phases, one line each; the script exits non-zero if any fails:
                  bit-exact; heavy |x| ties, NaN, ±Inf, ±0.0, all ties, all
                  zeros, k = 1, k = n − 1, more NaNs than k, odd n from a
                  misaligned view, run-to-run identity);
-               - TernGrad's pack at BERT-base's 63 sublane-layout leaves as
-                 the codec calls it (the two 23,440,896-element leaves in
-                 chunks of 2**20), and its unpack-sum at world 1 and 8
+               - TernGrad's pack at BERT-base's 63 sublane-layout leaves and
+                 15 such buckets as the codec calls it (the two
+                 23,440,896-element units in chunks of 2**20), and its
+                 unpack-sum there at world 1 and 8
                  (bytes and floats bit-exact; ±0.0, NaN, ±Inf, |x| == s,
                  u24 == p24, the top random bit);
                - the flash forward and backward at [b=4, l=512, h=12, d=64]
@@ -74,9 +79,13 @@ Phases, one line each; the script exits non-zero if any fails:
                and its ms and device ms over the 20 kernel leaves.
 5. reference -- grads-only steps on the card against the same steps on the
                CPU (the plain versions), rtol 1e-6: SGD(sign) and
-               SGD(int8) on ResNet-18, SGD(ef∘topk) on ResNet-50, and
-               Adam(terngrad(use_pallas=True)) on BERT-base with the same
-               random numbers on both sides; then BERT-base's loss and
+               SGD(int8) on ResNet-18, SGD(sign) also at bucket_mb=16 and
+               SGD(int8) at bucket_mb=16 in allgather and in leader mode
+               (bit-exact), SGD(ef∘topk) on ResNet-50, and
+               Adam(terngrad(use_pallas=True)) on BERT-base per leaf and at
+               bucket_mb=16, with the same random numbers on both sides
+               and the card's TernGrad launches asserted; then BERT-base's
+               loss and
                gradients with the flash kernels against the same with their
                plain versions on the card (bf16, see ``check_bert_flash``).
 6. main path -- a one-rank NCCL process group, then 5 ``step(loss_fn=...)``
@@ -87,10 +96,23 @@ Phases, one line each; the script exits non-zero if any fails:
                224x224, batch 128; then Adam(lr=1e-4) with identity and
                terngrad(use_pallas=True) on BERT-base MLM (132,361,530
                parameters in 150 leaves, bf16 compute, float32 parameters,
-               attention="flash") at batch 4, sequence 512. Every kernel
-               count is set to 0 just before a run and read just after it,
-               and must equal the run's exact launches (flash only in loss
-               steps: 12 forward and 12 + 12 backward launches a step).
+               attention="flash") at batch 4, sequence 512. Then the
+               bucketed runs at bucket_mb=16, parameters in the JAX leaf
+               order: ResNet-18 SGD with sign and int8 in allgather mode
+               and int8 in leader mode (ZeRO-1, payload_gather at world
+               1), BERT-base Adam with terngrad(use_pallas=True) in
+               allgather mode and identity in leader mode (psum_scatter,
+               the state kept a bucket at a time). Every kernel count and
+               the collective counter (``comms.calls``) are set to 0 just
+               before a run and read just after it; the kernel counts must
+               equal the run's exact launches (flash only in loss steps:
+               12 forward and 12 + 12 backward launches a step; a
+               bucketed run's codec launches from its own bucket plan,
+               which must give the JAX plan's), and the collective calls
+               of the grads-only step a fixed table (62/124/124/124/322
+               per leaf on the ResNets, 150/300 on BERT-base; 8, 8, 12,
+               56 and 28 reduce-scatters + 28 all-gathers bucketed), plus
+               one all-reduce of the loss a loss step.
                One more step then runs under torch.profiler (phase
                ``profile``): the device's busy time against the step's
                wall time and the kernels that take the most of it.
@@ -325,13 +347,26 @@ def kernel_sizes(model) -> list:
     return sizes
 
 
-def check_kernels(sizes: list) -> dict:
-    """Bit-exactness and timing of the three sign kernels."""
+def bucket_sizes(model) -> list:
+    """The element counts of ``model``'s buckets at ``BUCKET_MB``: the plan
+    the bucketed main paths build over its parameters in JAX leaf order."""
+    from pytorch_ps_mpi_tpu_torch.bucketing import plan_buckets
+
+    plan = plan_buckets(ordered_params(model), BUCKET_MB)
+    return [b.size for b in plan.buckets]
+
+
+def check_kernels(sizes: list, buckets: list) -> dict:
+    """Bit-exactness and timing of the three sign kernels, at the leaf
+    ``sizes`` and the kernel-layout ``buckets`` of the main paths."""
     from pytorch_ps_mpi_tpu_torch.ops import sign as S
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     one, past = sign_edge_rows()
-    cases = sorted(set(sizes)) + [S.GROUP, 13 * S.GROUP] + [
+    kernel_buckets = [n for n in buckets if n % S.GROUP == 0]
+    if len(kernel_buckets) != PLAN_LAUNCHES["sign"]["encode_signs"]:
+        raise AssertionError(f"sign: kernel-layout buckets {kernel_buckets}")
+    cases = sorted(set(sizes + kernel_buckets)) + [S.GROUP, 13 * S.GROUP] + [
         r * S.GROUP for r in (one - 1, one, one + 1, past) if r > 0]
     max_err = {"encode_signs": 0.0, "pack_signs": 0.0, "unpack_signs": 0.0}
     for n in cases:
@@ -382,7 +417,8 @@ def check_kernels(sizes: list) -> dict:
         r = timed(kern, plain, args, nbytes)
         r["max_abs_err"] = max_err[name]
         results[name] = r
-        report(name, r, leaves=len(sizes), cases=2 * len(cases))
+        report(name, r, leaves=len(sizes), cases=2 * len(cases),
+               buckets_checked=len(kernel_buckets))
     results["unpack_signs_sum"] = check_unpack_sum(sizes, cases, gen)
     sum_ms = sum(cuda_ms(lambda: torch.sum(x.abs())) for x in xs)
     phase("kernels", yardstick="torch.sum(x.abs()) over the 20 leaves",
@@ -530,12 +566,16 @@ def _int8_planted(n: int, case: str, gen) -> torch.Tensor:
 
 def check_quant_kernels(model) -> dict:
     """The int8 quantize and dequantize-sum kernels at ResNet-18's 62
-    leaves: bit-exact at world 1 and 8, planted cases, and timing."""
+    leaves and its buckets at ``BUCKET_MB``: bit-exact at world 1 and 8,
+    planted cases, and timing (over the leaves)."""
     from pytorch_ps_mpi_tpu_torch.ops import quant as Q
 
     sizes = [p.numel() for p in model.parameters()]
     if len(sizes) != 62:
         raise AssertionError(f"expected 62 leaves, got {len(sizes)}")
+    buckets = bucket_sizes(model)
+    if len(buckets) != PLAN_LAUNCHES["int8"]["quantize_int8"]:
+        raise AssertionError(f"int8: buckets {buckets}")
     gen = torch.Generator(device="cuda").manual_seed(4)
 
     def same(a, b, what):
@@ -547,8 +587,8 @@ def check_quant_kernels(model) -> dict:
     cases = 0
     tile = Q._tile()
     past = Q._lib().quant_int8_grid(1 << 40) * tile + 4099
-    for n in sorted(set(sizes)) + [4099, 1000, tile - 1, tile, tile + 1,
-                                   past]:
+    for n in sorted(set(sizes + buckets)) + [4099, 1000, tile - 1, tile,
+                                             tile + 1, past]:
         for case in (("plain", "ties", "signed_zero", "nan", "inf",
                       "neg_inf", "zeros") if n >= 16 else ("plain",)):
             x = 1e-2 * _int8_planted(n, case, gen)
@@ -561,7 +601,8 @@ def check_quant_kernels(model) -> dict:
     # thread), n % 16 == 4 (4 codes), odd n, and codes that start one byte
     # into their buffer (so no row is aligned), at world 1 and 8
     dequant_cases = 0
-    for n in sorted(set(sizes)) + [4099, 1000, 1028, 2_359_296 + 4]:
+    for n in sorted(set(sizes + buckets)) + [4099, 1000, 1028,
+                                             2_359_296 + 4]:
         for world in (1, 8):
             for offset in (0, 1):
                 buf = torch.randint(-127, 128, (world * n + offset,),
@@ -578,7 +619,8 @@ def check_quant_kernels(model) -> dict:
                          Q.dequant_sum_ref(qs, ss),
                          f"dequantize_int8 at n={n}, offset {offset}")
                 dequant_cases += 1
-    phase("kernels", check="int8 bit-exact", sizes=len(set(sizes)) + 6,
+    phase("kernels", check="int8 bit-exact",
+          sizes=len(set(sizes + buckets)) + 6,
           quantize_cases=cases, dequant_cases=dequant_cases,
           dequant_worlds="1,8", dequant_widths="n%16==0,n%16==4,odd,offset 1")
 
@@ -758,23 +800,30 @@ def check_topk_kernels(leaves: list):
 
 # -- TernGrad pack / unpack-sum ---------------------------------------------------
 
-def tern_calls(model) -> list:
-    """Per sublane-layout leaf of ``model``, the element counts of its
-    ``tern_pack`` calls as ``TernGradCodec(use_pallas=True)`` makes them:
-    the whole leaf, or its chunks at or above the scan threshold."""
+def tern_units(sizes) -> list:
+    """Per sublane-layout unit (leaf or bucket) of these element counts,
+    the element counts of its ``tern_pack`` calls as
+    ``TernGradCodec(use_pallas=True)`` makes them: the whole unit, or its
+    chunks at or above the scan threshold."""
     from pytorch_ps_mpi_tpu_torch.codecs import get_codec
 
     code = get_codec("terngrad", use_pallas=True)
-    leaves = []
-    for p in model.parameters():
-        n = p.numel()
+    units = []
+    for n in sizes:
         if not code._pallas_ok(n):
             continue
         if n < code.scan_threshold:
-            leaves.append([n])
+            units.append([n])
         else:
             full, tail = divmod(n, code.scan_block)
-            leaves.append([code.scan_block] * full + ([tail] if tail else []))
+            units.append([code.scan_block] * full + ([tail] if tail else []))
+    return units
+
+
+def tern_calls(model) -> list:
+    """:func:`tern_units` of ``model``'s leaves: BERT-base's 107
+    ``tern_pack`` calls a per-leaf step."""
+    leaves = tern_units(p.numel() for p in model.parameters())
     calls = [c for leaf in leaves for c in leaf]
     if len(leaves) != 63 or len(calls) != 107 or sum(calls) != 132_246_528:
         raise AssertionError(f"expected 107 tern_pack calls over 63 leaves "
@@ -799,16 +848,23 @@ def _tern_planted(n: int, gen):
 
 
 def check_tern_kernels(model) -> dict:
-    """``tern_pack`` at BERT-base's 107 calls a step and the unpack-sum at
-    its 63 sublane-layout leaves (world 1 and 8): bit-exact against the
-    plain versions, planted cases, and timing."""
+    """``tern_pack`` at BERT-base's 107 calls a per-leaf step and the 59 of
+    a step at ``BUCKET_MB``, and the unpack-sum at its 63 sublane-layout
+    leaves and 15 such buckets (world 1 and 8): bit-exact against the
+    plain versions, planted cases, and timing (over the leaves)."""
     from pytorch_ps_mpi_tpu_torch.ops import tern as TG
 
     leaves = tern_calls(model)
     calls = [c for leaf in leaves for c in leaf]
-    leaf_sizes = sorted({sum(leaf) for leaf in leaves})
+    buckets = tern_units(bucket_sizes(model))
+    got = {"tern_pack": sum(len(b) for b in buckets),
+           "tern_unpack": len(buckets)}
+    if got != PLAN_LAUNCHES["terngrad"]:
+        raise AssertionError(f"terngrad buckets give {got}")
+    pack_sizes = sorted({c for unit in leaves + buckets for c in unit})
+    unit_sizes = sorted({sum(unit) for unit in leaves + buckets})
     gen = torch.Generator(device="cuda").manual_seed(6)
-    for n in sorted(set(calls)):
+    for n in pack_sizes:
         x = torch.randn(n, generator=gen, device="cuda")
         bits = torch.randint(-2**31, 2**31, (n,), generator=gen,
                              device="cuda", dtype=torch.int32)
@@ -829,7 +885,7 @@ def check_tern_kernels(model) -> dict:
             if not torch.equal(TG.tern_pack(x, bits, s),
                                TG.tern_pack_ref(x, bits, s)):
                 raise AssertionError(f"tern_pack differs at scale {scale}")
-    for m in [n // 4 for n in leaf_sizes]:
+    for m in [n // 4 for n in unit_sizes]:
         for world in (1, 8):
             packed = torch.randint(0, 256, (world, m), generator=gen,
                                    device="cuda", dtype=torch.uint8)
@@ -839,8 +895,9 @@ def check_tern_kernels(model) -> dict:
             if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
                 raise AssertionError(f"tern_unpack_sum differs at m={m}, "
                                      f"world {world}")
-    phase("kernels", check="terngrad bit-exact", pack_sizes=len(set(calls)),
-          unpack_sizes=len(leaf_sizes), unpack_worlds="1,8",
+    phase("kernels", check="terngrad bit-exact", pack_sizes=len(pack_sizes),
+          unpack_sizes=len(unit_sizes), unpack_worlds="1,8",
+          units="leaves and buckets",
           planted="±0.0, NaN, ±Inf, |x|==s, u24==p24, top bit; NaN/Inf scale")
 
     pack_args = []
@@ -1217,19 +1274,25 @@ def make_codec(name: str):
 
 
 def check_reference(model, code_name: str, model_name: str,
-                    exact: bool = False) -> None:
+                    exact: bool = False, **opt_kw) -> None:
     """A grads-only step on the card against the same step on the CPU,
     where every wrapper takes its plain version; ``exact``: the same
-    arithmetic on both devices, so equal bit for bit."""
+    arithmetic on both devices, so equal bit for bit. ``opt_kw``
+    (``bucket_mb``, ``mode``) go to both optimizers, whose parameters are
+    in the JAX package's leaf order, as the main path's bucketed runs
+    give them."""
     from pytorch_ps_mpi_tpu_torch import SGD
+    from pytorch_ps_mpi_tpu_torch.utils.interop import jax_leaf_order
 
     gen = torch.Generator().manual_seed(2)
-    cpu = {k: p.detach().cpu().clone() for k, p in model.named_parameters()}
+    named = dict(model.named_parameters())
+    cpu = {k: named[k].detach().cpu().clone() for k in jax_leaf_order(model)}
     gpu = {k: p.cuda() for k, p in cpu.items()}
     grads = {k: 1e-2 * torch.randn((1,) + tuple(p.shape), generator=gen)
              for k, p in cpu.items()}
     opts = [SGD(params, lr=0.01, momentum=0.9, code=make_codec(code_name),
-                device=dev) for params, dev in ((cpu, "cpu"), (gpu, "cuda"))]
+                device=dev, **opt_kw)
+            for params, dev in ((cpu, "cpu"), (gpu, "cuda"))]
     for _ in range(2):
         opts[0].step(grads=grads)
         opts[1].step(grads={k: g.cuda() for k, g in grads.items()})
@@ -1239,10 +1302,13 @@ def check_reference(model, code_name: str, model_name: str,
         torch.testing.assert_close(b, a, rtol=1e-6, atol=1e-7)
         worst = max(worst, float((a - b).abs().max()))
     if exact and worst != 0.0:
-        raise AssertionError(f"SGD({code_name}) on the card differs from the "
-                             f"CPU by {worst}")
+        raise AssertionError(f"SGD({code_name}, {opt_kw}) on the card "
+                             f"differs from the CPU by {worst}")
     phase("reference", step=f"grads-only SGD({code_name}) x2",
-          model=model_name, rtol=1e-6, max_abs_diff=worst)
+          model=model_name, **opt_kw,
+          buckets=opts[1]._metrics["bucket_count"],
+          wire_lowering=opts[1]._metrics["wire_lowering"], rtol=1e-6,
+          max_abs_diff=worst)
 
 
 def shared_noise_terngrad(seed: int):
@@ -1269,28 +1335,41 @@ def shared_noise_terngrad(seed: int):
     return code
 
 
-def check_bert_reference(model) -> None:
+def check_bert_reference(model, tern_launches: dict, **opt_kw) -> None:
     """One grads-only Adam(terngrad(use_pallas=True)) step of BERT-base on
     the card against the same step on the CPU (the plain versions), the
-    same random numbers on both sides; rtol 1e-6."""
+    same random numbers on both sides; rtol 1e-6. ``opt_kw``
+    (``bucket_mb``) go to both optimizers, whose parameters are in the JAX
+    leaf order; the card's step must launch the TernGrad kernels
+    ``tern_launches`` times."""
     from pytorch_ps_mpi_tpu_torch import Adam
 
     gen = torch.Generator().manual_seed(8)
-    cpu = {k: p.detach().cpu().clone() for k, p in model.named_parameters()}
-    gpu = {k: p.detach().clone() for k, p in model.named_parameters()}
+    gpu = {k: p.detach().clone() for k, p in ordered_params(model).items()}
+    cpu = {k: p.cpu() for k, p in gpu.items()}
     grads = {k: 1e-3 * torch.randn((1,) + tuple(p.shape), generator=gen)
              for k, p in cpu.items()}
-    opts = [Adam(params, lr=1e-4, code=shared_noise_terngrad(9), device=dev)
+    opts = [Adam(params, lr=1e-4, code=shared_noise_terngrad(9), device=dev,
+                 **opt_kw)
             for params, dev in ((cpu, "cpu"), (gpu, "cuda"))]
+    counters = kernel_counters()
+    before = {k: counters[k].launches for k in tern_launches}
     opts[0].step(grads=grads)
     opts[1].step(grads={k: g.cuda() for k, g in grads.items()})
+    got = {k: counters[k].launches - before[k] for k in tern_launches}
+    if got != tern_launches:
+        raise AssertionError(f"BERT reference {opt_kw}: launches {got}, "
+                             f"expected {tern_launches}")
     worst = 0.0
     for k in cpu:
         a, b = cpu[k], gpu[k].cpu()
         torch.testing.assert_close(b, a, rtol=1e-6, atol=1e-7)
         worst = max(worst, float((a - b).abs().max()))
     phase("reference", step="grads-only Adam(terngrad(use_pallas=True)) x1",
-          model="BERT-base", leaves=len(cpu), rtol=1e-6, max_abs_diff=worst)
+          model="BERT-base", **opt_kw, leaves=len(cpu),
+          buckets=opts[1]._metrics["bucket_count"],
+          launches=json.dumps(got, separators=(",", ":")), rtol=1e-6,
+          max_abs_diff=worst)
 
 
 def check_bert_flash(model) -> None:
@@ -1364,19 +1443,78 @@ def kernel_counters() -> dict:
             "flash_fwd": A.flash_fwd, "flash_bwd": A.flash_bwd}
 
 
+#: bucket_mb of the bucketed and leader runs, and the kernel launches a
+#: step that the JAX package's plan_buckets gives on these models' leaves
+#: in its leaf order (ResNet-18: 4 buckets, 2 of n % 1024 == 0; BERT-base:
+#: 28 buckets, 15 of n % 512 == 0, two of them 23,440,896 elements packed
+#: in 23 chunks each)
+BUCKET_MB = 16.0
+PLAN_LAUNCHES = {
+    "sign": {"encode_signs": 2, "unpack_signs_sum": 2},
+    "int8": {"quantize_int8": 4, "dequantize_int8": 4},
+    "terngrad": {"tern_pack": 13 + 2 * 23, "tern_unpack": 15},
+}
+
+
+def from_plan(code_name: str):
+    """``per_step`` of a bucketed run: the launches the optimizer's own
+    plan gives, which must equal :data:`PLAN_LAUNCHES`."""
+    def per_step(opt) -> dict:
+        got = plan_launches(opt, code_name)
+        if got != PLAN_LAUNCHES[code_name]:
+            raise AssertionError(f"{code_name}: the port's plan gives "
+                                 f"{got}, the JAX plan "
+                                 f"{PLAN_LAUNCHES[code_name]}")
+        return got
+    return per_step
+
+
+def ordered_params(model) -> dict:
+    """``model``'s parameters in the JAX package's leaf order, so a bucket
+    plan holds the JAX package's buckets."""
+    from pytorch_ps_mpi_tpu_torch.utils.interop import jax_leaf_order
+
+    named = dict(model.named_parameters())
+    return {n: named[n] for n in jax_leaf_order(model)}
+
+
+def plan_launches(opt, code_name: str) -> dict:
+    """Kernel launches a step of a bucketed codec, derived from the
+    optimizer's own bucket plan: sign's kernels take a bucket of n % 1024
+    == 0, int8's every bucket, TernGrad's pack a sublane-layout bucket
+    whole or chunk by chunk and its unpack-sum each such bucket."""
+    sizes = [b.size for b in opt._bucket_plan.buckets]
+    code = opt.code
+    if code_name == "sign":
+        n = sum(1 for m in sizes if code._kernel_ok(m))
+        return {"encode_signs": n, "unpack_signs_sum": n}
+    if code_name == "int8":
+        return {"quantize_int8": len(sizes), "dequantize_int8": len(sizes)}
+    if code_name == "terngrad":
+        units = tern_units(sizes)
+        return {"tern_pack": sum(len(u) for u in units),
+                "tern_unpack": len(units)}
+    return {}
+
+
 def run_main_path(model, code_name: str, dataset: str, batch: int,
-                  per_step: dict, model_name: str) -> dict:
+                  per_step, calls: dict, model_name: str, **opt_kw) -> dict:
     """5 loss_fn steps and 1 grads-only step of SGD on a ResNet; the launch
     counts of the run must equal ``per_step`` (kernel -> launches a step)
-    x 6."""
+    x 6, and its collective calls ``calls`` (kind -> calls a grads-only
+    step). ``opt_kw`` (``bucket_mb``, ``mode``) go to the optimizer, whose
+    parameters are in the JAX leaf order; ``per_step`` may be a callable
+    of the optimizer (the counts its bucket plan gives)."""
     from torch.func import functional_call
 
     from pytorch_ps_mpi_tpu_torch import SGD
     from pytorch_ps_mpi_tpu_torch.data import (cross_entropy_loss,
                                                synthetic_images)
 
-    opt = SGD(model, lr=0.01, momentum=0.9, code=make_codec(code_name),
-              device="cuda")
+    opt = SGD(ordered_params(model), lr=0.01, momentum=0.9,
+              code=make_codec(code_name), device="cuda", **opt_kw)
+    if callable(per_step):
+        per_step = per_step(opt)
     # drawn before the timed steps: the ImageNet generator makes a 602 MB
     # class-mean table and 77 MB per batch on the host
     stream = synthetic_images(dataset, batch, seed=0, device="cuda")
@@ -1386,21 +1524,26 @@ def run_main_path(model, code_name: str, dataset: str, batch: int,
         x, y = b
         return cross_entropy_loss(functional_call(model, params, (x,)), y)
 
-    return drive(opt, loss_fn, batches, per_step, per_step, code_name,
+    return drive(opt, loss_fn, batches, per_step, per_step, calls, code_name,
                  model=model_name, batch=batch)
 
 
 def run_bert_path(model, code_name: str, per_loss_step: dict,
-                  per_grads_step: dict) -> dict:
+                  per_grads_step: dict, calls: dict, **opt_kw) -> dict:
     """5 loss_fn steps and 1 grads-only step of Adam(lr=1e-4) on BERT-base
-    MLM at batch 4, sequence 512."""
+    MLM at batch 4, sequence 512; ``per_grads_step`` may be a callable
+    of the optimizer, whose counts are then added to ``per_loss_step``."""
     from torch.func import functional_call
 
     from pytorch_ps_mpi_tpu_torch import Adam
     from pytorch_ps_mpi_tpu_torch.data import synthetic_mlm
     from pytorch_ps_mpi_tpu_torch.models import mlm_loss
 
-    opt = Adam(model, lr=1e-4, code=make_codec(code_name), device="cuda")
+    opt = Adam(ordered_params(model), lr=1e-4, code=make_codec(code_name),
+               device="cuda", **opt_kw)
+    if callable(per_grads_step):
+        per_grads_step = per_grads_step(opt)
+        per_loss_step = {**per_loss_step, **per_grads_step}
     stream = synthetic_mlm(BERT_BATCH, BERT_SEQ, model.cfg.vocab_size,
                            seed=0, device="cuda")
     batches = [next(stream) for _ in range(LOSS_STEPS + 1)]
@@ -1409,27 +1552,34 @@ def run_bert_path(model, code_name: str, per_loss_step: dict,
         logits = functional_call(model, params, (b["tokens"],))
         return mlm_loss(logits, b["targets"], b["mask"])
 
-    return drive(opt, loss_fn, batches, per_loss_step, per_grads_step,
+    return drive(opt, loss_fn, batches, per_loss_step, per_grads_step, calls,
                  code_name, model="BERT-base-mlm-bf16-flash",
                  batch=f"{BERT_BATCH}x{BERT_SEQ}")
 
 
 def drive(opt, loss_fn, batches, per_loss_step: dict, per_grads_step: dict,
-          code_name: str, **fields) -> dict:
+          calls: dict, code_name: str, **fields) -> dict:
     """``LOSS_STEPS`` loss_fn steps and 1 grads-only step; every kernel
-    count is set to 0 just before and read just after, and must equal
-    ``per_loss_step`` x ``LOSS_STEPS`` + ``per_grads_step``."""
+    count and the collective counter are set to 0 just before and read
+    just after, and must equal ``per_loss_step`` x ``LOSS_STEPS`` +
+    ``per_grads_step``, and ``calls`` in the grads-only step (a loss step
+    adds the loss's all-reduce)."""
+    from pytorch_ps_mpi_tpu_torch import comms
+
     before = {k: p.detach().clone() for k, p in opt.params.items()}
     counters = kernel_counters()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     for k in counters.values():
         k.launches = 0
+    comms.reset_calls()
     losses, step_ms = [], []
     for b in batches[:LOSS_STEPS]:
         loss, data = opt.step(loss_fn=loss_fn, batch=b)
         losses.append(float(loss))
         step_ms.append(data["step_time"] * 1e3)
+    loss_calls = dict(comms.calls)
+    comms.reset_calls()
     gen = torch.Generator(device="cuda").manual_seed(3)
     grads = {k: 1e-3 * torch.randn((WORLD,) + tuple(p.shape), generator=gen,
                                    device="cuda")
@@ -1437,6 +1587,7 @@ def drive(opt, loss_fn, batches, per_loss_step: dict, per_grads_step: dict,
     _, data = opt.step(grads=grads)
     torch.cuda.synchronize()
     launches = {name: k.launches for name, k in counters.items()}
+    grads_calls = dict(comms.calls)
     del grads
 
     if not all(math.isfinite(v) for v in losses):
@@ -1451,12 +1602,26 @@ def drive(opt, loss_fn, batches, per_loss_step: dict, per_grads_step: dict,
     if launches != want:
         raise AssertionError(f"{code_name}: launches {launches}, expected "
                              f"{want}")
+    want_grads = {k: calls.get(k, 0) for k in grads_calls}
+    want_loss = {k: (calls.get(k, 0) + (k == "all_reduce")) * LOSS_STEPS
+                 for k in loss_calls}
+    if grads_calls != want_grads or loss_calls != want_loss:
+        raise AssertionError(f"{code_name}: collective calls {loss_calls} "
+                             f"in the loss steps and {grads_calls} in the "
+                             f"grads-only step, expected {want_loss} and "
+                             f"{want_grads}")
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
     median = statistics.median(step_ms)
     profile_step(opt, loss_fn, batches[-1], code_name)
     phase("main_path", code=code_name, **fields,
           params=sum(p.numel() for p in opt.params.values()),
-          leaves=len(opt.params), world=WORLD,
+          leaves=len(opt.params), world=WORLD, mode=opt.mode,
+          bucket_mb=opt.bucket_mb, bucket_count=int(data["bucket_count"]),
+          agg_launches=int(data["agg_launches"]),
+          wire_lowering=data["wire_lowering"],
+          collectives_per_grads_step=json.dumps(
+              {k: v for k, v in grads_calls.items() if v},
+              separators=(",", ":")),
           losses=json.dumps([round(v, 5) for v in losses]),
           step_ms=json.dumps([round(v, 3) for v in step_ms]),
           median_step_ms=f"{median:.3f}",
@@ -1538,34 +1703,61 @@ def main() -> int:
     build_kernels()
     model = resnet18()
     r50 = resnet50()
-    results = check_kernels(kernel_sizes(model))
+    results = check_kernels(kernel_sizes(model), bucket_sizes(model))
     check_decode_sum(model)
     results.update(check_quant_kernels(model))
     leaves = topk_leaves(r50)
     topk_launches, topk_results = check_topk_kernels(leaves)
     results.update(topk_results)
     check_reference(model, "sign", "ResNet18-cifar-gn-f32")
+    check_reference(model, "sign", "ResNet18-cifar-gn-f32",
+                    bucket_mb=BUCKET_MB)
     check_reference(model, "int8", "ResNet18-cifar-gn-f32", exact=True)
+    check_reference(model, "int8", "ResNet18-cifar-gn-f32", exact=True,
+                    bucket_mb=BUCKET_MB)
+    check_reference(model, "int8", "ResNet18-cifar-gn-f32", exact=True,
+                    bucket_mb=BUCKET_MB, mode="leader")
     check_reference(r50, "ef_topk", "ResNet50-imagenet-gn-f32", exact=True)
     del r50
     bert = bert_base()
     results.update(check_tern_kernels(bert))
     results.update(check_flash_kernels())
-    check_bert_reference(bert)
+    check_bert_reference(bert, {"tern_pack": 107, "tern_unpack": 63})
+    check_bert_reference(bert, PLAN_LAUNCHES["terngrad"],
+                         bucket_mb=BUCKET_MB)
     check_bert_flash(bert)
     del bert
     torch.cuda.empty_cache()
 
     r18 = sum(1 for _ in model.parameters())
+    bucketed = dict(bucket_mb=BUCKET_MB)
+    leader = dict(bucket_mb=BUCKET_MB, mode="leader")
+    # the collective calls of a grads-only step: one all-reduce a unit for
+    # identity, one all-gather a payload tensor (two a unit) for the
+    # gathered codecs, and in leader mode a reduce-scatter and an
+    # all-gather a unit (psum_scatter) or the payload all-gathers and one
+    # parameter all-gather a unit (payload_gather, int8 at world 1); a
+    # unit is a leaf (ResNet-18 62, ResNet-50 161, BERT-base 150) or a
+    # bucket (ResNet-18 4, BERT-base 28)
     runs = [
-        ("identity", resnet18, "cifar10", BATCH, {}),
+        ("identity", resnet18, "cifar10", BATCH, {}, {"all_reduce": 62}, {}),
         ("sign", lambda: model, "cifar10", BATCH,
-         {"encode_signs": 20, "unpack_signs_sum": 20}),
+         {"encode_signs": 20, "unpack_signs_sum": 20}, {"all_gather": 124},
+         {}),
         ("int8", resnet18, "cifar10", BATCH,
-         {"quantize_int8": r18, "dequantize_int8": r18}),
-        ("qsgd", resnet18, "cifar10", BATCH, {"dequantize_int8": r18}),
+         {"quantize_int8": r18, "dequantize_int8": r18}, {"all_gather": 124},
+         {}),
+        ("qsgd", resnet18, "cifar10", BATCH, {"dequantize_int8": r18},
+         {"all_gather": 124}, {}),
         ("ef_topk", resnet50, "imagenet", BATCH_IMAGENET,
-         {"exact_topk": topk_launches * len(leaves)}),
+         {"exact_topk": topk_launches * len(leaves)}, {"all_gather": 322},
+         {}),
+        ("sign", resnet18, "cifar10", BATCH, from_plan("sign"),
+         {"all_gather": 8}, bucketed),
+        ("int8", resnet18, "cifar10", BATCH, from_plan("int8"),
+         {"all_gather": 8}, bucketed),
+        ("int8", resnet18, "cifar10", BATCH, from_plan("int8"),
+         {"all_gather": 8 + 4}, leader),
     ]
     # BERT-base: 12 flash forward and 12 + 12 backward launches a loss
     # step, none in the grads-only step; TernGrad packs 61 leaves whole and
@@ -1573,23 +1765,32 @@ def main() -> int:
     # its 63 sublane-layout leaves, in every step
     flash = {"flash_fwd": 12, "flash_bwd": 24}
     tern = {"tern_pack": 61 + 2 * 23, "tern_unpack": 63}
-    bert_runs = [("identity", flash, {}),
-                 ("terngrad", {**flash, **tern}, tern)]
+    bert_runs = [("identity", flash, {}, {"all_reduce": 150}, {}),
+                 ("terngrad", {**flash, **tern}, tern, {"all_gather": 300},
+                  {}),
+                 ("terngrad", flash, from_plan("terngrad"),
+                  {"all_gather": 56}, bucketed),
+                 ("identity", flash, {},
+                  {"reduce_scatter": 28, "all_gather": 28}, leader)]
     launches = {}
     mesh.initialize_distributed(f"tcp://localhost:{free_port()}",
                                 world_size=WORLD, rank=0, backend="nccl")
     try:
-        for code, make_model, dataset, batch, per_step in runs:
+        for code, make_model, dataset, batch, per_step, calls, opt_kw in runs:
             name = ("ResNet50-imagenet-gn-f32" if dataset == "imagenet"
                     else "ResNet18-cifar-gn-f32")
             got = run_main_path(make_model(), code, dataset, batch, per_step,
-                                name)
-            for kernel in per_step:
-                launches.setdefault(kernel, got[kernel])
-        for code, per_loss, per_grads in bert_runs:
-            got = run_bert_path(bert_base(), code, per_loss, per_grads)
-            for kernel in per_loss:
-                launches[kernel] = got[kernel]
+                                calls, name, **opt_kw)
+            for kernel, n in got.items():
+                if n:
+                    launches.setdefault(kernel, n)
+            torch.cuda.empty_cache()
+        for code, per_loss, per_grads, calls, opt_kw in bert_runs:
+            got = run_bert_path(bert_base(), code, per_loss, per_grads, calls,
+                                **opt_kw)
+            for kernel, n in got.items():
+                if n:
+                    launches.setdefault(kernel, n)
             torch.cuda.empty_cache()
     finally:
         torch.distributed.destroy_process_group()

@@ -10,8 +10,8 @@ of one a leaf.
 The leaf order is the dict's order (for a module, ``named_parameters()``),
 the counterpart of ``jax.tree.flatten``'s order in the JAX package;
 ``utils.interop.params_from_jax`` returns a dict in the JAX leaf order,
-so a plan over it has the JAX package's bucket membership. ``pack`` is
-one ``torch.cat`` a bucket; ``unpack`` returns views of the buckets, so
+so a plan over it has the JAX package's bucket membership. Packing is
+one ``torch.cat`` a bucket; unpacking returns views of the buckets, so
 it copies nothing.
 
 ``MPI_PS(bucket_mb=...)`` builds a plan for shape-agnostic stateless
@@ -54,8 +54,9 @@ class BucketSpec(NamedTuple):
 
 class BucketPlan:
     """Bucketing plan for one dict of leaves, built from shapes and dtypes
-    only (meta tensors work). ``pack`` and ``unpack`` are exact inverses:
-    a bucket is a concatenation of leaves, no arithmetic."""
+    only (meta tensors work). ``pack_leaves`` and ``unpack_leaves`` are
+    exact inverses: a bucket is a concatenation of leaves, no
+    arithmetic."""
 
     def __init__(self, names: List[str], leaf_slots: List[LeafSlot],
                  buckets: List[BucketSpec], bucket_mb: float):
@@ -110,12 +111,6 @@ class BucketPlan:
         return [buckets[s.bucket].narrow(0, s.offset, s.size).view(s.shape)
                 for s in self.leaf_slots]
 
-    def pack(self, tree: Tree) -> List[torch.Tensor]:
-        return self.pack_leaves([tree[n] for n in self.names])
-
-    def unpack(self, buckets: Sequence[torch.Tensor]) -> Tree:
-        return dict(zip(self.names, self.unpack_leaves(buckets)))
-
     def bucket_templates(self) -> List[torch.Tensor]:
         """Shape-and-dtype-only ``(size,)`` tensors on the meta device, one
         a bucket: the bucketed leader update's gather targets, without a
@@ -162,13 +157,13 @@ def plan_buckets(tree: Tree, bucket_mb: float) -> Optional[BucketPlan]:
 def flatten_into_buckets(plan: BucketPlan, tree: Tree) -> List[torch.Tensor]:
     """``tree`` -> its flat dtype-uniform buckets (inverse:
     :func:`unflatten_from_buckets`; bit-exact round trip)."""
-    return plan.pack(tree)
+    return plan.pack_leaves([tree[n] for n in plan.names])
 
 
 def unflatten_from_buckets(plan: BucketPlan,
                            buckets: Sequence[torch.Tensor]) -> Tree:
     """Buckets -> the ``name -> tensor`` dict, as views of the buckets."""
-    return plan.unpack(buckets)
+    return dict(zip(plan.names, plan.unpack_leaves(buckets)))
 
 
 __all__ = [

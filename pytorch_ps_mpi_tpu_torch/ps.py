@@ -37,7 +37,8 @@ arguments, ``step_accumulate`` and ``run_steps`` raise
 from __future__ import annotations
 
 import time
-from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple, Union
+from typing import (Any, Callable, Dict, List, NamedTuple, Optional, Tuple,
+                    Union)
 
 import torch
 from torch import nn
@@ -83,13 +84,20 @@ def clip_by_global_norm(grads: Leaves, clip_norm: float,
     tensors are this rank's shards of the gradient (leader mode), so the
     sum of squares is summed across ranks first and every rank clips
     alike."""
+    scale = _clip_scale(grads.values(), clip_norm, across_ranks)
+    return {k: g * scale.to(g.dtype) for k, g in grads.items()}
+
+
+def _clip_scale(tensors, clip_norm: float,
+                across_ranks: bool = False) -> torch.Tensor:
+    """The factor :func:`clip_by_global_norm` scales by: ``clip_norm``
+    over the L2 norm of ``tensors``, at most 1."""
     sumsq = sum(torch.sum(torch.square(g.to(torch.float32)))
-                for g in grads.values())
+                for g in tensors)
     if across_ranks:
         sumsq = comms.allreduce_sum(sumsq)
-    scale = torch.clamp(clip_norm / torch.clamp(torch.sqrt(sumsq), min=1e-12),
-                        max=1.0)
-    return {k: g * scale.to(g.dtype) for k, g in grads.items()}
+    return torch.clamp(clip_norm / torch.clamp(torch.sqrt(sumsq), min=1e-12),
+                       max=1.0)
 
 
 def decode_sum_payloads(code: Codec, gathered, shape, dtype) -> torch.Tensor:
@@ -114,10 +122,12 @@ def _encode_buckets(code: Codec, buckets, gen: Optional[torch.Generator]):
 def bucketed_aggregate(code: Codec, grads: Params, plan: BucketPlan,
                        average: bool, size: int,
                        comm_dtype: Optional[torch.dtype] = None,
-                       gen: Optional[torch.Generator] = None) -> Params:
+                       gen: Optional[torch.Generator] = None
+                       ) -> List[torch.Tensor]:
     """Flat-bucket form of the aggregate (``ps.py:524``): one collective a
-    bucket instead of one a leaf; returns the summed gradient as views of
-    the summed buckets.
+    bucket instead of one a leaf. Returns the summed buckets, which the
+    leader mode shards as they are; ``unflatten_from_buckets`` gives the
+    summed gradient as views of them.
 
     psum codecs all-reduce each bucket, narrowed to the wire dtype as the
     per-leaf path narrows each leaf, so the sums are the same bit for
@@ -136,7 +146,7 @@ def bucketed_aggregate(code: Codec, grads: Params, plan: BucketPlan,
                                         _encode_buckets(code, buckets, gen))]
     if average:
         summed = [x / size for x in summed]
-    return unflatten_from_buckets(plan, summed)
+    return summed
 
 
 # -- leader mode (ZeRO-1) ---------------------------------------------------------
@@ -406,6 +416,17 @@ class MPI_PS:
         return self._metrics["wire_lowering"] if self.mode == "leader" else ""
 
     # -- the pipeline -------------------------------------------------------
+    def _encode(self, key, x: torch.Tensor):
+        """One unit's payload: a leaf threads its codec state, a bucket
+        takes none (bucketable codecs are stateless). A codec that draws
+        random numbers takes them from this rank's generator in unit
+        order."""
+        if self._bucket_plan is not None:
+            return self.code.encode(x, (), self._gen)[0]
+        payload, self.codec_state[key] = self.code.encode(
+            x, self.codec_state[key], self._gen)
+        return payload
+
     def _aggregate(self, grads: Params) -> Params:
         """encode -> collective -> decode_sum for every leaf (reference
         ``pytorch_ps_mpi_tpu/ps.py:438``)."""
@@ -417,9 +438,7 @@ class MPI_PS:
                              if wire is not None else comms.allreduce_sum(g))
         else:
             for k, g in grads.items():
-                payload, self.codec_state[k] = code.encode(
-                    g, self.codec_state[k], self._gen)
-                gathered = comms.all_gather_tree(payload)
+                gathered = comms.all_gather_tree(self._encode(k, g))
                 summed[k] = decode_sum_payloads(code, gathered,
                                                 tuple(g.shape), g.dtype)
         if self.average:
@@ -452,65 +471,54 @@ class MPI_PS:
             self._update_fn, self.hyper)
         plan = self._bucket_plan
         if plan is not None:
-            gathered = plan.unpack([gathered[i]
-                                    for i in range(plan.num_buckets)])
+            gathered = unflatten_from_buckets(
+                plan, [gathered[i] for i in range(plan.num_buckets)])
         torch._foreach_copy_(list(self.params.values()),
                              [gathered[k] for k in self.params])
 
-    def _update(self, summed: Params) -> None:
-        """Clip, then the update of either mode on the whole summed
-        gradient (``ps.py:1039``)."""
-        if self.clip_norm:
-            summed = clip_by_global_norm(summed, self.clip_norm)
-        if self.mode == "leader":
-            self._leader_update(leader_slice_shards(
-                self._leader_leaves(summed), self.size, self.rank))
-            return
-        self.params, self.opt_state = self._update_fn(
-            self.params, summed, self.opt_state, self.hyper)
-
     def _aggregate_update(self, grads: Params) -> None:
-        """Aggregate + update per leaf, in the lowering of the mode
-        (``ps.py:1220``)."""
-        lowering = self._leader_lowering()
-        if lowering == "psum_scatter":
-            self._leader_update(self._leader_scatter(grads,
-                                                     self._psum_wire()))
-        elif lowering == "dense_scatter":
-            # the own payload decoded to the codec-filtered gradient; the
-            # reduce-scatter sums those, as decode_sum of the gathered
-            # payloads would
-            dense = {}
-            for k, g in grads.items():
-                payload, self.codec_state[k] = self.code.encode(
-                    g, self.codec_state[k], self._gen)
-                dense[k] = self.code.decode(payload, tuple(g.shape), g.dtype)
-            self._leader_update(self._leader_scatter(dense, self.comm_dtype))
-        else:
-            self._update(self._aggregate(grads))
-
-    def _bucketed_encode_aggregate_update(self, grads: Params) -> None:
-        """The encode -> aggregate -> update seam in buckets
-        (``ps.py:1073``); the codec is stateless, so ``codec_state`` is
-        untouched."""
-        plan = self._bucket_plan
+        """Aggregate, clip and update in the lowering of the mode, over
+        the units: the leaves, or the buckets with a plan (the JAX
+        package's ``_aggregate_update``, ``_bucketed_encode_aggregate_update``
+        and ``_update``, ``ps.py:1220``, ``:1073``, ``:1039``)."""
         lowering = self._leader_lowering()
         if lowering in ("psum_scatter", "dense_scatter"):
-            buckets = flatten_into_buckets(plan, grads)
-            if lowering == "psum_scatter":
-                to_scatter, wire = buckets, self._psum_wire()
-            else:
-                payloads = _encode_buckets(self.code, buckets, self._gen)
-                to_scatter = [self.code.decode(p, tuple(b.shape), b.dtype)
-                              for b, p in zip(buckets, payloads)]
+            units, wire = self._leader_leaves(grads), self._psum_wire()
+            if lowering == "dense_scatter":
+                # the own payload decoded to the codec-filtered gradient;
+                # the reduce-scatter sums those, as decode_sum of the
+                # gathered payloads would
+                units = {k: self.code.decode(self._encode(k, u),
+                                             tuple(u.shape), u.dtype)
+                         for k, u in units.items()}
                 wire = self.comm_dtype
-            self._leader_update(self._leader_scatter(
-                dict(enumerate(to_scatter)), wire))
+            self._leader_update(self._leader_scatter(units, wire))
             return
-        # allgather mode, or the leader payload_gather lowering
-        self._update(bucketed_aggregate(self.code, grads, plan, self.average,
-                                        self.size, self.comm_dtype,
-                                        self._gen))
+        # allgather mode, or the leader payload_gather lowering: every rank
+        # holds the whole summed gradient
+        plan = self._bucket_plan
+        if plan is None:
+            units = summed = self._aggregate(grads)
+        else:
+            buckets = bucketed_aggregate(self.code, grads, plan,
+                                         self.average, self.size,
+                                         self.comm_dtype, self._gen)
+            units = dict(enumerate(buckets))
+            summed = unflatten_from_buckets(plan, buckets)
+        if self.clip_norm:
+            # the norm over the leaves (views of the buckets), so that a
+            # bucketed step clips exactly as the per-leaf one does
+            scale = _clip_scale(summed.values(), self.clip_norm)
+            units = {k: u * scale.to(u.dtype) for k, u in units.items()}
+        if self.mode == "leader":
+            self._leader_update(leader_slice_shards(units, self.size,
+                                                    self.rank))
+            return
+        if plan is not None:
+            units = unflatten_from_buckets(
+                plan, [units[i] for i in range(plan.num_buckets)])
+        self.params, self.opt_state = self._update_fn(
+            self.params, units, self.opt_state, self.hyper)
 
     def _reduce_loss(self, loss: torch.Tensor) -> torch.Tensor:
         total = comms.allreduce_sum(loss)
@@ -567,10 +575,7 @@ class MPI_PS:
             local = {k: self._local_grad(k, grads[k]) for k in self.params}
         else:
             raise ValueError("pass grads or loss_fn+batch")
-        if self._bucket_plan is not None:
-            self._bucketed_encode_aggregate_update(local)
-        else:
-            self._aggregate_update(local)
+        self._aggregate_update(local)
         if closure is not None:
             loss = closure()
         if self.device.type == "cuda":

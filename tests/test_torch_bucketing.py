@@ -249,7 +249,7 @@ def _per_leaf_flax(model, plan, buckets):
     layout: ``name -> array``."""
     tensors = [torch.as_tensor(np.asarray(b)) for b in buckets]
     return {n: flax_layout(flax_path(model, n), v.numpy())
-            for n, v in plan.unpack(tensors).items()}
+            for n, v in tb.unflatten_from_buckets(plan, tensors).items()}
 
 
 def _jax_per_leaf(model, plan, jplan, buckets):

@@ -20,7 +20,9 @@ dim) to 2**-6 of each output's largest magnitude; a ragged tile reads
 nothing of the next head, and o, lse, dq, dk, dv are the same from run
 to run, bit for bit. The int8 and sign codecs on ResNet-18's buckets at
 ``bucket_mb=16`` (payloads, decode-sums and two bucketed steps of either
-mode) against their plain versions on the CPU.
+mode) against their plain versions on the CPU; TernGrad's pack and
+unpack-sum also at BERT-base's bucket sizes, and a bucketed TernGrad
+step on the card against the CPU.
 """
 
 from __future__ import annotations
@@ -617,8 +619,10 @@ def _tern_input(n: int, planted: bool, device):
     return x, bits, scale
 
 
+# 2,955,264: the whole BERT-base buckets of 12 at bucket_mb=16
 @pytest.mark.parametrize("planted", [False, True])
-@pytest.mark.parametrize("n", [512, 1536, 1 << 20, 372_224, 2_359_296])
+@pytest.mark.parametrize("n", [512, 1536, 1 << 20, 372_224, 2_359_296,
+                               2_955_264])
 def test_tern_pack_matches_plain_version(cuda, n, planted):
     x, bits, scale = _tern_input(n, planted, cuda)
     before = TG.tern_pack.launches
@@ -630,8 +634,9 @@ def test_tern_pack_matches_plain_version(cuda, n, planted):
             [0, 0, 1, -1, -1, 0, 1, 0]
 
 
+# 738,816: a BERT-base bucket's packed row at bucket_mb=16
 @pytest.mark.parametrize("world", [1, 8])
-@pytest.mark.parametrize("m", [128, 384, 589_824])
+@pytest.mark.parametrize("m", [128, 384, 589_824, 738_816])
 def test_tern_unpack_sum_matches_plain_fold(cuda, m, world):
     gen = torch.Generator(device="cuda").manual_seed(m + world)
     packed = torch.randint(0, 256, (world, m), generator=gen, device=cuda,
@@ -644,38 +649,61 @@ def test_tern_unpack_sum_matches_plain_fold(cuda, m, world):
         assert torch.equal(TG.tern_unpack(packed[0], scales[0]), got)
 
 
-def test_terngrad_step_on_the_card_matches_the_cpu(cuda):
-    # the same random numbers on both sides: drawn on the CPU per leaf
+def _shared_noise_terngrad():
+    # the same random numbers on both sides: drawn on the CPU per call
+    code = get_codec("terngrad", use_pallas=True, scan_block=4096)
+    gen = torch.Generator().manual_seed(0)
+
+    def encode(grad, state=(), rng=None):
+        sub = code._pallas_ok(grad.numel())
+
+        def noise(chunk, size):
+            r = (torch.randint(-2**31, 2**31, (size,), generator=gen,
+                               dtype=torch.int32) if sub
+                 else torch.rand(size, generator=gen))
+            return r.to(grad.device)
+        return code.ternarize(grad, noise), state
+
+    code.encode = encode
+    return code
+
+
+def _terngrad_steps(cuda, shapes, **opt_kw):
+    """Two Adam(terngrad) steps on the card and on the CPU; returns both
+    parameter dicts and the card optimizer."""
     from pytorch_ps_mpi_tpu_torch import Adam
 
-    def codec():
-        code = get_codec("terngrad", use_pallas=True, scan_block=4096)
-        gen = torch.Generator().manual_seed(0)
-
-        def encode(grad, state=(), rng=None):
-            sub = code._pallas_ok(grad.numel())
-
-            def noise(chunk, size):
-                r = (torch.randint(-2**31, 2**31, (size,), generator=gen,
-                                   dtype=torch.int32) if sub
-                     else torch.rand(size, generator=gen))
-                return r.to(grad.device)
-            return code.ternarize(grad, noise), state
-
-        code.encode = encode
-        return code
-
     gen = torch.Generator().manual_seed(1)
-    shapes = {"emb": (50, 512), "w": (64, 96), "b": (96,), "odd": (1000,)}
     cpu = {k: torch.randn(s, generator=gen) for k, s in shapes.items()}
     gpu = {k: v.to(cuda) for k, v in cpu.items()}
-    opts = [Adam(p, lr=1e-3, code=codec(), device=d)
+    opts = [Adam(p, lr=1e-3, code=_shared_noise_terngrad(), device=d,
+                 **opt_kw)
             for p, d in ((cpu, "cpu"), (gpu, "cuda"))]
     for _ in range(2):
         grads = {k: torch.randn((1,) + s, generator=gen)
                  for k, s in shapes.items()}
         opts[0].step(grads=grads)
         opts[1].step(grads={k: g.to(cuda) for k, g in grads.items()})
+    return cpu, gpu, opts[1]
+
+
+def test_terngrad_step_on_the_card_matches_the_cpu(cuda):
+    shapes = {"emb": (50, 512), "w": (64, 96), "b": (96,), "odd": (1000,)}
+    cpu, gpu, _ = _terngrad_steps(cuda, shapes)
+    for k in shapes:
+        torch.testing.assert_close(gpu[k].cpu(), cpu[k], rtol=1e-6, atol=1e-7)
+
+
+def test_bucketed_terngrad_step_on_the_card_matches_the_cpu(cuda):
+    # at 0.05 MB: a flat bucket (b, odd), a sublane bucket of one leaf
+    # packed in 7 chunks (emb) and a sublane bucket of two leaves (w, v)
+    shapes = {"b": (96,), "odd": (1000,), "emb": (50, 512), "w": (64, 96),
+              "v": (8, 64)}
+    before = (TG.tern_pack.launches, TG.tern_unpack_sum.launches)
+    cpu, gpu, opt = _terngrad_steps(cuda, shapes, bucket_mb=0.05)
+    assert [b.size for b in opt._bucket_plan.buckets] == [1096, 25600, 6656]
+    assert (TG.tern_pack.launches - before[0],
+            TG.tern_unpack_sum.launches - before[1]) == (2 * 8, 2 * 2)
     for k in shapes:
         torch.testing.assert_close(gpu[k].cpu(), cpu[k], rtol=1e-6, atol=1e-7)
 
