@@ -88,6 +88,19 @@ Phases, one line each; the script exits non-zero if any fails:
                loss and
                gradients with the flash kernels against the same with their
                plain versions on the card (bf16, see ``check_bert_flash``).
+               Then the codecs without a kernel, at the settings of
+               ``benchmarks/bert_bench.py:156-162``: phase ``sync`` runs
+               the encode and decode-sum of random-k, block top-k, block
+               top-k int8 and threshold on every BERT-base leaf under
+               ``torch.cuda.set_sync_debug_mode("error")`` (no host sync);
+               ``reference`` holds each on the card against the CPU at
+               BERT-base's own leaves (the embedding, an FFN kernel, an
+               attention output kernel, the 30,522-element bias, a [768]
+               bias; payloads and decode-sums bit-exact, PowerSGD's
+               two-all-reduce protocol over three steps within 1e-4 of
+               each tensor's largest magnitude); ``powersgd_qr`` times the
+               51 QRs of PowerSGD's step against a grads-only step and
+               counts the host syncs they make.
 6. main path -- a one-rank NCCL process group, then 5 ``step(loss_fn=...)``
                calls and 1 ``step(grads=...)`` call of each of: identity
                (no kernel), sign, int8 and qsgd on ResNet-18 (CIFAR stem,
@@ -102,7 +115,10 @@ Phases, one line each; the script exits non-zero if any fails:
                and int8 in leader mode (ZeRO-1, payload_gather at world
                1), BERT-base Adam with terngrad(use_pallas=True) in
                allgather mode and identity in leader mode (psum_scatter,
-               the state kept a bucket at a time). Every kernel count and
+               the state kept a bucket at a time). Then BERT-base Adam with
+               powersgd(rank=4), blocktopk and blocktopk8 (fraction 0.01),
+               randomk(fraction=0.01) per leaf and at bucket_mb=16, and
+               threshold(tau=2, max_fraction=0.05). Every kernel count and
                the collective counter (``comms.calls``) are set to 0 just
                before a run and read just after it; the kernel counts must
                equal the run's exact launches (flash only in loss steps:
@@ -111,14 +127,18 @@ Phases, one line each; the script exits non-zero if any fails:
                which must give the JAX plan's), and the collective calls
                of the grads-only step a fixed table (62/124/124/124/322
                per leaf on the ResNets, 150/300 on BERT-base; 8, 8, 12,
-               56 and 28 reduce-scatters + 28 all-gathers bucketed), plus
-               one all-reduce of the loss a loss step.
+               56 and 28 reduce-scatters + 28 all-gathers bucketed;
+               PowerSGD 201 all-reduces, block top-k and random-k 300
+               all-gathers, block top-k int8 and threshold 450, random-k
+               bucketed 56), plus one all-reduce of the loss a loss step;
+               the codecs without a kernel launch none.
                One more step then runs under torch.profiler (phase
                ``profile``): the device's busy time against the step's
                wall time and the kernels that take the most of it.
 
-The line before the last is a JSON object with one entry per kernel; the
-last line is ``{"ok": true, "device": {...}}``. This script imports
+Phase ``done`` gives the seconds the whole run took. The line before the
+last is a JSON object with one entry per kernel; the last line is
+``{"ok": true, "device": {...}}``. This script imports
 nothing of JAX or of the JAX package.
 """
 
@@ -1270,6 +1290,9 @@ def make_codec(name: str):
             "topk", fraction=TOPK_FRACTION, pallas=True))
     if name == "terngrad":
         return get_codec("terngrad", use_pallas=True)
+    if name in BERT_CODECS:
+        codec, kw = BERT_CODECS[name]
+        return get_codec(codec, **kw)
     return get_codec(name)
 
 
@@ -1422,6 +1445,217 @@ def check_bert_flash(model) -> None:
           loss_kernel=f"{loss_k:.6f}", loss_plain=f"{loss_p:.6f}",
           loss_rel=f"{rel_loss:.3e}", grad_rel_l2=f"{diff / norm:.3e}",
           worst_leaf_rel_l2=f"{worst_leaf:.3e}")
+
+
+# -- the remaining codecs: random-k, block top-k (int8), threshold, PowerSGD --
+
+#: the BERT-base codec runs, the settings of ``benchmarks/bert_bench.py:156-162``
+BERT_CODECS = {
+    "powersgd-r4": ("powersgd", {"rank": 4}),
+    "blocktopk-1%": ("blocktopk", {"fraction": 0.01}),
+    "blocktopk8-1%": ("blocktopk8", {"fraction": 0.01}),
+    "randomk-1%": ("randomk", {"fraction": 0.01}),
+    "threshold": ("threshold", {"tau": 2.0, "max_fraction": 0.05}),
+}
+SPARSE_CODECS = ("blocktopk-1%", "blocktopk8-1%", "randomk-1%", "threshold")
+#: BERT-base leaves of the card-against-CPU phase: the embedding, an FFN
+#: kernel, an attention output kernel, the 30,522-element bias (29 blocks
+#: and 826 elements) and a [768] bias
+REFERENCE_LEAVES = ("tok_emb.embedding", "layer_0.Dense_0.kernel",
+                    "layer_0.SelfAttention_0.out.kernel", "mlm_head.bias",
+                    "layer_0.Dense_0.bias")
+POWERSGD_RTOL = 1e-4
+
+
+def check_sparse_sync(model) -> None:
+    """The sparse codecs' encode and decode-sum of every BERT-base leaf,
+    one rank's payload stacked as the gather would stack it (the calls of
+    a grads-only step, the collective left out), under
+    ``torch.cuda.set_sync_debug_mode("error")``: a host sync raises."""
+    shapes = [tuple(p.shape) for p in model.parameters()]
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    grads = [1e-3 * torch.randn(s, generator=gen, device="cuda")
+             for s in shapes]
+    for name in SPARSE_CODECS:
+        code = make_codec(name)
+        states = [code.init_state(s, torch.float32, "cuda") for s in shapes]
+        rng = torch.Generator(device="cuda").manual_seed(5)
+
+        def run():
+            for g, st, s in zip(grads, states, shapes):
+                payload, _ = code.encode(g, st, rng)
+                code.decode_sum({k: v.unsqueeze(0) for k, v in payload.items()},
+                                s, torch.float32)
+
+        run()  # first calls: the strata and the allocator's pools
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            t0 = time.perf_counter()
+            run()
+            host_ms = (time.perf_counter() - t0) * 1e3
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        phase("sync", codec=name, leaves=len(shapes),
+              sync_debug_mode="error", host_syncs=0,
+              ms=f"{cuda_ms(run, reps=1, rounds=3):.3f}",
+              host_ms=f"{host_ms:.3f}")
+    del grads
+
+
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    """``t`` on the CPU as integers of its width, so -0.0 and NaN compare
+    by their bits."""
+    t = t.detach().cpu().contiguous()
+    if t.dtype in (torch.float32, torch.int32):
+        return t.view(torch.int32)
+    return t
+
+
+def _same_payload(a: dict, b: dict, what: str) -> None:
+    if list(a) != list(b):
+        raise AssertionError(f"{what}: payload keys {list(a)} and {list(b)}")
+    for k in a:
+        if a[k].dtype != b[k].dtype or not torch.equal(_bits(a[k]),
+                                                       _bits(b[k])):
+            raise AssertionError(f"{what}: payload {k!r} differs")
+
+
+def check_codec_reference(model) -> None:
+    """Each new codec on the card against the same calls on the CPU, at
+    BERT-base's own leaves (:data:`REFERENCE_LEAVES`), two ranks' gradients
+    drawn on the CPU: random-k (the same uniforms), block top-k and block
+    top-k int8 payloads and decode-sums bit for bit; threshold's payload,
+    length and decode-sum bit for bit; PowerSGD's two-all-reduce protocol
+    (world 1, no process group) over three steps with the state carried,
+    and its per-rank factors' decode-sum, within rtol
+    :data:`POWERSGD_RTOL` of each tensor's largest magnitude (the card's
+    matmuls and QR sum in another order than the CPU's)."""
+    named = dict(model.named_parameters())
+    gen = torch.Generator().manual_seed(7)
+    leaves = {n: tuple(named[n].shape) for n in REFERENCE_LEAVES}
+    grads = {n: [1e-3 * torch.randn(s, generator=gen) for _ in range(2)]
+             for n, s in leaves.items()}
+    for name in SPARSE_CODECS:
+        code = make_codec(name)
+        for leaf, shape in leaves.items():
+            out = {}
+            for dev in ("cpu", "cuda"):
+                payloads = []
+                for g in grads[leaf]:
+                    g = g.to(dev)
+                    if name.startswith("randomk"):
+                        u = torch.rand(code._k_for(shape),
+                                       generator=torch.Generator()
+                                       .manual_seed(len(payloads)))
+                        payloads.append(code.sample(g, u.to(dev)))
+                    else:
+                        payloads.append(code.encode(g, code.init_state(
+                            shape, torch.float32, dev))[0])
+                stacked = {k: torch.stack([p[k] for p in payloads])
+                           for k in payloads[0]}
+                out[dev] = (payloads, code.decode_sum(stacked, shape,
+                                                      torch.float32))
+            for r in range(2):
+                _same_payload(out["cpu"][0][r], out["cuda"][0][r],
+                              f"{name} {leaf} rank {r}")
+            if not torch.equal(_bits(out["cpu"][1]), _bits(out["cuda"][1])):
+                raise AssertionError(f"{name} {leaf}: decode_sum differs")
+        phase("reference", codec=name, leaves=json.dumps(
+            {n: list(s) for n, s in leaves.items()}, separators=(",", ":")),
+            ranks=2, payload_bit_exact=True, decode_sum_bit_exact=True)
+
+    code = make_codec("powersgd-r4")
+    worst = {"summed": 0.0, "memory": 0.0, "decode_sum": 0.0}
+
+    def rel(a, b) -> float:
+        return float((a.cpu() - b).abs().max() / b.abs().max().clamp(
+            min=1e-30))
+
+    for leaf, shape in leaves.items():
+        states = {dev: code.init_state(shape, torch.float32, dev)
+                  for dev in ("cpu", "cuda")}
+        for step in range(3):
+            g = grads[leaf][step % 2] * (step + 1)
+            got = {dev: code.fused_allreduce(g.to(dev), states[dev])
+                   for dev in ("cpu", "cuda")}
+            states = {dev: got[dev][1] for dev in got}
+            worst["summed"] = max(worst["summed"],
+                                  rel(got["cuda"][0], got["cpu"][0]))
+            if states["cpu"]:
+                worst["memory"] = max(worst["memory"], rel(
+                    states["cuda"]["memory"], states["cpu"]["memory"]))
+        sums = {}
+        for dev in ("cpu", "cuda"):
+            pls = [code.encode(g.to(dev), code.init_state(
+                shape, torch.float32, dev))[0] for g in grads[leaf]]
+            sums[dev] = code.decode_sum(
+                {k: torch.stack([p[k] for p in pls]) for k in pls[0]},
+                shape, torch.float32)
+        worst["decode_sum"] = max(worst["decode_sum"],
+                                  rel(sums["cuda"], sums["cpu"]))
+    if max(worst.values()) > POWERSGD_RTOL:
+        raise AssertionError(f"powersgd on the card against the CPU: {worst}")
+    phase("reference", codec="powersgd-r4", steps=3,
+          rtol_of_max=POWERSGD_RTOL,
+          **{f"max_rel_{k}": f"{v:.3e}" for k, v in worst.items()})
+
+
+def check_powersgd_qr(model) -> None:
+    """PowerSGD's QR on BERT-base: the 51 compressed leaves' [n, 4] QRs
+    timed alone against one grads-only Adam(powersgd) step (their share of
+    it), and the host syncs the QRs and the protocol make, counted by
+    ``torch.cuda.set_sync_debug_mode("warn")`` (no process group here)."""
+    import warnings
+
+    from pytorch_ps_mpi_tpu_torch import Adam
+    from pytorch_ps_mpi_tpu_torch.codecs.powersgd import _matrix_shape
+
+    code = make_codec("powersgd-r4")
+    params = {k: p.detach().clone() for k, p in ordered_params(model).items()}
+    shapes = [tuple(p.shape) for p in params.values()
+              if code._compresses(tuple(p.shape))]
+    if len(shapes) != 51:
+        raise AssertionError(f"powersgd compresses {len(shapes)} leaves")
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    factors = [torch.randn((_matrix_shape(s)[0], 4), generator=gen,
+                           device="cuda") for s in shapes]
+
+    def qrs():
+        for p in factors:
+            torch.linalg.qr(p)
+
+    def syncs(fn) -> int:
+        fn()
+        torch.cuda.synchronize()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                fn()
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        return sum("synchroniz" in str(w.message) for w in caught)
+
+    grads = {k: 1e-3 * torch.randn(p.shape, generator=gen, device="cuda")
+             for k, p in params.items()}
+    states = {k: code.init_state(tuple(p.shape), p.dtype, "cuda")
+              for k, p in params.items()}
+
+    def protocol():
+        for k, g in grads.items():
+            code.fused_allreduce(g, states[k])
+
+    qr_syncs, protocol_syncs = syncs(qrs), syncs(protocol)
+    qr_ms = cuda_ms(qrs, reps=5, rounds=5)
+    opt = Adam(params, lr=1e-4, code=code, device="cuda")
+    stacked = {k: g.unsqueeze(0) for k, g in grads.items()}
+    step_ms = statistics.median(opt.step(grads=stacked)[1]["step_time"] * 1e3
+                                for _ in range(5))
+    phase("powersgd_qr", qr_calls=len(shapes), qr_ms=f"{qr_ms:.4f}",
+          grads_step_ms=f"{step_ms:.3f}",
+          qr_share_of_grads_step=f"{qr_ms / step_ms:.3f}",
+          qr_host_syncs=qr_syncs, protocol_host_syncs=protocol_syncs)
 
 
 # -- the main paths -------------------------------------------------------------
@@ -1678,6 +1912,7 @@ SOURCES = {
 
 
 def main() -> int:
+    t0 = time.perf_counter()
     check_device()
     # stated and set: f32 matmuls in full f32, f32 convolutions in TF32
     # (cuDNN's default), so the step runs as a PyTorch user's would
@@ -1726,6 +1961,9 @@ def main() -> int:
     check_bert_reference(bert, PLAN_LAUNCHES["terngrad"],
                          bucket_mb=BUCKET_MB)
     check_bert_flash(bert)
+    check_sparse_sync(bert)
+    check_codec_reference(bert)
+    check_powersgd_qr(bert)
     del bert
     torch.cuda.empty_cache()
 
@@ -1771,7 +2009,18 @@ def main() -> int:
                  ("terngrad", flash, from_plan("terngrad"),
                   {"all_gather": 56}, bucketed),
                  ("identity", flash, {},
-                  {"reduce_scatter": 28, "all_gather": 28}, leader)]
+                  {"reduce_scatter": 28, "all_gather": 28}, leader),
+                 # no codec kernel: PowerSGD's two all-reduces on 51
+                 # compressed leaves and one on each of the 99 others; an
+                 # all-gather a payload tensor of the 150 leaves (random-k
+                 # and block top-k values and indices, block top-k int8
+                 # and threshold three), or of random-k's 28 buckets
+                 ("powersgd-r4", flash, {}, {"all_reduce": 51 * 2 + 99}, {}),
+                 ("blocktopk-1%", flash, {}, {"all_gather": 300}, {}),
+                 ("blocktopk8-1%", flash, {}, {"all_gather": 450}, {}),
+                 ("randomk-1%", flash, {}, {"all_gather": 300}, {}),
+                 ("randomk-1%", flash, {}, {"all_gather": 56}, bucketed),
+                 ("threshold", flash, {}, {"all_gather": 450}, {})]
     launches = {}
     mesh.initialize_distributed(f"tcp://localhost:{free_port()}",
                                 world_size=WORLD, rank=0, backend="nccl")
@@ -1797,6 +2046,7 @@ def main() -> int:
     launches.setdefault("pack_signs", 0)
     launches.setdefault("unpack_signs", 0)
 
+    phase("done", seconds=f"{time.perf_counter() - t0:.1f}")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda",
          "source": f"pytorch_ps_mpi_tpu_torch/csrc/{SOURCES[name][0]}",

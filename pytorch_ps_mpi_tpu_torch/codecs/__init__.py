@@ -1,7 +1,8 @@
 """Gradient codecs: the pluggable compression surface
-(``pytorch_ps_mpi_tpu/codecs``). This package registers ``identity``,
-``bf16``, ``f16``, ``sign``, ``int8``, ``qsgd``, ``topk``, ``ef`` and
-``terngrad``; the others follow in ROADMAP queue 1 item 2."""
+(``pytorch_ps_mpi_tpu/codecs``). This package registers all fourteen
+names of the JAX package's registry: ``identity``, ``bf16``, ``f16``,
+``sign``, ``int8``, ``qsgd``, ``topk``, ``ef``, ``terngrad``, ``randomk``,
+``blocktopk``, ``blocktopk8``, ``threshold`` and ``powersgd``."""
 
 from pytorch_ps_mpi_tpu_torch.codecs.base import Codec, get_codec, register_codec
 from pytorch_ps_mpi_tpu_torch.codecs.identity import IdentityCodec
@@ -11,6 +12,11 @@ from pytorch_ps_mpi_tpu_torch.codecs.quant import Int8Codec, QSGDCodec
 from pytorch_ps_mpi_tpu_torch.codecs.topk import TopKCodec
 from pytorch_ps_mpi_tpu_torch.codecs.error_feedback import ErrorFeedback
 from pytorch_ps_mpi_tpu_torch.codecs.terngrad import TernGradCodec
+from pytorch_ps_mpi_tpu_torch.codecs.randomk import RandomKCodec
+from pytorch_ps_mpi_tpu_torch.codecs.blocktopk import (BlockTopK8Codec,
+                                                       BlockTopKCodec)
+from pytorch_ps_mpi_tpu_torch.codecs.threshold import ThresholdCodec
+from pytorch_ps_mpi_tpu_torch.codecs.powersgd import PowerSGDCodec
 
 __all__ = [
     "Codec",
@@ -25,4 +31,9 @@ __all__ = [
     "TopKCodec",
     "ErrorFeedback",
     "TernGradCodec",
+    "RandomKCodec",
+    "BlockTopKCodec",
+    "BlockTopK8Codec",
+    "ThresholdCodec",
+    "PowerSGDCodec",
 ]

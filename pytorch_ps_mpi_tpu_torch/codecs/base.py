@@ -14,7 +14,7 @@ The counterpart of ``pytorch_ps_mpi_tpu/codecs/base.py``:
 - ``aggregate``/``agg_decode``: the compressed-domain sum for codecs whose
   algebra is exact (identity, casts). The streaming host-side forms
   (``agg_init``/``agg_fold``/``agg_finalize``) belong to the async wire
-  and come with it (ROADMAP queue 1 item 5);
+  and come with it (ROADMAP queue 1 item 4);
 - ``init_state(shape, dtype, device)``: per-leaf codec state (error
   feedback's residual memory), made on the leaf's device;
 - ``payload_bits(shape, dtype)``.
@@ -87,8 +87,19 @@ class Codec:
     #: shape-agnostic and stateless: flat-bucket aggregation
     #: (``MPI_PS(bucket_mb=...)``) encodes one bucket instead of many leaves
     bucketable: bool = False
-    #: codecs whose aggregation is a collective protocol (PowerSGD)
+    #: codecs whose aggregation is a collective protocol (PowerSGD): the
+    #: step calls ``fused_allreduce(grad, state, comm_dtype)`` instead of
+    #: encode, gather and decode-sum
     supports_fused_allreduce: bool = False
+    #: codecs whose result depends on the order of a leaf's elements
+    #: (blocks, strata, a matrix view, an index-ordered cap): the step
+    #: encodes such a leaf in the JAX package's layout (``MPI_PS``'s
+    #: ``codec_views``), so both packages select the same elements
+    order_dependent: bool = False
+    #: codecs whose payload carries a true-length sidecar (``"length"``)
+    #: past which its slots are garbage: the step gathers it with
+    #: ``comms.ragged_all_gather``
+    ragged: bool = False
     #: codecs with a compressed-domain aggregation algebra
     supports_aggregate: bool = False
     #: True when ``aggregate`` equals ``decode_sum`` bit for bit; False
@@ -134,6 +145,20 @@ class Codec:
     def agg_decode(self, agg_payload: Payload, meta: Dict[str, Any],
                    shape: Tuple[int, ...], dtype) -> torch.Tensor:
         raise NotImplementedError
+
+    def _streaming(self, what: str) -> NotImplementedError:
+        return NotImplementedError(
+            f"{type(self).__name__}.{what} (the streaming host-side fold) is "
+            "not ported yet: ROADMAP queue 1 item 4 (the async wire)")
+
+    def agg_init(self, shape, dtype):
+        raise self._streaming("agg_init")
+
+    def agg_fold(self, acc, payload):
+        raise self._streaming("agg_fold")
+
+    def agg_finalize(self, acc, shape, dtype):
+        raise self._streaming("agg_finalize")
 
     def payload_bits(self, shape: Tuple[int, ...], dtype) -> int:
         """Encoded wire size in bits per gradient. The default encodes a

@@ -7,7 +7,7 @@ biased codecs (sign, top-k). The memory is explicit codec state, one
 tensor per leaf on the parameter's device; the optimizer threads it
 through the step and its ``state_dict`` carries it. The per-hop form
 (``HopErrorFeedback``) belongs to the aggregation tree (ROADMAP queue 1
-item 7).
+item 6).
 """
 
 from __future__ import annotations
@@ -47,6 +47,14 @@ class ErrorFeedback(Codec):
     @property
     def supports_aggregate(self):
         return self.inner.supports_aggregate
+
+    @property
+    def order_dependent(self):
+        return self.inner.order_dependent
+
+    @property
+    def ragged(self):
+        return self.inner.ragged
 
     @property
     def agg_exact(self):

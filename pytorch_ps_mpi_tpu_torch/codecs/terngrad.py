@@ -175,19 +175,5 @@ class TernGradCodec(Codec):
     def agg_decode(self, agg_payload, meta, shape, dtype):
         return agg_payload["acc"].to(dtype).reshape(shape)
 
-    def _streaming(self, what: str) -> NotImplementedError:
-        return NotImplementedError(
-            f"TernGradCodec.{what} (the streaming host-side fold) is not "
-            "ported yet: ROADMAP queue 1 item 5 (the async wire)")
-
-    def agg_init(self, shape, dtype):
-        raise self._streaming("agg_init")
-
-    def agg_fold(self, acc, payload):
-        raise self._streaming("agg_fold")
-
-    def agg_finalize(self, acc, shape, dtype):
-        raise self._streaming("agg_finalize")
-
     def payload_bits(self, shape, dtype):
         return _packed_len(numel(shape)) * 8 + 32

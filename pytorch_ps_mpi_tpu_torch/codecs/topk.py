@@ -13,6 +13,26 @@ from pytorch_ps_mpi_tpu_torch.codecs.base import Codec, numel, register_codec
 from pytorch_ps_mpi_tpu_torch.ops import topk as topk_ops
 
 
+def scatter_add_ranks(values: torch.Tensor, indices: torch.Tensor,
+                      frames: int, span: int, dtype) -> torch.Tensor:
+    """The sparse index-merge's decode: ``frames`` ranks' (values, indices)
+    pairs, concatenated in rank order, scatter-added into zeros[span].
+
+    A scatter-add folded rank by rank: a rank's indices are unique (or
+    carry only zeros where they repeat), so each ``index_add_`` is
+    deterministic, and the sum at an index shared by ranks is taken in
+    rank order, as the JAX package's one scatter-add over the
+    concatenation takes it. One ``index_add_`` over the whole
+    concatenation would sum repeated indices with atomics, in an order
+    that changes from run to run on the card."""
+    values = values.reshape(frames, -1).to(dtype)
+    indices = indices.reshape(frames, -1).long()
+    flat = torch.zeros(span, dtype=dtype, device=values.device)
+    for r in range(frames):
+        flat.index_add_(0, indices[r], values[r])
+    return flat
+
+
 @register_codec("topk")
 class TopKCodec(Codec):
     """The constructor's keywords and their meanings are the JAX codec's.
@@ -60,13 +80,20 @@ class TopKCodec(Codec):
             values, indices = topk_ops.sorted_topk(flat, k)
         return {"values": values, "indices": indices}, state
 
+    def _span(self, n: int) -> int:
+        """Length of the buffer decode scatters into: ``n``, or more where
+        a payload carries indices past the leaf (block top-k's pad slots),
+        which land there and are sliced off, as the JAX scatter's
+        ``mode='drop'`` drops them."""
+        return n
+
     def decode(self, payload, shape, dtype):
-        # set semantics, as .at[].set: this codec's indices are unique and
-        # in range
-        flat = torch.zeros(numel(shape), dtype=dtype,
+        # set semantics, as .at[].set: this codec's indices are unique
+        n = numel(shape)
+        flat = torch.zeros(self._span(n), dtype=dtype,
                            device=payload["values"].device)
         flat[payload["indices"].long()] = payload["values"].to(dtype)
-        return flat.reshape(shape)
+        return flat[:n].reshape(shape)
 
     def decode_sum(self, payloads, shape, dtype):
         agg, meta = self.aggregate(payloads, shape, dtype)
@@ -80,19 +107,10 @@ class TopKCodec(Codec):
                 "indices": idx.reshape(-1)}, {"frames": int(idx.shape[0])}
 
     def agg_decode(self, agg_payload, meta, shape, dtype):
-        # A scatter-add folded rank by rank: a rank's indices are unique,
-        # so each index_add_ is deterministic, and the sum at an index
-        # shared by ranks is taken in rank order, as the JAX package's
-        # one scatter-add over the concatenation takes it. One index_add_
-        # over the whole concatenation would sum repeated indices with
-        # atomics, in an order that changes from run to run on the card.
-        frames = meta["frames"]
-        values = agg_payload["values"].reshape(frames, -1).to(dtype)
-        indices = agg_payload["indices"].reshape(frames, -1).long()
-        flat = torch.zeros(numel(shape), dtype=dtype, device=values.device)
-        for r in range(frames):
-            flat.index_add_(0, indices[r], values[r])
-        return flat.reshape(shape)
+        n = numel(shape)
+        return scatter_add_ranks(agg_payload["values"], agg_payload["indices"],
+                                 meta["frames"], self._span(n), dtype)[:n] \
+            .reshape(shape)
 
     def payload_bits(self, shape, dtype):
         k = self._k_for(shape)

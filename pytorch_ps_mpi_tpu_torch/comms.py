@@ -13,7 +13,9 @@ step:
   (``lax.all_gather`` with ``tiled=True``, ``ps.py:309``);
 - the rank-0 parameter server's gather and broadcast
   (``gather_to_leader``, ``broadcast_from_leader``; reference
-  ``mpi_comms.py:60-133``).
+  ``mpi_comms.py:60-133``);
+- the ragged all-gather of a payload with a static cap and an int32
+  true-length sidecar (``ragged_all_gather``, ``comms.py:124``).
 
 With no process group each is the identity (``all_gather`` an
 ``unsqueeze(0)``), matching the JAX package on a one-device mesh.
@@ -21,8 +23,7 @@ With no process group each is the identity (``all_gather`` an
 :data:`calls` counts the collective calls made, by kind, as the kernel
 wrappers keep ``.launches``: the counterpart of the JAX package's
 ``bucketing.count_collectives``. Identity calls without a group count
-nothing. Ragged collectives come with the codecs that need them (ROADMAP
-queue 1 item 2).
+nothing.
 """
 
 from __future__ import annotations
@@ -136,6 +137,19 @@ def broadcast_from_leader(x: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def ragged_all_gather(payload: Tree, length: torch.Tensor):
+    """All-gather a variable-length payload: ``(payloads, lengths)``, every
+    tensor of ``payload`` stacked ``[world, ...]`` and the ranks' int32
+    true lengths ``[world]``, each an all-gather.
+
+    The counterpart of the reference's two-phase protocol (sizes first,
+    then ``Iallgatherv``, ``mpi_comms.py:144-174``) in the JAX package's
+    form (``comms.py:124-143``): the payload's size is its static cap,
+    each rank's true length rides beside it, and the receiver masks the
+    slots past it."""
+    return all_gather_tree(payload), all_gather(length.to(torch.int32))
+
+
 def tree_map(fn, tree: Tree) -> Tree:
     if isinstance(tree, dict):
         return {k: tree_map(fn, v) for k, v in tree.items()}
@@ -163,6 +177,7 @@ def broadcast_from_leader_tree(tree: Tree) -> Tree:
 __all__ = [
     "calls", "reset_calls", "allreduce_sum", "allreduce_sum_buckets",
     "allreduce_sum_tree", "all_gather", "all_gather_tree",
-    "all_gather_tiled", "reduce_scatter_tiled", "gather_to_leader",
+    "all_gather_tiled", "reduce_scatter_tiled", "ragged_all_gather",
+    "gather_to_leader",
     "broadcast_from_leader", "broadcast_from_leader_tree", "tree_map",
 ]

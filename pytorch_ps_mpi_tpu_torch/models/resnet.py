@@ -113,7 +113,7 @@ class ResNet(nn.Module):
         if norm != "group":
             raise NotImplementedError(
                 "norm='batch' (SyncBatchNorm) is not ported yet "
-                "(ROADMAP queue 1 item 4)")
+                "(ROADMAP queue 1 item 3)")
         self.small_inputs = small_inputs
         if small_inputs:
             self.stem = _conv(in_channels, num_filters, 3)

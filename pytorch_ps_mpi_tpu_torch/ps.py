@@ -5,7 +5,21 @@ Each ``step`` runs the reference's pipeline (``ps.py:94-191``) on
 the payloads from every rank, decode and sum them (a left fold in rank
 order), then apply the fused SGD/Adam/Adafactor update. Identity-like
 codecs (``supports_psum``) sum with one ``all_reduce`` instead, narrowed
-to ``comm_dtype`` or the codec's ``wire_dtype``.
+to ``comm_dtype`` or the codec's ``wire_dtype``. A codec whose
+aggregation is a collective protocol (``supports_fused_allreduce``,
+PowerSGD's two all-reduces of low-rank factors) skips encode and gather
+and gives the summed gradient itself (``fused_allreduce_tree``,
+``ps.py:568-598``). A ragged payload (threshold's) is gathered with its
+true-length sidecar (``comms.ragged_all_gather``).
+
+A codec whose result depends on the order of a leaf's elements
+(``Codec.order_dependent``: random-k's strata, block top-k's blocks,
+threshold's cap, PowerSGD's matrix view) sees each leaf through
+``codec_views``, a permutation of its dims into the JAX package's
+layout, and its decoded sum is permuted back; so the port keeps PyTorch
+layouts (OIHW convolutions, ``[out, in]`` linear weights) and selects
+the elements the JAX package selects. Its codec state (PowerSGD's Q and
+residual, error feedback's memory) is kept in that view.
 
 Two topologies, as in the JAX package:
 
@@ -58,16 +72,16 @@ Leaves = Dict[Any, torch.Tensor]
 
 #: constructor option -> (its default, where its port is planned)
 _UNPORTED = {
-    "instrument": (False, "ROADMAP queue 1 item 3 (the staged, host-timed "
+    "instrument": (False, "ROADMAP queue 1 item 2 (the staged, host-timed "
                           "pipeline)"),
-    "numerics": (False, "ROADMAP queue 1 item 9 (telemetry/numerics.py)"),
-    "param_specs": (None, "ROADMAP queue 1 item 10 (model-parallel "
+    "numerics": (False, "ROADMAP queue 1 item 8 (telemetry/numerics.py)"),
+    "param_specs": (None, "ROADMAP queue 1 item 9 (model-parallel "
                           "composition)"),
-    "mesh": (None, "ROADMAP queue 1 item 10 (the process group stands for "
+    "mesh": (None, "ROADMAP queue 1 item 9 (the process group stands for "
                    "the mesh until then)"),
-    "axis_name": ("data", "ROADMAP queue 1 item 10 (tuple aggregation "
+    "axis_name": ("data", "ROADMAP queue 1 item 9 (tuple aggregation "
                           "axes)"),
-    "batch_spec": (None, "ROADMAP queue 1 item 10 (model-parallel batch "
+    "batch_spec": (None, "ROADMAP queue 1 item 9 (model-parallel batch "
                          "layouts)"),
 }
 
@@ -112,6 +126,24 @@ def decode_sum_payloads(code: Codec, gathered, shape, dtype) -> torch.Tensor:
     return code.decode_sum(gathered, shape, dtype)
 
 
+def gather_payload(code: Codec, payload):
+    """Every rank's payload, stacked ``[world, ...]`` tensor by tensor: one
+    all-gather a payload tensor, the length sidecar of a ragged payload
+    through ``comms.ragged_all_gather``."""
+    if not code.ragged:
+        return comms.all_gather_tree(payload)
+    body = {k: v for k, v in payload.items() if k != "length"}
+    gathered, lengths = comms.ragged_all_gather(body, payload["length"])
+    return {**gathered, "length": lengths}
+
+
+def _inverse(perm: Tuple[int, ...]) -> Tuple[int, ...]:
+    out = [0] * len(perm)
+    for i, d in enumerate(perm):
+        out[d] = i
+    return tuple(out)
+
+
 def _encode_buckets(code: Codec, buckets, gen: Optional[torch.Generator]):
     """Per-bucket encode (stateless by the ``bucketable`` contract,
     ``ps.py:509``); a codec that draws random numbers takes them from this
@@ -140,7 +172,7 @@ def bucketed_aggregate(code: Codec, grads: Params, plan: BucketPlan,
         wire = comm_dtype or getattr(code, "wire_dtype", None)
         summed = comms.allreduce_sum_buckets(buckets, wire)
     else:
-        summed = [decode_sum_payloads(code, comms.all_gather_tree(payload),
+        summed = [decode_sum_payloads(code, gather_payload(code, payload),
                                       tuple(b.shape), b.dtype)
                   for b, payload in zip(buckets,
                                         _encode_buckets(code, buckets, gen))]
@@ -257,12 +289,19 @@ class MPI_PS:
         norm before the update (in leader mode over every rank's shards).
       bucket_mb: if > 0, aggregate in dtype-grouped flat buckets of about
         this many megabytes, one collective a bucket, for bucketable
-        stateless codecs (identity, casts, sign, int8, qsgd, terngrad);
-        per-tensor codecs (top-k, error feedback) keep the per-leaf
-        path. Sign, int8, qsgd and terngrad then take their statistics
-        per bucket.
+        stateless codecs (identity, casts, sign, int8, qsgd, terngrad,
+        random-k by fraction); per-tensor codecs (top-k, block top-k,
+        threshold, PowerSGD, error feedback) keep the per-leaf path.
+        Sign, int8, qsgd and terngrad then take their statistics per
+        bucket.
       loss_reduction: ``"pmean"`` (default: the mean of the ranks'
         losses) or ``"psum"``.
+      codec_views: ``name -> permutation of the leaf's dims`` under which
+        an order-dependent codec sees the leaf (its JAX package layout).
+        By default ``utils.interop.codec_views(params)`` when ``params``
+        is a module (ResNet and MLP kernels; BERT keeps flax layouts and
+        needs none), else none; pass ``codec_views(model)`` with a dict of
+        a model's parameters.
       device: where the parameters live; ``"cuda"`` by default, and it
         raises when no GPU is present. Pass ``device="cpu"`` to run on
         the CPU.
@@ -282,6 +321,7 @@ class MPI_PS:
         clip_norm: float = 0.0,
         bucket_mb: float = 0.0,
         loss_reduction: Optional[str] = None,
+        codec_views: Optional[Dict[str, Tuple[int, ...]]] = None,
         device: mesh.Device = "cuda",
         **hyper,
     ):
@@ -307,16 +347,23 @@ class MPI_PS:
                 f"loss_reduction must be 'pmean', 'psum', or None, got "
                 f"{loss_reduction!r}")
         self.device = mesh.resolve_device(device)
+        self.code = code if code is not None else IdentityCodec()
         if isinstance(params, nn.Module):
+            if codec_views is None and self.code.order_dependent:
+                from pytorch_ps_mpi_tpu_torch.utils.interop import (
+                    codec_views as model_views)
+                codec_views = model_views(params)
             params = dict(params.named_parameters())
         self.params: Params = dict(params)
+        #: the permutations order-dependent codecs see the leaves through
+        self._views = ({k: tuple(v) for k, v in (codec_views or {}).items()}
+                       if self.code.order_dependent else {})
         for k, p in self.params.items():
             if p.device.type != self.device.type:
                 raise ValueError(f"parameter {k!r} lives on {p.device}, the "
                                  f"optimizer on {self.device}")
         hyper_cls, init_state, self._update_fn = OPTIMIZERS[optim]
         self.hyper = hyper_cls(**hyper)
-        self.code = code if code is not None else IdentityCodec()
         self.mode = mode
         self.average = average
         self.comm_dtype = comm_dtype
@@ -334,7 +381,8 @@ class MPI_PS:
                     f"{type(self.code).__name__}.bucketable=True but "
                     "init_state is non-empty: bucketable codecs must be "
                     "stateless (see codecs.base.Codec.bucketable)")
-            self._bucket_plan = plan_buckets(self.params, self.bucket_mb)
+            self._bucket_plan = plan_buckets(self._to_view(self.params),
+                                             self.bucket_mb)
         # else: a per-tensor codec keeps the per-leaf path, no error
         if mode == "leader":
             # with a plan the master copy and optimizer state are kept a
@@ -350,8 +398,8 @@ class MPI_PS:
                 if self._bucket_plan is not None else self.params)
         else:
             self.opt_state = init_state(self.params)
-        self.codec_state = {k: self.code.init_state(tuple(p.shape), p.dtype,
-                                                    p.device)
+        self.codec_state = {k: self.code.init_state(self._view_shape(k),
+                                                    p.dtype, p.device)
                             for k, p in self.params.items()}
         self._gen = None
         if self.code.needs_rng:
@@ -382,15 +430,26 @@ class MPI_PS:
                                 for b in plan.buckets))
         else:
             payload = float(sum(
-                self.code.payload_bits(tuple(p.shape), p.dtype) // 8
-                for p in leaves))
+                self.code.payload_bits(self._view_shape(k), p.dtype) // 8
+                for k, p in self.params.items()))
 
         def wire_bytes(dtype: Optional[torch.dtype]) -> float:
             return float(sum(p.numel() * (dtype.itemsize if dtype is not None
                                           else p.element_size())
                              for p in leaves))
 
-        if self.mode == "leader":
+        if self.code.supports_fused_allreduce:
+            # two rank-sized all-reduces a compressed leaf, one plain one an
+            # uncompressed leaf: the payload term does not grow with the
+            # world (``ps.py:1174-1189``)
+            fused = float(sum(
+                self.code.fused_wire_bits(self._view_shape(k), p.dtype,
+                                          comm_dtype=self.comm_dtype) // 8
+                for k, p in self.params.items()))
+            lowering, recv = "two_psum_lowrank", 2 * frac * fused
+            if self.mode == "leader":
+                recv += frac * n  # the sharded update's parameter all-gather
+        elif self.mode == "leader":
             if self.code.supports_psum:
                 lowering = "psum_scatter"
                 recv = frac * (wire_bytes(self._psum_wire()) + n)
@@ -415,6 +474,24 @@ class MPI_PS:
     def _leader_lowering(self) -> str:
         return self._metrics["wire_lowering"] if self.mode == "leader" else ""
 
+    # -- the codec's view of a leaf -----------------------------------------
+    def _view(self, key, t: torch.Tensor) -> torch.Tensor:
+        perm = self._views.get(key)
+        return t if perm is None else t.permute(perm)
+
+    def _unview(self, key, t: torch.Tensor) -> torch.Tensor:
+        perm = self._views.get(key)
+        return t if perm is None else t.permute(_inverse(perm))
+
+    def _view_shape(self, key) -> Tuple[int, ...]:
+        return tuple(self._view(key, self.params[key]).shape)
+
+    def _to_view(self, tree: Leaves) -> Leaves:
+        return {k: self._view(k, t) for k, t in tree.items()}
+
+    def _from_view(self, tree: Leaves) -> Leaves:
+        return {k: self._unview(k, t) for k, t in tree.items()}
+
     # -- the pipeline -------------------------------------------------------
     def _encode(self, key, x: torch.Tensor):
         """One unit's payload: a leaf threads its codec state, a bucket
@@ -427,29 +504,45 @@ class MPI_PS:
             x, self.codec_state[key], self._gen)
         return payload
 
+    def _own_decoded(self, key, x: torch.Tensor) -> torch.Tensor:
+        """A unit's own payload decoded: the codec-filtered gradient."""
+        v = self._view(key, x)
+        return self._unview(key, self.code.decode(
+            self._encode(key, v), tuple(v.shape), v.dtype))
+
     def _aggregate(self, grads: Params) -> Params:
         """encode -> collective -> decode_sum for every leaf (reference
-        ``pytorch_ps_mpi_tpu/ps.py:438``)."""
+        ``pytorch_ps_mpi_tpu/ps.py:438``), or the codec's collective
+        protocol (``ps.py:1274-1284``)."""
         code, summed = self.code, {}
-        if code.supports_psum:
+        if code.supports_fused_allreduce:
+            for k, g in grads.items():
+                s, self.codec_state[k] = code.fused_allreduce(
+                    self._view(k, g), self.codec_state[k],
+                    comm_dtype=self.comm_dtype)
+                summed[k] = self._unview(k, s)
+        elif code.supports_psum:
             wire = self._psum_wire()
             for k, g in grads.items():
                 summed[k] = (comms.allreduce_sum(g.to(wire)).to(g.dtype)
                              if wire is not None else comms.allreduce_sum(g))
         else:
             for k, g in grads.items():
-                gathered = comms.all_gather_tree(self._encode(k, g))
-                summed[k] = decode_sum_payloads(code, gathered,
-                                                tuple(g.shape), g.dtype)
+                v = self._view(k, g)
+                gathered = gather_payload(code, self._encode(k, v))
+                summed[k] = self._unview(k, decode_sum_payloads(
+                    code, gathered, tuple(v.shape), v.dtype))
         if self.average:
             summed = {k: s / self.size for k, s in summed.items()}
         return summed
 
     def _leader_leaves(self, tree: Params) -> Leaves:
-        """The units leader mode shards: the leaves, or the buckets."""
+        """The units leader mode shards: the leaves, or the buckets (of
+        the codec's views)."""
         if self._bucket_plan is None:
             return tree
-        return dict(enumerate(flatten_into_buckets(self._bucket_plan, tree)))
+        return dict(enumerate(flatten_into_buckets(self._bucket_plan,
+                                                   self._to_view(tree))))
 
     def _leader_scatter(self, to_scatter: Leaves,
                         wire: Optional[torch.dtype]) -> Leaves:
@@ -471,8 +564,8 @@ class MPI_PS:
             self._update_fn, self.hyper)
         plan = self._bucket_plan
         if plan is not None:
-            gathered = unflatten_from_buckets(
-                plan, [gathered[i] for i in range(plan.num_buckets)])
+            gathered = self._from_view(unflatten_from_buckets(
+                plan, [gathered[i] for i in range(plan.num_buckets)]))
         torch._foreach_copy_(list(self.params.values()),
                              [gathered[k] for k in self.params])
 
@@ -488,9 +581,7 @@ class MPI_PS:
                 # the own payload decoded to the codec-filtered gradient;
                 # the reduce-scatter sums those, as decode_sum of the
                 # gathered payloads would
-                units = {k: self.code.decode(self._encode(k, u),
-                                             tuple(u.shape), u.dtype)
-                         for k, u in units.items()}
+                units = {k: self._own_decoded(k, u) for k, u in units.items()}
                 wire = self.comm_dtype
             self._leader_update(self._leader_scatter(units, wire))
             return
@@ -500,11 +591,11 @@ class MPI_PS:
         if plan is None:
             units = summed = self._aggregate(grads)
         else:
-            buckets = bucketed_aggregate(self.code, grads, plan,
-                                         self.average, self.size,
+            buckets = bucketed_aggregate(self.code, self._to_view(grads),
+                                         plan, self.average, self.size,
                                          self.comm_dtype, self._gen)
             units = dict(enumerate(buckets))
-            summed = unflatten_from_buckets(plan, buckets)
+            summed = self._from_view(unflatten_from_buckets(plan, buckets))
         if self.clip_norm:
             # the norm over the leaves (views of the buckets), so that a
             # bucketed step clips exactly as the per-leaf one does
@@ -515,8 +606,8 @@ class MPI_PS:
                                                     self.rank))
             return
         if plan is not None:
-            units = unflatten_from_buckets(
-                plan, [units[i] for i in range(plan.num_buckets)])
+            units = self._from_view(unflatten_from_buckets(
+                plan, [units[i] for i in range(plan.num_buckets)]))
         self.params, self.opt_state = self._update_fn(
             self.params, units, self.opt_state, self.hyper)
 
@@ -554,10 +645,10 @@ class MPI_PS:
         """
         if profile:
             raise _unported("step(profile=True)",
-                            "ROADMAP queue 1 item 9 (telemetry)")
+                            "ROADMAP queue 1 item 8 (telemetry)")
         if aux_state is not None:
             raise _unported("step(aux_state=...) (BatchNorm state)",
-                            "ROADMAP queue 1 item 4")
+                            "ROADMAP queue 1 item 3")
         t0 = time.perf_counter()
         data = schema_dict(**self._metrics)
         loss = None
@@ -585,10 +676,10 @@ class MPI_PS:
         return loss, data
 
     def step_accumulate(self, *args, **kwargs):
-        raise _unported("step_accumulate", "ROADMAP queue 1 item 3")
+        raise _unported("step_accumulate", "ROADMAP queue 1 item 2")
 
     def run_steps(self, *args, **kwargs):
-        raise _unported("run_steps", "ROADMAP queue 1 item 3")
+        raise _unported("run_steps", "ROADMAP queue 1 item 2")
 
     def state_dict(self) -> Dict[str, Any]:
         """Checkpointable state in the JAX package's schema (params,

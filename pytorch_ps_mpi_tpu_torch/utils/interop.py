@@ -31,12 +31,19 @@ the JAX package's leaf order is the sort of the flax paths (note that
 gives the port's names in that order, and :func:`params_from_jax`
 returns its dict in it, so the optimizer iterates leaves as the JAX
 package does.
+
+Codecs whose result depends on the order of a leaf's elements see a
+ResNet or MLP kernel through :func:`codec_views`, its permutation into
+the flax layout, and keep their codec state in that view;
+:func:`codec_state_from_jax` carries the JAX package's codec state (error
+feedback's memory, PowerSGD's Q and residual, threshold's tau) across in
+the port's leaf order and in the layout the port's step keeps it.
 """
 
 from __future__ import annotations
 
 import re
-from typing import Dict, List, Tuple
+from typing import Any, Dict, List, Tuple
 
 import numpy as np
 import torch
@@ -114,6 +121,52 @@ def flax_layout(path: Path, a: np.ndarray) -> np.ndarray:
     if path[-1] == "kernel" and a.ndim == 2:
         return a.T
     return a
+
+
+def codec_views(model: nn.Module) -> Dict[str, Tuple[int, ...]]:
+    """``name -> permutation`` that views each of ``model``'s parameters
+    whose layout differs from flax's in flax's layout (``t.permute(perm)``
+    of an OIHW kernel is HWIO, of a ``[out, in]`` weight ``[in, out]``):
+    the ``codec_views`` of ``MPI_PS``. Empty for ``BertMLM``, which keeps
+    flax's layouts, and for a model this module has no name map for."""
+    if _flax_layout_kept(model) or not isinstance(model, (ResNet, MLP)):
+        return {}
+    views = {}
+    for name, p in model.named_parameters():
+        if flax_path(model, name)[-1] == "kernel" and p.dim() in (2, 4):
+            views[name] = (2, 3, 1, 0) if p.dim() == 4 else (1, 0)
+    return views
+
+
+def codec_state_from_jax(jax_state, model: nn.Module, code,
+                         rank: int = 0) -> Dict[str, Any]:
+    """The JAX package's ``MPI_PS.codec_state`` (a tree shaped like the
+    parameters, each array stacked ``[world, ...]``) as this rank's
+    ``codec_state`` of the port: ``name -> state`` in JAX leaf order, each
+    array a numpy copy of row ``rank``. An order-dependent ``code`` keeps
+    its state in the flax layout (the codec's view), so it crosses
+    unchanged; error feedback's ``memory`` around another codec is turned
+    into the port's layout."""
+    tree = jax_state.get("params", jax_state)
+    relayout = not (code.order_dependent or _flax_layout_kept(model))
+
+    def row(node, path, key=None):
+        if isinstance(node, dict):
+            return {k: row(v, path, k) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return type(node)(row(v, path) for v in node)
+        a = np.array(np.asarray(node)[rank])
+        return (np.ascontiguousarray(torch_layout(path, a))
+                if relayout and key == "memory" else a)
+
+    out = {}
+    for name in jax_leaf_order(model):
+        path = flax_path(model, name)
+        node = tree
+        for key in path:
+            node = node[key]
+        out[name] = row(node, path)
+    return out
 
 
 @torch.no_grad()

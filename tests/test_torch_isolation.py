@@ -1,10 +1,12 @@
 """The port imports neither JAX nor the JAX package, and neither do
 ``chip_smoke.py`` and the other chip scripts; checked in a fresh
-interpreter."""
+interpreter. Every text of the port that names a ROADMAP queue 1 item
+names the item whose heading covers it."""
 
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -44,7 +46,8 @@ def test_probe_imported_every_module_of_the_port(probe):
                  "utils.interop", "utils.metrics", "ops.quant", "ops.topk",
                  "codecs.quant", "codecs.topk", "codecs.error_feedback",
                  "ops.tern", "ops.attention", "codecs.terngrad",
-                 "models.bert", "bucketing"):
+                 "models.bert", "bucketing", "codecs.randomk",
+                 "codecs.blocktopk", "codecs.threshold", "codecs.powersgd"):
         assert f"pytorch_ps_mpi_tpu_torch.{name}" in probe["modules"], name
 
 
@@ -55,3 +58,39 @@ def test_chip_smoke_fails_without_the_repo(tmp_path):
                          capture_output=True, text=True, timeout=120)
     assert out.returncode != 0
     assert '"ok": true' not in out.stdout
+
+
+#: (file under the port, a word of the unported option, its queue 1 item)
+UNPORTED_TEXTS = [
+    ("ps.py", "instrument", 2), ("ps.py", "step_accumulate", 2),
+    ("ps.py", "run_steps", 2), ("ps.py", "aux_state", 3),
+    ("ps.py", "numerics", 8), ("ps.py", "profile=True", 8),
+    ("ps.py", "param_specs", 9), ("ps.py", "batch_spec", 9),
+    ("codecs/base.py", "agg_init", 4), ("codecs/quant.py", "agg_init", 4),
+    ("codecs/sign.py", "vote-count", 4),
+    ("codecs/error_feedback.py", "HopErrorFeedback", 6),
+    ("models/resnet.py", "SyncBatchNorm", 3),
+    ("models/bert.py", "ring", 9),
+]
+
+
+def _queue1_items() -> dict:
+    text = (ROOT / "ROADMAP.md").read_text()
+    queue = text[text.index("### Queue 1"):text.index("### Queue 2")]
+    parts = re.split(r"^(\d+)\. \*\*", queue, flags=re.M)
+    return {int(n): body for n, body in zip(parts[1::2], parts[2::2])}
+
+
+def test_unported_texts_name_their_roadmap_item():
+    items = _queue1_items()
+    assert sorted(items) == list(range(1, len(items) + 1))
+    named = {}
+    for path in (ROOT / "pytorch_ps_mpi_tpu_torch").rglob("*.py"):
+        for n in re.findall(r"queue 1\s+item\s+(\d+)", path.read_text()):
+            named.setdefault(str(path.relative_to(
+                ROOT / "pytorch_ps_mpi_tpu_torch")), set()).add(int(n))
+    want = {}
+    for file, word, item in UNPORTED_TEXTS:
+        want.setdefault(file, set()).add(item)
+        assert word in items[item], (file, word, item)
+    assert named == want
