@@ -99,8 +99,10 @@ Phases, one line each; the script exits non-zero if any fails:
                bias; payloads and decode-sums bit-exact, PowerSGD's
                two-all-reduce protocol over three steps within 1e-4 of
                each tensor's largest magnitude); ``powersgd_qr`` times the
-               51 QRs of PowerSGD's step against a grads-only step and
-               counts the host syncs they make.
+               51 QRs of PowerSGD's step and calls them, and the whole
+               protocol, behind a spin kernel (does either wait on the
+               device?); the powersgd-r4 run's ``profile`` line gives
+               the QRs' device time and share of its step.
 6. main path -- a one-rank NCCL process group, then 5 ``step(loss_fn=...)``
                calls and 1 ``step(grads=...)`` call of each of: identity
                (no kernel), sign, int8 and qsgd on ResNet-18 (CIFAR stem,
@@ -199,7 +201,8 @@ def _device_events(prof) -> list:
 #: runtime calls that put one row on the device: a kernel, memset or copy
 _LAUNCH_CALLS = ("cudaLaunch", "cuLaunch", "cudaMemset", "cuMemset",
                  "cudaMemcpy", "cuMemcpy")
-_LEAD = 64  # spin kernels that open every trace, there to be dropped
+_LEAD = 256  # spin kernels that open every trace, there to be dropped
+_TAKES = 5  # traces taken before a short one fails the run
 
 
 def _profiled(fn, cold: bool = False) -> list:
@@ -207,16 +210,16 @@ def _profiled(fn, cold: bool = False) -> list:
     warm-up call; ``cold``: with the 50 MB L2 flushed just before. Late
     in a long run of this script on an H100 the profiler dropped the
     first device rows of a trace (all of a one-kernel trace, the first of
-    20 decode_sum calls; PERF.md §7), while it still recorded every runtime
-    launch call. So each trace opens with ``_LEAD`` spin kernels, and is
-    whole only when its other device rows match the launch calls made
-    after them; a trace short of rows is taken again, at most twice, and
-    then fails the run."""
+    20 decode_sum calls, once 102 rows early in a run; PERF.md §7), while
+    it still recorded every runtime launch call. So each trace opens with
+    ``_LEAD`` spin kernels, and is whole only when its other device rows
+    match the launch calls made after them; a trace short of rows is
+    taken again, ``_TAKES`` times in all, and then fails the run."""
     from torch.profiler import ProfilerActivity, profile
 
     cuda = torch.autograd.DeviceType.CUDA
     fn()
-    for _ in range(3):
+    for _ in range(_TAKES):
         if cold:
             torch.empty(2**27, dtype=torch.int8, device="cuda").fill_(1)
         torch.cuda.synchronize()
@@ -233,7 +236,7 @@ def _profiled(fn, cold: bool = False) -> list:
                        if e.device_type != cuda) - _LEAD
         if rows and len(rows) == launched:
             return rows
-    raise AssertionError(f"three profiler traces lost device rows: "
+    raise AssertionError(f"{_TAKES} profiler traces lost device rows: "
                          f"{len(rows)} of {launched} launched")
 
 
@@ -1601,18 +1604,45 @@ def check_codec_reference(model) -> None:
           **{f"max_rel_{k}": f"{v:.3e}" for k, v in worst.items()})
 
 
+def call_behind_spin(calls) -> tuple:
+    """``(index of the first call that returned after half the spin, or
+    None; the spin's ms)``: ``calls`` made back to back while a ~0.1 s
+    spin kernel holds the stream. A call that waits on the device (a host
+    sync, a library reading a result back, or a launch into a full
+    launch queue) cannot return before the spin ends."""
+    for c in calls:
+        c()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    torch.cuda._sleep(2 * 10**8)
+    end.record()
+    t0 = time.perf_counter()
+    done = []
+    for c in calls:
+        c()
+        done.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    spin_ms = start.elapsed_time(end)
+    return next((i for i, t in enumerate(done) if t > spin_ms / 2),
+                None), spin_ms
+
+
 def check_powersgd_qr(model) -> None:
     """PowerSGD's QR on BERT-base: the 51 compressed leaves' [n, 4] QRs
-    timed alone against one grads-only Adam(powersgd) step (their share of
-    it), and the host syncs the QRs and the protocol make, counted by
-    ``torch.cuda.set_sync_debug_mode("warn")`` (no process group here)."""
-    import warnings
-
-    from pytorch_ps_mpi_tpu_torch import Adam
+    timed alone, and whether they, or the whole protocol of the 150
+    leaves (no process group here), wait on the device: each is called
+    behind a spin kernel. Where the protocol waits, the device launches
+    made before the waiting leaf are set against the launch queue's
+    depth, measured with one-kernel calls: a wait that comes only when
+    the queue is full is backpressure, not a sync. Their share of the
+    step is read from the powersgd-r4 main path's trace
+    (``profile_step``)."""
     from pytorch_ps_mpi_tpu_torch.codecs.powersgd import _matrix_shape
 
     code = make_codec("powersgd-r4")
-    params = {k: p.detach().clone() for k, p in ordered_params(model).items()}
+    params = ordered_params(model)
     shapes = [tuple(p.shape) for p in params.values()
               if code._compresses(tuple(p.shape))]
     if len(shapes) != 51:
@@ -1620,42 +1650,38 @@ def check_powersgd_qr(model) -> None:
     gen = torch.Generator(device="cuda").manual_seed(6)
     factors = [torch.randn((_matrix_shape(s)[0], 4), generator=gen,
                            device="cuda") for s in shapes]
-
-    def qrs():
-        for p in factors:
-            torch.linalg.qr(p)
-
-    def syncs(fn) -> int:
-        fn()
-        torch.cuda.synchronize()
-        with warnings.catch_warnings(record=True) as caught:
-            warnings.simplefilter("always")
-            torch.cuda.set_sync_debug_mode("warn")
-            try:
-                fn()
-            finally:
-                torch.cuda.set_sync_debug_mode("default")
-        return sum("synchroniz" in str(w.message) for w in caught)
-
+    qrs = [lambda p=p: torch.linalg.qr(p) for p in factors]
     grads = {k: 1e-3 * torch.randn(p.shape, generator=gen, device="cuda")
              for k, p in params.items()}
     states = {k: code.init_state(tuple(p.shape), p.dtype, "cuda")
               for k, p in params.items()}
+    leaves = [lambda k=k: code.fused_allreduce(grads[k], states[k])
+              for k in grads]
 
-    def protocol():
-        for k, g in grads.items():
-            code.fused_allreduce(g, states[k])
+    def run(calls):
+        return lambda: [c() for c in calls]
 
-    qr_syncs, protocol_syncs = syncs(qrs), syncs(protocol)
-    qr_ms = cuda_ms(qrs, reps=5, rounds=5)
-    opt = Adam(params, lr=1e-4, code=code, device="cuda")
-    stacked = {k: g.unsqueeze(0) for k, g in grads.items()}
-    step_ms = statistics.median(opt.step(grads=stacked)[1]["step_time"] * 1e3
-                                for _ in range(5))
+    one = torch.zeros(1, device="cuda")
+    depth, _ = call_behind_spin([lambda: one.add_(1)] * 4096)
+    qr_ms = cuda_ms(run(qrs), reps=5, rounds=5)
+    qr_wait, spin_ms = call_behind_spin(qrs)
+    leaf_wait, _ = call_behind_spin(leaves)
+    fields = {}
+    if leaf_wait is not None:
+        before = device_launches(run(leaves[:leaf_wait])) if leaf_wait \
+            else 0
+        through = device_launches(run(leaves[:leaf_wait + 1]))
+        # the spin and its two events hold a few entries of the queue
+        full = depth is not None and before <= depth + 8 <= through + 16
+        fields = dict(protocol_first_waiting_leaf=leaf_wait,
+                      protocol_launches_before_it=before,
+                      protocol_launches_through_it=through,
+                      protocol_waits_for=("launch_queue" if full
+                                          else "sync"))
     phase("powersgd_qr", qr_calls=len(shapes), qr_ms=f"{qr_ms:.4f}",
-          grads_step_ms=f"{step_ms:.3f}",
-          qr_share_of_grads_step=f"{qr_ms / step_ms:.3f}",
-          qr_host_syncs=qr_syncs, protocol_host_syncs=protocol_syncs)
+          spin_ms=f"{spin_ms:.4f}", launch_queue_depth=depth,
+          qr_first_waiting_call=qr_wait,
+          protocol_launches=device_launches(run(leaves)), **fields)
 
 
 # -- the main paths -------------------------------------------------------------
@@ -1883,10 +1909,21 @@ def profile_step(opt, loss_fn, batch, code_name: str) -> None:
     wall_ms = data["step_time"] * 1e3
     top = [{"name": k[:48], "ms": round(t / 1e3, 4), "calls": c}
            for k, t, c in rows[:8]]
+    # PowerSGD's QRs: the device time of the kernels aten::linalg_qr
+    # launched (cuSOLVER's or MAGMA's), against the step's busy and wall
+    qr = [(e.device_time_total / 1e3, e.count) for e in prof.key_averages()
+          if e.key == "aten::linalg_qr"]
+    qr_fields = {}
+    if qr:
+        qr_ms = sum(t for t, _ in qr)
+        qr_fields = dict(qr_calls=sum(c for _, c in qr),
+                         qr_device_ms=f"{qr_ms:.4f}",
+                         qr_share_of_busy=f"{qr_ms / busy_ms:.4f}",
+                         qr_share_of_wall=f"{qr_ms / wall_ms:.4f}")
     phase("profile", code=code_name, wall_ms=f"{wall_ms:.3f}",
           device_busy_ms=f"{busy_ms:.3f}",
           idle_share=f"{max(0.0, 1 - busy_ms / wall_ms):.3f}",
-          top=json.dumps(top, separators=(",", ":")))
+          top=json.dumps(top, separators=(",", ":")), **qr_fields)
 
 
 SOURCES = {

@@ -93,13 +93,10 @@ class Codec:
     supports_fused_allreduce: bool = False
     #: codecs whose result depends on the order of a leaf's elements
     #: (blocks, strata, a matrix view, an index-ordered cap): the step
-    #: encodes such a leaf in the JAX package's layout (``MPI_PS``'s
-    #: ``codec_views``), so both packages select the same elements
+    #: encodes a leaf tagged ``codec_view`` in the JAX package's layout
+    #: (``models.init.mark_flax_views``), so both packages select the
+    #: same elements
     order_dependent: bool = False
-    #: codecs whose payload carries a true-length sidecar (``"length"``)
-    #: past which its slots are garbage: the step gathers it with
-    #: ``comms.ragged_all_gather``
-    ragged: bool = False
     #: codecs with a compressed-domain aggregation algebra
     supports_aggregate: bool = False
     #: True when ``aggregate`` equals ``decode_sum`` bit for bit; False

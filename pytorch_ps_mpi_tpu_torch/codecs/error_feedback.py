@@ -53,10 +53,6 @@ class ErrorFeedback(Codec):
         return self.inner.order_dependent
 
     @property
-    def ragged(self):
-        return self.inner.ragged
-
-    @property
     def agg_exact(self):
         return self.inner.agg_exact
 

@@ -9,8 +9,8 @@ The survivors sit first, in index order; the slots past ``length`` are
 garbage (index 0 and its value, as the JAX package's ``scatter``
 compaction leaves them) and the receiver masks them by the sender's own
 length before the scatter-add. More survivors than the cap drop the tail
-in index order. The step gathers the payload with
-``comms.ragged_all_gather``.
+in index order. The step all-gathers the payload tensor by tensor, the
+length with it, as the JAX step gathers the payload tree.
 
 The compaction keeps ``length`` on the device and makes no host sync: a
 cumulative sum of the mask gives survivor i its slot, and one scatter
@@ -43,7 +43,6 @@ class ThresholdCodec(Codec):
     # length before the concatenation
     supports_aggregate = True
     order_dependent = True
-    ragged = True
 
     def __init__(self, tau: float = 2.0, max_fraction: float = 0.25,
                  target_fraction: float = 0.0, eta: float = 0.25,

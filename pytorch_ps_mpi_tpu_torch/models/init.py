@@ -28,3 +28,16 @@ def init_like_flax(module: nn.Module, seed: int) -> None:
         elif isinstance(m, nn.GroupNorm):
             m.weight.fill_(1.0)
             m.bias.zero_()
+
+
+def mark_flax_views(module: nn.Module) -> None:
+    """Tag each conv and linear kernel of ``module`` with ``codec_view``,
+    the permutation of its dims into the layout the JAX package keeps it
+    in (OIHW -> HWIO, ``[out, in]`` -> ``[in, out]``). A codec whose result
+    depends on the order of a leaf's elements sees a tagged parameter
+    through it (``MPI_PS``), so it selects the JAX package's elements. A
+    copy of a parameter (``clone``, ``copy.deepcopy``) carries no tag."""
+    for m in module.modules():
+        if isinstance(m, (nn.Conv2d, nn.Linear)):
+            m.weight.codec_view = (2, 3, 1, 0) if m.weight.dim() == 4 \
+                else (1, 0)

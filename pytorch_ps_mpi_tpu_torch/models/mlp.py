@@ -11,7 +11,8 @@ import torch
 from torch import nn
 
 from pytorch_ps_mpi_tpu_torch.mesh import Device, resolve_device
-from pytorch_ps_mpi_tpu_torch.models.init import init_like_flax
+from pytorch_ps_mpi_tpu_torch.models.init import (init_like_flax,
+                                                 mark_flax_views)
 
 
 class MLP(nn.Module):
@@ -24,6 +25,7 @@ class MLP(nn.Module):
             nn.Linear(a, b) for a, b in zip(widths[:-1], widths[1:]))
         init_like_flax(self, seed)
         self.to(resolve_device(device))
+        mark_flax_views(self)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x.reshape(x.shape[0], -1)

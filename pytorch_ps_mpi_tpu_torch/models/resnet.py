@@ -23,7 +23,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from pytorch_ps_mpi_tpu_torch.mesh import Device, resolve_device
-from pytorch_ps_mpi_tpu_torch.models.init import init_like_flax
+from pytorch_ps_mpi_tpu_torch.models.init import (init_like_flax,
+                                                 mark_flax_views)
 
 #: flax's GroupNorm epsilon
 GN_EPS = 1e-6
@@ -130,6 +131,7 @@ class ResNet(nn.Module):
         self.head = nn.Linear(cin, num_classes)
         init_like_flax(self, seed)
         self.to(resolve_device(device))
+        mark_flax_views(self)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """``x``: NHWC images -> float32 logits ``[N, num_classes]``."""

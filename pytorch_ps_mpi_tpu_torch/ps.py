@@ -9,14 +9,15 @@ to ``comm_dtype`` or the codec's ``wire_dtype``. A codec whose
 aggregation is a collective protocol (``supports_fused_allreduce``,
 PowerSGD's two all-reduces of low-rank factors) skips encode and gather
 and gives the summed gradient itself (``fused_allreduce_tree``,
-``ps.py:568-598``). A ragged payload (threshold's) is gathered with its
-true-length sidecar (``comms.ragged_all_gather``).
+``ps.py:568-598``). A ragged payload (threshold's) is gathered as any
+other, its int32 true-length sidecar one more tensor of the tree.
 
 A codec whose result depends on the order of a leaf's elements
 (``Codec.order_dependent``: random-k's strata, block top-k's blocks,
-threshold's cap, PowerSGD's matrix view) sees each leaf through
-``codec_views``, a permutation of its dims into the JAX package's
-layout, and its decoded sum is permuted back; so the port keeps PyTorch
+threshold's cap, PowerSGD's matrix view) sees a parameter tagged
+``codec_view`` through that permutation of its dims, the JAX package's
+layout, and its decoded sum is permuted back. ResNet and MLP tag their
+kernels (``models.init.mark_flax_views``), so the port keeps PyTorch
 layouts (OIHW convolutions, ``[out, in]`` linear weights) and selects
 the elements the JAX package selects. Its codec state (PowerSGD's Q and
 residual, error feedback's memory) is kept in that view.
@@ -126,17 +127,6 @@ def decode_sum_payloads(code: Codec, gathered, shape, dtype) -> torch.Tensor:
     return code.decode_sum(gathered, shape, dtype)
 
 
-def gather_payload(code: Codec, payload):
-    """Every rank's payload, stacked ``[world, ...]`` tensor by tensor: one
-    all-gather a payload tensor, the length sidecar of a ragged payload
-    through ``comms.ragged_all_gather``."""
-    if not code.ragged:
-        return comms.all_gather_tree(payload)
-    body = {k: v for k, v in payload.items() if k != "length"}
-    gathered, lengths = comms.ragged_all_gather(body, payload["length"])
-    return {**gathered, "length": lengths}
-
-
 def _inverse(perm: Tuple[int, ...]) -> Tuple[int, ...]:
     out = [0] * len(perm)
     for i, d in enumerate(perm):
@@ -172,7 +162,7 @@ def bucketed_aggregate(code: Codec, grads: Params, plan: BucketPlan,
         wire = comm_dtype or getattr(code, "wire_dtype", None)
         summed = comms.allreduce_sum_buckets(buckets, wire)
     else:
-        summed = [decode_sum_payloads(code, gather_payload(code, payload),
+        summed = [decode_sum_payloads(code, comms.all_gather_tree(payload),
                                       tuple(b.shape), b.dtype)
                   for b, payload in zip(buckets,
                                         _encode_buckets(code, buckets, gen))]
@@ -296,12 +286,6 @@ class MPI_PS:
         bucket.
       loss_reduction: ``"pmean"`` (default: the mean of the ranks'
         losses) or ``"psum"``.
-      codec_views: ``name -> permutation of the leaf's dims`` under which
-        an order-dependent codec sees the leaf (its JAX package layout).
-        By default ``utils.interop.codec_views(params)`` when ``params``
-        is a module (ResNet and MLP kernels; BERT keeps flax layouts and
-        needs none), else none; pass ``codec_views(model)`` with a dict of
-        a model's parameters.
       device: where the parameters live; ``"cuda"`` by default, and it
         raises when no GPU is present. Pass ``device="cpu"`` to run on
         the CPU.
@@ -321,7 +305,6 @@ class MPI_PS:
         clip_norm: float = 0.0,
         bucket_mb: float = 0.0,
         loss_reduction: Optional[str] = None,
-        codec_views: Optional[Dict[str, Tuple[int, ...]]] = None,
         device: mesh.Device = "cuda",
         **hyper,
     ):
@@ -349,14 +332,11 @@ class MPI_PS:
         self.device = mesh.resolve_device(device)
         self.code = code if code is not None else IdentityCodec()
         if isinstance(params, nn.Module):
-            if codec_views is None and self.code.order_dependent:
-                from pytorch_ps_mpi_tpu_torch.utils.interop import (
-                    codec_views as model_views)
-                codec_views = model_views(params)
             params = dict(params.named_parameters())
         self.params: Params = dict(params)
         #: the permutations order-dependent codecs see the leaves through
-        self._views = ({k: tuple(v) for k, v in (codec_views or {}).items()}
+        self._views = ({k: p.codec_view for k, p in self.params.items()
+                        if hasattr(p, "codec_view")}
                        if self.code.order_dependent else {})
         for k, p in self.params.items():
             if p.device.type != self.device.type:
@@ -529,7 +509,7 @@ class MPI_PS:
         else:
             for k, g in grads.items():
                 v = self._view(k, g)
-                gathered = gather_payload(code, self._encode(k, v))
+                gathered = comms.all_gather_tree(self._encode(k, v))
                 summed[k] = self._unview(k, decode_sum_payloads(
                     code, gathered, tuple(v.shape), v.dtype))
         if self.average:

@@ -33,8 +33,8 @@ returns its dict in it, so the optimizer iterates leaves as the JAX
 package does.
 
 Codecs whose result depends on the order of a leaf's elements see a
-ResNet or MLP kernel through :func:`codec_views`, its permutation into
-the flax layout, and keep their codec state in that view;
+ResNet or MLP kernel in the flax layout (its ``codec_view``,
+``models.init.mark_flax_views``) and keep their codec state in that view;
 :func:`codec_state_from_jax` carries the JAX package's codec state (error
 feedback's memory, PowerSGD's Q and residual, threshold's tau) across in
 the port's leaf order and in the layout the port's step keeps it.
@@ -121,21 +121,6 @@ def flax_layout(path: Path, a: np.ndarray) -> np.ndarray:
     if path[-1] == "kernel" and a.ndim == 2:
         return a.T
     return a
-
-
-def codec_views(model: nn.Module) -> Dict[str, Tuple[int, ...]]:
-    """``name -> permutation`` that views each of ``model``'s parameters
-    whose layout differs from flax's in flax's layout (``t.permute(perm)``
-    of an OIHW kernel is HWIO, of a ``[out, in]`` weight ``[in, out]``):
-    the ``codec_views`` of ``MPI_PS``. Empty for ``BertMLM``, which keeps
-    flax's layouts, and for a model this module has no name map for."""
-    if _flax_layout_kept(model) or not isinstance(model, (ResNet, MLP)):
-        return {}
-    views = {}
-    for name, p in model.named_parameters():
-        if flax_path(model, name)[-1] == "kernel" and p.dim() in (2, 4):
-            views[name] = (2, 3, 1, 0) if p.dim() == 4 else (1, 0)
-    return views
 
 
 def codec_state_from_jax(jax_state, model: nn.Module, code,

@@ -46,13 +46,13 @@ from pytorch_ps_mpi_tpu_torch import SGD
 from pytorch_ps_mpi_tpu_torch.codecs import get_codec
 from pytorch_ps_mpi_tpu_torch.codecs.powersgd import _matrix_shape, warm_seed
 from pytorch_ps_mpi_tpu_torch.utils.interop import (codec_state_from_jax,
-                                                    codec_views, flax_path,
+                                                    flax_path,
                                                     params_from_jax,
                                                     params_to_jax,
                                                     torch_layout)
-from torch_parity import (HYPER, STEPS, assert_params_close, jax_resnet,
-                          mlp_pair, spawn_ranks, stacked_grads, torch_grads,
-                          torch_resnet)
+from torch_parity import (HYPER, STEPS, assert_params_close, codec_views,
+                          jax_resnet, mlp_pair, spawn_ranks, stacked_grads,
+                          torch_grads, torch_resnet)
 
 RTOL = 1e-5  # of each tensor's largest magnitude
 
@@ -225,7 +225,7 @@ def test_codec_state_from_jax_keeps_each_codec_in_its_layout():
         assert list(rows) == list(params_from_jax(variables, model))
         if flax_kept:
             assert rows[name]["inner"]["tau"].shape == ()
-    assert codec_views(model)[name] == (1, 0)
+    assert dict(model.named_parameters())[name].codec_view == (1, 0)
 
 
 # -- the fused step over gloo -------------------------------------------------------
@@ -245,13 +245,14 @@ mesh.initialize_distributed(f"tcp://localhost:{port}", world_size=world,
                             rank=rank, backend="gloo")
 data = np.load(src)
 names = [str(n) for n in data["names"]]
-views = {n: tuple(int(d) for d in data["v:" + n]) for n in names
-         if "v:" + n in data.files}
 out, calls = {}, {}
 for mode in ("allgather", "leader"):
     params = {n: torch.from_numpy(data["p:" + n].copy()) for n in names}
+    for n in names:
+        if "v:" + n in data.files:  # the model's kernel tags, carried across
+            params[n].codec_view = tuple(int(d) for d in data["v:" + n])
     opt = SGD(params, lr=0.01, momentum=0.9, device="cpu", mode=mode,
-              codec_views=views, code=get_codec("powersgd", rank=2))
+              code=get_codec("powersgd", rank=2))
     for n in names:
         if "q:" + n in data.files:
             opt.codec_state[n]["Q"] = torch.from_numpy(data["q:" + n].copy())

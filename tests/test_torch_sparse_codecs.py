@@ -12,7 +12,8 @@ JAX codec run under ``jax.jit``:
   and block top-k;
 - grads-only ``SGD`` steps (world 1): random-k per leaf and bucketed on
   the MLP, and each codec on the width-32 ResNet-18, through the codecs'
-  views of the PyTorch layouts (``codec_views``); parameters to rtol
+  views of the PyTorch layouts (the kernels' ``codec_view`` tags);
+  parameters to rtol
   1e-6, atol 1e-7 (the jitted JAX update contracts into fused
   multiply-adds);
 - the metrics' ``wire_lowering`` and ``wire_bytes_per_worker`` at worlds
@@ -36,12 +37,12 @@ from pytorch_ps_mpi_tpu.codecs import get_codec as jax_codec
 from pytorch_ps_mpi_tpu.mesh import make_mesh
 from pytorch_ps_mpi_tpu_torch import SGD, comms
 from pytorch_ps_mpi_tpu_torch.codecs import get_codec
-from pytorch_ps_mpi_tpu_torch.utils.interop import (codec_views, flax_layout,
-                                                    flax_path, params_from_jax,
+from pytorch_ps_mpi_tpu_torch.utils.interop import (flax_layout, flax_path,
+                                                    params_from_jax,
                                                     torch_layout)
-from torch_parity import (HYPER, STEPS, assert_params_close, jax_resnet,
-                          mlp_pair, spawn_ranks, stacked_grads, torch_grads,
-                          torch_resnet)
+from torch_parity import (HYPER, STEPS, assert_params_close, codec_views,
+                          jax_resnet, mlp_pair, spawn_ranks, stacked_grads,
+                          torch_grads, torch_resnet)
 
 
 def _key(i: int):
@@ -192,7 +193,7 @@ def test_error_feedback_around_sparse_codecs(inner):
                 "block_size": 128})
     jc, tc = jax_codec("ef", **kw), get_codec("ef", **kw)
     shape = (30, 20)
-    assert tc.order_dependent and tc.ragged == (inner == "threshold")
+    assert tc.order_dependent
     js, ts = jc.init_state(shape, jnp.float32), tc.init_state(
         shape, torch.float32, "cpu")
     rng = np.random.RandomState(5)
@@ -244,7 +245,7 @@ def test_randomk_step_per_leaf_and_bucketed_on_the_mlp(mb):
                 mesh=make_mesh(devices=jax.devices()[:1]), bucket_mb=mb,
                 **HYPER)
     opt = SGD(params, code=get_codec("randomk", **kw), device="cpu",
-              bucket_mb=mb, codec_views=codec_views(model), **HYPER)
+              bucket_mb=mb, **HYPER)
     units = ([b.size for b in opt._bucket_plan.buckets] if mb
              else [p.numel() for p in params.values()])
     assert len(units) == (3 if mb else 4)
@@ -270,7 +271,7 @@ RESNET_CODECS = {
 def test_resnet18_grads_only_step_matches_jax(case):
     """Three grads-only steps of the width-32 ResNet-18 at world 1; the
     port keeps its OIHW and [out, in] layouts and the codec sees the
-    flax layouts through ``codec_views``."""
+    flax layouts through the kernels' ``codec_view`` tags."""
     name, kw = RESNET_CODECS[case]
     _, variables = jax_resnet()
     jopt = JSGD(jax.tree.map(jnp.asarray, variables),
@@ -281,8 +282,7 @@ def test_resnet18_grads_only_step_matches_jax(case):
     code = get_codec(name, **kw)
     if name == "randomk":
         code = _fed_randomk(kw, [p.numel() for p in params.values()])
-    opt = SGD(params, code=code, device="cpu",
-              codec_views=codec_views(model), **HYPER)
+    opt = SGD(params, code=code, device="cpu", **HYPER)
     for s in range(STEPS):
         grads = stacked_grads(variables, 1, s)
         jopt.step(grads=jax.tree.map(jnp.asarray, grads))
@@ -291,10 +291,10 @@ def test_resnet18_grads_only_step_matches_jax(case):
 
 
 def test_codec_views_put_each_resnet_leaf_kind_in_flax_layout():
-    """A 3×3 conv, a 1×1 shortcut conv and the dense head: the module's
-    own views are the flax layouts, and one SGD(lr=1) step on the leaf
-    alone moves it by the JAX codec's decode of the flax-layout gradient,
-    in the port's layout."""
+    """A 3×3 conv, a 1×1 shortcut conv and the dense head: the views the
+    model tags its kernels with are the flax layouts, and one SGD(lr=1)
+    step on the zeroed leaf alone moves it by the JAX codec's decode of
+    the flax-layout gradient, in the port's layout."""
     model = torch_resnet()
     views = codec_views(model)
     named = dict(model.named_parameters())
@@ -309,9 +309,11 @@ def test_codec_views_put_each_resnet_leaf_kind_in_flax_layout():
         g = rng.randn(*named[n].shape).astype(np.float32)
         view = torch.from_numpy(g).permute(views[n])
         np.testing.assert_array_equal(view.numpy(), flax_layout(path, g))
-        p = torch.zeros_like(named[n])
+        p = named[n]
+        with torch.no_grad():
+            p.zero_()
         opt = SGD({n: p}, code=get_codec("blocktopk", **kw), device="cpu",
-                  codec_views={n: views[n]}, lr=1.0)
+                  lr=1.0)
         opt.step(grads={n: torch.from_numpy(g)[None]})
         fg = flax_layout(path, g)
         jd = jax_codec("blocktopk", **kw).decode_sum(
@@ -319,7 +321,7 @@ def test_codec_views_put_each_resnet_leaf_kind_in_flax_layout():
                 jax_codec("blocktopk", **kw), fg, 0)[0].items()},
             fg.shape, jnp.float32)
         np.testing.assert_array_equal(
-            (-p).numpy(), torch_layout(path, np.asarray(jd)))
+            (-p).detach().numpy(), torch_layout(path, np.asarray(jd)))
 
 
 @pytest.mark.parametrize("world", [1, 2, 4])
@@ -404,9 +406,10 @@ mesh.initialize_distributed(f"tcp://localhost:{port}", world_size=world,
 data = np.load(src)
 names = [str(n) for n in data["names"]]
 params = {n: torch.from_numpy(data["p:" + n].copy()) for n in names}
-views = {n: tuple(int(d) for d in data["v:" + n]) for n in names
-         if "v:" + n in data.files}
-opt = SGD(params, lr=0.01, momentum=0.9, device="cpu", codec_views=views,
+for n in names:
+    if "v:" + n in data.files:  # the model's kernel tags, carried across
+        params[n].codec_view = tuple(int(d) for d in data["v:" + n])
+opt = SGD(params, lr=0.01, momentum=0.9, device="cpu",
           code=get_codec("threshold", tau=1.5, max_fraction=0.1))
 for s in range(steps):
     comms.reset_calls()

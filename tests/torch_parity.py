@@ -81,6 +81,13 @@ def mlp_pair(seed: int = 0, features=(48, 10)):
     return variables, model
 
 
+def codec_views(model) -> dict:
+    """``name -> codec_view`` of the parameters ``model`` tagged with the
+    permutation into the JAX package's layout."""
+    return {n: p.codec_view for n, p in model.named_parameters()
+            if hasattr(p, "codec_view")}
+
+
 def stacked_grads(variables, world: int, step: int):
     """Per-leaf ``[world, *flax_shape]`` gradients from a seed."""
     rng = np.random.RandomState(1000 * world + step)
