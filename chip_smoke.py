@@ -138,6 +138,35 @@ Phases, one line each; the script exits non-zero if any fails:
                ``profile``): the device's busy time against the step's
                wall time and the kernels that take the most of it.
 
+7. training -- in the same process group, with cuDNN deterministic, every
+               run's kernel counts and collective calls asserted exactly:
+               ResNet-18 (CIFAR stem, SyncBatchNorm, f32) SGD(sign) at
+               batch 256 through ``Trainer.fit``, 8 steps in two
+               ``run_steps`` calls, checkpointing every 4 (20 + 20 sign
+               launches a step; 144 all-gathers and 22 all-reduces a step:
+               the gradients' 124, one all-gather and one all-reduce a
+               BatchNorm layer, the running statistics' all-reduce and the
+               loss's); a fresh Trainer restored from the step-4
+               checkpoint of a 4-step run (a directory of its own) and run
+               4 more equals it bit for bit (parameters, running statistics,
+               momentum), and ``run_steps(4)`` equals 4 ``step`` calls bit
+               for bit (two rounds, the second in the other order, both
+               wall times printed). BERT-base Adam(terngrad(use_pallas=True)) through
+               ``step_accumulate`` over 2 microbatches of 4 x 512 (24 + 48
+               flash launches and 107 + 63 TernGrad launches a step; 300
+               all-gathers + 1), then the same with ``instrument=True``
+               (every stage timed, the stages within ``step_time``, the
+               parameters the fused run's bit for bit). ResNet-18 SGD(int8):
+               ``make_sync_train_step`` per leaf and at bucket_mb=16 equals
+               ``MPI_PS.step`` bit for bit over 3 steps, and an
+               ``instrument=True`` step equals the fused one (3 steps). Last,
+               ``python -m pytorch_ps_mpi_tpu_torch.launch ... train.py
+               --config resnet18_cifar10 --norm batch --codec int8 --steps
+               3`` in a subprocess exits 0 with a finite ``final_loss``.
+               Each path in this process prints its median step ms, peak
+               GB and (one more step under torch.profiler) its idle share;
+               the CLI its seconds and ``Trainer.fit``'s mean step ms.
+
 Phase ``done`` gives the seconds the whole run took. The line before the
 last is a JSON object with one entry per kernel; the last line is
 ``{"ok": true, "device": {...}}``. This script imports
@@ -1926,6 +1955,435 @@ def profile_step(opt, loss_fn, batch, code_name: str) -> None:
           top=json.dumps(top, separators=(",", ":")), **qr_fields)
 
 
+# -- phase 7: the training layer -----------------------------------------
+
+#: steps of the Trainer run (two run_steps calls of SCAN_CHUNK), and of
+#: each equality run
+TRAIN_STEPS, SCAN_CHUNK = 8, 4
+EQ_STEPS = 3
+#: ResNet-18 with SyncBatchNorm: 20 BatchNorm layers, each one all-gather
+#: of its statistics in the forward and one all-reduce of their cotangent
+#: in the backward; one all-reduce of the running statistics (one dtype)
+#: and one of the loss a step
+BN_LAYERS = 20
+SYNCBN_CALLS = {"all_gather": 124 + BN_LAYERS,
+                "all_reduce": 1 + BN_LAYERS + 1}
+
+
+def _counted(fn):
+    """``fn()`` with every kernel count and the collective counter set to
+    0 just before and read just after: ``(result, launches, calls)``."""
+    from pytorch_ps_mpi_tpu_torch import comms
+
+    counters = kernel_counters()
+    torch.cuda.synchronize()
+    for k in counters.values():
+        k.launches = 0
+    comms.reset_calls()
+    out = fn()
+    torch.cuda.synchronize()
+    return (out, {n: k.launches for n, k in counters.items() if k.launches},
+            {n: c for n, c in comms.calls.items() if c})
+
+
+def _expect(what: str, got: dict, per_step: dict, steps: int) -> None:
+    want = {k: v * steps for k, v in per_step.items() if v}
+    if got != want:
+        raise AssertionError(f"{what}: {got}, expected {want}")
+
+
+def _tensors(tree) -> list:
+    from pytorch_ps_mpi_tpu_torch import comms
+
+    out = []
+    comms.tree_map(lambda t: out.append(t) if torch.is_tensor(t) else None,
+                   tree)
+    return out
+
+
+def _assert_same_state(a, b, what: str) -> None:
+    """Every tensor of ``a`` equals its twin in ``b`` bit for bit."""
+    ta, tb = _tensors(a), _tensors(b)
+    if len(ta) != len(tb) or not all(
+            x.shape == y.shape and torch.equal(x, y) for x, y in zip(ta, tb)):
+        raise AssertionError(f"{what}: not equal bit for bit")
+
+
+def _idle(fn) -> dict:
+    """``fn`` (one step) under torch.profiler: its wall, the device's busy
+    time and the idle share."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    busy = sum(e.self_device_time_total for e in _device_events(prof)) / 1e3
+    return dict(profiled_wall_ms=f"{wall:.3f}", device_busy_ms=f"{busy:.3f}",
+                idle_share=f"{max(0.0, 1 - busy / wall):.3f}")
+
+
+def _peak_gb() -> str:
+    return f"{torch.cuda.max_memory_allocated() / 2**30:.2f}"
+
+
+def train_resnet_syncbn(tmp: str) -> None:
+    """ResNet-18 (CIFAR stem) with SyncBatchNorm, SGD(sign) at batch 256:
+    ``Trainer.fit`` of 8 steps in two ``run_steps`` calls, checkpointing
+    every 4; a Trainer that checkpointed its first 4 steps into a
+    directory of its own, then a fresh one restored from it and run 4
+    more, equal it bit for bit; ``run_steps(4)`` equals 4 ``step`` calls
+    bit for bit."""
+    from pytorch_ps_mpi_tpu_torch import SGD
+    from pytorch_ps_mpi_tpu_torch.data import (cross_entropy_loss,
+                                               synthetic_images)
+    from pytorch_ps_mpi_tpu_torch.models import ResNet18
+    from pytorch_ps_mpi_tpu_torch.models.resnet import (apply_with_stats,
+                                                        batch_stats_of)
+    from pytorch_ps_mpi_tpu_torch.trainer import Trainer, stack_batches
+
+    stream = synthetic_images("cifar10", BATCH, seed=0, device="cuda")
+    batches = [next(stream) for _ in range(TRAIN_STEPS)]
+
+    def build(**trainer_kw):
+        model = ResNet18(num_classes=10, small_inputs=True, norm="batch",
+                         bn_axis="data", seed=0, device="cuda")
+        opt = SGD(ordered_params(model), lr=0.01, momentum=0.9,
+                  code=make_codec("sign"), device="cuda")
+
+        def loss_fn(p, aux, b):
+            logits, new = apply_with_stats(model, p, aux, b[0])
+            return cross_entropy_loss(logits, b[1]), new
+
+        return Trainer(opt, loss_fn, aux_state=batch_stats_of(model),
+                       **trainer_kw)
+
+    per_step = {"encode_signs": 20, "unpack_signs_sum": 20}
+    torch.cuda.reset_peak_memory_stats()
+    straight = build(checkpoint_dir=tmp, checkpoint_every=SCAN_CHUNK,
+                     scan_chunk=SCAN_CHUNK)
+    out, launches, calls = _counted(
+        lambda: straight.fit(iter(batches), TRAIN_STEPS))
+    _expect("R18 SyncBN sign fit launches", launches, per_step, TRAIN_STEPS)
+    _expect("R18 SyncBN sign fit collectives", calls, SYNCBN_CALLS,
+            TRAIN_STEPS)
+    if straight.ckpt.steps() != [SCAN_CHUNK, TRAIN_STEPS]:
+        raise AssertionError(f"checkpoints {straight.ckpt.steps()}")
+    if not math.isfinite(out["final_loss"]):
+        raise AssertionError(f"non-finite loss {out['final_loss']}")
+    first_dir = os.path.join(tmp, "first")
+    first = build(checkpoint_dir=first_dir, checkpoint_every=SCAN_CHUNK,
+                  scan_chunk=SCAN_CHUNK)
+    first.fit(iter(batches[:SCAN_CHUNK]), SCAN_CHUNK)
+    resumed = build(checkpoint_dir=first_dir, scan_chunk=SCAN_CHUNK)
+    if not (resumed.maybe_restore() and resumed.step_count == SCAN_CHUNK):
+        raise AssertionError("the restore of step 4 failed")
+    resumed.fit(iter(batches[SCAN_CHUNK:]), TRAIN_STEPS - SCAN_CHUNK)
+    a, b = straight.opt, resumed.opt
+    _assert_same_state(a.params, b.params, "resumed parameters")
+    _assert_same_state(a.aux_state, b.aux_state,
+                       "resumed running statistics")
+    _assert_same_state(a.opt_state.momentum_buf, b.opt_state.momentum_buf,
+               "resumed momentum")
+
+    scan, loop = build(), build()
+    step_ms, scan_ms, loop_ms = [], [], []
+
+    def run_scan(part):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses, _ = scan.opt.run_steps(scan.loss_fn, stack_batches(part),
+                                       aux_state=scan.opt.aux_state)
+        scan_ms.append((time.perf_counter() - t0) * 1e3)
+        return losses
+
+    def run_loop(part):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses = []
+        for x in part:
+            loss, d = loop.opt.step(loss_fn=loop.loss_fn, batch=x,
+                                    aux_state=loop.opt.aux_state)
+            losses.append(loss)
+            step_ms.append(d["step_time"] * 1e3)
+        loop_ms.append((time.perf_counter() - t0) * 1e3)
+        return torch.stack(losses)
+
+    # two rounds of 4 steps, the second in the other order, so neither
+    # side always runs first
+    for i, part in enumerate((batches[:SCAN_CHUNK], batches[SCAN_CHUNK:])):
+        if i == 0:
+            got, want = run_scan(part), run_loop(part)
+        else:
+            want, got = run_loop(part), run_scan(part)
+        _assert_same_state([got, scan.opt.params, scan.opt.aux_state],
+                   [want, loop.opt.params, loop.opt.aux_state],
+                   f"run_steps(4) against 4 step calls, round {i + 1}")
+    idle = _idle(lambda: loop.opt.step(loss_fn=loop.loss_fn,
+                                       batch=batches[-1],
+                                       aux_state=loop.opt.aux_state))
+    phase("training", path="trainer_fit", model="ResNet18-cifar-syncbn-f32",
+          code="sign", batch=BATCH, steps=TRAIN_STEPS, scan_chunk=SCAN_CHUNK,
+          checkpoints=json.dumps(straight.ckpt.steps()),
+          resume_bit_exact=True, run_steps_bit_exact=True,
+          final_loss=f"{out['final_loss']:.5f}",
+          fit_step_ms=f"{out['step_time'] * 1e3:.3f}",
+          run_steps4_ms=json.dumps([round(v, 3) for v in scan_ms]),
+          step_calls4_ms=json.dumps([round(v, 3) for v in loop_ms]),
+          median_step_ms=f"{statistics.median(step_ms):.3f}",
+          peak_mem_gb=_peak_gb(), **idle,
+          launches_per_step=json.dumps(per_step, separators=(",", ":")),
+          collectives_per_step=json.dumps(SYNCBN_CALLS,
+                                          separators=(",", ":")))
+
+
+def train_bert_accumulate() -> None:
+    """BERT-base MLM (bf16, flash) Adam(terngrad(use_pallas=True)) through
+    ``step_accumulate`` over 2 microbatches of 4 x 512, then the same
+    staged (``instrument=True``) from the same weights and generator seed:
+    the same parameters bit for bit."""
+    from torch.func import functional_call
+
+    from pytorch_ps_mpi_tpu_torch import Adam
+    from pytorch_ps_mpi_tpu_torch.data import synthetic_mlm
+    from pytorch_ps_mpi_tpu_torch.models import (BertConfig, BertMLM,
+                                                 mlm_loss)
+    from pytorch_ps_mpi_tpu_torch.trainer import stack_batches
+
+    def build(instrument: bool):
+        model = BertMLM(BertConfig(dtype=torch.bfloat16, attention="flash"),
+                        seed=0, device="cuda")
+        opt = Adam(ordered_params(model), lr=1e-4, seed=0,
+                   code=make_codec("terngrad"), instrument=instrument,
+                   device="cuda")
+
+        def loss_fn(params, b):
+            logits = functional_call(model, params, (b["tokens"],))
+            return mlm_loss(logits, b["targets"], b["mask"])
+
+        return opt, loss_fn
+
+    stream = synthetic_mlm(BERT_BATCH, BERT_SEQ, BertConfig().vocab_size,
+                           seed=0, device="cuda")
+    micro = [stack_batches([next(stream), next(stream)])
+             for _ in range(EQ_STEPS)]
+    # the flash kernels each microbatch (12 layers), TernGrad's once a step
+    per_step = {"flash_fwd": 12 * 2, "flash_bwd": 24 * 2,
+                "tern_pack": 61 + 2 * 23, "tern_unpack": 63}
+    calls_per_step = {"all_gather": 300, "all_reduce": 1}
+    stages = ("grad_time", "code_wait", "isend_time", "comm_wait",
+              "decode_time", "optim_step_time")
+    opts, lines = {}, {}
+    for instrument in (False, True):
+        torch.cuda.reset_peak_memory_stats()
+        opt, loss_fn = build(instrument)
+        out, launches, calls = _counted(
+            lambda: [opt.step_accumulate(loss_fn, m) for m in micro])
+        what = f"BERT-base step_accumulate instrument={instrument}"
+        _expect(f"{what} launches", launches, per_step, EQ_STEPS)
+        _expect(f"{what} collectives", calls, calls_per_step, EQ_STEPS)
+        losses = [float(loss) for loss, _ in out]
+        if not all(math.isfinite(v) for v in losses):
+            raise AssertionError(f"{what}: non-finite loss {losses}")
+        data = out[-1][1]
+        median_ms = statistics.median(d["step_time"] for _, d in out) * 1e3
+        fields = {}
+        if instrument:
+            if not all(data[k] > 0 for k in stages):
+                raise AssertionError(f"{what}: a stage was not timed: "
+                                     f"{data}")
+            staged = sum(data[k] for k in stages if k != "isend_time")
+            if staged > data["step_time"]:
+                raise AssertionError(f"{what}: the stages sum to {staged} s "
+                                     f"> step_time {data['step_time']} s")
+            fields = {k: f"{data[k] * 1e3:.3f}" for k in stages}
+            per_micro = data["grad_time_per_microbatch"] * 1e3
+            fields.update(stages_sum_ms=f"{staged * 1e3:.3f}",
+                          grad_ms_per_microbatch=f"{per_micro:.3f}")
+        opts[instrument] = (opt, loss_fn)
+        lines[instrument] = dict(
+            instrument=instrument, microbatches=2,
+            batch=f"{BERT_BATCH}x{BERT_SEQ}", steps=EQ_STEPS,
+            losses=json.dumps([round(v, 5) for v in losses]),
+            median_step_ms=f"{median_ms:.3f}",
+            peak_mem_gb=_peak_gb(), wire_lowering=data["wire_lowering"],
+            **fields)
+    _assert_same_state(opts[True][0].params, opts[False][0].params,
+               "BERT-base staged against fused parameters")
+    staged, staged_loss = opts[True]
+    lines[True].update(_idle(lambda: staged.step_accumulate(staged_loss,
+                                                            micro[-1])))
+    opt, loss_fn = opts[False]
+    # the fused steps again, after the staged ones: the first run of a
+    # phase also pays warm-up
+    again = [opt.step_accumulate(loss_fn, m)[1]["step_time"] * 1e3
+             for m in micro]
+    lines[False]["median_step_ms_again"] = f"{statistics.median(again):.3f}"
+    lines[False].update(_idle(lambda: opt.step_accumulate(loss_fn,
+                                                          micro[-1])))
+    for instrument in (False, True):
+        phase("training", path="step_accumulate",
+              model="BERT-base-mlm-bf16-flash", code="terngrad",
+              **lines[instrument], staged_equals_fused=True,
+              launches_per_step=json.dumps(per_step, separators=(",", ":")),
+              collectives_per_step=json.dumps(calls_per_step,
+                                              separators=(",", ":")))
+
+
+def train_resnet_dp() -> None:
+    """ResNet-18 (GroupNorm) SGD(int8) at batch 256: the functional step
+    ``make_sync_train_step`` per leaf and at bucket_mb=16 equals
+    ``MPI_PS.step`` from the same state bit for bit over 3 steps; three
+    ``instrument=True`` steps equal the fused ones."""
+    from torch.func import functional_call
+
+    from pytorch_ps_mpi_tpu_torch import SGD
+    from pytorch_ps_mpi_tpu_torch.data import (cross_entropy_loss,
+                                               synthetic_images)
+    from pytorch_ps_mpi_tpu_torch.models import ResNet18
+    from pytorch_ps_mpi_tpu_torch.parallel import make_sync_train_step
+
+    stream = synthetic_images("cifar10", BATCH, seed=0, device="cuda")
+    batches = [next(stream) for _ in range(EQ_STEPS)]
+
+    def resnet():
+        return ResNet18(num_classes=10, small_inputs=True, seed=0,
+                        device="cuda")
+
+    def loss_of(model):
+        def loss_fn(p, b):
+            return cross_entropy_loss(functional_call(model, p, (b[0],)),
+                                      b[1])
+        return loss_fn
+
+    for bucket_mb in (0.0, BUCKET_MB):
+        model = resnet()
+        params = {k: p.detach().clone()
+                  for k, p in ordered_params(model).items()}
+        init_fn, step_fn = make_sync_train_step(
+            loss_of(model), optim="sgd", code=make_codec("int8"), lr=0.01,
+            momentum=0.9, bucket_mb=bucket_mb)
+        opt_state, codec_state = init_fn(params)
+
+        def run(p=params, o=opt_state, c=codec_state):
+            step_ms = []
+            for b in batches:
+                t0 = time.perf_counter()
+                p, o, c, loss = step_fn(p, o, c, b)
+                torch.cuda.synchronize()
+                step_ms.append((time.perf_counter() - t0) * 1e3)
+            return (p, o, c), step_ms
+
+        torch.cuda.reset_peak_memory_stats()
+        (state, step_ms), launches, calls = _counted(run)
+        got = state[0]
+        twin = resnet()
+        opt = SGD(ordered_params(twin), lr=0.01, momentum=0.9,
+                  code=make_codec("int8"), bucket_mb=bucket_mb,
+                  device="cuda")
+        for b in batches:
+            opt.step(loss_fn=loss_of(twin), batch=b)
+        _assert_same_state(got, opt.params,
+                           f"make_sync_train_step at bucket_mb={bucket_mb}")
+        idle = _idle(lambda: step_fn(*state, batches[-1]))
+        per_step = (plan_launches(opt, "int8") if bucket_mb else
+                    {"quantize_int8": 62, "dequantize_int8": 62})
+        calls_per_step = {"all_gather": 8 if bucket_mb else 124,
+                          "all_reduce": 1}
+        _expect(f"dp int8 bucket_mb={bucket_mb} launches", launches,
+                per_step, EQ_STEPS)
+        _expect(f"dp int8 bucket_mb={bucket_mb} collectives", calls,
+                calls_per_step, EQ_STEPS)
+        phase("training", path="make_sync_train_step",
+              model="ResNet18-cifar-gn-f32", code="int8", batch=BATCH,
+              bucket_mb=bucket_mb, steps=EQ_STEPS, equals_mpi_ps=True,
+              median_step_ms=f"{statistics.median(step_ms):.3f}",
+              peak_mem_gb=_peak_gb(), **idle,
+              launches_per_step=json.dumps(per_step, separators=(",", ":")),
+              collectives_per_step=json.dumps(calls_per_step,
+                                              separators=(",", ":")))
+        del model, twin, opt, got, state
+
+    fused_model, staged_model = resnet(), resnet()
+    fused = SGD(ordered_params(fused_model), lr=0.01, momentum=0.9,
+                code=make_codec("int8"), device="cuda")
+    staged = SGD(ordered_params(staged_model), lr=0.01, momentum=0.9,
+                 code=make_codec("int8"), instrument=True, device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    step_ms = []
+    for b in batches:
+        fused.step(loss_fn=loss_of(fused_model), batch=b)
+        _, data = staged.step(loss_fn=loss_of(staged_model), batch=b)
+        step_ms.append(data["step_time"] * 1e3)
+    _assert_same_state(staged.params, fused.params,
+                       "R18 int8 staged against fused parameters")
+    idle = _idle(lambda: staged.step(loss_fn=loss_of(staged_model),
+                                     batch=batches[-1]))
+    phase("training", path="instrument", model="ResNet18-cifar-gn-f32",
+          code="int8", batch=BATCH, steps=EQ_STEPS, staged_equals_fused=True,
+          wire_lowering=data["wire_lowering"],
+          median_step_ms=f"{statistics.median(step_ms):.3f}",
+          peak_mem_gb=_peak_gb(), **idle,
+          **{k: f"{data[k] * 1e3:.3f}" for k in (
+              "grad_time", "code_wait", "isend_time", "comm_wait",
+              "decode_time", "optim_step_time")})
+
+
+def train_cli() -> None:
+    """``train.py`` through the launcher in a subprocess (a one-process
+    NCCL group of its own): ResNet-18 with SyncBatchNorm and int8, 3
+    steps; its last line is a JSON of ``Trainer.fit``'s metrics."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    cmd = [sys.executable, "-m", "pytorch_ps_mpi_tpu_torch.launch",
+           "--coordinator", f"127.0.0.1:{free_port()}", "--num-processes",
+           "1", "--process-id", "0",
+           os.path.join(root, "pytorch_ps_mpi_tpu_torch", "train.py"),
+           "--config", "resnet18_cifar10", "--norm", "batch", "--codec",
+           "int8", "--steps", "3", "--log-every", "0"]
+    env = {**os.environ, "PYTHONPATH": root}
+    t0 = time.perf_counter()
+    out = subprocess.run(cmd, cwd=root, env=env, capture_output=True,
+                         text=True, timeout=600)
+    seconds = time.perf_counter() - t0
+    if out.returncode != 0:
+        raise AssertionError(f"train.py through launch exited "
+                             f"{out.returncode}: {out.stderr[-4000:]}")
+    summary = json.loads(out.stdout.strip().splitlines()[-1])
+    if not math.isfinite(summary["final_loss"]):
+        raise AssertionError(f"train.py: final_loss {summary['final_loss']}")
+    phase("training", path="cli", config="resnet18_cifar10", norm="batch",
+          code="int8", steps=3, seconds=f"{seconds:.1f}",
+          final_loss=summary["final_loss"],
+          step_ms=f"{summary['step_time'] * 1e3:.3f}",
+          header=repr(out.stdout.strip().splitlines()[0]))
+
+
+def run_training() -> None:
+    """Phase 7 (``training``), after the main paths, in their process
+    group; convolutions deterministic so that equal inputs give equal
+    bits."""
+    import shutil
+    import tempfile
+
+    torch.backends.cudnn.deterministic = True
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        train_resnet_syncbn(tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    train_bert_accumulate()
+    torch.cuda.empty_cache()
+    train_resnet_dp()
+    torch.cuda.empty_cache()
+    train_cli()
+    phase("training", seconds=f"{time.perf_counter() - t0:.1f}")
+
+
 SOURCES = {
     "encode_signs": ("sign.cu", "pytorch_ps_mpi_tpu/ops/sign_pallas.py:68"),
     "pack_signs": ("sign.cu", "pytorch_ps_mpi_tpu/ops/sign_pallas.py:104"),
@@ -2078,6 +2536,7 @@ def main() -> int:
                 if n:
                     launches.setdefault(kernel, n)
             torch.cuda.empty_cache()
+        run_training()
     finally:
         torch.distributed.destroy_process_group()
     launches.setdefault("pack_signs", 0)

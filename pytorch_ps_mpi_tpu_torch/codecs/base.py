@@ -14,7 +14,7 @@ The counterpart of ``pytorch_ps_mpi_tpu/codecs/base.py``:
 - ``aggregate``/``agg_decode``: the compressed-domain sum for codecs whose
   algebra is exact (identity, casts). The streaming host-side forms
   (``agg_init``/``agg_fold``/``agg_finalize``) belong to the async wire
-  and come with it (ROADMAP queue 1 item 4);
+  and come with it (ROADMAP queue 1 item 3);
 - ``init_state(shape, dtype, device)``: per-leaf codec state (error
   feedback's residual memory), made on the leaf's device;
 - ``payload_bits(shape, dtype)``.
@@ -146,7 +146,7 @@ class Codec:
     def _streaming(self, what: str) -> NotImplementedError:
         return NotImplementedError(
             f"{type(self).__name__}.{what} (the streaming host-side fold) is "
-            "not ported yet: ROADMAP queue 1 item 4 (the async wire)")
+            "not ported yet: ROADMAP queue 1 item 3 (the async wire)")
 
     def agg_init(self, shape, dtype):
         raise self._streaming("agg_init")

@@ -33,7 +33,7 @@ class _ScaleFoldedInt8(Codec):
     ``decode_sum`` routes through it, so the two are one code path.
     Subclasses give the per-frame scale vector. The streaming
     ``agg_init``/``agg_fold``/``agg_finalize`` forms belong to the async
-    wire (ROADMAP queue 1 item 4)."""
+    wire (ROADMAP queue 1 item 3)."""
 
     supports_aggregate = True
 

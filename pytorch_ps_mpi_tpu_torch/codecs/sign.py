@@ -38,7 +38,7 @@ class SignCodec(Codec):
 
     The JAX codec's approximate vote-count algebra (``aggregate``,
     ``agg_exact=False``) rides the async host wire and comes with it
-    (ROADMAP queue 1 item 4); until then ``supports_aggregate`` keeps the
+    (ROADMAP queue 1 item 3); until then ``supports_aggregate`` keeps the
     base default False and the step always takes ``decode_sum``.
     """
 

@@ -17,6 +17,12 @@ step:
 - the ragged all-gather of a payload with a static cap and an int32
   true-length sidecar (``ragged_all_gather``, ``comms.py:124``).
 
+- an all-gather with a gradient (``all_gather_with_grad``): the
+  statistics' collective of SyncBatchNorm, whose backward all-reduces the
+  cotangent as ``lax.all_gather``'s transpose does;
+- the mean across ranks of a tree (``allreduce_mean_tree``, ``lax.pmean``
+  over a model's running statistics), one all-reduce a dtype.
+
 With no process group each is the identity (``all_gather`` an
 ``unsqueeze(0)``), matching the JAX package on a one-device mesh.
 
@@ -150,6 +156,56 @@ def ragged_all_gather(payload: Tree, length: torch.Tensor):
     return all_gather_tree(payload), all_gather(length.to(torch.int32))
 
 
+class _AllGatherWithGrad(torch.autograd.Function):
+    """:func:`all_gather` in the forward; in the backward every rank's
+    cotangent of the ``[world, ...]`` stack is summed across ranks and
+    this rank keeps its row, the cotangent of its own ``x``."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return all_gather(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return allreduce_sum(g.contiguous())[rank()]
+
+
+def all_gather_with_grad(x: torch.Tensor) -> torch.Tensor:
+    """:func:`all_gather` that autograd differentiates: one all-gather in
+    the forward and one all-reduce in the backward, both counted. A
+    statistic that every rank computes from the gathered stack (a
+    SyncBatchNorm mean) so passes the gradient of every rank's loss back
+    to the rank whose data it came from; ``dist.all_gather`` alone has no
+    gradient, and the backward would stay per rank."""
+    return _AllGatherWithGrad.apply(x)
+
+
+def allreduce_mean_tree(tree: Tree) -> Tree:
+    """The mean across ranks of every tensor of ``tree`` (floating), as
+    ``lax.pmean`` over the tree: the tensors of one dtype are summed in
+    one flat all-reduce and divided by the world."""
+    if not dist.is_initialized():
+        return tree
+    leaves: List[torch.Tensor] = []
+    tree_map(leaves.append, tree)
+    by_dtype: Dict[torch.dtype, List[int]] = {}
+    for i, t in enumerate(leaves):
+        if not t.is_floating_point():
+            raise TypeError(f"allreduce_mean_tree: {t.dtype} leaf; the "
+                            "mean across ranks is of floating tensors")
+        by_dtype.setdefault(t.dtype, []).append(i)
+    out: List[Optional[torch.Tensor]] = [None] * len(leaves)
+    w = world_size()
+    for idx in by_dtype.values():
+        flat = allreduce_sum(torch.cat([leaves[i].reshape(-1)
+                                        for i in idx])) / w
+        for i, part in zip(idx, flat.split([leaves[i].numel()
+                                            for i in idx])):
+            out[i] = part.view(leaves[i].shape)
+    it = iter(out)
+    return tree_map(lambda _: next(it), tree)
+
+
 def tree_map(fn, tree: Tree) -> Tree:
     if isinstance(tree, dict):
         return {k: tree_map(fn, v) for k, v in tree.items()}
@@ -178,6 +234,7 @@ __all__ = [
     "calls", "reset_calls", "allreduce_sum", "allreduce_sum_buckets",
     "allreduce_sum_tree", "all_gather", "all_gather_tree",
     "all_gather_tiled", "reduce_scatter_tiled", "ragged_all_gather",
+    "all_gather_with_grad", "allreduce_mean_tree",
     "gather_to_leader",
     "broadcast_from_leader", "broadcast_from_leader_tree", "tree_map",
 ]

@@ -1,4 +1,5 @@
-"""Models of the port: MLP, ResNet-18/50 (GroupNorm) and BERT (MLM)."""
+"""Models of the port: MLP, ResNet-18/50 (GroupNorm or BatchNorm) and BERT
+(MLM)."""
 
 from pytorch_ps_mpi_tpu_torch.models.bert import (BertConfig, BertMLM,
                                                   mlm_loss,

@@ -22,7 +22,7 @@ Attention: ``"flash"`` is the kernel of ``ops/attention.py`` (it raises
 where the sequence does not tile); ``"full"`` and ``"einsum"`` the dense
 path, as the JAX package runs ``"full"`` off the TPU. ``"ring"``,
 ``"ulysses"`` and ``scan_layers=True`` (with its stacked parameter
-layout) wait for ROADMAP queue 1 item 9 and raise.
+layout) wait for ROADMAP queue 1 item 8 and raise.
 """
 
 from __future__ import annotations
@@ -46,7 +46,7 @@ LN_EPS = 1e-6
 
 def _unported(what: str) -> NotImplementedError:
     return NotImplementedError(
-        f"{what} is not ported yet: ROADMAP queue 1 item 9 (model parallel "
+        f"{what} is not ported yet: ROADMAP queue 1 item 8 (model parallel "
         "and long context)")
 
 

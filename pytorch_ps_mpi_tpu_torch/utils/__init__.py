@@ -1,2 +1,2 @@
-"""Helpers of the port: the metrics schema (``metrics``) and JAX weight
-interop (``interop``)."""
+"""Helpers of the port: the metrics schema and its readers (``metrics``),
+checkpoints (``checkpoint``) and JAX weight interop (``interop``)."""

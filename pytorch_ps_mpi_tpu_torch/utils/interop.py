@@ -16,7 +16,12 @@ port (``named_parameters``)            flax
 ``a.b.c`` (``BertMLM``)                ``a/b/c``
 =====================================  ==============================================
 
-``{Block}`` is ``ResNetBlock`` or ``BottleneckBlock``. Layouts: a conv
+``{Block}`` is ``ResNetBlock`` or ``BottleneckBlock``. With
+``norm="batch"`` flax names the norms otherwise: ``stem_norm/{scale,bias}``,
+``{Block}_{i}/BatchNorm_{k-1}/{scale,bias}`` and
+``{Block}_{i}/shortcut_norm/{scale,bias}``; their running statistics
+(the port's buffers ``*.mean``, ``*.var``) sit at the same paths under
+``batch_stats`` (:func:`aux_from_jax`, :func:`aux_to_jax`). Layouts: a conv
 kernel is HWIO in flax and OIHW here; a Dense kernel ``[in, out]`` is a
 Linear weight ``[out, in]``; GroupNorm's scale is the weight. ``BertMLM``
 keeps flax's names and layouts (``tok_emb/embedding``,
@@ -56,8 +61,13 @@ from pytorch_ps_mpi_tpu_torch.models.resnet import BottleneckBlock, ResNet
 Path = Tuple[str, ...]
 
 
-def _norm_path(prefix: Path, leaf: str) -> Path:
-    return prefix + ("GroupNorm_0", "scale" if leaf == "weight" else "bias")
+def _norm_path(model: ResNet, prefix: Path, leaf: str) -> Path:
+    """A norm's leaf: GroupNorm's sit one module deeper; BatchNorm's
+    running ``mean`` and ``var`` keep their names."""
+    name = {"weight": "scale", "bias": "bias"}.get(leaf, leaf)
+    if model.norm == "batch":
+        return prefix + (name,)
+    return prefix + ("GroupNorm_0", name)
 
 
 def _resnet_path(model: ResNet, name: str) -> Path:
@@ -65,7 +75,7 @@ def _resnet_path(model: ResNet, name: str) -> Path:
     if parts[0] == "stem":
         return ("Conv_0", "kernel")
     if parts[0] == "stem_norm":
-        return _norm_path(("stem_norm",), parts[1])
+        return _norm_path(model, ("stem_norm",), parts[1])
     if parts[0] == "head":
         return ("Dense_0", "kernel" if parts[1] == "weight" else "bias")
     i, mod, leaf = int(parts[1]), parts[2], parts[3]
@@ -75,15 +85,17 @@ def _resnet_path(model: ResNet, name: str) -> Path:
     if mod == "shortcut":
         return (block, "shortcut", "kernel")
     if mod == "shortcut_norm":
-        return _norm_path((block, "shortcut_norm"), leaf)
+        return _norm_path(model, (block, "shortcut_norm"), leaf)
     k = int(re.fullmatch(r"(?:conv|norm)(\d)", mod).group(1)) - 1
     if mod.startswith("conv"):
         return (block, f"Conv_{k}", "kernel")
-    return _norm_path((block, f"AdaptiveGroupNorm_{k}"), leaf)
+    norm = "BatchNorm" if model.norm == "batch" else "AdaptiveGroupNorm"
+    return _norm_path(model, (block, f"{norm}_{k}"), leaf)
 
 
 def flax_path(model: nn.Module, name: str) -> Path:
-    """The flax path (under ``params``) of the port parameter ``name``."""
+    """The flax path (under ``params``) of the port parameter ``name``, or
+    (under ``batch_stats``) of a BatchNorm buffer."""
     if isinstance(model, ResNet):
         return _resnet_path(model, name)
     if isinstance(model, MLP):
@@ -178,6 +190,37 @@ def params_from_jax(flax_params, model: nn.Module) -> Dict[str, torch.Tensor]:
         p.copy_(torch.from_numpy(src))
         out[name] = p
     return out
+
+
+@torch.no_grad()
+def aux_from_jax(batch_stats, model: ResNet) -> Dict[str, torch.Tensor]:
+    """flax's ``batch_stats`` (the variables dict or the inner dict) as the
+    port's ``aux_state``, ``buffer name -> tensor`` in JAX leaf order, on
+    the model's device; the model's own buffers are set to them too."""
+    tree = batch_stats.get("batch_stats", batch_stats)
+    named = dict(model.named_buffers())
+    out = {}
+    for name in sorted(named, key=lambda n: flax_path(model, n)):
+        node = tree
+        for key in flax_path(model, name):
+            node = node[key]
+        named[name].copy_(torch.from_numpy(np.array(node, np.float32)))
+        out[name] = named[name].detach().clone()
+    return out
+
+
+def aux_to_jax(aux_state: Dict[str, torch.Tensor],
+               model: ResNet) -> Dict[str, dict]:
+    """The port's ``aux_state`` as flax's ``{"batch_stats": {...}}`` of
+    numpy arrays."""
+    tree: dict = {}
+    for name, t in aux_state.items():
+        path = flax_path(model, name)
+        node = tree
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = t.detach().cpu().numpy()
+    return {"batch_stats": tree}
 
 
 def params_to_jax(model: nn.Module) -> Dict[str, dict]:

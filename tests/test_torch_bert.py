@@ -138,9 +138,9 @@ def test_flash_and_dense_attention_agree_and_modes_raise():
                                    rtol=2e-5, atol=2e-5)
     for mode in ("ring", "ulysses"):
         model = tm.BertMLM(tm.BertConfig.tiny(attention=mode), device="cpu")
-        with pytest.raises(NotImplementedError, match="queue 1 item 9"):
+        with pytest.raises(NotImplementedError, match="queue 1 item 8"):
             model(torch.zeros(1, 32, dtype=torch.int64))
-    with pytest.raises(NotImplementedError, match="queue 1 item 9"):
+    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
         tm.BertMLM(tm.BertConfig.tiny(scan_layers=True), device="cpu")
     model = tm.BertMLM(tm.BertConfig.tiny(attention="flash",
                                           dtype=torch.bfloat16), device="cpu")

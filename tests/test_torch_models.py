@@ -136,5 +136,5 @@ def test_models_default_to_cuda():
         pytest.skip("the default device exists here")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         tm.MLP()
-    with pytest.raises(NotImplementedError):
-        tm.ResNet18(norm="batch", device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tm.ResNet18(norm="batch", bn_axis="data")

@@ -18,17 +18,21 @@ the port's parameters to rtol 1e-6 after 2 steps (BERT keeps
 flax's layouts, so a payload is the same array in both packages).
 (d) the options the port does not have yet raise ``NotImplementedError``
     (``bucket_mb`` and ``mode="leader"`` are in ``test_torch_bucketing.py``
-    and ``test_torch_leader.py``).
+    and ``test_torch_leader.py``); a grads-only step with ``aux_state``
+    raises as in the JAX package.
 (e) the default ``device="cuda"`` raises when there is no GPU.
 Also: the grads-only options (average, clip_norm, weight decay, bf16
 psum, Adam, Adafactor, int8, error feedback around top-k) on a small MLP
 with the metrics' byte counts (QSGD's too), the state_dict round trip,
 and error feedback's memory on the parameters' device through a
 state_dict round trip.
+Last, the training entry points (``instrument``, ``run_steps``,
+``step_accumulate``; see the comment above their tests).
 """
 
 from __future__ import annotations
 
+import numpy as np
 import pytest
 import torch
 
@@ -237,7 +241,7 @@ def test_error_feedback_memory_lives_on_the_param_device_and_round_trips():
 
 
 @pytest.mark.parametrize("kw", [
-    dict(numerics=True), dict(param_specs={}), dict(instrument=True),
+    dict(numerics=True), dict(param_specs={}), dict(batch_spec=("data",)),
     dict(axis_name=("a", "b")),
 ])
 def test_unported_options_raise(kw):
@@ -249,16 +253,24 @@ def test_unported_options_raise(kw):
 @pytest.mark.parametrize("call", ["profile", "aux_state", "step_accumulate",
                                   "run_steps"])
 def test_unported_step_paths_raise(call):
+    """``profile=True`` is not ported (it names its ROADMAP item); a
+    grads-only step has no forward pass to give new aux state (JAX
+    ``ps.py:2036-2041``); ``run_steps`` needs one leading step axis."""
     variables, model = mlp_pair()
     opt = SGD(model, device="cpu", lr=0.1)
     grads = torch_grads(model, stacked_grads(variables, 1, 0))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        if call == "profile":
+    if call == "profile":
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
             opt.step(grads=grads, profile=True)
-        elif call == "aux_state":
+    elif call == "aux_state":
+        with pytest.raises(NotImplementedError, match="loss_fn path"):
             opt.step(grads=grads, aux_state={})
-        else:
-            getattr(opt, call)(None, None)
+    elif call == "step_accumulate":
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            opt.step_accumulate(None, None, profile=True)
+    else:
+        with pytest.raises(ValueError, match="leading"):
+            opt.run_steps(None, (torch.zeros(2, 1), torch.zeros(3, 1)))
 
 
 def test_default_device_is_cuda():
@@ -283,3 +295,249 @@ def test_bad_arguments_raise():
     with pytest.raises(ValueError):
         opt.step(grads={n: torch.zeros((3,) + tuple(p.shape))
                         for n, p in model.named_parameters()})
+
+
+# -- the training entry points: instrument, run_steps, step_accumulate ------------
+#
+# The oracles are the JAX package's own (``test_ps.py:172,191,203,238,275,
+# 302,332``): the staged pipeline equals the fused step, N ``run_steps``
+# steps equal N ``step`` calls, and accumulated microbatches equal one big
+# batch. Within the port these hold bit for bit (the same kernels and the
+# same random numbers in the same order); against the JAX package on the
+# MLP to rtol 1e-6 (1e-5 for the losses of 4 steps), its matmul gradients
+# rounding apart.
+
+def _mlp_loss(model):
+    def loss_fn(p, b):
+        return tdata.cross_entropy_loss(
+            torch.func.functional_call(model, p, (b[0],)), b[1])
+    return loss_fn
+
+
+def _jax_mlp_loss(features=(48, 10)):
+    from pytorch_ps_mpi_tpu import data as jd
+    from pytorch_ps_mpi_tpu import models as jm
+
+    jmodel = jm.MLP(features=features)
+
+    def loss_fn(p, b):
+        return jd.cross_entropy_loss(jmodel.apply(p, b[0]), b[1])
+    return loss_fn
+
+
+def _mnist(n, batch=8, seed=0):
+    it = tdata.synthetic_images("mnist", batch, seed=seed, device="cpu")
+    return [next(it) for _ in range(n)]
+
+
+def _stack(batches):
+    return tuple(torch.stack(t) for t in zip(*batches))
+
+
+def _same(a, b) -> bool:
+    return all(torch.equal(a[k], b[k]) for k in a)
+
+
+STAGED = [("identity", {}), ("sign", {}), ("qsgd", {}),
+          ("identity", dict(bucket_mb=0.05)), ("int8", dict(mode="leader")),
+          ("identity", dict(mode="leader", bucket_mb=0.05)),
+          ("sign", dict(clip_norm=0.5, average=True))]
+
+
+@pytest.mark.parametrize("code,kw", STAGED, ids=[
+    "identity", "sign", "qsgd", "identity_bucketed", "int8_leader",
+    "identity_leader_bucketed", "sign_clip_average"])
+def test_instrumented_step_equals_the_fused_step(code, kw):
+    """Two loss steps and one grads-only step, staged and fused, from the
+    same weights: the same parameters bit for bit, and every stage of the
+    staged pipeline timed."""
+    variables, model = mlp_pair()
+    _, twin = mlp_pair()
+    fused = SGD(model, code=get_codec(code), device="cpu", seed=3, **HYPER,
+                **kw)
+    staged = SGD(twin, code=get_codec(code), device="cpu", seed=3,
+                 instrument=True, **HYPER, **kw)
+    for b in _mnist(2):
+        lf, _ = fused.step(loss_fn=_mlp_loss(model), batch=b)
+        ls, data = staged.step(loss_fn=_mlp_loss(twin), batch=b)
+        assert torch.equal(lf, ls)
+    grads = torch_grads(model, stacked_grads(variables, 1, 0))
+    fused.step(grads=grads)
+    _, grads_data = staged.step(grads=grads)
+    assert _same(fused.params, staged.params)
+    keys = ["grad_time", "code_wait", "comm_wait", "optim_step_time"]
+    if staged.code.supports_psum:
+        assert data["wire_lowering"] == "psum_staged"
+    else:
+        assert data["wire_lowering"] == "payload_gather_staged"
+        assert data["agg_launches"] == len(staged.params)
+        keys += ["isend_time", "decode_time"]
+    assert all(data[k] > 0 for k in keys), data
+    assert "grad_time" not in grads_data and grads_data["comm_wait"] > 0
+    assert sum(data[k] for k in keys if k != "isend_time") <= \
+        data["step_time"]
+
+
+@pytest.mark.parametrize("code,kw", [("sign", {}), ("identity", {}),
+                                     ("int8", dict(mode="leader")),
+                                     ("sign", dict(bucket_mb=0.05))],
+                         ids=["sign", "identity", "int8_leader",
+                              "sign_bucketed"])
+def test_instrumented_grads_only_step_matches_jax(code, kw):
+    variables, model = mlp_pair()
+    jopt = JSGD(jax.tree.map(jnp.asarray, variables), code=jax_codec(code),
+                mesh=make_mesh(devices=jax.devices()[:1]), instrument=True,
+                **HYPER, **kw)
+    opt = SGD(model, code=get_codec(code), device="cpu", instrument=True,
+              **HYPER, **kw)
+    for s in range(2):
+        jg = stacked_grads(variables, 1, s)
+        _, jd = jopt.step(grads=jax.tree.map(jnp.asarray, jg))
+        _, data = opt.step(grads=torch_grads(model, jg))
+    assert_params_close(model, jopt.params, rtol=1e-6, atol=1e-7)
+    for key in ("msg_bytes", "packaged_bytes", "wire_lowering",
+                "wire_bytes_per_worker", "bucket_count", "agg_launches"):
+        assert data[key] == jd[key], key
+
+
+def _aux_loss(p, aux, b):
+    """A loss with a running-mean aux channel (JAX ``test_ps.py:266``)."""
+    x, y = b
+    logits = x.reshape(x.shape[0], -1) @ p["w"] + p["b"]
+    new_aux = {"mean": 0.9 * aux["mean"] + 0.1 * torch.mean(x)}
+    return tdata.cross_entropy_loss(logits, y), new_aux
+
+
+def _linear_params(seed=0):
+    rs = np.random.RandomState(seed)
+    return {"w": torch.from_numpy(rs.randn(784, 10).astype(np.float32)
+                                  * 0.01),
+            "b": torch.zeros(10)}
+
+
+def test_instrumented_aux_and_accumulate_equal_the_fused_steps():
+    """``instrument=True`` with ``aux_state`` (the aux pmean in the grad
+    stage) and with ``step_accumulate`` (the accumulation is the grad
+    stage; ``grad_time_per_microbatch`` its mean) equals the fused paths
+    bit for bit."""
+    b = _mnist(1)[0]
+    fused = SGD(_linear_params(), device="cpu", **HYPER)
+    staged = SGD(_linear_params(), device="cpu", instrument=True, **HYPER)
+    aux0 = {"mean": torch.zeros(())}
+    lf, _ = fused.step(loss_fn=_aux_loss, batch=b, aux_state=aux0)
+    ls, data = staged.step(loss_fn=_aux_loss, batch=b, aux_state=aux0)
+    assert torch.equal(lf, ls) and _same(fused.aux_state, staged.aux_state)
+    assert float(staged.aux_state["mean"]) != 0.0
+    assert data["grad_time"] > 0 and data["optim_step_time"] > 0
+    staged.step(loss_fn=_aux_loss, batch=b, aux_state=staged.aux_state)
+    fused.step(loss_fn=_aux_loss, batch=b, aux_state=fused.aux_state)
+    assert _same(fused.params, staged.params)
+    assert _same(fused.aux_state, staged.aux_state)
+
+    def plain_loss(p, mb):
+        return _aux_loss(p, aux0, mb)[0]
+
+    micro = _stack(_mnist(2, seed=4))
+    lf, _ = fused.step_accumulate(plain_loss, micro)
+    ls, data = staged.step_accumulate(plain_loss, micro)
+    assert torch.equal(lf, ls) and _same(fused.params, staged.params)
+    assert data["accum_steps"] == 2
+    assert data["grad_time_per_microbatch"] == pytest.approx(
+        data["grad_time"] / 2)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        staged.step_accumulate(plain_loss, micro, profile=True)
+
+
+@pytest.mark.parametrize("code", ["qsgd", "sign", "randomk", "terngrad"])
+def test_run_steps_equals_a_loop_of_step_bit_for_bit(code):
+    def make(name):
+        return (get_codec(name, fraction=0.25) if name == "randomk"
+                else get_codec(name))
+
+    _, ma = mlp_pair()
+    _, mb = mlp_pair()
+    a = SGD(ma, code=make(code), device="cpu", seed=1, **HYPER)
+    b = SGD(mb, code=make(code), device="cpu", seed=1, **HYPER)
+    batches = _mnist(3)
+    losses, data = a.run_steps(_mlp_loss(ma), _stack(batches))
+    loop = [b.step(loss_fn=_mlp_loss(mb), batch=x)[0] for x in batches]
+    assert torch.equal(losses, torch.stack(loop))
+    assert _same(a.params, b.params)
+    assert data["n_steps"] == 3 and data["steps_per_sec"] > 0
+    assert a.state_dict()["step_count"] == 3
+    if a._gen is not None:
+        assert torch.equal(a._gen.get_state(), b._gen.get_state())
+
+
+def test_run_steps_and_step_accumulate_match_jax():
+    variables, model = mlp_pair()
+    jloss = _jax_mlp_loss()
+    batches = _mnist(4, batch=16)
+    jbatches = tuple(jnp.asarray(t.numpy()) for t in _stack(batches))
+
+    jopt = JSGD(jax.tree.map(jnp.asarray, variables),
+                mesh=make_mesh(devices=jax.devices()[:1]), **HYPER)
+    jlosses, _ = jopt.run_steps(jloss, jbatches)
+    opt = SGD(model, device="cpu", **HYPER)
+    losses, _ = opt.run_steps(_mlp_loss(model), _stack(batches))
+    np.testing.assert_allclose(losses.numpy(), np.asarray(jlosses),
+                               rtol=1e-5)
+    assert_params_close(model, jopt.params, rtol=1e-5, atol=1e-6)
+
+    # 2 microbatches of 16 == one batch of 32, and == the JAX package's
+    variables, model = mlp_pair()
+    jopt = JSGD(jax.tree.map(jnp.asarray, variables), average=True,
+                mesh=make_mesh(devices=jax.devices()[:1]), lr=0.05)
+    jl, jd = jopt.step_accumulate(jloss, tuple(j[:2] for j in jbatches))
+    opt = SGD(model, device="cpu", average=True, lr=0.05)
+    micro = _stack(batches[:2])
+    loss, data = opt.step_accumulate(_mlp_loss(model), micro)
+    assert data["accum_steps"] == jd["accum_steps"] == 2
+    np.testing.assert_allclose(float(loss), float(jl), rtol=1e-6)
+    assert_params_close(model, jopt.params, rtol=1e-6, atol=1e-7)
+    _, big_model = mlp_pair()
+    big = SGD(big_model, device="cpu", average=True, lr=0.05)
+    big_loss, _ = big.step(loss_fn=_mlp_loss(big_model), batch=(
+        torch.cat([b[0] for b in batches[:2]]),
+        torch.cat([b[1] for b in batches[:2]])))
+    np.testing.assert_allclose(float(loss), float(big_loss), rtol=1e-6)
+    for k, p in opt.params.items():
+        np.testing.assert_allclose(p.detach().numpy(),
+                                   big.params[k].detach().numpy(),
+                                   rtol=1e-6, atol=1e-7, err_msg=k)
+
+
+@pytest.mark.parametrize("mode,codec,kw", [
+    ("leader", "int8", {}),
+    ("leader", "blocktopk8", {"fraction": 0.05, "block_size": 128}),
+    ("allgather", "blocktopk8", {"fraction": 0.05, "block_size": 128})],
+    ids=["leader_int8", "leader_blocktopk8", "allgather_blocktopk8"])
+def test_run_steps_composes_with_lowerings(mode, codec, kw):
+    """``run_steps`` under each lowering equals the step loop bit for bit
+    (JAX ``test_ps.py:797``), and in leader mode the allgather step loop
+    to rtol 1e-6 (``test_ps.py:438``)."""
+    rs = np.random.RandomState(1)
+    w = rs.randn(16, 8).astype(np.float32)
+    batch = (torch.from_numpy(rs.randn(64, 16).astype(np.float32)),
+             torch.from_numpy(rs.randn(64, 8).astype(np.float32)))
+
+    def loss(p, b):
+        return torch.mean((b[0] @ p["w"] - b[1]) ** 2)
+
+    def make(m):
+        return SGD({"w": torch.from_numpy(w.copy())}, lr=0.05, momentum=0.9,
+                   mode=m, code=get_codec(codec, **kw), device="cpu")
+
+    a, b = make(mode), make(mode)
+    losses, _ = a.run_steps(loss, tuple(t.expand(4, *t.shape)
+                                        for t in batch))
+    loop = torch.stack([b.step(loss_fn=loss, batch=batch)[0]
+                        for _ in range(4)])
+    assert torch.equal(losses, loop) and _same(a.params, b.params)
+    if mode == "leader":
+        c = make("allgather")
+        for _ in range(4):
+            c.step(loss_fn=loss, batch=batch)
+        np.testing.assert_allclose(a.params["w"].numpy(),
+                                   c.params["w"].numpy(), rtol=1e-6,
+                                   atol=1e-7)

@@ -17,6 +17,10 @@ And ``Adam(code=terngrad(use_pallas=True))`` on the tiny BERT through
 ranks' payloads, run through the JAX codec's ``aggregate``/``agg_decode``
 and the JAX ``adam_update``, give the port's parameters to rtol 1e-6
 after 2 steps.
+
+And ``step_accumulate`` at world 2 over gloo, each rank with its half of
+every microbatch, against the JAX package on a 2-device mesh and the
+port's one process on the whole microbatches.
 """
 
 from __future__ import annotations
@@ -144,3 +148,119 @@ def test_adam_terngrad_loss_fn_step_on_tiny_bert_matches_jax_world2_gloo(
     assert_params_close(model, jax_replay_terngrad_adam(jax_bert()[1], names,
                                                         replay),
                         rtol=1e-6, atol=1e-7)
+
+
+_ACCUM_WORKER = """
+import sys
+import numpy as np
+import torch
+from pytorch_ps_mpi_tpu_torch import SGD, mesh
+from pytorch_ps_mpi_tpu_torch import models as tm
+from pytorch_ps_mpi_tpu_torch.codecs import get_codec
+from pytorch_ps_mpi_tpu_torch.data import cross_entropy_loss
+
+rank, world, port, src, dst = sys.argv[1:6]
+rank, world = int(rank), int(world)
+torch.set_num_threads(1)  # the ranks share the host's cores
+mesh.initialize_distributed(f"tcp://localhost:{port}", world_size=world,
+                            rank=rank, backend="gloo")
+data = np.load(src)
+model = tm.MLP(features=(48, 10), device="cpu")
+with torch.no_grad():
+    for n, p in model.named_parameters():
+        p.copy_(torch.from_numpy(data["p:" + n]))
+opt = SGD(model, lr=0.05, momentum=0.9, average=True, device="cpu")
+per = data["x"].shape[1] // world
+sl = slice(rank * per, (rank + 1) * per)
+micro = (torch.from_numpy(data["x"][:, sl]), torch.from_numpy(data["y"][:, sl]))
+
+
+def loss_fn(p, b):
+    logits = torch.func.functional_call(model, p, (b[0],))
+    return cross_entropy_loss(logits, b[1])
+
+
+losses = [float(opt.step_accumulate(loss_fn, micro)[0]) for _ in range(2)]
+# the staged pipeline's wire labels at world 2 (int8, leader mode)
+staged = SGD({n: p.detach().clone() for n, p in model.named_parameters()},
+             lr=0.05, mode="leader", code=get_codec("int8"), instrument=True,
+             device="cpu")
+_, data = staged.step(loss_fn=loss_fn, batch=(micro[0][0], micro[1][0]))
+if rank == 0:
+    np.savez(dst, losses=np.array(losses), label=data["wire_lowering"],
+             wire=data["wire_bytes_per_worker"],
+             packaged=data["packaged_bytes"],
+             **{n: p.detach().numpy() for n, p in opt.params.items()})
+torch.distributed.destroy_process_group()
+"""
+
+
+def test_step_accumulate_across_ranks_matches_jax_world2_gloo(tmp_path):
+    """Two ranks, each with its half of 2 microbatches of 16, two
+    ``step_accumulate`` steps: equal to the JAX package's on a 2-device
+    mesh with the whole microbatches, and to the port's one process on the
+    whole microbatches (losses and parameters to rtol 1e-6, atol 1e-7).
+    And an ``instrument=True`` leader-mode int8 step at world 2 reports the
+    JAX package's staged wire labels and bytes."""
+    import jax
+    import jax.numpy as jnp
+
+    from pytorch_ps_mpi_tpu import SGD as JSGD
+    from pytorch_ps_mpi_tpu import data as jd
+    from pytorch_ps_mpi_tpu import models as jm
+    from pytorch_ps_mpi_tpu.mesh import make_mesh
+    from pytorch_ps_mpi_tpu_torch import SGD
+    from pytorch_ps_mpi_tpu_torch.data import (cross_entropy_loss,
+                                               synthetic_images)
+    from torch_parity import assert_params_close, mlp_pair
+
+    variables, model = mlp_pair()
+    it = synthetic_images("mnist", 16, seed=9, device="cpu")
+    xs, ys = zip(*[next(it) for _ in range(2)])
+    x, y = torch.stack(xs).numpy(), torch.stack(ys).numpy()
+    src, dst = tmp_path / "in.npz", tmp_path / "out.npz"
+    np.savez(src, x=x, y=y, **{"p:" + n: p.detach().numpy()
+                               for n, p in model.named_parameters()})
+    spawn_ranks(_ACCUM_WORKER, 2, (src, dst))
+    got = np.load(dst)
+
+    jmodel = jm.MLP(features=(48, 10))
+    jopt = JSGD(jax.tree.map(jnp.asarray, variables), lr=0.05, momentum=0.9,
+                average=True, mesh=make_mesh(devices=jax.devices()[:2]))
+
+    def jloss(p, b):
+        return jd.cross_entropy_loss(jmodel.apply(p, b[0]), b[1])
+
+    jl = [float(jopt.step_accumulate(jloss, (jnp.asarray(x),
+                                             jnp.asarray(y)))[0])
+          for _ in range(2)]
+    one = SGD(model, lr=0.05, momentum=0.9, average=True, device="cpu")
+
+    def loss_fn(p, b):
+        logits = torch.func.functional_call(model, p, (b[0],))
+        return cross_entropy_loss(logits, b[1])
+
+    ol = [float(one.step_accumulate(loss_fn, (torch.from_numpy(x),
+                                              torch.from_numpy(y)))[0])
+          for _ in range(2)]
+    np.testing.assert_allclose(got["losses"], jl, rtol=1e-6)
+    np.testing.assert_allclose(got["losses"], ol, rtol=1e-6)
+    for n, p in one.params.items():
+        np.testing.assert_allclose(got[n], p.detach().numpy(), rtol=1e-6,
+                                   atol=1e-7, err_msg=n)
+    with torch.no_grad():
+        for n, p in model.named_parameters():
+            p.copy_(torch.from_numpy(got[n]))
+    assert_params_close(model, jopt.params, rtol=1e-6, atol=1e-7)
+    # the staged pipeline's wire labels equal the JAX package's at world 2
+    from pytorch_ps_mpi_tpu.codecs import get_codec as jax_codec
+
+    jstaged = JSGD(jax.tree.map(jnp.asarray, variables), lr=0.05,
+                   mode="leader", code=jax_codec("int8"), instrument=True,
+                   mesh=make_mesh(devices=jax.devices()[:2]))
+    _, jdata = jstaged.step(loss_fn=jloss, batch=(jnp.asarray(x[0]),
+                                                  jnp.asarray(y[0])))
+    assert str(got["label"]) == jdata["wire_lowering"] == \
+        "payload_gather_staged"
+    assert float(got["wire"]) == jdata["wire_bytes_per_worker"] > 0
+    assert float(got["packaged"]) == jdata["packaged_bytes"]

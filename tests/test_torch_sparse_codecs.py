@@ -385,7 +385,7 @@ def test_ragged_all_gather_without_a_group():
 def test_streaming_forms_name_their_item():
     for name, kw in [("randomk", {"k": 2}), ("blocktopk8", {}),
                      ("threshold", {})]:
-        with pytest.raises(NotImplementedError, match="queue 1 item 4"):
+        with pytest.raises(NotImplementedError, match="queue 1 item 3"):
             get_codec(name, **kw).agg_init((4,), torch.float32)
 
 

@@ -6,6 +6,7 @@ of the port's TernGrad payloads, and the launcher of the gloo spawns."""
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import os
 import socket
@@ -33,6 +34,19 @@ from pytorch_ps_mpi_tpu_torch.utils.interop import (flax_path, params_from_jax,
 ROOT = Path(__file__).resolve().parent.parent
 STEPS = 3
 HYPER = dict(lr=0.01, momentum=0.9)
+
+
+@contextlib.contextmanager
+def one_torch_thread():
+    """One intra-op thread inside: the xdist workers share the host's
+    cores, and a torch thread pool the width of the host in each of them
+    oversubscribes it. Restored on exit."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(n)
 
 
 @functools.lru_cache(maxsize=None)
