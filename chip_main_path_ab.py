@@ -25,9 +25,12 @@ with ``ab=<parent|change> run=<i>``; the card's name and power limit
 come first. Needs one CUDA device.
 
 ``smoke`` runs each checkout's ``python3 chip_smoke.py`` whole, in the
-same turns, each run's output kept in
-``$AB_LOG_DIR/ab_smoke_<side>_<i>.log`` (default ``ab_logs``). It
-prints each run's exit code and ``done`` seconds, then one ``ab_row``
+same turns (or in ``$AB_ORDER``'s, e.g. ``parent,change,change,parent``),
+each run's output kept in ``$AB_LOG_DIR/ab_smoke_<side>_<i>.log``
+(default ``ab_logs``). It prints each run's exit code, ``done`` seconds
+and the wall seconds of each phase (each output line's wait charged to
+that line's ``phase=``), then one ``ab_phase`` line a phase with both
+sides' seconds, then one ``ab_row``
 line a main path (``phase=main_path``, keyed by code, model, mode and
 bucket_mb) and a training path (``phase=training path=...`` with a
 median step): the median step ms, grads-only ms and profiled idle share
@@ -39,10 +42,13 @@ else ``within_spread``).
 
 from __future__ import annotations
 
+import json
 import os
 import re
 import subprocess
 import sys
+import tempfile
+import time
 from typing import Dict, List
 
 ORDER = ["parent", "change", "change", "parent", "parent", "change"]
@@ -205,17 +211,36 @@ def smoke_ab(trees: Dict[str, str]) -> int:
     docstring."""
     log_dir = os.environ.get("AB_LOG_DIR", "ab_logs")
     os.makedirs(log_dir, exist_ok=True)
+    order = os.environ.get("AB_ORDER", ",".join(ORDER)).split(",")
     rows: Dict[str, Dict[str, Dict[str, List[str]]]] = {}
+    phases: Dict[str, Dict[str, List[float]]] = {}
     failed = 0
-    for i, side in enumerate(ORDER):
-        run = subprocess.run([sys.executable, "chip_smoke.py"],
-                             cwd=trees[side], capture_output=True, text=True)
+    for i, side in enumerate(order):
+        spent: Dict[str, float] = {}
+        out: List[str] = []
+        with tempfile.TemporaryFile("w+") as err:
+            proc = subprocess.Popen([sys.executable, "chip_smoke.py"],
+                                    cwd=trees[side], stdout=subprocess.PIPE,
+                                    stderr=err, text=True)
+            last = time.perf_counter()
+            for line in proc.stdout:
+                now = time.perf_counter()
+                name = _field(line, "phase") or "other"
+                spent[name] = spent.get(name, 0.0) + now - last
+                last = now
+                out.append(line)
+            returncode = proc.wait()
+            err.seek(0)
+            stderr = err.read()
+        stdout = "".join(out)
         with open(os.path.join(log_dir, f"ab_smoke_{side}_{i}.log"),
                   "w") as f:
-            f.write(run.stdout + "\n--- stderr ---\n" + run.stderr)
-        failed += run.returncode != 0
+            f.write(stdout + "\n--- stderr ---\n" + stderr)
+        failed += returncode != 0
+        for name, sec in spent.items():
+            phases.setdefault(name, {}).setdefault(side, []).append(sec)
         done, idle = "", ""
-        for line in run.stdout.splitlines():
+        for line in stdout.splitlines():
             if line.startswith("phase=done"):
                 done = _field(line, "seconds")
             elif line.startswith("phase=profile"):
@@ -230,8 +255,14 @@ def smoke_ab(trees: Dict[str, str]) -> int:
                 got["grads"].append(_field(line, "grads_step_ms"))
                 got["idle"].append(idle if line.startswith("phase=main")
                                    else _field(line, "idle_share"))
-        print(f"ab={side} run={i} smoke exit={run.returncode} "
-              f"done_seconds={done}", flush=True)
+        print(f"ab={side} run={i} smoke exit={returncode} "
+              f"done_seconds={done} phase_seconds="
+              f"{json.dumps({k: round(v, 1) for k, v in spent.items()})}",
+              flush=True)
+    for name, sides in phases.items():
+        print(f"ab_phase phase={name} " + " ".join(
+            f"{side}_s=[{','.join(f'{x:.1f}' for x in sides.get(side, []))}]"
+            for side in ("parent", "change")), flush=True)
     for key, sides in rows.items():
         med = {side: [float(x) for x in sides.get(side, {}).get("median", [])
                       if x] for side in ("parent", "change")}

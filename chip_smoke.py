@@ -167,6 +167,40 @@ Phases, one line each; the script exits non-zero if any fails:
                GB and (one more step under torch.profiler) its idle share;
                the CLI its seconds and ``Trainer.fit``'s mean step ms.
 
+8. async    -- last, after ``torch.cuda.empty_cache()``: the asynchronous
+               parameter server (``parallel/async_train.py``), the server in
+               this process and the workers fresh interpreters on the same
+               card, every one computing on it. A1: ResNet-50
+               (``small_inputs``, 10 classes, 32x32, batch 32, seed 5, SGD
+               lr 1e-4, as ``benchmarks/async_bench.py:94-107``), 4
+               workers over shm, async, sign, max_staleness 4, worker 3 a
+               200 ms straggler pushing twice and the others 6 times (as
+               async_bench.py's async fleet), the server's updates under
+               torch.profiler (its idle share); the loss must fall. A2:
+               the same fleet under the sync barrier, 3 pushes a worker,
+               int8, ``agg`` auto: agg_mode 1, one decode a publish, no
+               fallback, the native fold armed.
+               A3: ResNet-18 over TCP with frames, async, identity, 2
+               workers, through the native batched ingest. Each prints its
+               pushes, applied and dropped, the staleness histogram,
+               updates/s and wall, the loss before and after, the per-push
+               times of the workers (read, grad, encode with its D2H copy,
+               push) and of the server (ingest with its decode, fold,
+               update, publish), and every process's peak memory; the
+               kernel launches are asserted exactly (A1: encode_signs a
+               kernel-layout unit a push on the workers, unpack_signs_sum
+               one a decoded kernel-layout unit on the server; A2:
+               quantize_int8 a unit a push, no device decode; A3: none).
+               Then the async-over-sync ratio of A1 and A2 (of the updates
+               a second from the server's first update to its last, and
+               of the JAX-style rate over the whole run), the device time
+               of the workers' flax permutation of ResNet-50's kernels, and
+               A4: ``AsyncPS`` in one program (ResNet-18, 4 workers, lags
+               [0, 1, 2, 1], sign) two rounds on the card against the CPU
+               (``check_async_ps``), then 3 rounds of sampled lags.
+               ``python3 chip_smoke.py async`` runs the device check, the
+               builds and this phase alone, without the last two lines.
+
 Phase ``done`` gives the seconds the whole run took. The line before the
 last is a JSON object with one entry per kernel; the last line is
 ``{"ok": true, "device": {...}}``. This script imports
@@ -184,6 +218,7 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (NVIDIA data sheet)
@@ -323,9 +358,29 @@ def build_kernels() -> None:
 
     from pytorch_ps_mpi_tpu_torch.ops import _build
 
+    import threading
+
+    from pytorch_ps_mpi_tpu_torch.utils import native
+
+    # the host libraries of the async wire, one g++ each, beside the nvccs
+    failed = []
+
+    def host():
+        try:
+            native.build("wirecodec", "psqueue", "tcpps")
+        except Exception as e:  # raised below, in this thread
+            failed.append(e)
+    t0 = time.perf_counter()
+    gxx = threading.Thread(target=host)
+    gxx.start()
     seconds = _build.build(*_build.SOURCES)
     for name, s in seconds.items():
         phase("build", source=f"csrc/{name}.cu", nvcc_s=f"{s:.2f}")
+    gxx.join()
+    if failed:
+        raise failed[0]
+    phase("build", native="wirecodec psqueue tcpps",
+          g_plus_plus_s=f"{time.perf_counter() - t0:.2f}")
     kernel = None
     for line in _build.ptxas_report("attention_tc").splitlines():
         found = re.search(r"(flash_\w+_tc)ILi(\d+)EE", line)
@@ -408,9 +463,11 @@ def bucket_sizes(model) -> list:
     return [b.size for b in plan.buckets]
 
 
-def check_kernels(sizes: list, buckets: list) -> dict:
+def check_kernels(sizes: list, buckets: list, also: list) -> dict:
     """Bit-exactness and timing of the three sign kernels, at the leaf
-    ``sizes`` and the kernel-layout ``buckets`` of the main paths."""
+    ``sizes`` and the kernel-layout ``buckets`` of the main paths, and
+    bit-exactness at the kernel-layout sizes of ``also`` (the async
+    phase's ResNet-50 units)."""
     from pytorch_ps_mpi_tpu_torch.ops import sign as S
 
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -418,7 +475,9 @@ def check_kernels(sizes: list, buckets: list) -> dict:
     kernel_buckets = [n for n in buckets if n % S.GROUP == 0]
     if len(kernel_buckets) != PLAN_LAUNCHES["sign"]["encode_signs"]:
         raise AssertionError(f"sign: kernel-layout buckets {kernel_buckets}")
-    cases = sorted(set(sizes + kernel_buckets)) + [S.GROUP, 13 * S.GROUP] + [
+    kernel_also = [n for n in also if n % S.GROUP == 0]
+    cases = sorted(set(sizes + kernel_buckets + kernel_also)) + [
+        S.GROUP, 13 * S.GROUP] + [
         r * S.GROUP for r in (one - 1, one, one + 1, past) if r > 0]
     max_err = {"encode_signs": 0.0, "pack_signs": 0.0, "unpack_signs": 0.0}
     for n in cases:
@@ -470,7 +529,8 @@ def check_kernels(sizes: list, buckets: list) -> dict:
         r["max_abs_err"] = max_err[name]
         results[name] = r
         report(name, r, leaves=len(sizes), cases=2 * len(cases),
-               buckets_checked=len(kernel_buckets))
+               buckets_checked=len(kernel_buckets),
+               async_r50_sizes_checked=len(set(kernel_also)))
     results["unpack_signs_sum"] = check_unpack_sum(sizes, cases, gen)
     sum_ms = sum(cuda_ms(lambda: torch.sum(x.abs())) for x in xs)
     phase("kernels", yardstick="torch.sum(x.abs()) over the 20 leaves",
@@ -616,10 +676,11 @@ def _int8_planted(n: int, case: str, gen) -> torch.Tensor:
     return x
 
 
-def check_quant_kernels(model) -> dict:
+def check_quant_kernels(model, also: list) -> dict:
     """The int8 quantize and dequantize-sum kernels at ResNet-18's 62
     leaves and its buckets at ``BUCKET_MB``: bit-exact at world 1 and 8,
-    planted cases, and timing (over the leaves)."""
+    planted cases, and timing (over the leaves); the quantize also at
+    the sizes ``also`` (the async phase's ResNet-50 units)."""
     from pytorch_ps_mpi_tpu_torch.ops import quant as Q
 
     sizes = [p.numel() for p in model.parameters()]
@@ -639,8 +700,8 @@ def check_quant_kernels(model) -> dict:
     cases = 0
     tile = Q._tile()
     past = Q._lib().quant_int8_grid(1 << 40) * tile + 4099
-    for n in sorted(set(sizes + buckets)) + [4099, 1000, tile - 1, tile,
-                                             tile + 1, past]:
+    for n in sorted(set(sizes + buckets + also)) + [4099, 1000, tile - 1,
+                                                    tile, tile + 1, past]:
         for case in (("plain", "ties", "signed_zero", "nan", "inf",
                       "neg_inf", "zeros") if n >= 16 else ("plain",)):
             x = 1e-2 * _int8_planted(n, case, gen)
@@ -673,6 +734,7 @@ def check_quant_kernels(model) -> dict:
                 dequant_cases += 1
     phase("kernels", check="int8 bit-exact",
           sizes=len(set(sizes + buckets)) + 6,
+          quantize_async_r50_sizes=len(set(also)),
           quantize_cases=cases, dequant_cases=dequant_cases,
           dequant_worlds="1,8", dequant_widths="n%16==0,n%16==4,odd,offset 1")
 
@@ -2384,6 +2446,461 @@ def run_training() -> None:
     phase("training", seconds=f"{time.perf_counter() - t0:.1f}")
 
 
+
+# -- phase 8: the asynchronous parameter server --------------------------------
+
+ASYNC_STEPS = 6  # pushes a worker in A1-A3
+ASYNC_WORKERS = 4
+ASYNC_LIMIT = 300.0  # seconds a fleet may take, spawn to join
+
+
+def async_cfg(model: str, stats: str, **kw) -> dict:
+    """``benchmarks/async_bench.py:94-107``'s configuration: ``num_classes``
+    10, (32, 32, 3) inputs, ``small_inputs``, seed 5, SGD lr 1e-4; batch
+    32, ``ASYNC_STEPS`` pushes a worker, frames checked, the card in every
+    process."""
+    cfg = {"model": model, "model_kw": {"num_classes": 10},
+           "in_shape": [32, 32, 3], "batch": 32, "seed": 5, "optim": "sgd",
+           "hyper": {"lr": 1e-4}, "steps": ASYNC_STEPS,
+           "open_timeout": ASYNC_LIMIT, "push_timeout": ASYNC_LIMIT,
+           "device": "cuda", "frame_check": True, "stats_dir": stats}
+    cfg.update(kw)
+    return cfg
+
+
+def _union_ms(rows) -> float:
+    """The ms the device rows cover: the union of their intervals."""
+    spans = sorted((e.time_range.start, e.time_range.end) for e in rows)
+    busy, cur_s, cur_e = 0.0, None, None
+    for s, e in spans:
+        if cur_e is None or s > cur_e:
+            if cur_e is not None:
+                busy += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    if cur_e is not None:
+        busy += cur_e - cur_s
+    return busy / 1e3
+
+
+def run_fleet(label: str, cfg: dict, code_name: str, workers: int,
+              sync_barrier: bool, card: str, max_staleness: int = 4,
+              profile_server: bool = False) -> dict:
+    """One fleet: the server in this process, ``workers`` fresh
+    interpreters on the same card. Every count of this process is set to
+    0 just before and read just after; the workers report their own
+    (``stats_dir``). Prints the run's lines and returns its metrics."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from pytorch_ps_mpi_tpu_torch.codecs import get_codec
+    from pytorch_ps_mpi_tpu_torch.parallel import async_train as at
+
+    cfg = {**cfg, "codec": code_name}
+    code = get_codec(code_name)
+    template = at.make_problem(cfg, cfg["device"]).template
+    kw = dict(max_staleness=max_staleness, code=code, frame=True,
+              device=cfg["device"])
+    if cfg.get("transport") == "tcp":
+        from pytorch_ps_mpi_tpu_torch.parallel.tcp import TcpPSServer
+
+        server = TcpPSServer(0, workers, template, **kw)
+        name = f"127.0.0.1:{server.port}"
+    else:
+        from pytorch_ps_mpi_tpu_torch.parallel.dcn import ShmPSServer
+
+        name = f"/psq_chip_smoke_{os.getpid()}_{label}"
+        server = ShmPSServer(name, workers, template, **kw)
+    counters = kernel_counters()
+    for k in counters.values():
+        k.launches = 0
+    procs, prof, prof_t0 = [], None, 0.0
+
+    def profile_updates():
+        # the trace opens at the first tick after the first update, so it
+        # covers the server's updates, not the workers' start-up
+        nonlocal prof, prof_t0
+        if profile_server and prof is None and server.grad_publishes:
+            prof = profile(activities=[ProfilerActivity.CUDA])
+            prof.__enter__()
+            prof_t0 = time.perf_counter()
+
+    try:
+        procs = [at.spawn_worker(name, i, cfg) for i in range(workers)]
+        total = sum(at.worker_cfg(cfg, i)[1] for i in range(workers))
+        try:
+            _, m = at.serve(server, cfg, total_grads=0, total_received=total,
+                            sync_barrier=sync_barrier, timeout=ASYNC_LIMIT,
+                            on_tick=profile_updates)
+        finally:
+            if prof is not None:
+                torch.cuda.synchronize()
+                prof_wall = (time.perf_counter() - prof_t0) * 1e3
+                prof.__exit__(None, None, None)
+        codes = at.join_workers(procs, timeout=ASYNC_LIMIT)
+        if codes != [0] * workers:
+            raise AssertionError(f"{label}: worker exit codes {codes}")
+    finally:
+        server.close()
+        at.join_workers(procs, timeout=5.0)
+    stats = [json.loads(open(os.path.join(cfg["stats_dir"],
+                                          f"worker-{i}.json")).read())
+             for i in range(workers)]
+    pushes = sum(s["pushes"] for s in stats)
+    if m["grads_received"] != pushes or pushes != total:
+        raise AssertionError(f"{label}: {pushes} pushes, "
+                             f"{m['grads_received']} received, {total} "
+                             "expected")
+    if m["applied"] + m["stale_drops"] != pushes:
+        raise AssertionError(f"{label}: applied {m['applied']} + dropped "
+                             f"{m['stale_drops']} != {pushes}")
+    if m["frames_rejected"]:
+        raise AssertionError(f"{label}: {m['frames_rejected']} frames "
+                             "rejected")
+    if not (math.isfinite(m["loss_final"]) and math.isfinite(
+            m["loss_initial"])):
+        raise AssertionError(f"{label}: non-finite loss {m}")
+    # medians over every push of the fleet (a worker's first step pays
+    # its cuDNN and allocator warm-up)
+    per = {k: statistics.median(t for s in stats for t in s[k]) * 1e3
+           for k in ("read_s", "grad_s", "encode_s", "push_s")}
+    applied = max(m["applied"], 1.0)
+    srv = {k: v / applied * 1e3 for k, v in m["server_times"].items()}
+    phase("async", run=label, card=repr(card), model=cfg["model"],
+          code=code_name, transport=cfg.get("transport", "shm"),
+          discipline="sync_barrier" if sync_barrier else "async",
+          workers=workers, pushes=pushes, applied=int(m["applied"]),
+          stale_drops=int(m["stale_drops"]),
+          staleness_hist=json.dumps(m["staleness_hist"], sort_keys=True,
+                                    separators=(",", ":")),
+          updates_per_sec=f"{m['updates_per_sec']:.3f}",
+          steady_updates_per_sec=f"{m['steady_updates_per_sec']:.3f}",
+          wall_s=f"{m['wall_s']:.3f}",
+          loss_before=f"{m['loss_initial']:.6f}",
+          loss_after=f"{m['loss_final']:.6f}",
+          agg_mode=m["agg_mode"], decodes_per_publish=m["decodes_per_publish"],
+          agg_fallbacks=m["agg_fallbacks"],
+          wire_bytes=int(m["wire_bytes_per_grad"]),
+          compression=f"{m['compression_ratio']:.2f}")
+    phase("async", run=label, card=repr(card), what="per_push_ms",
+          worker_read=f"{per['read_s']:.3f}", worker_grad=f"{per['grad_s']:.3f}",
+          worker_encode_d2h=f"{per['encode_s']:.3f}",
+          worker_push=f"{per['push_s']:.3f}",
+          server_ingest_decode=f"{srv.get('ingest_s', 0.0):.3f}",
+          server_fold=f"{srv.get('fold_s', 0.0):.3f}",
+          server_update=f"{srv.get('update_s', 0.0):.3f}",
+          server_publish=f"{srv.get('publish_s', 0.0):.3f}")
+    phase("async", run=label, card=repr(card), what="peak_gb",
+          server=f"{m['server_peak_bytes'] / 2**30:.2f}",
+          workers=json.dumps([round(s["peak_bytes"] / 2**30, 2)
+                              for s in stats]))
+    m["worker_launches"] = [s["launches"] for s in stats]
+    m["worker_pushes"] = [s["pushes"] for s in stats]
+    if profile_server:
+        if prof is None:
+            raise AssertionError(f"{label}: no update to profile")
+        rows = [e for e in prof.events()
+                if e.device_type == torch.autograd.DeviceType.CUDA]
+        busy = _union_ms(rows)
+        m["idle_share"] = max(0.0, 1 - busy / prof_wall)
+        phase("async", run=label, card=repr(card), what="server_profile",
+              device_rows=len(rows), device_busy_ms=f"{busy:.3f}",
+              profiled_wall_ms=f"{prof_wall:.3f}",
+              idle_share=f"{m['idle_share']:.3f}")
+    return m
+
+
+def _expect_launches(label: str, got: dict, want: dict) -> None:
+    got = {k: v for k, v in got.items() if v}
+    want = {k: v for k, v in want.items() if v}
+    if got != want:
+        raise AssertionError(f"{label}: launches {got}, expected {want}")
+
+
+def async_sizes(model: str) -> list:
+    """The element counts of a model's async wire units: its JAX leaves
+    under ``async_cfg``."""
+    from pytorch_ps_mpi_tpu_torch.parallel import async_train as at
+    from pytorch_ps_mpi_tpu_torch.utils.serialization import tree_flatten
+
+    leaves = tree_flatten(at.make_problem(async_cfg(model, ""),
+                                          "cuda").template)[0]
+    return [int(x.size) for x in leaves]
+
+
+def flax_permute_ms(card: str) -> None:
+    """The device time of the worker's flax permutation of ResNet-50's
+    tagged gradients (one read and one write of each)."""
+    from pytorch_ps_mpi_tpu_torch.parallel import async_train as at
+
+    prob = at.make_problem(async_cfg("resnet50", ""), "cuda")
+    grads = [torch.randn_like(p) for p in prob.params]
+    tagged = [(g, v) for g, v in zip(grads, prob.perms) if v]
+    nbytes = 2 * 4 * sum(g.numel() for g, _ in tagged)
+
+    def permute():
+        for g, v in tagged:
+            g.permute(v).contiguous()
+
+    phase("async", what="flax_permute", card=repr(card), model="resnet50",
+          tensors=len(tagged), device_ms=f"{device_ms(permute):.4f}",
+          bound_ms=f"{nbytes / HBM_BYTES_PER_S * 1e3:.5f}")
+
+
+A4_L1_LIMIT = 0.03  # A4's end-to-end line, see check_async_ps
+A4_FLIP = 0.02  # the share of packed sign bits the planted fault flips
+
+
+def _flipping_sign():
+    """The sign codec with ``A4_FLIP`` of its packed bits flipped in every
+    payload, from a fixed seed: A4's planted fault."""
+    from pytorch_ps_mpi_tpu_torch.codecs import get_codec
+
+    class FlippedSign(type(get_codec("sign"))):
+        def encode(self, grad, state=(), rng=None):
+            payload, state = super().encode(grad, state, rng)
+            packed = payload["packed"]
+            gen = torch.Generator(device=packed.device).manual_seed(0)
+            bits = (torch.rand(packed.numel(), 8, generator=gen,
+                               device=packed.device) < A4_FLIP)
+            weights = 1 << torch.arange(8, device=packed.device)
+            mask = (bits.to(torch.int64) * weights).sum(1).to(torch.uint8)
+            payload["packed"] = packed ^ mask.reshape(packed.shape)
+            return payload, state
+
+    return FlippedSign()
+
+
+def check_async_ps(card: str) -> None:
+    """A4: ``AsyncPS`` in one program, ResNet-18 (CIFAR stem, full width),
+    4 workers, fixed lags [0, 1, 2, 1], ``max_staleness`` 2, sign; two
+    rounds on the card, their launches counted. Every worker's gradient
+    of both rounds, as the card computed it, then goes through the card's
+    codec (the kernels) and the CPU's (the plain versions): the packed
+    bits agree bit for bit, the scale (a float sum in another order, as
+    ``check_kernels`` holds ``encode_signs``'s) within 1e-6 relative, and
+    the card's decode of the card's payload equals the CPU's decode of the
+    same payload bit for bit. A second, end-to-end line: the same two
+    rounds on the CPU twin, which computes its own gradients (their
+    rounding flips the signs of near-zero elements), TF32 off and cuDNN
+    deterministic: the L1 norm of the two results' difference is at most
+    ``A4_L1_LIMIT`` of the L1 norm of the CPU's move, and the card run
+    with ``A4_FLIP`` of its packed bits flipped must exceed it, which
+    shows the line can see such a fault. Then 3 rounds with lags sampled
+    uniformly, and their histogram."""
+    from pytorch_ps_mpi_tpu_torch.codecs import get_codec
+    from pytorch_ps_mpi_tpu_torch.models import ResNet18
+    from pytorch_ps_mpi_tpu_torch.ops import sign as S
+    from pytorch_ps_mpi_tpu_torch.parallel.async_ps import AsyncPS
+
+    workers, lr, batch = 4, 1e-4, 16
+    rng = np.random.RandomState(9)
+    xs = [rng.randn(workers, batch, 32, 32, 3).astype(np.float32)
+          for _ in range(2)]
+    ys = [rng.randint(0, 10, (workers, batch)) for _ in range(2)]
+
+    def build(device):
+        model = ResNet18(num_classes=10, small_inputs=True, seed=0,
+                         device=device)
+
+        def loss_fn(params, b):
+            out = torch.func.functional_call(model, params, (b[0],))
+            return torch.nn.functional.cross_entropy(out, b[1])
+        return model, loss_fn
+
+    def rounds(device, code, captured=None):
+        """The two fixed-lag rounds: (start, end, the server, seconds)."""
+        model, loss_fn = build(device)
+        start = {k: p.detach().cpu().clone()
+                 for k, p in model.named_parameters()}
+        ps = AsyncPS(model, loss_fn, num_workers=workers, code=code,
+                     max_staleness=2, staleness=[0, 1, 2, 1], lr=lr,
+                     device=device)
+        if captured is not None:
+            wire = ps._wire
+
+            def capture(grads, w):
+                captured.append({k: g.clone() for k, g in grads.items()})
+                return wire(grads, w)
+            ps._wire = capture
+        t0 = time.perf_counter()
+        for x, y in zip(xs, ys):
+            ps.step((torch.from_numpy(x).to(device),
+                     torch.from_numpy(y).to(device)))
+        seconds = time.perf_counter() - t0
+        return start, {k: p.detach().cpu() for k, p in ps.params.items()}, \
+            ps, seconds
+
+    def l1_rel(got, want, start) -> float:
+        diff = sum(float((got[k] - want[k]).abs().sum()) for k in want)
+        return diff / sum(float((want[k] - start[k]).abs().sum())
+                          for k in start)
+
+    code = get_codec("sign")
+    tf32 = torch.backends.cudnn.allow_tf32
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    try:
+        captured = []
+        S.encode_signs.launches = S.unpack_signs_sum.launches = 0
+        start, after, ps, card_s = rounds("cuda", code, captured)
+        launches = (S.encode_signs.launches, S.unpack_signs_sum.launches)
+        units = sum(1 for p in ps.params.values() if p.numel() % S.GROUP == 0)
+        if launches != (2 * workers * units,) * 2:
+            raise AssertionError(f"A4: sign launches {launches}, expected "
+                                 f"{2 * workers * units} each")
+        hist = dict(ps.staleness_hist)
+        # the same gradients through the card's codec and the CPU's
+        checked, scale_err = 0, 0.0
+        for grads in captured:
+            for k, g in grads.items():
+                perm = ps._views.get(k)
+                unit = g.permute(perm).contiguous() if perm else g
+                shape = tuple(unit.shape)
+                got, _ = code.encode(unit)
+                want, _ = code.encode(unit.cpu())
+                if not torch.equal(got["packed"].cpu(), want["packed"]):
+                    raise AssertionError(f"A4: {k}'s packed signs differ "
+                                         "between the card and the CPU")
+                err = abs(float(got["scale"]) - float(want["scale"]))
+                if err > 1e-6 * abs(float(want["scale"])):
+                    raise AssertionError(f"A4: {k}'s scale "
+                                         f"{float(got['scale'])} vs "
+                                         f"{float(want['scale'])}")
+                scale_err = max(scale_err, err / abs(float(want["scale"])))
+                on_card = code.decode(got, shape, unit.dtype)
+                plain = code.decode({n: t.cpu() for n, t in got.items()},
+                                    shape, unit.dtype)
+                if not _same_bits(on_card.cpu().reshape(-1),
+                                  plain.reshape(-1)):
+                    raise AssertionError(f"A4: {k}'s decode differs between "
+                                         "the card and the CPU")
+                checked += 1
+        del captured
+        _, cpu, _, _ = rounds("cpu", code)
+        _, planted, _, _ = rounds("cuda", _flipping_sign())
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+        torch.backends.cudnn.deterministic = deterministic
+    l1, l1_planted = l1_rel(after, cpu, start), l1_rel(planted, cpu, start)
+    apart = sum(int((after[k] != cpu[k]).sum()) for k in cpu) / sum(
+        t.numel() for t in cpu.values())
+    phase("async", run="A4", card=repr(card), model="resnet18",
+          code="sign", workers=workers, lags="[0,1,2,1]", rounds=2,
+          card_s=f"{card_s:.3f}", same_grads_units_checked=checked,
+          packed="bit-exact", decode="bit-exact",
+          scale_max_rel_err=f"{scale_err:.3e}", l1_rel=f"{l1:.4e}",
+          l1_limit=A4_L1_LIMIT, planted_flip=A4_FLIP,
+          planted_l1_rel=f"{l1_planted:.4e}", share_apart=f"{apart:.3e}",
+          hist=json.dumps(hist),
+          launches_per_round=json.dumps({"encode_signs": workers * units,
+                                         "unpack_signs_sum": workers * units}))
+    if l1 > A4_L1_LIMIT:
+        raise AssertionError(f"A4: card and CPU twin differ: L1 {l1} > "
+                             f"{A4_L1_LIMIT}")
+    if l1_planted <= A4_L1_LIMIT:
+        raise AssertionError(f"A4: the planted fault's L1 {l1_planted} is "
+                             f"within the limit {A4_L1_LIMIT}")
+    model, loss_fn = build("cuda")
+    ps = AsyncPS(model, loss_fn, num_workers=workers, code=code,
+                 max_staleness=2, lr=lr, seed=3, device="cuda")
+    for _ in range(3):
+        ps.step((torch.from_numpy(xs[0]).cuda(), torch.from_numpy(ys[0])
+                 .cuda()))
+    if sum(ps.staleness_hist.values()) != 3 * workers:
+        raise AssertionError(f"A4: sampled lags {ps.staleness_hist}")
+    phase("async", run="A4-sampled", card=repr(card), rounds=3,
+          staleness_hist=json.dumps(ps.staleness_hist, sort_keys=True))
+
+
+def run_async(card: str) -> None:
+    """Phase 8 (``async``): the async parameter server on the card, runs
+    A1-A4 (``PERF.md`` §4). The server is this process; the workers are
+    fresh interpreters on the same card (time-sliced)."""
+    import shutil
+    import tempfile
+
+    from pytorch_ps_mpi_tpu_torch.utils import native
+
+    if native.fast_path_disabled():
+        raise AssertionError("PS_NO_NATIVE is set: the async phase runs "
+                             "the native folds and ingest")
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_async_")
+    try:
+        sizes = async_sizes("resnet50")
+        # every unit quantizes; those whose size divides by 1024 take the
+        # sign kernels' layout
+        n50, k50 = len(sizes), sum(1 for n in sizes if n % 1024 == 0)
+        last = str(ASYNC_WORKERS - 1)
+        slow = {last: 200.0}
+        # A1: shm, async, sign, a straggler; as async_bench.py's fleets,
+        # the straggler pushes fewer times than the fast workers
+        d = os.path.join(tmp, "a1")
+        os.makedirs(d)
+        steps = {str(i): ASYNC_STEPS for i in range(ASYNC_WORKERS)}
+        a1 = run_fleet("A1", async_cfg("resnet50", d, slow_ms=slow,
+                                       worker_steps={**steps, last: 2}),
+                       "sign", ASYNC_WORKERS, sync_barrier=False, card=card,
+                       profile_server=True)
+        for i, got in enumerate(a1["worker_launches"]):
+            _expect_launches(f"A1 worker {i}", got,
+                             {"encode_signs": k50 * a1["worker_pushes"][i]})
+        _expect_launches("A1 server", a1["server_launches"],
+                         {"unpack_signs_sum": k50 * int(a1["decodes_done"])})
+        if not a1["loss_final"] < a1["loss_initial"]:
+            raise AssertionError(f"A1: the loss did not fall: "
+                                 f"{a1['loss_initial']} -> "
+                                 f"{a1['loss_final']}")
+        # A2: the same fleet under the sync barrier, int8, agg auto
+        d = os.path.join(tmp, "a2")
+        os.makedirs(d)
+        a2 = run_fleet("A2", async_cfg("resnet50", d, slow_ms=slow,
+                                       steps=ASYNC_STEPS // 2), "int8",
+                       ASYNC_WORKERS, sync_barrier=True, card=card)
+        for i, got in enumerate(a2["worker_launches"]):
+            _expect_launches(f"A2 worker {i}", got,
+                             {"quantize_int8": n50 * a2["worker_pushes"][i]})
+        # the rounds fold on the host (wc_fold_scaled_i8): no decode kernel
+        _expect_launches("A2 server", a2["server_launches"], {})
+        if (a2["agg_mode"], a2["decodes_per_publish"],
+                a2["agg_fallbacks"]) != (1.0, 1.0, 0.0):
+            raise AssertionError(f"A2: agg_mode {a2['agg_mode']}, "
+                                 f"decodes_per_publish "
+                                 f"{a2['decodes_per_publish']}, fallbacks "
+                                 f"{a2['agg_fallbacks']}")
+        if native.fold_lib() is None:
+            raise AssertionError("A2: the native fold is not armed")
+        # not the discipline alone: the fleets differ in codec (sign,
+        # int8) and pushes a worker (A1's straggler makes 2, the others 6;
+        # A2's workers 3 each)
+        phase("async", what="async_over_sync", card=repr(card),
+              model="resnet50", straggler_ms=200,
+              compares="A1_sign_async_vs_A2_int8_sync_barrier",
+              pushes_a_worker=json.dumps({"A1": a1["worker_pushes"],
+                                          "A2": a2["worker_pushes"]},
+                                         separators=(",", ":")),
+              steady_ratio=f"{a1['steady_updates_per_sec'] / a2['steady_updates_per_sec']:.3f}",
+              wall_ratio=f"{a1['updates_per_sec'] / a2['updates_per_sec']:.3f}")
+        # A3: TCP with frames, async, identity, ResNet-18
+        d = os.path.join(tmp, "a3")
+        os.makedirs(d)
+        a3 = run_fleet("A3", async_cfg("resnet18", d, transport="tcp"),
+                       "identity", 2, sync_barrier=False, card=card)
+        if not a3["native_batches"] > 0:
+            raise AssertionError("A3: no native batched ingest")
+        for i, got in enumerate(a3["worker_launches"]):
+            _expect_launches(f"A3 worker {i}", got, {})
+        phase("async", run="A3", card=repr(card),
+              native_batches=int(a3["native_batches"]),
+              native_batch_frames=int(a3["native_batch_frames"]))
+        flax_permute_ms(card)
+        check_async_ps(card)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    phase("async", seconds=f"{time.perf_counter() - t0:.1f}")
+
 SOURCES = {
     "encode_signs": ("sign.cu", "pytorch_ps_mpi_tpu/ops/sign_pallas.py:68"),
     "pack_signs": ("sign.cu", "pytorch_ps_mpi_tpu/ops/sign_pallas.py:104"),
@@ -2408,7 +2925,7 @@ SOURCES = {
 
 def main() -> int:
     t0 = time.perf_counter()
-    check_device()
+    card = check_device()
     # stated and set: f32 matmuls in full f32, f32 convolutions in TF32
     # (cuDNN's default), so the step runs as a PyTorch user's would
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2433,9 +2950,12 @@ def main() -> int:
     build_kernels()
     model = resnet18()
     r50 = resnet50()
-    results = check_kernels(kernel_sizes(model), bucket_sizes(model))
+    # the async phase's ResNet-50 units, held to the plain versions here
+    r50_async = async_sizes("resnet50")
+    results = check_kernels(kernel_sizes(model), bucket_sizes(model),
+                            r50_async)
     check_decode_sum(model)
-    results.update(check_quant_kernels(model))
+    results.update(check_quant_kernels(model, r50_async))
     leaves = topk_leaves(r50)
     topk_launches, topk_results = check_topk_kernels(leaves)
     results.update(topk_results)
@@ -2539,6 +3059,8 @@ def main() -> int:
         run_training()
     finally:
         torch.distributed.destroy_process_group()
+    torch.cuda.empty_cache()
+    run_async(card)
     launches.setdefault("pack_signs", 0)
     launches.setdefault("unpack_signs", 0)
 

@@ -11,10 +11,17 @@ The counterpart of ``pytorch_ps_mpi_tpu/codecs/base.py``:
   fold** over ranks (one decoded tensor plus the accumulator in memory),
   and the fold order is what makes the sum bit-exact against the JAX
   package's ``lax.scan`` fold;
-- ``aggregate``/``agg_decode``: the compressed-domain sum for codecs whose
-  algebra is exact (identity, casts). The streaming host-side forms
-  (``agg_init``/``agg_fold``/``agg_finalize``) belong to the async wire
-  and come with it (ROADMAP queue 1 item 3);
+- ``aggregate``/``agg_decode``: the compressed-domain sum of a ``[world,
+  ...]`` payload stack, decoded once; ``agg_exact`` says whether it
+  equals ``decode_sum`` bit for bit (sign's vote counts do not);
+- ``agg_init``/``agg_fold``/``agg_finalize``: the streaming form of the
+  same algebra, host numpy over the wire's payload bytes, which the sync
+  serve loop folds one push at a time (``parallel.dcn.WireAggregator``)
+  and decodes once a published version. The folds take the repo's
+  native ``wc_fold_*`` kernels (``utils/native.py``) unless
+  ``PS_NO_NATIVE`` is set; the two paths fold in the same order (push
+  order, then element order) and agree bit for bit, as in the JAX
+  package;
 - ``init_state(shape, dtype, device)``: per-leaf codec state (error
   feedback's residual memory), made on the leaf's device;
 - ``payload_bits(shape, dtype)``.
@@ -23,8 +30,10 @@ The counterpart of ``pytorch_ps_mpi_tpu/codecs/base.py``:
 from __future__ import annotations
 
 import math
+import threading
 from typing import Any, Callable, Dict, Optional, Tuple, Type
 
+import numpy as np
 import torch
 
 Payload = Any
@@ -143,19 +152,34 @@ class Codec:
                    shape: Tuple[int, ...], dtype) -> torch.Tensor:
         raise NotImplementedError
 
-    def _streaming(self, what: str) -> NotImplementedError:
-        return NotImplementedError(
-            f"{type(self).__name__}.{what} (the streaming host-side fold) is "
-            "not ported yet: ROADMAP queue 1 item 3 (the async wire)")
+    # -- the streaming form (host numpy; the sync serve loop's fold) ------
+    def agg_init(self, shape, dtype) -> Dict[str, Any]:
+        """A fresh accumulator for one wire unit. The default keeps the
+        payloads and runs :meth:`aggregate` at finalize (PowerSGD's
+        factor concatenation); codecs with a smaller accumulator
+        override the three methods."""
+        return {"frames": 0, "payloads": []}
 
-    def agg_init(self, shape, dtype):
-        raise self._streaming("agg_init")
+    def agg_fold(self, acc: Dict[str, Any], payload) -> None:
+        """Fold one push's payload (numpy views of the receive buffer:
+        what is kept is copied) into ``acc``."""
+        acc["payloads"].append({k: np.copy(v) for k, v in payload.items()}
+                               if isinstance(payload, dict)
+                               else np.copy(payload))
+        acc["frames"] += 1
 
-    def agg_fold(self, acc, payload):
-        raise self._streaming("agg_fold")
-
-    def agg_finalize(self, acc, shape, dtype):
-        raise self._streaming("agg_finalize")
+    def agg_finalize(self, acc: Dict[str, Any], shape, dtype) -> np.ndarray:
+        """The one decode of the accumulated state: the summed gradient
+        as a numpy array of ``shape``."""
+        ps = acc["payloads"]
+        if isinstance(ps[0], dict):
+            stacked = {k: torch.from_numpy(np.stack([p[k] for p in ps]))
+                       for k in ps[0]}
+        else:
+            stacked = torch.from_numpy(np.stack(ps))
+        tdtype = torch_dtype(dtype)
+        agg, meta = self.aggregate(stacked, tuple(shape), tdtype)
+        return self.agg_decode(agg, meta, tuple(shape), tdtype).numpy()
 
     def payload_bits(self, shape: Tuple[int, ...], dtype) -> int:
         """Encoded wire size in bits per gradient. The default encodes a
@@ -164,6 +188,150 @@ class Codec:
         payload, _ = self.encode(grad, self.init_state(shape, dtype, "meta"))
         return sum(t.numel() * t.element_size() * 8
                    for t in _payload_leaves(payload))
+
+
+#: the wire's dtype names (numpy's, as the JAX package writes them) and
+#: the numpy dtype a host buffer holds each in (bf16 as its bit pattern)
+_DTYPE_NAMES = {torch.float32: "float32", torch.float64: "float64",
+                torch.float16: "float16", torch.bfloat16: "bfloat16",
+                torch.int8: "int8", torch.uint8: "uint8",
+                torch.int16: "int16", torch.int32: "int32",
+                torch.int64: "int64", torch.bool: "bool"}
+_HOST_DTYPES = {"bfloat16": np.dtype(np.uint16)}
+
+
+def dtype_name(dtype) -> str:
+    """numpy's name of a torch dtype (``torch.bfloat16`` -> "bfloat16")."""
+    return _DTYPE_NAMES[dtype] if isinstance(dtype, torch.dtype) \
+        else str(np.dtype(dtype))
+
+
+def host_dtype(dtype) -> np.dtype:
+    """The numpy dtype that holds ``dtype``'s bytes on the host."""
+    name = dtype_name(dtype)
+    return _HOST_DTYPES.get(name, np.dtype(name))
+
+
+def torch_dtype(dtype) -> torch.dtype:
+    """The torch dtype of a torch dtype or a numpy dtype name."""
+    if isinstance(dtype, torch.dtype):
+        return dtype
+    name = np.dtype(dtype).name if not isinstance(dtype, str) else dtype
+    return getattr(torch, name)
+
+
+# -- the sparse index-merge family's streaming accumulator ------------------
+# (top-k, block top-k, random-k, threshold; ``base.py:316-402`` of the
+# JAX package). With the native folds the accumulator is the dense f32
+# gradient and each fold is one C++ scatter-add over the payload; without
+# them it is the concatenated (values, indices) list and finalize runs one
+# ``np.add.at``. Both add in push order, then element order, so they agree
+# bit for bit. The dense buffers are pooled across rounds: a round notes
+# the indices its folds touched, and the next user of the buffer zeroes
+# only those (O(world * k), flat in the model's size). A buffer is handed
+# out again only once the pool holds two, so a finalize's returned view
+# stays valid until a later round begins.
+
+_SPARSE_POOL: Dict[int, Any] = {}
+_SPARSE_POOL_LOCK = threading.Lock()
+_SPARSE_POOL_MIN_READY = 2
+_SPARSE_POOL_MAX = 4
+
+
+def _sparse_pool_take(n: int):
+    with _SPARSE_POOL_LOCK:
+        q = _SPARSE_POOL.get(n)
+        if not q or len(q) < _SPARSE_POOL_MIN_READY:
+            return None
+        return q.pop(0)
+
+
+def _sparse_pool_give(n: int, buf: np.ndarray, touched) -> None:
+    with _SPARSE_POOL_LOCK:
+        q = _SPARSE_POOL.setdefault(n, [])
+        if len(q) < _SPARSE_POOL_MAX:
+            q.append((buf, list(touched)))
+
+
+def sparse_agg_release(acc: Dict[str, Any]) -> None:
+    """Return a native sparse accumulator's buffer to the pool
+    (idempotent): at finalize, and when a round is dropped."""
+    if acc.get("lib") is not None and "touched" in acc:
+        buf = acc.pop("acc", None)
+        if buf is not None:
+            _sparse_pool_give(acc["n"], buf, acc.pop("touched"))
+
+
+def sparse_agg_init(shape) -> Dict[str, Any]:
+    from pytorch_ps_mpi_tpu_torch.utils import native
+
+    lib = native.fold_lib()
+    if lib is None:
+        return {"frames": 0, "values": [], "indices": []}
+    n = numel(tuple(shape))
+    taken = _sparse_pool_take(n)
+    if taken is None:
+        buf = np.zeros(n, np.float32)
+        ptr = native.f32(buf)
+    else:
+        buf, dirty = taken
+        ptr = native.f32(buf)
+        for idx in dirty:
+            if idx.size:
+                native.zero_sparse(lib, buf, idx, acc_ptr=ptr)
+    return {"frames": 0, "acc": buf, "n": n, "lib": lib, "touched": [],
+            "ptr": ptr}
+
+
+def sparse_agg_fold(acc: Dict[str, Any], values, indices) -> None:
+    lib = acc.get("lib")
+    if lib is not None:
+        from pytorch_ps_mpi_tpu_torch.utils import native
+
+        # the index copy is both the C++ argument and the pool's record
+        idx = np.array(indices, np.int32, copy=True).reshape(-1)
+        native.fold_sparse(lib, acc["acc"],
+                           np.ascontiguousarray(values, np.float32)
+                           .reshape(-1), idx, acc_ptr=acc["ptr"])
+        acc["touched"].append(idx)
+    else:
+        acc["values"].append(np.array(values, np.float32,
+                                      copy=True).reshape(-1))
+        acc["indices"].append(np.array(indices, copy=True).reshape(-1))
+    acc["frames"] += 1
+
+
+def sparse_agg_finalize(acc: Dict[str, Any], shape, dtype) -> np.ndarray:
+    dtype = host_dtype(dtype)
+    if acc.get("lib") is not None and "touched" in acc:
+        out = acc["acc"].astype(dtype, copy=False).reshape(shape)
+        sparse_agg_release(acc)
+        return out
+    n = numel(tuple(shape))
+    idx = np.concatenate(acc["indices"]).astype(np.int64)
+    val = np.concatenate(acc["values"])
+    keep = (idx >= 0) & (idx < n)  # block top-k's pad-slot picks drop
+    flat = np.zeros(n, np.float32)
+    np.add.at(flat, idx[keep], val[keep])
+    return flat.astype(dtype, copy=False).reshape(shape)
+
+
+# -- the dense family (identity, bf16, f16) and the scale-folded integer
+# family (int8, qsgd, terngrad): one running f32 accumulator a unit ---------
+
+def dense_agg_init(shape, native_fold: bool = True) -> Dict[str, Any]:
+    from pytorch_ps_mpi_tpu_torch.utils import native
+
+    n = numel(tuple(shape))
+    acc = {"frames": 0, "acc": np.zeros(n, np.float32), "n": n,
+           "lib": native.fold_lib() if native_fold else None}
+    if acc["lib"] is None:
+        acc["tmp"] = np.empty(n, np.float32)
+    return acc
+
+
+def dense_agg_finalize(acc: Dict[str, Any], shape, dtype) -> np.ndarray:
+    return acc["acc"].astype(host_dtype(dtype), copy=False).reshape(shape)
 
 
 _REGISTRY: Dict[str, Type[Codec]] = {}

@@ -19,9 +19,11 @@ computes it (ROADMAP queue 3 item 3), rounding half to even.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
-from pytorch_ps_mpi_tpu_torch.codecs.base import numel, register_codec
+from pytorch_ps_mpi_tpu_torch.codecs.base import (numel, register_codec,
+                                               sparse_agg_fold)
 from pytorch_ps_mpi_tpu_torch.codecs.topk import TopKCodec
 from pytorch_ps_mpi_tpu_torch.ops import topk as topk_ops
 
@@ -109,6 +111,29 @@ class BlockTopK8Codec(BlockTopKCodec):
         return super().aggregate({"values": self._dequant(payloads, dtype),
                                   "indices": payloads["indices"]},
                                  shape, dtype)
+
+    def agg_fold(self, acc, payload):
+        # the survivors' per-block dequantize and the scatter-add: one
+        # native pass (``wc_fold_sparse_q8``), or numpy's dequantize and
+        # the shared fold
+        from pytorch_ps_mpi_tpu_torch.utils import native
+
+        q = np.asarray(payload["values"])
+        scale = np.asarray(payload["scale"], np.float32)
+        if acc.get("lib") is not None:
+            idx = np.array(payload["indices"], np.int32,
+                           copy=True).reshape(-1)
+            native.fold_sparse_q8(acc["lib"], acc["acc"],
+                                  np.ascontiguousarray(q, np.int8)
+                                  .reshape(-1),
+                                  np.ascontiguousarray(scale).reshape(-1),
+                                  idx, acc_ptr=acc["ptr"])
+            acc["touched"].append(idx)
+            acc["frames"] += 1
+            return
+        val = (q.reshape(scale.shape[0], -1).astype(np.float32)
+               * scale).reshape(-1)
+        sparse_agg_fold(acc, val, payload["indices"])
 
     def payload_bits(self, shape, dtype):
         return (self._k_for(shape) * (8 + 32)

@@ -10,9 +10,12 @@ all_gather + decode path, where the clip always runs.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
-from pytorch_ps_mpi_tpu_torch.codecs.base import Codec, numel, register_codec
+from pytorch_ps_mpi_tpu_torch.codecs.base import (Codec, dense_agg_finalize,
+                                               dense_agg_init, numel,
+                                               register_codec)
 
 
 @register_codec("bf16")
@@ -39,6 +42,30 @@ class Bf16Codec(Codec):
 
     def agg_decode(self, agg_payload, meta, shape, dtype):
         return agg_payload.to(dtype).reshape(shape)
+
+    # streaming: each frame cast up to f32 and added, decode_sum's
+    # cast-before-sum rule; bf16 has the native fused cast-up + add (a
+    # bf16 is the top half of the equal f32), f16 the numpy path
+    def agg_init(self, shape, dtype):
+        return dense_agg_init(shape,
+                              native_fold=self.wire_dtype == torch.bfloat16)
+
+    def agg_fold(self, acc, payload):
+        from pytorch_ps_mpi_tpu_torch.utils import native
+
+        x = np.asarray(payload).reshape(-1)
+        if self.wire_dtype == torch.bfloat16:
+            bits = x.view(np.uint16)
+            if acc["lib"] is not None and bits.flags.c_contiguous:
+                native.fold_dense_bf16(acc["lib"], acc["acc"], bits)
+            else:
+                acc["acc"] += (bits.astype(np.uint32) << 16).view(np.float32)
+        else:
+            acc["acc"] += x.astype(np.float32)
+        acc["frames"] += 1
+
+    def agg_finalize(self, acc, shape, dtype):
+        return dense_agg_finalize(acc, shape, dtype)
 
     def payload_bits(self, shape, dtype):
         return numel(shape) * self.wire_dtype.itemsize * 8

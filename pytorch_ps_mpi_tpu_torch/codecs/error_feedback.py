@@ -7,7 +7,7 @@ biased codecs (sign, top-k). The memory is explicit codec state, one
 tensor per leaf on the parameter's device; the optimizer threads it
 through the step and its ``state_dict`` carries it. The per-hop form
 (``HopErrorFeedback``) belongs to the aggregation tree (ROADMAP queue 1
-item 5).
+item 3).
 """
 
 from __future__ import annotations
@@ -64,6 +64,15 @@ class ErrorFeedback(Codec):
 
     def agg_decode(self, agg_payload, meta, shape, dtype):
         return self.inner.agg_decode(agg_payload, meta, shape, dtype)
+
+    def agg_init(self, shape, dtype):
+        return self.inner.agg_init(shape, dtype)
+
+    def agg_fold(self, acc, payload):
+        return self.inner.agg_fold(acc, payload)
+
+    def agg_finalize(self, acc, shape, dtype):
+        return self.inner.agg_finalize(acc, shape, dtype)
 
     def payload_bits(self, shape, dtype):
         return self.inner.payload_bits(shape, dtype)

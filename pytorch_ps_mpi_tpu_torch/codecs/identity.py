@@ -4,7 +4,10 @@ step sum with one all_reduce instead of all_gather + decode + sum."""
 
 from __future__ import annotations
 
-from pytorch_ps_mpi_tpu_torch.codecs.base import Codec, register_codec
+import numpy as np
+
+from pytorch_ps_mpi_tpu_torch.codecs.base import (Codec, dense_agg_finalize,
+                                               dense_agg_init, register_codec)
 
 
 @register_codec("identity")
@@ -27,3 +30,21 @@ class IdentityCodec(Codec):
 
     def agg_decode(self, agg_payload, meta, shape, dtype):
         return agg_payload.to(dtype).reshape(shape)
+
+    # streaming: one running f32 accumulator, the native dense fold
+    def agg_init(self, shape, dtype):
+        return dense_agg_init(shape)
+
+    def agg_fold(self, acc, payload):
+        from pytorch_ps_mpi_tpu_torch.utils import native
+
+        x = np.asarray(payload).reshape(-1)
+        if (acc["lib"] is not None and x.dtype == np.float32
+                and x.flags.c_contiguous):
+            native.fold_dense_f32(acc["lib"], acc["acc"], x)
+        else:
+            acc["acc"] += x
+        acc["frames"] += 1
+
+    def agg_finalize(self, acc, shape, dtype):
+        return dense_agg_finalize(acc, shape, dtype)

@@ -13,11 +13,14 @@ from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
 import torch
 
 from pytorch_ps_mpi_tpu_torch.codecs.base import (
     Codec,
     check_nonfinite_mode,
+    dense_agg_finalize,
+    dense_agg_init,
     guard_nonfinite,
     numel,
     register_codec,
@@ -31,9 +34,10 @@ class _ScaleFoldedInt8(Codec):
     sums ``f32(q_w) · s_w`` over the ``[world, n]`` stack in one kernel
     pass, in rank order, without the ``[world, n]`` float intermediate;
     ``decode_sum`` routes through it, so the two are one code path.
-    Subclasses give the per-frame scale vector. The streaming
-    ``agg_init``/``agg_fold``/``agg_finalize`` forms belong to the async
-    wire (ROADMAP queue 1 item 3)."""
+    The streaming form folds ``scale_w × q_w`` into one f32 accumulator a
+    push (the native ``wc_fold_scaled_i8``, or numpy's multiply into a
+    temporary and add: the same two roundings). Subclasses give the
+    scale, batched and per frame."""
 
     supports_aggregate = True
 
@@ -41,9 +45,31 @@ class _ScaleFoldedInt8(Codec):
         """Per-frame scale vector, float32[world]."""
         raise NotImplementedError
 
+    def _frame_scale(self, payload) -> np.float32:
+        """One frame's scale (host numpy)."""
+        raise NotImplementedError
+
     def decode_sum(self, payloads, shape, dtype):
         agg, meta = self.aggregate(payloads, shape, dtype)
         return self.agg_decode(agg, meta, shape, dtype)
+
+    def agg_init(self, shape, dtype):
+        return dense_agg_init(shape)
+
+    def agg_fold(self, acc, payload):
+        from pytorch_ps_mpi_tpu_torch.utils import native
+
+        scale = self._frame_scale(payload)
+        q = np.ascontiguousarray(payload["q"], np.int8).reshape(-1)
+        if acc["lib"] is not None:
+            native.fold_scaled_i8(acc["lib"], acc["acc"], q, scale)
+        else:
+            np.multiply(q, scale, out=acc["tmp"])
+            acc["acc"] += acc["tmp"]
+        acc["frames"] += 1
+
+    def agg_finalize(self, acc, shape, dtype):
+        return dense_agg_finalize(acc, shape, dtype)
 
     def aggregate(self, payloads, shape, dtype):
         q = payloads["q"]  # [world, n] int8
@@ -62,12 +88,17 @@ class Int8Codec(_ScaleFoldedInt8):
     """Per-tensor symmetric int8: q = round(g / scale), scale = max|g|/127.
 
     Every size goes through the quantize kernel: the JAX codec's jnp path
-    (its default) and its Pallas path give the same bytes, so the port
-    keeps no ``use_pallas`` switch, as ``SignCodec`` keeps none."""
+    (its default) and its Pallas path give the same bytes, so the port's
+    ``use_pallas`` is the JAX setting, kept for the wire's fingerprint,
+    and changes nothing."""
 
     bucketable = True
 
-    def __init__(self, nonfinite: str = "propagate"):
+    def __init__(self, use_pallas: bool = False,
+                 nonfinite: str = "propagate"):
+        # the JAX codec's switch between two encodes of the same bytes;
+        # kept so both packages take, and fingerprint, the same settings
+        self.use_pallas = use_pallas
         self.nonfinite = check_nonfinite_mode(nonfinite)
 
     def encode(self, grad, state=(), rng=None):
@@ -81,6 +112,9 @@ class Int8Codec(_ScaleFoldedInt8):
 
     def _batch_scales(self, payloads):
         return payloads["scale"].to(torch.float32)
+
+    def _frame_scale(self, payload):
+        return np.float32(payload["scale"])
 
 
 @register_codec("qsgd")
@@ -129,3 +163,6 @@ class QSGDCodec(_ScaleFoldedInt8):
 
     def _batch_scales(self, payloads):
         return payloads["norm"].to(torch.float32) / self.levels
+
+    def _frame_scale(self, payload):
+        return np.float32(payload["norm"]) / np.float32(self.levels)

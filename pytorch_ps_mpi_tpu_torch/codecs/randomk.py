@@ -33,7 +33,12 @@ class RandomKCodec(TopKCodec):
 
     def __init__(self, k: int = 0, fraction: float = 0.0,
                  unbiased: bool = True):
-        super().__init__(k=k, fraction=fraction)
+        # top-k's selection switches are not random-k's settings (the
+        # wire fingerprint hashes the public ones)
+        if (k <= 0) == (fraction <= 0.0):
+            raise ValueError("give exactly one of k>0 or 0<fraction<=1")
+        self.k = int(k)
+        self.fraction = float(fraction)
         self.unbiased = unbiased
 
     @property

@@ -11,6 +11,7 @@ one configuration.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from pytorch_ps_mpi_tpu_torch.codecs.base import (
@@ -33,24 +34,30 @@ def _bit_weights(device) -> torch.Tensor:
 
 @register_codec("sign")
 class SignCodec(Codec):
-    """Sizes divisible by 1024 go through the sign kernels (the JAX
-    package's default ``use_pallas=True``).
+    """With ``use_pallas=True`` (the JAX default) sizes divisible by 1024
+    go through the sign kernels; ``use_pallas=False`` packs every leaf in
+    the flat layout (the name is the JAX codec's).
 
-    The JAX codec's approximate vote-count algebra (``aggregate``,
-    ``agg_exact=False``) rides the async host wire and comes with it
-    (ROADMAP queue 1 item 3); until then ``supports_aggregate`` keeps the
-    base default False and the step always takes ``decode_sum``.
+    The aggregation is the JAX codec's approximate vote count
+    (``sign.py:101-161``): per-element positive votes in an int32
+    counter and the summed scale, decoded once as ``mean(s)·(2·votes −
+    W)``. It equals the sum of the decodes only where the frames' scales
+    agree, so ``agg_exact`` is False: the training step never takes it,
+    and the serve loop arms it only under an explicit ``agg="on"``. The
+    kernel layout has no host-side unpack, so its units decline
+    (:meth:`can_aggregate`) and such a wire decodes every push.
     """
 
     bucketable = True
+    supports_aggregate = True
     agg_exact = False
 
-    def __init__(self, nonfinite: str = "propagate"):
+    def __init__(self, use_pallas: bool = True, nonfinite: str = "propagate"):
+        self.use_pallas = use_pallas
         self.nonfinite = check_nonfinite_mode(nonfinite)
 
-    @staticmethod
-    def _kernel_ok(n: int) -> bool:
-        return n > 0 and n % sign_ops.GROUP == 0
+    def _kernel_ok(self, n: int) -> bool:
+        return self.use_pallas and n > 0 and n % sign_ops.GROUP == 0
 
     def encode(self, grad, state=(), rng=None):
         flat = guard_nonfinite(grad.reshape(-1), self.nonfinite, "SignCodec")
@@ -91,6 +98,58 @@ class SignCodec(Codec):
             return sign_ops.unpack_signs_sum(
                 payloads["packed"], payloads["scale"]).reshape(shape)
         return super().decode_sum(payloads, shape, dtype)
+
+    # -- the vote-count algebra ---------------------------------------------
+    def can_aggregate(self, shape, dtype) -> bool:
+        return not self._kernel_ok(numel(shape))
+
+    def aggregate(self, payloads, shape, dtype):
+        """Positive-sign votes ``[n]`` int32 and the frames' summed scale,
+        added in rank order."""
+        n = numel(shape)
+        packed = payloads["packed"]
+        bits = (packed[..., None] & _bit_weights(packed.device)) > 0
+        votes = bits.reshape(packed.shape[0], -1)[:, :n].to(torch.int32) \
+            .sum(dim=0, dtype=torch.int32)
+        scales = payloads["scale"].to(torch.float32).reshape(-1)
+        scale_sum = scales[0]
+        for w in range(1, scales.shape[0]):
+            scale_sum = scale_sum + scales[w]
+        return ({"votes": votes, "scale_sum": scale_sum},
+                {"frames": int(packed.shape[0])})
+
+    def agg_decode(self, agg_payload, meta, shape, dtype):
+        w = meta["frames"]
+        mean_scale = agg_payload["scale_sum"] / w
+        out = (2 * agg_payload["votes"] - w).to(dtype) * mean_scale
+        return out.to(dtype).reshape(shape)
+
+    def agg_init(self, shape, dtype):
+        from pytorch_ps_mpi_tpu_torch.utils import native
+
+        n = numel(tuple(shape))
+        return {"frames": 0, "votes": np.zeros(n, np.int32), "scale_sum": 0.0,
+                "n": n, "lib": native.fold_lib()}
+
+    def agg_fold(self, acc, payload):
+        # integer votes: native (``wc_fold_sign``, little bit order as
+        # np.unpackbits) and numpy are identical by construction
+        from pytorch_ps_mpi_tpu_torch.utils import native
+
+        packed = np.ascontiguousarray(payload["packed"], np.uint8).reshape(-1)
+        if acc["lib"] is not None:
+            native.fold_sign(acc["lib"], acc["votes"], packed)
+        else:
+            acc["votes"] += np.unpackbits(packed, count=acc["n"],
+                                          bitorder="little")
+        acc["scale_sum"] += float(payload["scale"])
+        acc["frames"] += 1
+
+    def agg_finalize(self, acc, shape, dtype):
+        w = acc["frames"]
+        mean_scale = np.float32(acc["scale_sum"] / w)
+        out = (2 * acc["votes"] - w).astype(np.float32) * mean_scale
+        return out.reshape(shape)
 
     def payload_bits(self, shape, dtype):
         return _packed_len(numel(shape)) * 8 + 32

@@ -30,11 +30,14 @@ from __future__ import annotations
 
 from typing import Callable, Optional
 
+import numpy as np
 import torch
 
 from pytorch_ps_mpi_tpu_torch.codecs.base import (
     Codec,
     check_nonfinite_mode,
+    dense_agg_finalize,
+    dense_agg_init,
     guard_nonfinite,
     numel,
     register_codec,
@@ -174,6 +177,35 @@ class TernGradCodec(Codec):
 
     def agg_decode(self, agg_payload, meta, shape, dtype):
         return agg_payload["acc"].to(dtype).reshape(shape)
+
+    # streaming: scale × ternary folded into one f32 accumulator a push
+    # (``terngrad.py:244-295``). The native fold knows the flat layout
+    # only, so a sublane-layout unit takes a layout-aware numpy unpack.
+    def agg_init(self, shape, dtype):
+        return dense_agg_init(shape)
+
+    def agg_fold(self, acc, payload):
+        from pytorch_ps_mpi_tpu_torch.utils import native
+
+        packed = np.ascontiguousarray(payload["packed"], np.uint8).reshape(-1)
+        scale = np.float32(payload["scale"])
+        weights = np.asarray(_WEIGHTS, np.uint8)
+        if self._pallas_ok(acc["n"]):
+            digits = (packed.reshape(-1, 128)[:, None, :]
+                      // weights[None, :, None]) % 4
+            tern = digits.reshape(-1)[:acc["n"]].astype(np.int8) - 1
+            acc["acc"] = acc["acc"] + tern.astype(np.float32) * scale
+        elif acc["lib"] is not None:
+            native.fold_tern(acc["lib"], acc["acc"], packed, scale)
+        else:
+            digits = (packed[:, None] // weights[None, :]) % 4
+            tern = digits.reshape(-1)[:acc["n"]].astype(np.int8) - 1
+            np.multiply(tern, scale, out=acc["tmp"])
+            acc["acc"] += acc["tmp"]
+        acc["frames"] += 1
+
+    def agg_finalize(self, acc, shape, dtype):
+        return dense_agg_finalize(acc, shape, dtype)
 
     def payload_bits(self, shape, dtype):
         return _packed_len(numel(shape)) * 8 + 32

@@ -31,9 +31,13 @@ from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
 import torch
 
-from pytorch_ps_mpi_tpu_torch.codecs.base import Codec, numel, register_codec
+from pytorch_ps_mpi_tpu_torch.codecs.base import (Codec, numel, register_codec,
+                                               sparse_agg_finalize,
+                                               sparse_agg_fold,
+                                               sparse_agg_init)
 from pytorch_ps_mpi_tpu_torch.codecs.topk import scatter_add_ranks
 
 
@@ -62,6 +66,10 @@ class ThresholdCodec(Codec):
         self.max_fraction = float(max_fraction)
         self.target_fraction = float(target_fraction)
         self.eta = float(eta)
+        # the JAX settings off the TPU (its default there is "scatter"),
+        # kept for the wire's fingerprint
+        self.compaction = compaction or "scatter"
+        self.chunk = int(chunk)
 
     def _cap(self, shape) -> int:
         return max(1, int(round(numel(shape) * self.max_fraction)))
@@ -122,6 +130,19 @@ class ThresholdCodec(Codec):
         return scatter_add_ranks(agg_payload["values"], agg_payload["indices"],
                                  meta["frames"], numel(shape),
                                  dtype).reshape(shape)
+
+    # streaming: each frame's length prefix only (the survivors; the
+    # tail is garbage by the wire contract), O(length) a push
+    def agg_init(self, shape, dtype):
+        return sparse_agg_init(shape)
+
+    def agg_fold(self, acc, payload):
+        k = int(payload["length"])
+        sparse_agg_fold(acc, np.asarray(payload["values"]).reshape(-1)[:k],
+                        np.asarray(payload["indices"]).reshape(-1)[:k])
+
+    def agg_finalize(self, acc, shape, dtype):
+        return sparse_agg_finalize(acc, shape, dtype)
 
     def payload_bits(self, shape, dtype):
         # the static wire size (the cap); true occupancy varies by step

@@ -9,7 +9,10 @@ from __future__ import annotations
 
 import torch
 
-from pytorch_ps_mpi_tpu_torch.codecs.base import Codec, numel, register_codec
+from pytorch_ps_mpi_tpu_torch.codecs.base import (Codec, numel, register_codec,
+                                               sparse_agg_finalize,
+                                               sparse_agg_fold,
+                                               sparse_agg_init)
 from pytorch_ps_mpi_tpu_torch.ops import topk as topk_ops
 
 
@@ -111,6 +114,16 @@ class TopKCodec(Codec):
         return scatter_add_ranks(agg_payload["values"], agg_payload["indices"],
                                  meta["frames"], self._span(n), dtype)[:n] \
             .reshape(shape)
+
+    # streaming: the shared sparse accumulator, O(k) a push
+    def agg_init(self, shape, dtype):
+        return sparse_agg_init(shape)
+
+    def agg_fold(self, acc, payload):
+        sparse_agg_fold(acc, payload["values"], payload["indices"])
+
+    def agg_finalize(self, acc, shape, dtype):
+        return sparse_agg_finalize(acc, shape, dtype)
 
     def payload_bits(self, shape, dtype):
         k = self._k_for(shape)

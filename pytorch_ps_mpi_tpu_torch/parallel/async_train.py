@@ -1,0 +1,640 @@
+"""Async parameter-server training across processes
+(``pytorch_ps_mpi_tpu/parallel/async_train.py``).
+
+The AsySG-InCon stack with real compute in every process (the
+reference's ``README.md:61-81``):
+
+  worker process:  read the latest parameters (inconsistent read)
+                   -> forward and backward on the card
+                   -> the gradient in the JAX layout, encoded on the card
+                      with the codec's kernels (``parallel.dcn.CodecWire``)
+                   -> payload bytes into the shm mailbox or the socket
+  server process:  poll the pushes in arrival order
+                   -> decode on the card (or fold the bytes on the host)
+                   -> the optimizer update on the card -> publish
+
+Two disciplines, for the async-versus-sync comparison the algorithm
+exists for: ``serve(..., sync_barrier=False)`` applies each gradient as
+it arrives, so throughput follows the fast workers;
+``sync_barrier=True`` collects one gradient from every worker a round and
+applies their mean, so throughput follows the slowest. Under the
+barrier, a codec wire whose algebra allows it (``cfg["agg"]``:
+``"auto"``, ``"on"``, ``"off"``) folds the rounds' payloads in the
+compressed domain on the host (the native folds) and decodes once a
+published version.
+
+Every process rebuilds the same problem from the same ``cfg``
+(:func:`make_problem`); the workers are fresh interpreters
+(:func:`spawn_worker`), never forks of a process that has started CUDA.
+The JAX package's telemetry, control, serving and resilience options
+raise ``NotImplementedError`` naming the ROADMAP item that brings them
+(:data:`UNPORTED`).
+"""
+
+from __future__ import annotations
+
+import collections
+import json
+import math
+import os
+import subprocess
+import sys
+import time
+from pathlib import Path
+from typing import Any, Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from pytorch_ps_mpi_tpu_torch.mesh import resolve_device
+from pytorch_ps_mpi_tpu_torch.optim import OPTIMIZERS
+from pytorch_ps_mpi_tpu_torch.ps import _inverse
+
+Tree = Any
+
+_TELEMETRY = "ROADMAP queue 1 item 5 (telemetry/ and control/)"
+_SERVING = "ROADMAP queue 1 item 4 (the serving/ read tier)"
+_SCALE_OUT = ("ROADMAP queue 1 item 3 (parallel/tree.py and resilience/: "
+              "fault_plan, resilient workers, the supervisor)")
+
+#: the JAX package's cfg keys the port does not have yet -> their item
+UNPORTED = {
+    **{k: _TELEMETRY for k in (
+        "telemetry_dir", "metrics_port", "health_dir", "health_port",
+        "health", "numerics", "numerics_dir", "numerics_kw", "lineage",
+        "lineage_dir", "trace", "anatomy", "timeseries", "timeseries_kw",
+        "slo", "slo_kw", "profile", "profile_dir", "fleet", "fleet_dir",
+        "control", "control_kw", "control_dir", "topo_actions",
+        "freshness", "hop_anatomy")},
+    **{k: _SERVING for k in ("serving", "read_port", "serving_kw")},
+    **{k: _SCALE_OUT for k in ("tree", "tree_leader", "tree_members",
+                               "resilient", "fault_plan", "supervise")},
+}
+_GPT = ("model 'gpt' (models/gpt.py) is not ported yet: "
+        "ROADMAP queue 1 item 6")
+
+
+#: seconds between two calls of ``serve``'s ``on_tick``
+TICK_S = 0.2
+
+
+def check_cfg(cfg: Dict[str, Any]) -> None:
+    """Raise ``NotImplementedError`` for a set option the port lacks."""
+    for key, where in UNPORTED.items():
+        if cfg.get(key) not in (None, False, 0, "", {}, []):
+            raise NotImplementedError(
+                f"cfg[{key!r}] is not ported yet: {where}")
+    if cfg.get("model") == "gpt":
+        raise NotImplementedError(_GPT)
+
+
+class Problem:
+    """A model, its data and its loss, rebuilt alike in every process
+    from ``cfg`` (``async_train.py:101``): ``mlp`` (a regression on a
+    fixed random linear teacher), ``resnet18`` and ``resnet50``
+    (``small_inputs``; images with a learnable class signal). The wire
+    template is the JAX parameter tree (:attr:`template`), its leaves the
+    parameters in the JAX package's order and layout."""
+
+    def __init__(self, cfg: Dict[str, Any], device):
+        from pytorch_ps_mpi_tpu_torch import models
+        from pytorch_ps_mpi_tpu_torch.utils.interop import (jax_leaf_order,
+                                                            params_to_jax)
+
+        check_cfg(cfg)
+        self.device = resolve_device(device)
+        name = cfg["model"]
+        kw = dict(cfg.get("model_kw", {}))
+        self.in_shape = tuple(cfg.get("in_shape", (8,)))
+        self.batch = int(cfg.get("batch", 32))
+        self.seed = int(cfg.get("seed", 0))
+        if name == "mlp":
+            self.n_out = tuple(kw.get("features", (32, 8)))[-1]
+            model = models.MLP(features=tuple(kw.get("features", (32, 8))),
+                               in_features=math.prod(self.in_shape),
+                               seed=self.seed, device=self.device)
+        elif name in ("resnet18", "resnet50"):
+            self.n_out = int(kw.get("num_classes", 10))
+            ctor = models.ResNet18 if name == "resnet18" else models.ResNet50
+            model = ctor(num_classes=self.n_out,
+                         num_filters=int(kw.get("num_filters", 64)),
+                         small_inputs=True, in_channels=self.in_shape[-1],
+                         seed=self.seed, device=self.device)
+        else:
+            raise ValueError(f"unknown model {name!r}")
+        self.model = model
+        self.kind = name
+        named = dict(model.named_parameters())
+        self.names = jax_leaf_order(model)
+        self.params = [named[n] for n in self.names]
+        self.perms = [getattr(p, "codec_view", None) for p in self.params]
+        self.template = params_to_jax(model)
+        rng = np.random.RandomState(self.seed)
+        if name == "mlp":
+            d_in = math.prod(self.in_shape)
+            self._teacher = torch.from_numpy(
+                (rng.randn(d_in, self.n_out) / math.sqrt(d_in))
+                .astype(np.float32)).to(self.device)
+        else:
+            self._class_means = (rng.randn(self.n_out, *self.in_shape)
+                                 .astype(np.float32) * 0.5)
+
+    def batch_fn(self, step: int, worker: int):
+        """Worker ``worker``'s batch at ``step`` on the device, from a seed
+        sequence that cannot collide across (worker, step)."""
+        ss = np.random.SeedSequence([self.seed, worker, step])
+        rng = np.random.RandomState(ss.generate_state(1)[0])
+        x = rng.randn(self.batch, *self.in_shape).astype(np.float32)
+        if self.kind == "mlp":
+            xt = torch.from_numpy(x).to(self.device)
+            return xt, xt.reshape(self.batch, -1) @ self._teacher
+        labels = rng.randint(0, self.n_out, size=(self.batch,))
+        x = x + self._class_means[labels]
+        return (torch.from_numpy(x).to(self.device),
+                torch.from_numpy(labels.astype(np.int64)).to(self.device))
+
+    def loss(self, batch) -> torch.Tensor:
+        x, y = batch
+        out = self.model(x)
+        if self.kind == "mlp":
+            return torch.mean((out - y) ** 2)
+        return torch.nn.functional.cross_entropy(out, y)
+
+    def grad_leaves(self, batch) -> Tuple[torch.Tensor, List[torch.Tensor]]:
+        """``(loss, grads)``: the gradient's leaves in the JAX order and
+        layout (each tagged conv or linear kernel permuted with its
+        ``codec_view``; the copy is one read and one write of it)."""
+        for p in self.params:
+            p.grad = None
+        loss = self.loss(batch)
+        loss.backward()
+        return loss.detach(), [p.grad.permute(v).contiguous() if v else p.grad
+                               for p, v in zip(self.params, self.perms)]
+
+    @torch.no_grad()
+    def flat_params(self) -> torch.Tensor:
+        """The parameters as the published float32 vector (JAX layout)."""
+        return torch.cat([(p.permute(v) if v else p).reshape(-1)
+                          .to(torch.float32)
+                          for p, v in zip(self.params, self.perms)])
+
+    @torch.no_grad()
+    def load_flat(self, flat: torch.Tensor) -> None:
+        """Set the model's parameters from a published vector."""
+        off = 0
+        for p, v in zip(self.params, self.perms):
+            shape = tuple(p.permute(v).shape) if v else tuple(p.shape)
+            n = p.numel()
+            seg = flat[off:off + n].view(shape)
+            p.copy_(seg.permute(_inverse(v)) if v else seg)
+            off += n
+
+    @torch.no_grad()
+    def eval_loss(self) -> float:
+        """The loss on a batch no worker draws."""
+        return float(self.loss(self.batch_fn(10**6, 10**6)))
+
+
+def make_problem(cfg: Dict[str, Any], device="cuda") -> Problem:
+    return Problem(cfg, device)
+
+
+def worker_cfg(cfg: Dict[str, Any], worker_id: int) -> Tuple[float, int]:
+    """Per-worker ``(slow_ms, steps)`` from the job's cfg."""
+    slow = cfg.get("slow_ms")
+    slow_ms = float(slow.get(str(worker_id), 0.0)) \
+        if isinstance(slow, dict) else 0.0
+    per = cfg.get("worker_steps")
+    steps = int(per.get(str(worker_id), cfg.get("steps", 10))) \
+        if isinstance(per, dict) else int(cfg.get("steps", 10))
+    return slow_ms, steps
+
+
+def kernel_launches() -> Dict[str, int]:
+    """The codec kernels' launch counts in this process."""
+    from pytorch_ps_mpi_tpu_torch.ops import quant, sign, tern, topk
+
+    return {"encode_signs": sign.encode_signs.launches,
+            "unpack_signs_sum": sign.unpack_signs_sum.launches,
+            "quantize_int8": quant.quantize_int8.launches,
+            "dequant_sum": quant.dequant_sum.launches,
+            "tern_pack": tern.tern_pack.launches,
+            "tern_unpack_sum": tern.tern_unpack_sum.launches,
+            "exact_topk": topk.exact_topk.launches}
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _peak_bytes(device: torch.device) -> int:
+    return (int(torch.cuda.max_memory_allocated(device))
+            if device.type == "cuda" else 0)
+
+
+def _codec(cfg: Dict[str, Any]):
+    if not cfg.get("codec"):
+        return None
+    from pytorch_ps_mpi_tpu_torch.codecs import get_codec
+
+    return get_codec(cfg["codec"], **cfg.get("codec_kw", {}))
+
+
+def worker_main(name: str, worker_id: int, cfg: Dict[str, Any]) -> int:
+    """Worker process body (``async_train.py:197``): read, forward and
+    backward, encode, push. ``cfg["transport"]`` is ``"shm"`` (``name``
+    the segment) or ``"tcp"`` (``name`` is ``"host:port"``);
+    ``cfg["frame_check"]`` seals every push in a PSF2 frame;
+    ``cfg["device"]`` is the card unless it says ``"cpu"``. With
+    ``cfg["stats_dir"]`` the worker writes its per-push times, kernel
+    launches and peak memory to ``worker-<id>.json`` there (the times a
+    list, one a push). Returns the pushes made."""
+    device = resolve_device(cfg.get("device", "cuda"))
+    prob = make_problem(cfg, device)
+    code = _codec(cfg)
+    slow_ms, steps = worker_cfg(cfg, worker_id)
+    kw = dict(code=code, timeout=float(cfg.get("open_timeout", 60.0)),
+              bucket_mb=float(cfg.get("bucket_mb", 0.0)),
+              frame=bool(cfg.get("frame_check")), device=device,
+              seed=int(cfg.get("seed", 0)))
+    if cfg.get("transport", "shm") == "tcp":
+        from pytorch_ps_mpi_tpu_torch.parallel.tcp import TcpPSWorker
+
+        host, port = name.rsplit(":", 1)
+        w = TcpPSWorker(host, int(port), worker_id, prob.template, **kw)
+    else:
+        from pytorch_ps_mpi_tpu_torch.parallel.dcn import ShmPSWorker
+
+        w = ShmPSWorker(name, worker_id, prob.template, **kw)
+    push_timeout = float(cfg.get("push_timeout", 60.0))
+    times = collections.defaultdict(list)
+    launches0 = kernel_launches()
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    pushed = 0
+    try:
+        for step in range(steps):
+            t0 = time.perf_counter()
+            flat, version = w.read_flat()
+            prob.load_flat(torch.from_numpy(flat).to(device))
+            t1 = time.perf_counter()
+            _, grads = prob.grad_leaves(prob.batch_fn(step, worker_id))
+            _sync(device)
+            t2 = time.perf_counter()
+            if slow_ms:
+                time.sleep(slow_ms / 1e3)  # a deliberate straggler
+            t3 = time.perf_counter()
+            payload = w.encode(grads)  # on the card, D2H, one sync
+            t4 = time.perf_counter()
+            w.push_payload(payload, version, timeout=push_timeout,
+                           lineage=(step, pushed))
+            t5 = time.perf_counter()
+            times["read_s"].append(t1 - t0)
+            times["grad_s"].append(t2 - t1)
+            times["encode_s"].append(t4 - t3)
+            times["push_s"].append(t5 - t4)
+            pushed += 1
+    finally:
+        w.close()
+    if cfg.get("stats_dir"):
+        launches = {k: v - launches0[k] for k, v in kernel_launches().items()}
+        stats = {"worker": worker_id, "pushes": pushed, **times,
+                 "launches": launches, "peak_bytes": _peak_bytes(device),
+                 "wire_bytes": w.wire.wire_bytes if w.wire else None}
+        path = Path(cfg["stats_dir"]) / f"worker-{worker_id}.json"
+        path.write_text(json.dumps(stats))
+    return pushed
+
+
+def _restore_ps_checkpoint(ckpt, template: Dict[str, Any],
+                           checkpoint_every: int):
+    """``(state, applied_before, version)`` from the latest PS checkpoint
+    (``async_train.py:501``). The version jumps past anything a surviving
+    worker could have read before the crash: the saved run's cadence
+    bounds it."""
+    restored = ckpt.restore(template)
+    applied_before = int(restored["applied_total"])
+    ckpt._last_ps_step = applied_before
+    jump = max(int(restored["checkpoint_every"]), int(checkpoint_every), 0)
+    return restored, applied_before, int(restored["version"]) + jump + 1
+
+
+class _PSCheckpointCadence:
+    """Save when the applied count has moved ``checkpoint_every`` past the
+    last save, and once at the end (``async_train.py:521``)."""
+
+    def __init__(self, ckpt, checkpoint_every: int, applied_before: int):
+        self.ckpt = ckpt
+        self.every = int(checkpoint_every)
+        self.last_saved = int(applied_before)
+
+    def _save(self, state, server, applied_total: int) -> None:
+        if getattr(self.ckpt, "_last_ps_step", None) == applied_total:
+            return
+        self.ckpt.save(applied_total, {
+            **state, "version": server.version,
+            "applied_total": applied_total,
+            "checkpoint_every": self.every})
+        self.ckpt._last_ps_step = applied_total
+
+    def maybe_save(self, state, server, applied_total: int) -> None:
+        if self.every and applied_total - self.last_saved >= self.every:
+            self._save(state, server, applied_total)
+            self.last_saved = applied_total
+
+    def final_save(self, state, server, applied_total: int) -> None:
+        self._save(state, server, applied_total)
+
+
+def _agg_armed(cfg: Dict[str, Any], server, sync_barrier: bool) -> bool:
+    """The JAX arming rule (``async_train.py:864-916``): a sync barrier,
+    a codec wire whose every unit aggregates, and an exact algebra unless
+    ``cfg["agg"] == "on"`` opts into an approximate one."""
+    req = str(cfg.get("agg", "auto")).lower()
+    if req not in ("auto", "on", "off"):
+        raise ValueError(f"cfg['agg'] must be auto/on/off, got {req!r}")
+    wire = server.wire
+    armed = (req != "off" and sync_barrier and wire is not None
+             and wire.agg_supported
+             and (req == "on" or wire.code.agg_exact))
+    if req == "on" and not armed:
+        why = ("no sync barrier" if not sync_barrier
+               else "no codec wire" if wire is None
+               else "codec lacks an aggregation algebra")
+        print(f"compressed-domain aggregation requested but not armed "
+              f"({why}); falling back to decode-sum", flush=True)
+    return armed
+
+
+def serve(server, cfg: Dict[str, Any], total_grads: int, *,
+          sync_barrier: bool = False, total_received: Optional[int] = None,
+          timeout: float = 300.0, checkpoint_dir: Optional[str] = None,
+          checkpoint_every: int = 0, resume: bool = False,
+          on_tick=None) -> Tuple[Tree, Dict[str, Any]]:
+    """Server body (``async_train.py:560``): poll, decode (or fold),
+    update on the card, publish. Runs until ``total_grads`` gradients
+    were applied, or, with ``total_received``, until that many were
+    consumed (applied or dropped as stale). Returns the final parameters
+    (the JAX template's tree of numpy arrays) and the metrics: the
+    server's canonical counters, the keys of ``async_train.py:1371-1384``
+    and, per applied update, the server's decode, update and publish
+    times.
+
+    ``checkpoint_dir`` saves the PS state (flat parameters, optimizer
+    state, publish version, applied count) every ``checkpoint_every``
+    applied gradients and at the end; ``resume=True`` restores the latest
+    and keeps the version monotonic. ``on_tick`` is called at most every
+    ``TICK_S`` seconds from inside the loop. A sync-barrier round waits
+    for every worker (the degraded rounds of the JAX server, which its
+    supervisor drives, wait for ROADMAP queue 1 item 3)."""
+    device = server.device
+    prob = make_problem(cfg, device)
+    if tuple(np.shape(x) for x in _leaves(prob.template)) != tuple(
+            np.shape(x) for x in _leaves(server.template)):
+        raise ValueError("the server's template is not cfg's model")
+    hyper_cls, init_state, update_fn = OPTIMIZERS[cfg.get("optim", "sgd")]
+    h = hyper_cls(**cfg.get("hyper", {"lr": 0.05}))
+    flat = prob.flat_params()
+    # SGD and Adam are elementwise: one update over the flat vector;
+    # Adafactor factors each leaf's shape, so it takes them leaf by leaf
+    if cfg.get("optim", "sgd") == "adafactor":
+        layout, off = {}, 0
+        for i, x in enumerate(_leaves(prob.template)):
+            layout[str(i)] = (off, tuple(np.shape(x)))
+            off += int(np.prod(np.shape(x)))
+    else:
+        layout = {"flat": (0, (flat.numel(),))}
+    params = _views(flat, layout)
+    state = init_state(params)
+    ckpt, applied_before = None, 0
+    if resume and not checkpoint_dir:
+        raise ValueError("resume=True requires checkpoint_dir")
+    if checkpoint_dir:
+        from pytorch_ps_mpi_tpu_torch.utils.checkpoint import \
+            CheckpointManager
+
+        ckpt = CheckpointManager(checkpoint_dir)
+        if resume:
+            restored, applied_before, server.version = _restore_ps_checkpoint(
+                ckpt, {"flat": flat, "opt_state": state, "version": 0,
+                       "applied_total": 0, "checkpoint_every": 0},
+                checkpoint_every)
+            flat.copy_(restored["flat"])
+            state = restored["opt_state"]
+    agg_armed = _agg_armed(cfg, server, sync_barrier)
+    server.agg_mode = 1.0 if agg_armed else 0.0
+    if agg_armed:
+        from pytorch_ps_mpi_tpu_torch.utils import native
+
+        native.fold_lib()  # built before the first round, not in it
+    agg_req = str(cfg.get("agg", "auto")).lower()
+    pinned = torch.empty(flat.numel(), dtype=torch.float32,
+                         pin_memory=device.type == "cuda")
+    host = pinned.numpy()
+    times = collections.defaultdict(float)
+    marks: List[Tuple[float, int]] = []  # (seconds, applied) an update
+
+    def publish() -> None:
+        t0 = time.perf_counter()
+        pinned.copy_(flat)
+        server.publish_flat(host)
+        times["publish_s"] += time.perf_counter() - t0
+
+    prob.load_flat(flat)
+    loss0 = prob.eval_loss()
+    launches0 = kernel_launches()
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    publish()
+    applied = 0
+    cadence = (_PSCheckpointCadence(ckpt, checkpoint_every, applied_before)
+               if ckpt else None)
+    n_workers = server.num_workers
+    pending: Dict[int, collections.deque] = collections.defaultdict(
+        collections.deque)
+    batch_poll = getattr(server, "poll_grad_batch", None)
+    inbox: collections.deque = collections.deque()
+    t_start = time.perf_counter()
+    deadline = t_start + timeout
+    next_tick = 0.0
+
+    def keep_going() -> bool:
+        if total_received is not None:
+            return server.grads_received < total_received
+        return applied < total_grads
+
+    def next_item():
+        if inbox:
+            return inbox.popleft()
+        if batch_poll is not None:
+            batch = batch_poll(raw=agg_armed)
+            if batch is not None:
+                inbox.extend(batch)
+                return inbox.popleft() if inbox else None
+        return server.poll_grad(raw=agg_armed)
+
+    def apply(grad_flat: torch.Tensor, n_contrib: int) -> None:
+        nonlocal applied, state
+        t0 = time.perf_counter()
+        _, state = update_fn(params, _views(grad_flat, layout), state, h)
+        _sync(device)
+        times["update_s"] += time.perf_counter() - t0
+        applied += n_contrib
+        server.grad_publishes += 1
+        publish()
+        marks.append((time.perf_counter() - t_start, applied))
+        if cadence:
+            cadence.maybe_save({"flat": flat, "opt_state": state}, server,
+                               applied_before + applied)
+
+    def try_round() -> None:
+        if any(not pending[w] for w in range(n_workers)):
+            return
+        entries = [pending[w].popleft() for w in range(n_workers)]
+        t0 = time.perf_counter()
+        if agg_armed:
+            # the round's payloads folded on the host, one decode
+            agg = server.wire.agg_begin()
+            for buf in entries:
+                agg.fold(buf)
+            leaves = agg.finalize_leaves()
+            server.decodes_done += 1
+            inv = np.float32(1.0 / len(entries))
+            summed = torch.from_numpy(np.concatenate(
+                [x.reshape(-1) for x in leaves]) * inv).to(device)
+            times["fold_s"] += time.perf_counter() - t0
+        else:
+            summed = entries[0].clone()
+            for g in entries[1:]:
+                summed += g
+            summed /= len(entries)
+        apply(summed, len(entries))
+
+    while keep_going() and time.perf_counter() < deadline:
+        now = time.perf_counter()
+        if on_tick is not None and now >= next_tick:
+            next_tick = now + TICK_S
+            on_tick()
+        t0 = time.perf_counter()
+        item = next_item()
+        if item is None:
+            time.sleep(0.0005)
+            continue
+        wid, _, grad = item
+        if agg_armed:
+            if not server.wire.payload_finite(grad):
+                server._reject_frame(wid, "nonfinite")
+                continue
+            grad = np.copy(grad)  # the view dies at the next poll
+        else:
+            grad = torch.cat([x.reshape(-1) for x in _leaves(grad)])
+            if agg_req == "on":
+                server.agg_fallbacks += 1
+        times["ingest_s"] += time.perf_counter() - t0
+        if sync_barrier:
+            pending[wid].append(grad)
+            try_round()
+        else:
+            apply(grad, 1)
+    wall = time.perf_counter() - t_start
+    # the rate from the first update to the last: the workers' start-up
+    # (spawn, device, model) stays out of it
+    steady = ((marks[-1][1] - marks[0][1]) / (marks[-1][0] - marks[0][0])
+              if len(marks) > 1 and marks[-1][0] > marks[0][0] else 0.0)
+    if cadence:
+        cadence.final_save({"flat": flat, "opt_state": state}, server,
+                           applied_before + applied)
+    prob.load_flat(flat)
+    m = dict(server.metrics())
+    m.update(
+        applied=float(applied),
+        applied_total=float(applied_before + applied),
+        wall_s=wall,
+        updates_per_sec=applied / wall if wall > 0 else 0.0,
+        steady_updates_per_sec=steady,
+        loss_initial=loss0,
+        loss_final=prob.eval_loss(),
+        staleness_hist={int(k): int(v)
+                        for k, v in server.staleness_seen.items()},
+        publish_version=float(server.version),
+        degraded_rounds=0.0,  # no degraded round: see the docstring
+        frames_rejected_by_worker={int(k): int(v) for k, v in
+                                   server.frames_rejected.items()},
+        decodes_done=float(server.decodes_done),
+        server_times=dict(times),
+        server_launches={k: v - launches0[k]
+                         for k, v in kernel_launches().items()},
+        server_peak_bytes=_peak_bytes(device),
+    )
+    if hasattr(server, "native_batches"):
+        m["native_batches"] = float(server.native_batches)
+        m["native_batch_frames"] = float(server.native_batch_frames)
+    from pytorch_ps_mpi_tpu_torch.parallel.dcn import unflatten_params
+
+    return unflatten_params(flat.cpu().numpy(), server.template), m
+
+
+def _leaves(tree) -> list:
+    from pytorch_ps_mpi_tpu_torch.utils.serialization import tree_flatten
+
+    return tree_flatten(tree)[0]
+
+
+def _views(vec: torch.Tensor, layout: Dict[str, Tuple[int, tuple]]
+           ) -> Dict[str, torch.Tensor]:
+    """``name -> view`` of a flat vector, each at its (offset, shape)."""
+    return {k: vec[off:off + math.prod(shape)].view(shape)
+            for k, (off, shape) in layout.items()}
+
+
+def spawn_worker(name: str, worker_id: int, cfg: Dict[str, Any],
+                 env: Optional[Dict[str, str]] = None) -> subprocess.Popen:
+    """``worker_main`` in a fresh interpreter (``async_train.py:1449``):
+    never a fork of a process that has started CUDA."""
+    src = ("import json, sys\n"
+           "from pytorch_ps_mpi_tpu_torch.parallel.async_train import "
+           "worker_main\n"
+           "name, wid, cfg = sys.argv[1], int(sys.argv[2]), "
+           "json.loads(sys.argv[3])\n"
+           "sys.exit(0 if worker_main(name, wid, cfg) >= 0 else 1)\n")
+    root = str(Path(__file__).resolve().parents[2])
+    e = dict(os.environ)
+    e["PYTHONPATH"] = os.pathsep.join(
+        [root] + [p for p in e.get("PYTHONPATH", "").split(os.pathsep) if p])
+    e.update(env or {})
+    return subprocess.Popen(
+        [sys.executable, "-c", src, name, str(worker_id), json.dumps(cfg)],
+        env=e)
+
+
+def join_workers(procs, timeout: float = 120.0) -> List[Optional[int]]:
+    """Reap a fleet of spawned workers without leaking one: wait up to
+    ``timeout`` seconds in all, then terminate (escalating to kill) what
+    is still running. Returns the exit codes in ``procs`` order."""
+    codes: List[Optional[int]] = [None] * len(procs)
+    deadline = time.time() + timeout
+    try:
+        for i, p in enumerate(procs):
+            left = deadline - time.time()
+            if left <= 0:
+                break
+            try:
+                codes[i] = p.wait(timeout=left)
+            except subprocess.TimeoutExpired:
+                pass
+    finally:
+        for i, p in enumerate(procs):
+            if p.poll() is None:
+                p.terminate()
+                try:
+                    p.wait(timeout=5)
+                except subprocess.TimeoutExpired:
+                    p.kill()
+                    try:
+                        p.wait(timeout=10)
+                    except subprocess.TimeoutExpired:
+                        pass
+            if codes[i] is None:
+                codes[i] = p.returncode
+    return codes

@@ -84,17 +84,17 @@ Leaves = Dict[Any, torch.Tensor]
 
 #: constructor option -> (its default, where its port is planned)
 _UNPORTED = {
-    "numerics": (False, "ROADMAP queue 1 item 7 (telemetry/numerics.py)"),
-    "param_specs": (None, "ROADMAP queue 1 item 8 (model-parallel "
+    "numerics": (False, "ROADMAP queue 1 item 5 (telemetry/numerics.py)"),
+    "param_specs": (None, "ROADMAP queue 1 item 6 (model-parallel "
                           "composition)"),
-    "mesh": (None, "ROADMAP queue 1 item 8 (the process group stands for "
+    "mesh": (None, "ROADMAP queue 1 item 6 (the process group stands for "
                    "the mesh until then)"),
-    "axis_name": ("data", "ROADMAP queue 1 item 8 (tuple aggregation "
+    "axis_name": ("data", "ROADMAP queue 1 item 6 (tuple aggregation "
                           "axes)"),
-    "batch_spec": (None, "ROADMAP queue 1 item 8 (model-parallel batch "
+    "batch_spec": (None, "ROADMAP queue 1 item 6 (model-parallel batch "
                          "layouts)"),
 }
-_PROFILE = "ROADMAP queue 1 item 7 (telemetry)"
+_PROFILE = "ROADMAP queue 1 item 5 (telemetry)"
 
 
 def _unported(what: str, where: str) -> NotImplementedError:
@@ -489,6 +489,9 @@ class MPI_PS:
       device: where the parameters live; ``"cuda"`` by default, and it
         raises when no GPU is present. Pass ``device="cpu"`` to run on
         the CPU.
+      donate_buffers: accepted for the JAX signature and a no-op: the
+        update already runs in place on the parameters and the optimizer
+        state (JAX donates them to its jitted step).
       **hyper: the optimizer's hyperparameters (``lr``, ``momentum``, ...).
     """
 
@@ -507,6 +510,7 @@ class MPI_PS:
         loss_reduction: Optional[str] = None,
         instrument: bool = False,
         device: mesh.Device = "cuda",
+        donate_buffers: bool = False,
         **hyper,
     ):
         for opt, (default, where) in _UNPORTED.items():
@@ -929,7 +933,7 @@ class MPI_PS:
         data["step_time"] = time.perf_counter() - t0
         return loss, data
 
-    def run_steps(self, loss_fn: Callable, batches, *,
+    def run_steps(self, loss_fn: Callable, batches, *, unroll: int = 1,
                   aux_state: Any = None
                   ) -> Tuple[torch.Tensor, Dict[str, float]]:
         """N training steps with the losses kept on the device as one
@@ -939,7 +943,9 @@ class MPI_PS:
         N :meth:`step` calls, bit for bit: the same kernels, and a codec's
         random numbers drawn in the same order. ``aux_state`` threads a
         model's mutable state through the N steps as ``step`` does.
-        Returns ``(losses, {"step_time", "steps_per_sec", "n_steps"})``."""
+        ``unroll`` is the JAX ``lax.scan``'s and a no-op here: a Python
+        loop has nothing to unroll. Returns ``(losses, {"step_time",
+        "steps_per_sec", "n_steps"})``."""
         n_steps = _leading(batches)
         t0 = time.perf_counter()
         losses = []
@@ -955,6 +961,38 @@ class MPI_PS:
         return losses, {"step_time": wall / n_steps,
                         "steps_per_sec": n_steps / wall,
                         "n_steps": float(n_steps)}
+
+    def step_memory_analysis(self, loss_fn: Callable, batch, rng=None,
+                             aux_state: Any = None) -> Dict[str, int]:
+        """The device memory of one step (JAX ``ps.py:1746``, which reads
+        XLA's buffer assignment): ``estimated_peak_bytes`` is the peak that
+        ``torch.cuda.max_memory_allocated`` reads over one fused step,
+        ``argument_size_in_bytes`` what was allocated when it began (the
+        parameters, the optimizer and codec state, the batch). The step
+        runs on copies: the optimizer's state is restored afterwards.
+        ``rng`` is the JAX signature's and unused (a codec draws from the
+        optimizer's generator, whose state is restored too). On the CPU
+        it raises ``NotImplementedError``: PyTorch keeps no allocator
+        statistics there."""
+        if self.device.type != "cuda":
+            raise NotImplementedError(
+                "step_memory_analysis reads torch.cuda.max_memory_allocated; "
+                "the CPU allocator keeps no peak statistics")
+        torch.cuda.synchronize(self.device)
+        before = torch.cuda.memory_allocated(self.device)
+        saved = comms.tree_map(
+            lambda t: t.detach().clone() if torch.is_tensor(t) else t,
+            self.state_dict())
+        copies = torch.cuda.memory_allocated(self.device) - before
+        torch.cuda.reset_peak_memory_stats(self.device)
+        try:
+            self._fused_step(loss_fn, batch, aux_state)
+            torch.cuda.synchronize(self.device)
+            peak = torch.cuda.max_memory_allocated(self.device) - copies
+        finally:
+            self.load_state_dict(saved)
+        return {"argument_size_in_bytes": int(before),
+                "estimated_peak_bytes": int(peak)}
 
     def state_dict(self) -> Dict[str, Any]:
         """Checkpointable state in the JAX package's schema (params,

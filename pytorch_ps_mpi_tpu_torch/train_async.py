@@ -1,0 +1,156 @@
+"""Async (AsySG-InCon) training from the command line
+(``examples/train_async.py`` of the JAX package).
+
+The server runs in this process and each worker is a fresh interpreter
+(``parallel.async_train.spawn_worker``); gradients travel as codec
+payload bytes through shared memory (``--transport shm``) or TCP. Every
+process computes on the card, or on the CPU when ``PS_PLATFORM=cpu`` (as
+``train.py``; ``launch.py --platform cpu`` sets it). The last line
+printed is the server's metrics as one JSON object.
+
+    python -m pytorch_ps_mpi_tpu_torch.train_async --model mlp --workers 4 \\
+        --steps 50
+    python -m pytorch_ps_mpi_tpu_torch.train_async --model resnet18 \\
+        --codec sign --workers 4 --steps 10 --straggler-ms 500 \\
+        --max-staleness 3
+
+The JAX CLI's telemetry, serving and resilience flags are accepted and
+raise ``NotImplementedError`` naming the ROADMAP item that brings them.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+from typing import Optional, Sequence
+
+from pytorch_ps_mpi_tpu_torch.parallel.async_train import (UNPORTED,
+                                                           join_workers,
+                                                           make_problem,
+                                                           serve, spawn_worker)
+
+#: the JAX CLI's flags the port does not have yet -> the cfg key whose
+#: ROADMAP item they wait for
+_UNPORTED_FLAGS = {
+    "telemetry-dir": "telemetry_dir", "metrics-port": "metrics_port",
+    "health-port": "health_port", "ps-top": "health", "trace": "trace",
+    "numerics": "numerics", "read-port": "read_port",
+    "snapshot-ring": "serving", "history": "timeseries",
+    "profile": "profile", "slo": "slo", "freshness": "freshness",
+    "hop-anatomy": "hop_anatomy", "control": "control",
+    "fleet-dir": "fleet_dir", "resilient": "resilient",
+    "supervise": "supervise", "fault-plan": "fault_plan",
+}
+
+
+def parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--model", choices=["mlp", "resnet18", "resnet50"],
+                    default="mlp")
+    ap.add_argument("--workers", type=int, default=4)
+    ap.add_argument("--steps", type=int, default=50,
+                    help="gradient pushes per worker")
+    ap.add_argument("--batch", type=int, default=32)
+    ap.add_argument("--optim", choices=["sgd", "adam"], default="sgd")
+    ap.add_argument("--lr", type=float, default=0.01)
+    ap.add_argument("--codec", default=None,
+                    help="codec registry name (e.g. sign, int8, threshold)")
+    ap.add_argument("--bucket-mb", type=float, default=0.0,
+                    help="with a bucketable --codec: ship dtype-grouped ~N "
+                         "MB flat bucket payloads instead of per-leaf ones")
+    ap.add_argument("--max-staleness", type=int, default=4)
+    ap.add_argument("--straggler-ms", type=float, default=0.0,
+                    help="delay the last worker's loop by this much")
+    ap.add_argument("--sync-barrier", action="store_true",
+                    help="the synchronous-PS oracle (for comparison runs)")
+    ap.add_argument("--timeout", type=float, default=600.0)
+    ap.add_argument("--transport", default="shm", choices=["shm", "tcp"])
+    ap.add_argument("--port", type=int, default=0,
+                    help="tcp transport: listen port (0 picks one)")
+    ap.add_argument("--checkpoint-dir", default=None)
+    ap.add_argument("--checkpoint-every", type=int, default=50)
+    ap.add_argument("--resume", action="store_true")
+    ap.add_argument("--no-frame-check", action="store_true",
+                    help="push without the PSF2 frame header")
+    for flag in _UNPORTED_FLAGS:
+        ap.add_argument(f"--{flag}", default=None, nargs="?", const=True)
+    return ap
+
+
+def main(argv: Optional[Sequence[str]] = None) -> dict:
+    ap = parser()
+    args = ap.parse_args(argv)
+    for flag, key in _UNPORTED_FLAGS.items():
+        if getattr(args, flag.replace("-", "_")) is not None:
+            raise NotImplementedError(
+                f"--{flag} is not ported yet: {UNPORTED[key]}")
+    if args.resume and not args.checkpoint_dir:
+        ap.error("--resume requires --checkpoint-dir")
+    device = "cpu" if os.environ.get("PS_PLATFORM") == "cpu" else "cuda"
+    in_shape = (8,) if args.model == "mlp" else (32, 32, 3)
+    cfg = {
+        "model": args.model,
+        "model_kw": ({"num_classes": 10} if args.model != "mlp"
+                     else {"features": (64, 8)}),
+        "in_shape": list(in_shape),
+        "batch": args.batch,
+        "seed": 0,
+        "optim": args.optim,
+        "hyper": {"lr": args.lr},
+        "steps": args.steps,
+        "open_timeout": args.timeout,
+        "push_timeout": args.timeout,
+        "frame_check": not args.no_frame_check,
+        "transport": args.transport,
+        "device": device,
+    }
+    if args.codec:
+        cfg["codec"] = args.codec
+        if args.bucket_mb:
+            cfg["bucket_mb"] = args.bucket_mb
+    if args.straggler_ms:
+        cfg["slow_ms"] = {str(args.workers - 1): args.straggler_ms}
+    code = None
+    if args.codec:
+        from pytorch_ps_mpi_tpu_torch.codecs import get_codec
+
+        code = get_codec(args.codec)
+    template = make_problem(cfg, device).template
+    kw = dict(num_workers=args.workers, template=template,
+              max_staleness=args.max_staleness, code=code,
+              bucket_mb=cfg.get("bucket_mb", 0.0),
+              frame=cfg["frame_check"], device=device)
+    if args.transport == "tcp":
+        from pytorch_ps_mpi_tpu_torch.parallel.tcp import TcpPSServer
+
+        server = TcpPSServer(args.port, **kw)
+        name = f"127.0.0.1:{server.port}"
+        print(f"tcp PS listening on {name}", flush=True)
+    else:
+        from pytorch_ps_mpi_tpu_torch.parallel.dcn import ShmPSServer
+
+        name = f"/psq_train_torch_{os.getpid()}"
+        server = ShmPSServer(name, **kw)
+    procs = []
+    try:
+        procs = [spawn_worker(name, i, cfg) for i in range(args.workers)]
+        _, metrics = serve(server, cfg, total_grads=0,
+                           total_received=args.workers * args.steps,
+                           sync_barrier=args.sync_barrier,
+                           timeout=args.timeout,
+                           checkpoint_dir=args.checkpoint_dir,
+                           checkpoint_every=args.checkpoint_every,
+                           resume=args.resume)
+        for rc in join_workers(procs, timeout=args.timeout):
+            if rc != 0:
+                raise SystemExit(f"worker exited {rc}")
+    finally:
+        server.close()
+        join_workers(procs, timeout=5.0)
+    print(json.dumps(metrics, default=str), flush=True)
+    return metrics
+
+
+if __name__ == "__main__":
+    main()

@@ -11,6 +11,14 @@ each restored tensor goes: onto the template's device (the parameters').
 Every rank holds its own state (its generator, its shards in leader
 mode), so at a world above one each rank writes its own file,
 ``ckpt_<step>.rank<r>.pt``; at world one the file is ``ckpt_<step>.pt``.
+
+The constructor takes the JAX package's arguments in its order,
+``(directory, use_orbax=True, max_to_keep=3, compress=True)``.
+``use_orbax`` is a no-op (the port has no Orbax); with ``compress`` each
+tensor is stored as its bytes through the repo's native wire codec
+(``utils/native.compress``: byte shuffle by element size, zero-run-length
+coding, a CRC32 checked on load), the JAX package's ``compress=True``.
+A file saved either way restores either way.
 """
 
 from __future__ import annotations
@@ -22,6 +30,7 @@ from typing import Any, List, Optional
 import torch
 
 from pytorch_ps_mpi_tpu_torch import mesh
+from pytorch_ps_mpi_tpu_torch.utils import native
 
 Tree = Any
 
@@ -35,6 +44,38 @@ def _plain(tree: Tree) -> Tree:
             else [_plain(v) for v in tree]
     if torch.is_tensor(tree):
         return tree.detach()
+    return tree
+
+
+_WC = "__wc02__"
+
+
+def _compress(tree: Tree) -> Tree:
+    """Every non-empty tensor of ``tree`` as its compressed bytes."""
+    if isinstance(tree, dict):
+        return {k: _compress(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_compress(v) for v in tree)
+    if torch.is_tensor(tree) and tree.numel():
+        t = tree.detach().cpu().contiguous()
+        blob = native.compress(t.reshape(-1).view(torch.uint8).numpy()
+                               .tobytes(), elem_size=t.element_size())
+        return {_WC: torch.frombuffer(bytearray(blob), dtype=torch.uint8),
+                "dtype": str(t.dtype).split(".")[-1],
+                "shape": list(t.shape)}
+    return tree
+
+
+def _decompress(tree: Tree) -> Tree:
+    if isinstance(tree, dict):
+        if _WC in tree:
+            raw = native.decompress(tree[_WC].numpy().tobytes())
+            flat = torch.frombuffer(bytearray(raw), dtype=torch.uint8)
+            return flat.view(getattr(torch, tree["dtype"])).reshape(
+                tree["shape"])
+        return {k: _decompress(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_decompress(v) for v in tree)
     return tree
 
 
@@ -76,10 +117,13 @@ class CheckpointManager:
     ``max_to_keep`` steps. ``state`` is a tree of dicts, tuples (named
     ones too), lists, tensors and numbers."""
 
-    def __init__(self, directory: str, max_to_keep: int = 3):
+    def __init__(self, directory: str, use_orbax: bool = True,
+                 max_to_keep: int = 3, compress: bool = True):
         self.directory = os.path.abspath(directory)
         os.makedirs(self.directory, exist_ok=True)
+        self.use_orbax = False  # accepted for the JAX signature
         self.max_to_keep = max_to_keep
+        self.compress = bool(compress)
         world = mesh.world_size()
         self._suffix = f".rank{mesh.rank()}.pt" if world > 1 else ".pt"
 
@@ -92,7 +136,8 @@ class CheckpointManager:
         steps past ``max_to_keep``."""
         path = self._path(step)
         tmp = path + ".tmp"
-        torch.save(_plain(state), tmp)
+        state = _plain(state)
+        torch.save(_compress(state) if self.compress else state, tmp)
         os.replace(tmp, path)
         for old in self.steps()[:-self.max_to_keep]:
             os.remove(self._path(old))
@@ -118,4 +163,4 @@ class CheckpointManager:
             raise FileNotFoundError(f"no checkpoints in {self.directory}")
         loaded = torch.load(self._path(step), map_location="cpu",
                             weights_only=True)
-        return _like(template, loaded)
+        return _like(template, _decompress(loaded))

@@ -125,3 +125,110 @@ class MetricsAccumulator:
 
     def __len__(self) -> int:
         return len(self._rows)
+
+
+# -- the async parameter server's canonical counters ---------------------------
+
+#: the keys of a PS server's ``metrics()``, the JAX package's
+#: ``telemetry.registry.PS_SERVER_METRIC_KEYS`` in its order. The port
+#: counts the wire, the staleness and the aggregation; the subsystems it
+#: does not have yet (numerics, lineage, anatomy, the read tier, the
+#: controller, the tree) report 0.0, as the JAX package's do unarmed.
+PS_SERVER_METRIC_KEYS = (
+    "ts", "uptime_s", "grads_received", "bytes_received",
+    "raw_bytes_per_grad", "wire_bytes_per_grad", "compression_ratio",
+    "stale_drops", "bucket_count", "wire_units_per_push", "frames_rejected",
+    "staleness_p50", "staleness_p95", "staleness_p99", "nonfinite_total",
+    "grad_norm", "update_ratio", "codec_rel_error", "ef_residual_norm",
+    "lineage_pushes", "push_e2e_p50_ms", "push_e2e_p95_ms", "anatomy_rounds",
+    "anatomy_wire_share", "anatomy_top_saving_frac", "agg_mode",
+    "decodes_per_publish", "agg_fallbacks", "tree_composed", "reads_total",
+    "read_p50_ms", "read_p95_ms", "delta_bytes_saved", "reads_shed",
+    "coalesce_hits", "reads_not_modified", "native_read_conns",
+    "replica_lag_versions", "follower_bytes_relayed", "control_actions",
+    "control_epoch", "control_evicted", "control_lr_scale_min",
+    "topo_actions", "replicas_live", "group_replans", "read_fresh_p50_ms",
+    "read_fresh_p95_ms", "serving_age_ms", "fresh_hop_count", "hop_rounds",
+    "hop_busy_frac", "hop_ingest_wait_ms", "hop_stream_headroom_ratio",
+    "hop_serial_ms", "hop_ring_drops",
+)
+
+
+def staleness_quantile(seen: Dict[int, int], q: float) -> float:
+    """Exact weighted q-quantile of a ``{staleness: count}`` dict; 0.0
+    when empty."""
+    items = sorted(seen.items())
+    total = sum(int(n) for _, n in items)
+    if total == 0:
+        return 0.0
+    cum = 0
+    for v, n in items:
+        cum += int(n)
+        if cum >= q * total:
+            return float(v)
+    return float(items[-1][0])
+
+
+class PSServerCounters:
+    """The counters a PS server keeps and :meth:`metrics`, the canonical
+    dict over them (the JAX package's ``PSServerTelemetry`` without the
+    Prometheus registry and the HTTP endpoint, which wait for the
+    telemetry item). Shared by the shm and the TCP server."""
+
+    #: payload decodes (one a consumed push on the decode path, one a
+    #: round under compressed-domain aggregation)
+    decodes_done: int = 0
+    #: gradient-composed publishes (the initial publish excluded)
+    grad_publishes: int = 0
+    #: 1.0 while the serve loop folds pushes in the compressed domain
+    agg_mode: float = 0.0
+    #: pushes decoded while ``cfg["agg"] == "on"`` asked for aggregation
+    agg_fallbacks: int = 0
+    frames_rejected_total: int = 0
+
+    @property
+    def frames_rejected(self) -> Dict[int, int]:
+        """Rejected frames by worker."""
+        return self.__dict__.setdefault("_frames_rejected", {})
+
+    def _reject_frame(self, worker: int, reason: str) -> None:
+        d = self.frames_rejected
+        d[worker] = d.get(worker, 0) + 1
+        self.frames_rejected_total += 1
+        reasons = self.__dict__.setdefault("reject_reasons", {})
+        reasons[reason] = reasons.get(reason, 0) + 1
+
+    def metrics(self) -> Dict[str, float]:
+        wire = self.wire
+        if wire is not None:
+            raw, nbytes = float(wire.raw_bytes), float(wire.wire_bytes)
+            plan = wire.plan
+            buckets = float(plan.num_buckets) if plan is not None else 0.0
+            units = buckets if plan is not None else float(len(wire.shapes))
+        else:
+            raw = nbytes = float(self._flat_params * 4)
+            buckets, units = 0.0, 1.0 if self._flat_params else 0.0
+        out = {k: 0.0 for k in PS_SERVER_METRIC_KEYS}
+        out.update(
+            ts=time.time(),
+            uptime_s=max(0.0, time.monotonic() - self._t0_mono),
+            grads_received=float(self.grads_received),
+            bytes_received=float(self.bytes_received),
+            raw_bytes_per_grad=raw, wire_bytes_per_grad=nbytes,
+            compression_ratio=raw / nbytes if nbytes else 0.0,
+            stale_drops=float(self.stale_drops), bucket_count=buckets,
+            wire_units_per_push=units,
+            frames_rejected=float(self.frames_rejected_total),
+            staleness_p50=staleness_quantile(self.staleness_seen, 0.50),
+            staleness_p95=staleness_quantile(self.staleness_seen, 0.95),
+            staleness_p99=staleness_quantile(self.staleness_seen, 0.99),
+            agg_mode=float(self.agg_mode),
+            decodes_per_publish=(float(self.decodes_done)
+                                 / float(self.grad_publishes)
+                                 if self.grad_publishes else 0.0),
+            agg_fallbacks=float(self.agg_fallbacks),
+            reads_total=float(getattr(self, "_reads_total", 0)),
+            reads_not_modified=float(getattr(self, "_reads_not_modified",
+                                             0)),
+        )
+        return out

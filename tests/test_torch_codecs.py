@@ -242,11 +242,14 @@ def test_error_feedback_matches_jax_over_steps():
 
 
 def test_sign_kernel_layout_has_no_host_aggregate():
-    # the vote-count algebra is not ported: no size aggregates on the host
+    # the vote-count algebra (approximate) aggregates flat-layout units
+    # only: the kernel layout has no host-side unpack (JAX sign.py:101-106)
     code = get_codec("sign")
     assert not code.can_aggregate((1024,), torch.float32)
-    assert not code.can_aggregate((1000,), torch.float32)
-    assert not code.supports_aggregate and not code.agg_exact
+    assert code.can_aggregate((1000,), torch.float32)
+    assert code.supports_aggregate and not code.agg_exact
+    assert get_codec("sign", use_pallas=False).can_aggregate((1024,),
+                                                             torch.float32)
 
 
 @pytest.mark.parametrize("mode", ["zero", "raise", "propagate"])
@@ -425,8 +428,11 @@ def test_terngrad_encode_draws_from_the_generator_and_streams_wait():
         get_codec("terngrad", scan_block=1022)
     with pytest.raises(ValueError):
         get_codec("terngrad", nonfinite="clip")
-    for call in (lambda: code.agg_init((4,), torch.float32),
-                 lambda: code.agg_fold({}, a),
-                 lambda: code.agg_finalize({}, (4,), torch.float32)):
-        with pytest.raises(NotImplementedError, match="queue 1 item 3"):
-            call()
+    # the streaming fold (host numpy) sums what decode gives
+    acc = code.agg_init((4096,), torch.float32)
+    for p in (a, c):
+        code.agg_fold(acc, {k: v.numpy() for k, v in p.items()})
+    want = (code.decode(a, (4096,), torch.float32)
+            + code.decode(c, (4096,), torch.float32))
+    np.testing.assert_array_equal(
+        code.agg_finalize(acc, (4096,), torch.float32), want.numpy())

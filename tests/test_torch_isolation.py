@@ -49,7 +49,10 @@ def test_probe_imported_every_module_of_the_port(probe):
                  "models.bert", "bucketing", "codecs.randomk",
                  "codecs.blocktopk", "codecs.threshold", "codecs.powersgd",
                  "trainer", "launch", "train", "parallel", "parallel.dp",
-                 "utils.checkpoint"):
+                 "utils.checkpoint", "utils.native", "utils.serialization",
+                 "resilience.frames", "parallel.dcn", "parallel.tcp",
+                 "parallel.async_ps", "parallel.async_train",
+                 "train_async"):
         assert f"pytorch_ps_mpi_tpu_torch.{name}" in probe["modules"], name
 
 
@@ -64,13 +67,17 @@ def test_chip_smoke_fails_without_the_repo(tmp_path):
 
 #: (file under the port, a word of the unported option, its queue 1 item)
 UNPORTED_TEXTS = [
-    ("ps.py", "numerics", 7), ("ps.py", "profile=True", 7),
-    ("ps.py", "param_specs", 8), ("ps.py", "batch_spec", 8),
-    ("codecs/base.py", "agg_init", 3), ("codecs/quant.py", "agg_init", 3),
-    ("codecs/sign.py", "vote-count", 3),
-    ("codecs/error_feedback.py", "HopErrorFeedback", 5),
-    ("models/bert.py", "ring", 8),
-    ("train.py", "gpt.py", 8), ("train.py", "moe.py", 8),
+    ("ps.py", "numerics", 5), ("ps.py", "profile=True", 5),
+    ("ps.py", "param_specs", 6), ("ps.py", "batch_spec", 6),
+    ("codecs/error_feedback.py", "HopErrorFeedback", 3),
+    ("models/bert.py", "ring", 6),
+    ("train.py", "gpt.py", 6), ("train.py", "moe.py", 6),
+    ("parallel/async_train.py", "telemetry_dir", 5),
+    ("parallel/async_train.py", "read_port", 4),
+    ("parallel/async_train.py", "fault_plan", 3),
+    ("parallel/async_train.py", "gpt.py", 6),
+    ("parallel/dcn.py", "probe_fidelity", 5),
+    ("resilience/frames.py", "tree_slots", 3),
 ]
 
 

@@ -383,10 +383,23 @@ def test_ragged_all_gather_without_a_group():
 
 
 def test_streaming_forms_name_their_item():
+    # the streaming forms are ported (no item left to name): the host
+    # fold of two payloads equals their decode_sum
+    g = torch.from_numpy(np.random.RandomState(5).randn(2, 4096)
+                         .astype(np.float32))
     for name, kw in [("randomk", {"k": 2}), ("blocktopk8", {}),
                      ("threshold", {})]:
-        with pytest.raises(NotImplementedError, match="queue 1 item 3"):
-            get_codec(name, **kw).agg_init((4,), torch.float32)
+        code = get_codec(name, **kw)
+        gen = torch.Generator().manual_seed(0)
+        ps = [code.encode(g[w], code.init_state((4096,), torch.float32),
+                          gen)[0] for w in range(2)]
+        acc = code.agg_init((4096,), torch.float32)
+        for p in ps:
+            code.agg_fold(acc, {k: v.numpy() for k, v in p.items()})
+        stacked = {k: torch.stack([p[k] for p in ps]) for k in ps[0]}
+        np.testing.assert_array_equal(
+            code.agg_finalize(acc, (4096,), torch.float32),
+            code.decode_sum(stacked, (4096,), torch.float32).numpy())
 
 
 # -- threshold's ragged step over gloo ------------------------------------------
