@@ -198,8 +198,38 @@ Phases, one line each; the script exits non-zero if any fails:
                A4: ``AsyncPS`` in one program (ResNet-18, 4 workers, lags
                [0, 1, 2, 1], sign) two rounds on the card against the CPU
                (``check_async_ps``), then 3 rounds of sampled lags.
-               ``python3 chip_smoke.py async`` runs the device check, the
-               builds and this phase alone, without the last two lines.
+
+9. scale_out -- last, after ``torch.cuda.empty_cache()``: sharded
+               servers, the aggregation tree and the supervisor
+               (``run_scale_out``; every shard server, leader and worker a
+               fresh interpreter on the card). S1: A1's ResNet-50, 2 shard
+               servers over TCP, 4 workers, int8, async, max_staleness 4,
+               shard 1 sleeping 50 ms after each update, 3 pushes a worker
+               a shard, checkpoints a shard every 4: one ``quantize_int8``
+               a slice a push on the workers and one ``dequant_sum`` a
+               decoded push on each shard (asserted), every push received,
+               the shards' versions diverging, ``assemble`` tiling the
+               vector and the held-out loss falling. S2: identity, 1
+               worker, 3 synchronous steps against 1 shard and against 2,
+               side by side: the final parameters equal bit for bit. T1:
+               ``run_tree``, 4 workers in 2 groups, the leaf hop identity
+               over TCP, the upstream hop int8 behind hop error feedback
+               into a tree-mode root in this process, 3 pushes a worker:
+               no decode at a leader, 161 quantizes and 161 hop-EF decodes
+               a hop push, all 12 pushes composed at the root, no decode
+               kernel there (host fold), the loss falling. T2: T1 with
+               group 1's leader crashing at its round 2 and its workers
+               paced: a respawn, fallback pushes, a rejoin, and every push
+               composed or positively lost. R1: ResNet-18 sign over shm,
+               2 workers under the ``Supervisor`` with checkpoints every 4
+               and the fault plan ``R1_PLAN`` (corrupt, crash_worker, drop,
+               duplicate, crash_server): every fault fired once, a worker
+               respawn, one server restart, one ``corrupt`` rejection, 20
+               ``encode_signs`` an encode and 20 ``unpack_signs_sum`` a
+               decode, exit codes 0, the loss falling. Each run prints its
+               timings, every role's peak GB and the idle share of the
+               card under its server or root. The kernel line gives each
+               kernel's launches in this phase (``launches_scale_out``).
 
 Phase ``done`` gives the seconds the whole run took. The line before the
 last is a JSON object with one entry per kernel; the last line is
@@ -209,6 +239,7 @@ nothing of JAX or of the JAX package.
 
 from __future__ import annotations
 
+import gc
 import json
 import math
 import os
@@ -262,10 +293,6 @@ def _device_events(prof) -> list:
             if e.device_type == torch.autograd.DeviceType.CUDA]
 
 
-#: runtime calls that put one row on the device: a kernel, memset or copy
-_LAUNCH_CALLS = ("cudaLaunch", "cuLaunch", "cudaMemset", "cuMemset",
-                 "cudaMemcpy", "cuMemcpy")
-_LEAD = 256  # spin kernels that open every trace, there to be dropped
 _TAKES = 5  # traces taken before a short one fails the run
 
 
@@ -274,12 +301,15 @@ def _profiled(fn, cold: bool = False) -> list:
     warm-up call; ``cold``: with the 50 MB L2 flushed just before. Late
     in a long run of this script on an H100 the profiler dropped the
     first device rows of a trace (all of a one-kernel trace, the first of
-    20 decode_sum calls, once 102 rows early in a run; PERF.md §7), while
-    it still recorded every runtime launch call. So each trace opens with
-    ``_LEAD`` spin kernels, and is whole only when its other device rows
-    match the launch calls made after them; a trace short of rows is
-    taken again, ``_TAKES`` times in all, and then fails the run."""
+    20 decode_sum calls, once 102 rows early in a run), while it still
+    recorded every runtime launch call. So each trace opens with
+    ``IdleMeter.LEAD`` spin kernels, and is whole only when its other
+    device rows match the launch calls made after them; a trace short of
+    rows is taken again, ``_TAKES`` times in all, and then fails the
+    run."""
     from torch.profiler import ProfilerActivity, profile
+
+    from pytorch_ps_mpi_tpu_torch.parallel.async_train import IdleMeter
 
     cuda = torch.autograd.DeviceType.CUDA
     fn()
@@ -288,7 +318,7 @@ def _profiled(fn, cold: bool = False) -> list:
             torch.empty(2**27, dtype=torch.int8, device="cuda").fill_(1)
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(_LEAD):
+            for _ in range(IdleMeter.LEAD):
                 torch.cuda._sleep(1)
             fn()
             torch.cuda.synchronize()
@@ -296,8 +326,9 @@ def _profiled(fn, cold: bool = False) -> list:
         rows = sorted((e for e in events if e.device_type == cuda
                        and "spin_kernel" not in e.name),
                       key=lambda e: e.time_range.start)
-        launched = sum(e.name.startswith(_LAUNCH_CALLS) for e in events
-                       if e.device_type != cuda) - _LEAD
+        launched = sum(e.name.startswith(IdleMeter.LAUNCH_CALLS)
+                       for e in events if e.device_type != cuda) \
+            - IdleMeter.LEAD
         if rows and len(rows) == launched:
             return rows
     raise AssertionError(f"{_TAKES} profiler traces lost device rows: "
@@ -676,11 +707,14 @@ def _int8_planted(n: int, case: str, gen) -> torch.Tensor:
     return x
 
 
-def check_quant_kernels(model, also: list) -> dict:
+def check_quant_kernels(model, also: list, slices: list) -> dict:
     """The int8 quantize and dequantize-sum kernels at ResNet-18's 62
     leaves and its buckets at ``BUCKET_MB``: bit-exact at world 1 and 8,
-    planted cases, and timing (over the leaves); the quantize also at
-    the sizes ``also`` (the async phase's ResNet-50 units)."""
+    planted cases, and timing (over the leaves). Both kernels also at the
+    sizes ``also`` (the async and scale-out phases' ResNet-50 units: the
+    workers' and leaders' quantize, hop EF's decode) and ``slices`` (S1's
+    shard slices: the workers' quantize, the shard servers' decode), the
+    decode at world 1 as those paths run it."""
     from pytorch_ps_mpi_tpu_torch.ops import quant as Q
 
     sizes = [p.numel() for p in model.parameters()]
@@ -700,8 +734,8 @@ def check_quant_kernels(model, also: list) -> dict:
     cases = 0
     tile = Q._tile()
     past = Q._lib().quant_int8_grid(1 << 40) * tile + 4099
-    for n in sorted(set(sizes + buckets + also)) + [4099, 1000, tile - 1,
-                                                    tile, tile + 1, past]:
+    for n in sorted(set(sizes + buckets + also + slices)) + [
+            4099, 1000, tile - 1, tile, tile + 1, past]:
         for case in (("plain", "ties", "signed_zero", "nan", "inf",
                       "neg_inf", "zeros") if n >= 16 else ("plain",)):
             x = 1e-2 * _int8_planted(n, case, gen)
@@ -714,9 +748,9 @@ def check_quant_kernels(model, also: list) -> dict:
     # thread), n % 16 == 4 (4 codes), odd n, and codes that start one byte
     # into their buffer (so no row is aligned), at world 1 and 8
     dequant_cases = 0
-    for n in sorted(set(sizes + buckets)) + [4099, 1000, 1028,
-                                             2_359_296 + 4]:
-        for world in (1, 8):
+    r18 = sorted(set(sizes + buckets)) + [4099, 1000, 1028, 2_359_296 + 4]
+    for n in r18 + sorted(set(also + slices) - set(r18)):
+        for world in ((1, 8) if n in r18 else (1,)):
             for offset in (0, 1):
                 buf = torch.randint(-127, 128, (world * n + offset,),
                                     generator=gen, device="cuda",
@@ -735,8 +769,10 @@ def check_quant_kernels(model, also: list) -> dict:
     phase("kernels", check="int8 bit-exact",
           sizes=len(set(sizes + buckets)) + 6,
           quantize_async_r50_sizes=len(set(also)),
+          r50_units_and_s1_slices=len(set(also + slices)),
           quantize_cases=cases, dequant_cases=dequant_cases,
-          dequant_worlds="1,8", dequant_widths="n%16==0,n%16==4,odd,offset 1")
+          dequant_worlds="1,8 (R18); 1 (R50 units, S1 slices)",
+          dequant_widths="n%16==0,n%16==4,odd,offset 1")
 
     xs = [1e-2 * torch.randn(n, generator=gen, device="cuda") for n in sizes]
     quant_args = [(x,) for x in xs]
@@ -2468,35 +2504,19 @@ def async_cfg(model: str, stats: str, **kw) -> dict:
     return cfg
 
 
-def _union_ms(rows) -> float:
-    """The ms the device rows cover: the union of their intervals."""
-    spans = sorted((e.time_range.start, e.time_range.end) for e in rows)
-    busy, cur_s, cur_e = 0.0, None, None
-    for s, e in spans:
-        if cur_e is None or s > cur_e:
-            if cur_e is not None:
-                busy += cur_e - cur_s
-            cur_s, cur_e = s, e
-        else:
-            cur_e = max(cur_e, e)
-    if cur_e is not None:
-        busy += cur_e - cur_s
-    return busy / 1e3
-
-
 def run_fleet(label: str, cfg: dict, code_name: str, workers: int,
               sync_barrier: bool, card: str, max_staleness: int = 4,
               profile_server: bool = False) -> dict:
     """One fleet: the server in this process, ``workers`` fresh
     interpreters on the same card. Every count of this process is set to
     0 just before and read just after; the workers report their own
-    (``stats_dir``). Prints the run's lines and returns its metrics."""
-    from torch.profiler import ProfilerActivity, profile
-
+    (``stats_dir``). Prints the run's lines and returns its metrics;
+    ``profile_server``: the card's idle share under the server's updates
+    (``cfg["idle_share"]``, from its first update on)."""
     from pytorch_ps_mpi_tpu_torch.codecs import get_codec
     from pytorch_ps_mpi_tpu_torch.parallel import async_train as at
 
-    cfg = {**cfg, "codec": code_name}
+    cfg = {**cfg, "codec": code_name, "idle_share": profile_server}
     code = get_codec(code_name)
     template = at.make_problem(cfg, cfg["device"]).template
     kw = dict(max_staleness=max_staleness, code=code, frame=True,
@@ -2514,29 +2534,12 @@ def run_fleet(label: str, cfg: dict, code_name: str, workers: int,
     counters = kernel_counters()
     for k in counters.values():
         k.launches = 0
-    procs, prof, prof_t0 = [], None, 0.0
-
-    def profile_updates():
-        # the trace opens at the first tick after the first update, so it
-        # covers the server's updates, not the workers' start-up
-        nonlocal prof, prof_t0
-        if profile_server and prof is None and server.grad_publishes:
-            prof = profile(activities=[ProfilerActivity.CUDA])
-            prof.__enter__()
-            prof_t0 = time.perf_counter()
-
+    procs = []
     try:
         procs = [at.spawn_worker(name, i, cfg) for i in range(workers)]
         total = sum(at.worker_cfg(cfg, i)[1] for i in range(workers))
-        try:
-            _, m = at.serve(server, cfg, total_grads=0, total_received=total,
-                            sync_barrier=sync_barrier, timeout=ASYNC_LIMIT,
-                            on_tick=profile_updates)
-        finally:
-            if prof is not None:
-                torch.cuda.synchronize()
-                prof_wall = (time.perf_counter() - prof_t0) * 1e3
-                prof.__exit__(None, None, None)
+        _, m = at.serve(server, cfg, total_grads=0, total_received=total,
+                        sync_barrier=sync_barrier, timeout=ASYNC_LIMIT)
         codes = at.join_workers(procs, timeout=ASYNC_LIMIT)
         if codes != [0] * workers:
             raise AssertionError(f"{label}: worker exit codes {codes}")
@@ -2597,16 +2600,8 @@ def run_fleet(label: str, cfg: dict, code_name: str, workers: int,
     m["worker_launches"] = [s["launches"] for s in stats]
     m["worker_pushes"] = [s["pushes"] for s in stats]
     if profile_server:
-        if prof is None:
-            raise AssertionError(f"{label}: no update to profile")
-        rows = [e for e in prof.events()
-                if e.device_type == torch.autograd.DeviceType.CUDA]
-        busy = _union_ms(rows)
-        m["idle_share"] = max(0.0, 1 - busy / prof_wall)
         phase("async", run=label, card=repr(card), what="server_profile",
-              device_rows=len(rows), device_busy_ms=f"{busy:.3f}",
-              profiled_wall_ms=f"{prof_wall:.3f}",
-              idle_share=f"{m['idle_share']:.3f}")
+              **_idle_fields(f"{label} server", m))
     return m
 
 
@@ -2901,6 +2896,527 @@ def run_async(card: str) -> None:
         shutil.rmtree(tmp, ignore_errors=True)
     phase("async", seconds=f"{time.perf_counter() - t0:.1f}")
 
+SO_LIMIT = 240.0  # seconds a scale-out run may take, spawn to join
+S1_SHARDS = 2
+R50_UNITS = 161  # ResNet-50's leaves, the units of its wire
+R18_SIGN_UNITS = 20  # ResNet-18's kernel-layout leaves (n % 1024 == 0)
+#: the kernel line's names of the port's launch counters
+_COUNTER_NAMES = {"dequant_sum": "dequantize_int8",
+                  "tern_unpack_sum": "tern_unpack"}
+
+
+def s1_slices(n_total: int) -> list:
+    """The element counts of S1's shard slices of ``n_total``
+    parameters."""
+    from pytorch_ps_mpi_tpu_torch.parallel.sharded import shard_plan
+
+    return [b - a for a, b in shard_plan(n_total, S1_SHARDS)]
+
+
+def _tally(into: dict, launches: dict) -> None:
+    for k, v in launches.items():
+        k = _COUNTER_NAMES.get(k, k)
+        into[k] = into.get(k, 0) + int(v)
+
+
+def _gb(nbytes) -> float:
+    return round(float(nbytes) / 2**30, 2)
+
+
+def _idle_fields(what: str, d: dict) -> dict:
+    """An ``IdleMeter`` reading as printed fields; raises when the trace
+    lost device rows, so that the share is never left unmeasured."""
+    if "idle_share" not in d:
+        raise AssertionError(f"{what}: the idle trace holds "
+                             f"{int(d.get('device_rows', 0))} device rows "
+                             f"of {int(d.get('launched', 0))} launched")
+    return {"device_rows": int(d["device_rows"]),
+            "launched": int(d["launched"]),
+            "device_busy_ms": f"{d['device_busy_ms']:.3f}",
+            "profiled_wall_ms": f"{d['profiled_wall_ms']:.3f}",
+            "idle_share": f"{d['idle_share']:.3f}"}
+
+
+def _median_ms(rows, key: str) -> str:
+    vals = [t for r in rows for t in r.get(key, ())]
+    return f"{statistics.median(vals) * 1e3:.3f}" if vals else "none"
+
+
+def shard_fleet(cfg: dict, n_shards: int, n_workers: int, d: str,
+                tag: str) -> tuple:
+    """Spawn ``n_shards`` shard servers and ``n_workers`` sharded workers
+    (fresh interpreters on the card), join them, and return the shards'
+    .npz paths and the workers' stats."""
+    from pytorch_ps_mpi_tpu_torch.parallel import async_train as at
+    from pytorch_ps_mpi_tpu_torch.parallel import sharded
+
+    servers, workers = [], []
+    paths = [os.path.join(d, f"{tag}_shard{s}.npz") for s in range(n_shards)]
+    wpaths = [os.path.join(d, f"{tag}_w{w}.json") for w in range(n_workers)]
+    ports = [free_port() for _ in range(n_shards)]
+    addrs = [f"127.0.0.1:{p}" for p in ports]
+    try:
+        # servers and workers start together: a worker's connect waits
+        servers = [sharded.spawn_shard_server(s, n_shards, cfg, paths[s],
+                                              port=ports[s])
+                   for s in range(n_shards)]
+        workers = [sharded.spawn_sharded_worker(addrs, w, cfg, wpaths[w])
+                   for w in range(n_workers)]
+        if [sharded.read_server_port(p, SO_LIMIT) for p in servers] != ports:
+            raise AssertionError(f"{tag}: servers not on {ports}")
+        codes = at.join_workers(workers, SO_LIMIT) + at.join_workers(
+            servers, SO_LIMIT)
+        if codes != [0] * (n_shards + n_workers):
+            raise AssertionError(f"{tag}: exit codes {codes}")
+    finally:
+        at.join_workers(servers + workers, timeout=5.0)
+    return paths, [json.load(open(p)) for p in wpaths]
+
+
+def _flat_of(paths, template) -> np.ndarray:
+    from pytorch_ps_mpi_tpu_torch.parallel.dcn import flatten_params
+    from pytorch_ps_mpi_tpu_torch.parallel.sharded import assemble
+
+    return flatten_params(assemble(paths, template))
+
+
+def scale_s1(card: str, tmp: str, tally: dict) -> None:
+    """S1: 2 shard servers over TCP, 4 workers, int8, async, max_staleness
+    4, shard 1 slowed 50 ms an update, 3 pushes a worker a shard,
+    checkpoints a shard every 4 updates."""
+    from pytorch_ps_mpi_tpu_torch.parallel import async_train as at
+
+    d = os.path.join(tmp, "s1")
+    os.makedirs(d)
+    shards, workers, steps = S1_SHARDS, 4, 3
+    cfg = async_cfg("resnet50", d, codec="int8", n_workers=workers,
+                    steps=steps, max_staleness=4, transport="tcp",
+                    server_slow_ms={"1": 50.0}, server_timeout=SO_LIMIT,
+                    checkpoint_dir=os.path.join(d, "ckpt"),
+                    checkpoint_every=4, idle_share=True)
+    t0 = time.perf_counter()
+    paths, stats = shard_fleet(cfg, shards, workers, d, "s1")
+    wall = time.perf_counter() - t0
+    zs = [np.load(p, allow_pickle=False) for p in paths]
+    for i, st in enumerate(stats):
+        # one quantize a slice a push
+        _expect_launches(f"S1 worker {i}", st["launches"],
+                         {"quantize_int8": shards * steps})
+        _tally(tally, st["launches"])
+    for i, z in enumerate(zs):
+        launches = json.loads(str(z["launches"]))
+        # one dequant_sum a decoded (not stale-dropped) push
+        _expect_launches(f"S1 shard {i}", launches,
+                         {"dequant_sum": int(z["applied"])})
+        _tally(tally, launches)
+        if int(z["grads_received"]) != workers * steps or int(
+                z["applied"]) + int(z["stale_drops"]) != workers * steps:
+            raise AssertionError(f"S1 shard {i}: {int(z['grads_received'])} "
+                                 f"received, {int(z['applied'])} applied, "
+                                 f"{int(z['stale_drops'])} dropped")
+        if not os.listdir(os.path.join(d, "ckpt", f"shard{i}")):
+            raise AssertionError(f"S1 shard {i}: no checkpoint")
+    spread = max(st["max_version_spread"] for st in stats)
+    if spread < 1:
+        raise AssertionError("S1: the shards' versions never diverged")
+    prob = at.make_problem(cfg, cfg["device"])
+    slices = [int(z["stop"]) - int(z["start"]) for z in zs]
+    if slices != s1_slices(prob.flat_params().numel()):
+        # the sizes check_quant_kernels holds against the plain versions
+        raise AssertionError(f"S1: slices {slices}")
+    loss0 = prob.eval_loss()
+    prob.load_flat(torch.from_numpy(_flat_of(paths, prob.template)).to(
+        prob.device))
+    loss1 = prob.eval_loss()
+    if not loss1 < loss0:
+        raise AssertionError(f"S1: the loss did not fall: {loss0} -> "
+                             f"{loss1}")
+    idle = [json.loads(str(z["idle"])) for z in zs]
+    phase("scale_out", run="S1", card=repr(card), model="resnet50",
+          code="int8", shards=shards, workers=workers, pushes=workers * steps,
+          applied=json.dumps([int(z["applied"]) for z in zs]),
+          stale_drops=json.dumps([int(z["stale_drops"]) for z in zs]),
+          versions=json.dumps([int(z["version"]) for z in zs]),
+          max_version_spread=spread, wall_s=f"{wall:.3f}",
+          slice_elements=json.dumps(slices),
+          loss_before=f"{loss0:.6f}", loss_after=f"{loss1:.6f}")
+    srv_t = [json.loads(str(z["times"])) for z in zs]
+    phase("scale_out", run="S1", card=repr(card), what="per_push_ms",
+          worker_read=_median_ms(stats, "read_s"),
+          worker_grad=_median_ms(stats, "grad_s"),
+          worker_encode_d2h_2_slices=_median_ms(stats, "encode_s"),
+          worker_push_2_slices=_median_ms(stats, "push_s"),
+          shard_update=json.dumps([round(t["update_s"] / max(int(
+              z["applied"]), 1) * 1e3, 3) for t, z in zip(srv_t, zs)]),
+          shard_publish=json.dumps([round(t["publish_s"] / max(int(
+              z["applied"]), 1) * 1e3, 3) for t, z in zip(srv_t, zs)]))
+    phase("scale_out", run="S1", card=repr(card), what="peak_gb",
+          shards=json.dumps([_gb(z["peak_bytes"]) for z in zs]),
+          workers=json.dumps([_gb(st["peak_bytes"]) for st in stats]))
+    for i, reading in enumerate(idle):
+        phase("scale_out", run="S1", card=repr(card), what="shard_idle",
+              shard=i, **_idle_fields(f"S1 shard {i}", reading))
+
+
+S2_STEPS = 3
+
+
+def s2_servers(tmp: str) -> dict:
+    """S2's shard servers, 1 and 2 of them, fresh interpreters on the
+    card: identity, one worker of ``S2_STEPS`` pushes. Spawned ahead of
+    S1 so that their start-up overlaps its fleet's."""
+    from pytorch_ps_mpi_tpu_torch.parallel import sharded
+
+    d = os.path.join(tmp, "s2")
+    os.makedirs(d)
+    cfg = async_cfg("resnet50", d, codec="identity", n_workers=1,
+                    steps=S2_STEPS, max_staleness=10**9, transport="tcp",
+                    server_timeout=SO_LIMIT)
+    s2 = {"cfg": cfg, "runs": {}}
+    for n in (1, 2):
+        paths = [os.path.join(d, f"n{n}_shard{i}.npz") for i in range(n)]
+        ports = [free_port() for _ in range(n)]
+        s2["runs"][n] = (paths, ports, [])
+        for i in range(n):
+            s2["runs"][n][2].append(sharded.spawn_shard_server(
+                i, n, cfg, paths[i], port=ports[i]))
+    return s2
+
+
+def s2_procs(s2: dict) -> list:
+    return [p for _, _, servers in s2["runs"].values() for p in servers]
+
+
+def _lone_sync_worker(prob, ports: list, cfg: dict) -> list:
+    """S2's one worker, driven from this process: each step reads every
+    shard once its version has moved past the last one read (so the step
+    sees its previous push applied on every shard), computes the
+    gradient and pushes each slice to its shard. Returns the steps'
+    gradient ms."""
+    from pytorch_ps_mpi_tpu_torch.codecs import get_codec
+    from pytorch_ps_mpi_tpu_torch.parallel.sharded import shard_plan
+    from pytorch_ps_mpi_tpu_torch.parallel.tcp import TcpPSWorker
+
+    flat_n = sum(p.numel() for p in prob.params)
+    plan = shard_plan(flat_n, len(ports))
+    conns = [TcpPSWorker("127.0.0.1", port, 0,
+                         {"flat": np.zeros((b - a,), np.float32)},
+                         code=get_codec(cfg["codec"]), timeout=SO_LIMIT,
+                         frame=True, seed=cfg["seed"], device=prob.device)
+             for (a, b), port in zip(plan, ports)]
+    last, grad_ms = [0] * len(conns), []
+    host = torch.empty(flat_n, dtype=torch.float32)
+    try:
+        for step in range(cfg["steps"]):
+            versions = []
+            for i, ((a, b), w) in enumerate(zip(plan, conns)):
+                while True:
+                    sl, ver = w.read_flat(timeout=SO_LIMIT)
+                    if ver > last[i]:
+                        break
+                    time.sleep(0.0005)
+                last[i] = ver
+                host[a:b] = torch.from_numpy(sl)
+                versions.append(ver)
+            prob.load_flat(host.to(prob.device))
+            t0 = time.perf_counter()
+            _, grads = prob.grad_leaves(prob.batch_fn(step, 0))
+            g = torch.cat([x.reshape(-1) for x in grads])
+            torch.cuda.synchronize()
+            grad_ms.append((time.perf_counter() - t0) * 1e3)
+            for (a, b), ver, w in zip(plan, versions, conns):
+                w.push_payload(w.encode([g[a:b]]), ver, timeout=SO_LIMIT,
+                               lineage=(step, step))
+    finally:
+        for w in conns:
+            w.close()
+    return grad_ms
+
+
+def scale_s2(card: str, s2: dict) -> None:
+    """S2: identity, 1 worker, 3 synchronous steps, cuDNN deterministic:
+    1 shard and 2 shards (``s2_servers``) from the same seed. The one
+    worker runs here, against the 1-shard servers and then the 2-shard
+    ones. The final parameters must be equal bit for bit."""
+    from pytorch_ps_mpi_tpu_torch.parallel import async_train as at
+    from pytorch_ps_mpi_tpu_torch.parallel import sharded
+
+    t0 = time.perf_counter()
+    cfg, runs = s2["cfg"], s2["runs"]
+    for n, (_, ports, servers) in runs.items():
+        if [sharded.read_server_port(p, SO_LIMIT) for p in servers] != ports:
+            raise AssertionError(f"S2: servers not on {ports}")
+    prob = at.make_problem(cfg, "cuda")
+    flat0 = prob.flat_params().cpu().numpy()
+    flags = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    # the same gradient for the same parameters in both runs
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        grad_ms = {n: _lone_sync_worker(prob, ports, cfg)
+                   for n, (_, ports, _) in runs.items()}
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark \
+            = flags
+    peak = torch.cuda.max_memory_allocated()
+    codes = at.join_workers(s2_procs(s2), SO_LIMIT)
+    if codes != [0] * len(codes):
+        raise AssertionError(f"S2: exit codes {codes}")
+    wall = time.perf_counter() - t0
+    one, two = (_flat_of(runs[n][0], prob.template) for n in (1, 2))
+    # the worker's model leaves the card before T1's root, which runs in
+    # this process and reports its own peak memory
+    del prob
+    gc.collect()
+    same = np.array_equal(one.view(np.uint32), two.view(np.uint32))
+    moved = float(np.abs(one - flat0).max())
+    if not same or moved == 0.0:
+        raise AssertionError(f"S2: 1 shard vs 2 shards equal bit for bit: "
+                             f"{same}; moved {moved}")
+    zs = [np.load(p) for n in (1, 2) for p in runs[n][0]]
+    phase("scale_out", run="S2", card=repr(card), model="resnet50",
+          code="identity", steps=S2_STEPS, bit_equal=same,
+          max_abs_move=f"{moved:.6g}", wall_s=f"{wall:.3f}",
+          worker="this_process",
+          worker_grad_ms=json.dumps([f"{statistics.median(v):.3f}"
+                                     for v in grad_ms.values()]),
+          peak_gb_this_process=_gb(peak),
+          peak_gb_shards=json.dumps([_gb(z["peak_bytes"]) for z in zs]))
+
+
+def scale_tree(card: str, tmp: str, label: str, tally: dict,
+               crash: bool) -> None:
+    """T1: ``run_tree`` with 4 workers in 2 groups of 2; the leaf hop
+    identity over TCP, the upstream hop int8 with hop EF, into a
+    tree-mode root (sync barrier) on the card, 3 pushes a worker. T2: the
+    same with group 1's leader crashing at its round 2, its workers paced
+    (1.2 s) and pushing 8 times so they fall back to the root and rejoin
+    the respawned leader."""
+    from pytorch_ps_mpi_tpu_torch.parallel import tree
+
+    d = os.path.join(tmp, label.lower())
+    os.makedirs(d)
+    steps = 3
+    kw = {}
+    if crash:
+        steps = 8
+        kw = dict(slow_ms={"2": 1200.0, "3": 1200.0},
+                  degraded_round_after=1.0,
+                  leader_kw={"crash_at_round": {"1": 2}, "rejoin_every": 2,
+                             "degrade_after": 1.0, "flush_after": 2.0,
+                             "idle_exit_s": 2.0})
+    cfg = async_cfg("resnet50", d, codec="int8", n_workers=4, group_size=2,
+                    steps=steps, max_staleness=10**9, transport="tcp",
+                    idle_share=True, **kw)
+    counters = kernel_counters()
+    for k in counters.values():
+        k.launches = 0
+    t0 = time.perf_counter()
+    _, m = tree.run_tree(cfg, total_pushes=None if crash else 4 * steps,
+                         timeout=SO_LIMIT)
+    wall = time.perf_counter() - t0
+    t = m["tree"]
+    if t["worker_codes"] != [0] * 4:
+        raise AssertionError(f"{label}: worker exit codes "
+                             f"{t['worker_codes']}")
+    leaders = [json.load(open(os.path.join(d, f)))
+               for f in sorted(os.listdir(d)) if f.startswith("leader-")]
+    workers = [json.load(open(os.path.join(d, f"worker-{w}.json")))
+               for w in range(4)]
+    composed = [tuple(e) for e in t["composed_ids"]]
+    lost = [tuple(e) for ld in leaders for e in ld["lost"]]
+    expect = {(w, s, s) for w in range(4) for s in range(steps)}
+    if len(set(composed)) != len(composed) or set(composed) & set(lost) \
+            or set(composed) | set(lost) != expect:
+        raise AssertionError(f"{label}: {len(composed)} composed and "
+                             f"{len(lost)} lost of {len(expect)} pushes")
+    for ld in leaders:
+        if ld["decodes_done"]:
+            raise AssertionError(f"{label}: leader {ld['group']} decoded "
+                                 f"{ld['decodes_done']} pushes")
+        # one upstream quantize a unit a hop push, and hop EF's decode
+        _expect_launches(f"{label} leader {ld['group']}", ld["launches"],
+                         {"quantize_int8": R50_UNITS * ld["upstream_pushes"],
+                          "dequant_sum": R50_UNITS * ld["upstream_pushes"]})
+        _tally(tally, ld["launches"])
+    fallback = sum(w["fallback_pushes"] for w in workers)
+    for i, w in enumerate(workers):
+        # identity on the leaf hop; int8 for the root, a push encoded for
+        # it (every fallback push, and one a probe that rejoins)
+        if w["root_encodes"] < w["fallback_pushes"]:
+            raise AssertionError(f"{label} worker {i}: {w}")
+        _expect_launches(f"{label} worker {i}", w["launches"],
+                         {"quantize_int8": R50_UNITS * w["root_encodes"]})
+        _tally(tally, w["launches"])
+    root = {k: v.launches for k, v in counters.items()}
+    # the root folds int8 on the host: no decode kernel
+    _expect_launches(f"{label} root", root, {})
+    if not crash:
+        if len(composed) != 12 or t["leader_respawns"] or fallback:
+            raise AssertionError(f"T1: {len(composed)} composed, "
+                                 f"{t['leader_respawns']} respawns, "
+                                 f"{fallback} fallback pushes")
+    else:
+        rejoined = [ld for ld in leaders if ld["group"] == 1
+                    and not ld["lost"] and ld["upstream_pushes"]]
+        if t["leader_respawns"] < 1 or fallback < 1 or not rejoined:
+            raise AssertionError(f"T2: {t['leader_respawns']} respawns, "
+                                 f"{fallback} fallback pushes, rejoined "
+                                 f"{len(rejoined)}")
+    if (m["agg_mode"], m["decodes_per_publish"]) != (1.0, 1.0):
+        raise AssertionError(f"{label}: agg_mode {m['agg_mode']}, "
+                             f"decodes_per_publish "
+                             f"{m['decodes_per_publish']}")
+    if not m["loss_final"] < m["loss_initial"]:
+        raise AssertionError(f"{label}: the loss did not fall: "
+                             f"{m['loss_initial']} -> {m['loss_final']}")
+    phase("scale_out", run=label, card=repr(card), model="resnet50",
+          leaf_hop="identity_tcp", upstream="int8_hop_ef", groups=2,
+          workers=4, pushes=len(expect), composed=len(composed),
+          lost=len(lost), root_frames=int(m["grads_received"]),
+          rounds=int(m["publish_version"]) - 1,
+          degraded_rounds=int(m["degraded_rounds"]),
+          leader_respawns=t["leader_respawns"], fallback_pushes=fallback,
+          leader_codes=json.dumps(t["leader_codes"]),
+          hop_rel_error=json.dumps([ld["hop"]["hop_rel_error"]
+                                    for ld in leaders]),
+          wall_s=f"{wall:.3f}", loss_before=f"{m['loss_initial']:.6f}",
+          loss_after=f"{m['loss_final']:.6f}")
+    lt = [ld["times"] for ld in leaders if ld["rounds"]]
+    phase("scale_out", run=label, card=repr(card), what="per_push_ms",
+          worker_grad=_median_ms(workers, "grad_s"),
+          worker_encode_d2h=_median_ms(workers, "encode_s"),
+          worker_push=_median_ms(workers, "push_s"),
+          leader_fold=json.dumps([round(x["fold_s"] / ld["rounds"] * 1e3, 3)
+                                  for x, ld in zip(lt, leaders)]),
+          leader_h2d_encode=json.dumps([round(
+              x["h2d_encode_s"] / ld["rounds"] * 1e3, 3)
+              for x, ld in zip(lt, leaders)]),
+          leader_push=json.dumps([round(x["push_s"] / ld["rounds"] * 1e3, 3)
+                                  for x, ld in zip(lt, leaders)]),
+          root_fold=f"{m['server_times'].get('fold_s', 0) / max(m['publish_version'] - 1, 1) * 1e3:.3f}",
+          root_update=f"{m['server_times'].get('update_s', 0) / max(m['publish_version'] - 1, 1) * 1e3:.3f}")
+    phase("scale_out", run=label, card=repr(card), what="peak_gb",
+          root=_gb(m["server_peak_bytes"]),
+          leaders=json.dumps([_gb(ld["peak_bytes"]) for ld in leaders]),
+          workers=json.dumps([_gb(w["peak_bytes"]) for w in workers]))
+    phase("scale_out", run=label, card=repr(card), what="root_idle",
+          **_idle_fields(f"{label} root", m))
+
+
+R1_PLAN = [{"at_step": 2, "worker": 0, "kind": "corrupt"},
+           {"at_step": 3, "worker": 1, "kind": "crash_worker"},
+           {"at_step": 4, "worker": 0, "kind": "drop"},
+           {"at_step": 5, "worker": 1, "kind": "duplicate"},
+           {"at_step": 6, "worker": "server", "kind": "crash_server"}]
+
+
+def scale_r1(card: str, tmp: str, tally: dict) -> None:
+    """R1: ResNet-18 (CIFAR stem), sign, shm, async, 2 workers of 8 steps
+    under the Supervisor, checkpoints every 4, the fault plan
+    ``R1_PLAN``."""
+    from pytorch_ps_mpi_tpu_torch.resilience import (Supervisor,
+                                                     load_fault_log)
+
+    d = os.path.join(tmp, "r1")
+    os.makedirs(d)
+    cfg = async_cfg("resnet18", d, codec="sign", steps=8, resilient=True,
+                    push_timeout=3.0, slow_ms={"0": 100.0, "1": 100.0},
+                    fault_plan=R1_PLAN, fault_seed=4,
+                    fault_log_dir=os.path.join(d, "faults"),
+                    idle_share=True)
+    counters = kernel_counters()
+    for k in counters.values():
+        k.launches = 0
+    t0 = time.perf_counter()
+    _, m = Supervisor(cfg, 2, checkpoint_dir=os.path.join(d, "ckpt"),
+                      checkpoint_every=4, timeout=SO_LIMIT).run()
+    wall = time.perf_counter() - t0
+    server = {k: v.launches for k, v in counters.items()}
+    fired = sorted((e["id"], e["kind"]) for role in ("0", "1", "server")
+                   for e in load_fault_log(os.path.join(
+                       d, "faults", f"faults-{role}.jsonl")))
+    if fired != [(i, f["kind"]) for i, f in enumerate(R1_PLAN)]:
+        raise AssertionError(f"R1: fired {fired}")
+    if (m["worker_exit_codes"] != [0, 0] or m["worker_respawns"] < 1
+            or m["server_restarts"] != 1 or m["workers_abandoned"]
+            or not m["versions_monotonic"]):
+        raise AssertionError(f"R1: exit codes {m['worker_exit_codes']}, "
+                             f"respawns {m['worker_respawns']}, restarts "
+                             f"{m['server_restarts']}")
+    if m["reject_reasons_all_phases"] != {"corrupt": 1}:
+        raise AssertionError(f"R1: rejected "
+                             f"{m['reject_reasons_all_phases']}")
+    _expect_launches("R1 server", server, {
+        "unpack_signs_sum": R18_SIGN_UNITS
+        * int(m["decodes_done_all_phases"])})
+    _tally(tally, server)
+    workers = [json.load(open(os.path.join(d, f"worker-{w}.json")))
+               for w in range(2)]
+    for i, w in enumerate(workers):
+        # the last generation of each worker; a crashed one writes none
+        _expect_launches(f"R1 worker {i}", w["launches"],
+                         {"encode_signs": R18_SIGN_UNITS * w["encodes"]})
+        _tally(tally, w["launches"])
+    if not m["loss_final"] < m["run_loss_initial"]:
+        raise AssertionError(f"R1: the loss did not fall: "
+                             f"{m['run_loss_initial']} -> {m['loss_final']}")
+    phase("scale_out", run="R1", card=repr(card), model="resnet18",
+          code="sign", transport="shm", workers=2, steps=8,
+          faults=json.dumps([k for _, k in fired]),
+          worker_respawns=int(m["worker_respawns"]),
+          server_restarts=int(m["server_restarts"]),
+          worker_reconnects=int(m["worker_reconnects"]),
+          rejected=json.dumps(m["reject_reasons_all_phases"]),
+          received_all_phases=int(m["grads_received_all_phases"]),
+          decodes_all_phases=int(m["decodes_done_all_phases"]),
+          recovery_s=json.dumps(m["recovery_times"], separators=(",", ":")),
+          wall_s=f"{wall:.3f}", loss_before=f"{m['run_loss_initial']:.6f}",
+          loss_after=f"{m['loss_final']:.6f}")
+    phase("scale_out", run="R1", card=repr(card), what="per_push_ms",
+          worker_grad=_median_ms(workers, "grad_s"),
+          worker_encode_d2h=_median_ms(workers, "encode_s"),
+          worker_push=_median_ms(workers, "push_s"))
+    phase("scale_out", run="R1", card=repr(card), what="peak_gb",
+          server=_gb(m["server_peak_bytes"]),
+          workers=json.dumps([_gb(w["peak_bytes"]) for w in workers]))
+    phase("scale_out", run="R1", card=repr(card), what="server_idle",
+          **_idle_fields("R1 server", m))
+
+
+def run_scale_out(card: str) -> dict:
+    """Phase 9 (``scale_out``): sharded servers, the aggregation tree and
+    the supervised chaos run on the card, runs S1, S2, T1, T2 and R1
+    (``PERF.md`` §4). Every process is a fresh interpreter on the same
+    card but the root or server of T1, T2 and R1, which is this process.
+    Returns the runs' kernel launches, summed over every process."""
+    import shutil
+    import tempfile
+
+    from pytorch_ps_mpi_tpu_torch.parallel import async_train as at
+
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_scale_")
+    tally: dict = {}
+    s2 = None
+    try:
+        s2 = s2_servers(tmp)
+        scale_s1(card, tmp, tally)
+        scale_s2(card, s2)
+        scale_tree(card, tmp, "T1", tally, crash=False)
+        scale_tree(card, tmp, "T2", tally, crash=True)
+        scale_r1(card, tmp, tally)
+    finally:
+        if s2 is not None:
+            at.join_workers(s2_procs(s2), timeout=5.0)
+        shutil.rmtree(tmp, ignore_errors=True)
+    phase("scale_out", launches=json.dumps(tally, sort_keys=True,
+                                           separators=(",", ":")),
+          seconds=f"{time.perf_counter() - t0:.1f}")
+    return tally
+
+
 SOURCES = {
     "encode_signs": ("sign.cu", "pytorch_ps_mpi_tpu/ops/sign_pallas.py:68"),
     "pack_signs": ("sign.cu", "pytorch_ps_mpi_tpu/ops/sign_pallas.py:104"),
@@ -2955,7 +3471,8 @@ def main() -> int:
     results = check_kernels(kernel_sizes(model), bucket_sizes(model),
                             r50_async)
     check_decode_sum(model)
-    results.update(check_quant_kernels(model, r50_async))
+    results.update(check_quant_kernels(model, r50_async,
+                                       s1_slices(sum(r50_async))))
     leaves = topk_leaves(r50)
     topk_launches, topk_results = check_topk_kernels(leaves)
     results.update(topk_results)
@@ -3061,6 +3578,8 @@ def main() -> int:
         torch.distributed.destroy_process_group()
     torch.cuda.empty_cache()
     run_async(card)
+    torch.cuda.empty_cache()
+    scale_out = run_scale_out(card)
     launches.setdefault("pack_signs", 0)
     launches.setdefault("unpack_signs", 0)
 
@@ -3072,7 +3591,8 @@ def main() -> int:
          "max_abs_err": r["max_abs_err"], "ms": r["ms"],
          "device_ms": r["device_ms"], "plain_ms": r["plain_ms"],
          "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-         "library_ms": r["library_ms"]}
+         "library_ms": r["library_ms"],
+         "launches_scale_out": scale_out.get(name, 0)}
         for name, r in results.items()]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -26,9 +26,17 @@ published version.
 Every process rebuilds the same problem from the same ``cfg``
 (:func:`make_problem`); the workers are fresh interpreters
 (:func:`spawn_worker`), never forks of a process that has started CUDA.
-The JAX package's telemetry, control, serving and resilience options
-raise ``NotImplementedError`` naming the ROADMAP item that brings them
-(:data:`UNPORTED`).
+
+Resilience (``resilience/``): ``cfg["fault_plan"]`` injects seeded
+faults into the workers and the server, ``cfg["resilient"]`` wraps the
+worker's transport in a :class:`ResilientWorker`, and the sync barrier
+completes a round over the surviving workers once it has waited
+``cfg["degraded_round_after"]`` seconds. With ``cfg["tree"]`` the server
+is an aggregation tree's root (``parallel/tree.py``): its pushers are
+group leaders whose frames compose several worker pushes, and each round
+is averaged by the composed count. The JAX package's telemetry, control
+and serving options raise ``NotImplementedError`` naming the ROADMAP
+item that brings them (:data:`UNPORTED`).
 """
 
 from __future__ import annotations
@@ -52,10 +60,8 @@ from pytorch_ps_mpi_tpu_torch.ps import _inverse
 
 Tree = Any
 
-_TELEMETRY = "ROADMAP queue 1 item 5 (telemetry/ and control/)"
-_SERVING = "ROADMAP queue 1 item 4 (the serving/ read tier)"
-_SCALE_OUT = ("ROADMAP queue 1 item 3 (parallel/tree.py and resilience/: "
-              "fault_plan, resilient workers, the supervisor)")
+_TELEMETRY = "ROADMAP queue 1 item 4 (telemetry/ and control/)"
+_SERVING = "ROADMAP queue 1 item 3 (the serving/ read tier)"
 
 #: the JAX package's cfg keys the port does not have yet -> their item
 UNPORTED = {
@@ -67,11 +73,9 @@ UNPORTED = {
         "control", "control_kw", "control_dir", "topo_actions",
         "freshness", "hop_anatomy")},
     **{k: _SERVING for k in ("serving", "read_port", "serving_kw")},
-    **{k: _SCALE_OUT for k in ("tree", "tree_leader", "tree_members",
-                               "resilient", "fault_plan", "supervise")},
 }
 _GPT = ("model 'gpt' (models/gpt.py) is not ported yet: "
-        "ROADMAP queue 1 item 6")
+        "ROADMAP queue 1 item 5")
 
 
 #: seconds between two calls of ``serve``'s ``on_tick``
@@ -233,6 +237,76 @@ def _peak_bytes(device: torch.device) -> int:
             if device.type == "cuda" else 0)
 
 
+class IdleMeter:
+    """The card's idle share over a span of this process's work: one
+    minus the union of the device rows ``torch.profiler`` records, over
+    the span's wall time. A no-op off the card.
+
+    Late in a long process the profiler on an H100 has dropped the first
+    device rows of a trace while still recording every runtime launch
+    call, which leaves a short trace empty. So the trace opens with
+    :attr:`LEAD` spin kernels, there to be dropped, and a reading holds
+    an idle share only when the other device rows number at least the
+    launch calls made after them."""
+
+    LEAD = 256
+    #: runtime calls that put one row on the device
+    LAUNCH_CALLS = ("cudaLaunch", "cuLaunch", "cudaMemset", "cuMemset",
+                    "cudaMemcpy", "cuMemcpy")
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self._prof = None
+        self._t0 = 0.0
+
+    def start(self) -> None:
+        if self.device.type != "cuda" or self._prof is not None:
+            return
+        from torch.profiler import ProfilerActivity, profile
+
+        self._prof = profile(activities=[ProfilerActivity.CUDA])
+        self._prof.__enter__()
+        for _ in range(self.LEAD):
+            torch.cuda._sleep(1)
+        torch.cuda.synchronize(self.device)
+        self._t0 = time.perf_counter()
+
+    def stop(self) -> Dict[str, float]:
+        """``device_rows``, ``launched``, ``profiled_wall_ms`` and, when
+        the trace holds a device row for every launch, ``device_busy_ms``
+        and ``idle_share`` (empty when nothing was profiled)."""
+        if self._prof is None:
+            return {}
+        torch.cuda.synchronize(self.device)
+        wall = (time.perf_counter() - self._t0) * 1e3
+        self._prof.__exit__(None, None, None)
+        cuda = torch.autograd.DeviceType.CUDA
+        events = self._prof.events()
+        spans = sorted((e.time_range.start, e.time_range.end)
+                       for e in events if e.device_type == cuda
+                       and "spin_kernel" not in e.name)
+        launched = sum(e.name.startswith(self.LAUNCH_CALLS)
+                       for e in events if e.device_type != cuda) - self.LEAD
+        self._prof = None
+        busy, cur_s, cur_e = 0.0, None, None
+        for a, b in spans:
+            if cur_e is None or a > cur_e:
+                if cur_e is not None:
+                    busy += cur_e - cur_s
+                cur_s, cur_e = a, b
+            else:
+                cur_e = max(cur_e, b)
+        if cur_e is not None:
+            busy += cur_e - cur_s
+        out = {"device_rows": float(len(spans)), "launched": float(launched),
+               "profiled_wall_ms": wall}
+        if spans and len(spans) >= launched and wall:
+            busy /= 1e3
+            out.update(device_busy_ms=busy,
+                       idle_share=max(0.0, 1.0 - busy / wall))
+        return out
+
+
 def _codec(cfg: Dict[str, Any]):
     if not cfg.get("codec"):
         return None
@@ -241,66 +315,137 @@ def _codec(cfg: Dict[str, Any]):
     return get_codec(cfg["codec"], **cfg.get("codec_kw", {}))
 
 
+def make_worker(name: str, worker_id: int, cfg: Dict[str, Any], template,
+                device: torch.device):
+    """The worker's transport from ``cfg`` (``async_train.py:244-287``):
+    the group leader's connection with its root fallback
+    (``cfg["tree_leader"]``, :class:`parallel.tree.TreeWorkerConn`), a
+    :class:`ResilientWorker` around the transport (``cfg["resilient"]``),
+    or the transport itself, shm or TCP (``name`` ``"host:port"``)."""
+    code = _codec(cfg)
+    kw = dict(code=code, timeout=float(cfg.get("open_timeout", 60.0)),
+              bucket_mb=float(cfg.get("bucket_mb", 0.0)),
+              frame=bool(cfg.get("frame_check")), device=device,
+              seed=int(cfg.get("seed", 0)))
+
+    def make_transport():
+        if cfg.get("transport", "shm") == "tcp":
+            from pytorch_ps_mpi_tpu_torch.parallel.tcp import TcpPSWorker
+
+            host, port = name.rsplit(":", 1)
+            return TcpPSWorker(host, int(port), worker_id, template, **kw)
+        from pytorch_ps_mpi_tpu_torch.parallel.dcn import ShmPSWorker
+
+        return ShmPSWorker(name, worker_id, template, **kw)
+
+    if cfg.get("tree_leader"):
+        from pytorch_ps_mpi_tpu_torch.parallel.tree import TreeWorkerConn
+
+        return TreeWorkerConn(worker_id, template, cfg, device)
+    if cfg.get("resilient"):
+        from pytorch_ps_mpi_tpu_torch.resilience.worker import \
+            ResilientWorker
+
+        return ResilientWorker(
+            make_transport, worker_id=worker_id,
+            seed=int(cfg.get("fault_seed", cfg.get("seed", 0))),
+            **cfg.get("resilience_kw", {}))
+    return make_transport()
+
+
 def worker_main(name: str, worker_id: int, cfg: Dict[str, Any]) -> int:
     """Worker process body (``async_train.py:197``): read, forward and
     backward, encode, push. ``cfg["transport"]`` is ``"shm"`` (``name``
     the segment) or ``"tcp"`` (``name`` is ``"host:port"``);
     ``cfg["frame_check"]`` seals every push in a PSF2 frame;
-    ``cfg["device"]`` is the card unless it says ``"cpu"``. With
-    ``cfg["stats_dir"]`` the worker writes its per-push times, kernel
-    launches and peak memory to ``worker-<id>.json`` there (the times a
-    list, one a push). Returns the pushes made."""
+    ``cfg["device"]`` is the card unless it says ``"cpu"``;
+    :func:`make_worker` reads ``tree_leader`` and ``resilient``.
+    ``cfg["fault_plan"]`` fires this worker's faults at its steps
+    (``async_train.py:345-419``): ``drop``, ``delay``, ``wire_delay``,
+    ``duplicate``, ``corrupt``, ``nan`` (the gradient poisoned before the
+    encode) and ``crash_worker`` (``os._exit`` with
+    :data:`CRASH_EXIT_CODE`). With ``cfg["stats_dir"]`` the worker
+    writes its per-push times, encodes, kernel launches and peak memory
+    to ``worker-<id>.json`` there (the times a list, one a push).
+    Returns the steps made."""
+    from pytorch_ps_mpi_tpu_torch.resilience.faults import (CRASH_EXIT_CODE,
+                                                            FaultInjector)
+
     device = resolve_device(cfg.get("device", "cuda"))
     prob = make_problem(cfg, device)
-    code = _codec(cfg)
     slow_ms, steps = worker_cfg(cfg, worker_id)
-    kw = dict(code=code, timeout=float(cfg.get("open_timeout", 60.0)),
-              bucket_mb=float(cfg.get("bucket_mb", 0.0)),
-              frame=bool(cfg.get("frame_check")), device=device,
-              seed=int(cfg.get("seed", 0)))
-    if cfg.get("transport", "shm") == "tcp":
-        from pytorch_ps_mpi_tpu_torch.parallel.tcp import TcpPSWorker
-
-        host, port = name.rsplit(":", 1)
-        w = TcpPSWorker(host, int(port), worker_id, prob.template, **kw)
-    else:
-        from pytorch_ps_mpi_tpu_torch.parallel.dcn import ShmPSWorker
-
-        w = ShmPSWorker(name, worker_id, prob.template, **kw)
+    w = make_worker(name, worker_id, cfg, prob.template, device)
+    inj = FaultInjector.from_cfg(cfg, role=worker_id)
     push_timeout = float(cfg.get("push_timeout", 60.0))
     times = collections.defaultdict(list)
     launches0 = kernel_launches()
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
-    pushed = 0
+    pushed = encodes = push_seq = 0
     try:
         for step in range(steps):
+            drop = duplicate = poison = False
+            for f in (inj.faults_at(step) if inj is not None else ()):
+                kind = f["kind"]
+                if kind == "crash_worker":
+                    inj.fire(f)  # logged before the process dies
+                    os._exit(CRASH_EXIT_CODE)
+                elif kind == "corrupt":
+                    w.set_tamper(inj.make_tamper(f))  # fires at the push
+                    continue
+                inj.fire(f)
+                if kind == "delay":
+                    time.sleep(float(f.get("delay_ms", 100.0)) / 1e3)
+                elif kind == "wire_delay":
+                    w.set_wire_delay(float(f.get("delay_ms", 100.0)) / 1e3)
+                elif kind == "drop":
+                    drop = True
+                elif kind == "duplicate":
+                    duplicate = True
+                elif kind == "nan":
+                    poison = True
+            if drop:
+                # a dropped push is neither corrupted nor delayed: the
+                # one-shot hooks must not leak onto the next step's push
+                w.set_tamper(None)
+                w.set_wire_delay(0.0)
             t0 = time.perf_counter()
             flat, version = w.read_flat()
             prob.load_flat(torch.from_numpy(flat).to(device))
             t1 = time.perf_counter()
             _, grads = prob.grad_leaves(prob.batch_fn(step, worker_id))
+            if poison:
+                grads = [torch.full_like(g, float("nan")) for g in grads]
             _sync(device)
             t2 = time.perf_counter()
             if slow_ms:
                 time.sleep(slow_ms / 1e3)  # a deliberate straggler
-            t3 = time.perf_counter()
-            payload = w.encode(grads)  # on the card, D2H, one sync
-            t4 = time.perf_counter()
-            w.push_payload(payload, version, timeout=push_timeout,
-                           lineage=(step, pushed))
-            t5 = time.perf_counter()
+            if not drop:
+                t3 = time.perf_counter()
+                payload = w.encode(grads)  # on the card, D2H, one sync
+                encodes += 1
+                t4 = time.perf_counter()
+                for _ in range(2 if duplicate else 1):
+                    w.push_payload(payload, version, timeout=push_timeout,
+                                   lineage=(step, push_seq))
+                    push_seq += 1
+                t5 = time.perf_counter()
+                times["encode_s"].append(t4 - t3)
+                times["push_s"].append(t5 - t4)
             times["read_s"].append(t1 - t0)
             times["grad_s"].append(t2 - t1)
-            times["encode_s"].append(t4 - t3)
-            times["push_s"].append(t5 - t4)
             pushed += 1
     finally:
         w.close()
     if cfg.get("stats_dir"):
         launches = {k: v - launches0[k] for k, v in kernel_launches().items()}
-        stats = {"worker": worker_id, "pushes": pushed, **times,
-                 "launches": launches, "peak_bytes": _peak_bytes(device),
+        stats = {"worker": worker_id, "pushes": pushed, "encodes": encodes,
+                 "sent": push_seq, **times, "launches": launches,
+                 "peak_bytes": _peak_bytes(device),
+                 "retries": getattr(w, "retries", 0),
+                 "reconnects": getattr(w, "reconnects", 0),
+                 "fallback_pushes": getattr(w, "fallback_pushes", 0),
+                 "root_encodes": getattr(w, "root_encodes", 0),
                  "wire_bytes": w.wire.wire_bytes if w.wire else None}
         path = Path(cfg["stats_dir"]) / f"worker-{worker_id}.json"
         path.write_text(json.dumps(stats))
@@ -371,7 +516,7 @@ def serve(server, cfg: Dict[str, Any], total_grads: int, *,
           sync_barrier: bool = False, total_received: Optional[int] = None,
           timeout: float = 300.0, checkpoint_dir: Optional[str] = None,
           checkpoint_every: int = 0, resume: bool = False,
-          on_tick=None) -> Tuple[Tree, Dict[str, Any]]:
+          on_tick=None, stop_when=None) -> Tuple[Tree, Dict[str, Any]]:
     """Server body (``async_train.py:560``): poll, decode (or fold),
     update on the card, publish. Runs until ``total_grads`` gradients
     were applied, or, with ``total_received``, until that many were
@@ -384,10 +529,30 @@ def serve(server, cfg: Dict[str, Any], total_grads: int, *,
     ``checkpoint_dir`` saves the PS state (flat parameters, optimizer
     state, publish version, applied count) every ``checkpoint_every``
     applied gradients and at the end; ``resume=True`` restores the latest
-    and keeps the version monotonic. ``on_tick`` is called at most every
-    ``TICK_S`` seconds from inside the loop. A sync-barrier round waits
-    for every worker (the degraded rounds of the JAX server, which its
-    supervisor drives, wait for ROADMAP queue 1 item 3)."""
+    and keeps the version monotonic.
+
+    Resilience hooks (``async_train.py:745-765``): ``on_tick`` is called
+    at most every ``cfg["tick_interval"]`` seconds (default
+    :data:`TICK_S`) from inside the loop; ``stop_when``, checked at the
+    same cadence, drains what is queued and returns once it is true.
+    ``cfg["fault_plan"]``'s server faults fire when the applied count
+    crosses their ``at_step``: ``crash_server`` raises
+    :class:`InjectedServerCrash` without the final save. Under the sync
+    barrier, a round that has waited ``cfg["degraded_round_after"]``
+    seconds (default 5) leaves out the workers that are dead (no socket
+    on TCP, silent on shm) with nothing queued and completes over the
+    rest; a dead worker's next push brings it back.
+
+    Tree mode (``cfg["tree"]``, ``async_train.py:926-960``): the
+    barrier's members are the leaders ``cfg["tree_members"]`` and the
+    leaf workers seen pushing to the root directly, and each round is
+    divided by the composed worker-push count the frames' trailers carry
+    (one a direct push), in the JAX package's order of operations.
+    ``cfg["idle_share"]`` adds the card's idle share from the first
+    update on (:class:`IdleMeter`) to the metrics."""
+    from pytorch_ps_mpi_tpu_torch.resilience.faults import (
+        FaultInjector, InjectedServerCrash)
+
     device = server.device
     prob = make_problem(cfg, device)
     if tuple(np.shape(x) for x in _leaves(prob.template)) != tuple(
@@ -422,6 +587,7 @@ def serve(server, cfg: Dict[str, Any], total_grads: int, *,
                 checkpoint_every)
             flat.copy_(restored["flat"])
             state = restored["opt_state"]
+    inj = FaultInjector.from_cfg(cfg, role="server")
     agg_armed = _agg_armed(cfg, server, sync_barrier)
     server.agg_mode = 1.0 if agg_armed else 0.0
     if agg_armed:
@@ -447,17 +613,30 @@ def serve(server, cfg: Dict[str, Any], total_grads: int, *,
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
     publish()
-    applied = 0
+    applied = degraded_rounds = 0
+    last_applied_total = applied_before
     cadence = (_PSCheckpointCadence(ckpt, checkpoint_every, applied_before)
                if ckpt else None)
     n_workers = server.num_workers
+    tree_mode = bool(cfg.get("tree"))
+    tree_members = set(int(w) for w in (cfg.get("tree_members") or ()))
+    tree_joined: set = set()
+    composed_queue = (getattr(server, "_composed_queue", None)
+                      if tree_mode else None)
+    # a FIFO a worker: a fast worker may deliver several gradients before
+    # a straggler's first, and each enters exactly one round
     pending: Dict[int, collections.deque] = collections.defaultdict(
         collections.deque)
+    dead_workers: set = set()
+    degrade_after = float(cfg.get("degraded_round_after", 5.0))
+    tick_interval = float(cfg.get("tick_interval", TICK_S))
     batch_poll = getattr(server, "poll_grad_batch", None)
     inbox: collections.deque = collections.deque()
     t_start = time.perf_counter()
     deadline = t_start + timeout
     next_tick = 0.0
+    round_t0 = t_start
+    draining = False
 
     def keep_going() -> bool:
         if total_received is not None:
@@ -474,8 +653,33 @@ def serve(server, cfg: Dict[str, Any], total_grads: int, *,
                 return inbox.popleft() if inbox else None
         return server.poll_grad(raw=agg_armed)
 
+    # cfg["idle_share"]: the card's idle share from the first update on
+    meter = IdleMeter(device) if cfg.get("idle_share") else None
+
+    def fire_server_faults() -> None:
+        """Server faults whose at_step the applied count crossed
+        (``async_train.py:1000-1018``); a crash raises after all fired."""
+        nonlocal last_applied_total
+        hi = applied_before + applied
+        if inj is None or hi == last_applied_total:
+            return
+        crash = None
+        for f in inj.faults_between(last_applied_total, hi):
+            inj.fire(f)
+            if f["kind"] == "crash_server":
+                crash = f
+            elif f["kind"] == "delay":
+                time.sleep(float(f.get("delay_ms", 100.0)) / 1e3)
+        last_applied_total = hi
+        if crash is not None:
+            if meter is not None:
+                meter.stop()  # a crash ends the trace, not the process
+            raise InjectedServerCrash(crash)
+
     def apply(grad_flat: torch.Tensor, n_contrib: int) -> None:
         nonlocal applied, state
+        if meter is not None:
+            meter.start()
         t0 = time.perf_counter()
         _, state = update_fn(params, _views(grad_flat, layout), state, h)
         _sync(device)
@@ -487,41 +691,89 @@ def serve(server, cfg: Dict[str, Any], total_grads: int, *,
         if cadence:
             cadence.maybe_save({"flat": flat, "opt_state": state}, server,
                                applied_before + applied)
+        fire_server_faults()
 
-    def try_round() -> None:
-        if any(not pending[w] for w in range(n_workers)):
-            return
-        entries = [pending[w].popleft() for w in range(n_workers)]
+    def mark_dead_workers() -> None:
+        """The liveness sweep of a round that waited ``degrade_after``
+        (``async_train.py:1041-1075``): TCP's open socket, shm's silence.
+        A worker with a queued gradient, or never seen, is never marked;
+        a fallen-back leaf whose root socket closed (it went back to its
+        leader) leaves the tree barrier instead."""
+        can_connect = hasattr(server, "connected")
+        silent = None if can_connect else server.stragglers(degrade_after)
+        for w in range(n_workers):
+            if w in dead_workers or pending[w] or w not in server.last_seen:
+                continue
+            alive = server.connected(w) if can_connect else w not in silent
+            if not alive:
+                if tree_mode and w not in tree_members and w in tree_joined:
+                    tree_joined.discard(w)
+                    continue
+                dead_workers.add(w)
+
+    def try_round(only_queued: bool = False) -> bool:
+        """One sync round over the active workers, if each has a gradient
+        queued (``async_train.py:1077-1180``); ``only_queued`` (the tree
+        drain) completes a partial round over what is queued."""
+        nonlocal degraded_rounds, round_t0
+        if tree_mode:
+            active = [w for w in sorted(tree_members | tree_joined)
+                      if w not in dead_workers]
+            if only_queued:
+                active = [w for w in active if pending[w]]
+        else:
+            active = [w for w in range(n_workers) if w not in dead_workers]
+        if not active or any(not pending[w] for w in active):
+            return False
+        entries = [pending[w].popleft() for w in active]
+        total_comp = sum(comp_n for _, comp_n in entries)
         t0 = time.perf_counter()
         if agg_armed:
             # the round's payloads folded on the host, one decode
             agg = server.wire.agg_begin()
-            for buf in entries:
+            for buf, _ in entries:
                 agg.fold(buf)
             leaves = agg.finalize_leaves()
             server.decodes_done += 1
-            inv = np.float32(1.0 / len(entries))
+            inv = np.float32(1.0 / total_comp)
             summed = torch.from_numpy(np.concatenate(
                 [x.reshape(-1) for x in leaves]) * inv).to(device)
             times["fold_s"] += time.perf_counter() - t0
         else:
-            summed = entries[0].clone()
-            for g in entries[1:]:
+            summed = entries[0][0].clone()
+            for g, _ in entries[1:]:
                 summed += g
-            summed /= len(entries)
+            summed /= total_comp
+        if (bool(dead_workers) if tree_mode
+                else len(entries) < n_workers):
+            degraded_rounds += 1
         apply(summed, len(entries))
+        round_t0 = time.perf_counter()
+        return True
 
     while keep_going() and time.perf_counter() < deadline:
         now = time.perf_counter()
-        if on_tick is not None and now >= next_tick:
-            next_tick = now + TICK_S
-            on_tick()
+        if now >= next_tick:
+            next_tick = now + tick_interval
+            if on_tick is not None:
+                on_tick()
+            if stop_when is not None and not draining and stop_when():
+                draining = True  # consume what is queued, then return
+            if sync_barrier and now - round_t0 > degrade_after:
+                mark_dead_workers()
+                while try_round():
+                    pass
         t0 = time.perf_counter()
         item = next_item()
         if item is None:
+            if draining:
+                break
             time.sleep(0.0005)
             continue
         wid, _, grad = item
+        # the frame's composed count, queued by the consume in item order
+        comp_n = (composed_queue.popleft()
+                  if composed_queue is not None else 1)
         if agg_armed:
             if not server.wire.payload_finite(grad):
                 server._reject_frame(wid, "nonfinite")
@@ -533,11 +785,22 @@ def serve(server, cfg: Dict[str, Any], total_grads: int, *,
                 server.agg_fallbacks += 1
         times["ingest_s"] += time.perf_counter() - t0
         if sync_barrier:
-            pending[wid].append(grad)
+            dead_workers.discard(wid)  # a push proves it alive
+            if tree_mode:
+                tree_joined.add(wid)
+            pending[wid].append((grad, comp_n))
             try_round()
         else:
+            if comp_n > 1:
+                # a composed frame carries its group's sum: its mean
+                grad = grad / comp_n
             apply(grad, 1)
+    if tree_mode and sync_barrier:
+        # consumed frames still queued compose one partial round each
+        while try_round(only_queued=True):
+            pass
     wall = time.perf_counter() - t_start
+    idle = meter.stop() if meter is not None else {}
     # the rate from the first update to the last: the workers' start-up
     # (spawn, device, model) stays out of it
     steady = ((marks[-1][1] - marks[0][1]) / (marks[-1][0] - marks[0][0])
@@ -558,14 +821,16 @@ def serve(server, cfg: Dict[str, Any], total_grads: int, *,
         staleness_hist={int(k): int(v)
                         for k, v in server.staleness_seen.items()},
         publish_version=float(server.version),
-        degraded_rounds=0.0,  # no degraded round: see the docstring
+        degraded_rounds=float(degraded_rounds),
         frames_rejected_by_worker={int(k): int(v) for k, v in
                                    server.frames_rejected.items()},
+        reject_reasons=dict(server.__dict__.get("reject_reasons", {})),
         decodes_done=float(server.decodes_done),
         server_times=dict(times),
         server_launches={k: v - launches0[k]
                          for k, v in kernel_launches().items()},
         server_peak_bytes=_peak_bytes(device),
+        **idle,
     )
     if hasattr(server, "native_batches"):
         m["native_batches"] = float(server.native_batches)
@@ -588,24 +853,31 @@ def _views(vec: torch.Tensor, layout: Dict[str, Tuple[int, tuple]]
             for k, (off, shape) in layout.items()}
 
 
+def spawn_python(src: str, args: List[str],
+                 env: Optional[Dict[str, str]] = None,
+                 stdout=None) -> subprocess.Popen:
+    """``python -c src args...`` in a fresh interpreter that imports this
+    checkout: never a fork of a process that has started CUDA. With
+    ``stdout=subprocess.PIPE`` its output is read as text."""
+    root = str(Path(__file__).resolve().parents[2])
+    e = dict(os.environ)
+    e["PYTHONPATH"] = os.pathsep.join(
+        [root] + [p for p in e.get("PYTHONPATH", "").split(os.pathsep) if p])
+    e.update(env or {})
+    return subprocess.Popen([sys.executable, "-c", src, *args], env=e,
+                            stdout=stdout, text=stdout is not None)
+
+
 def spawn_worker(name: str, worker_id: int, cfg: Dict[str, Any],
                  env: Optional[Dict[str, str]] = None) -> subprocess.Popen:
-    """``worker_main`` in a fresh interpreter (``async_train.py:1449``):
-    never a fork of a process that has started CUDA."""
+    """``worker_main`` in a fresh interpreter (``async_train.py:1449``)."""
     src = ("import json, sys\n"
            "from pytorch_ps_mpi_tpu_torch.parallel.async_train import "
            "worker_main\n"
            "name, wid, cfg = sys.argv[1], int(sys.argv[2]), "
            "json.loads(sys.argv[3])\n"
            "sys.exit(0 if worker_main(name, wid, cfg) >= 0 else 1)\n")
-    root = str(Path(__file__).resolve().parents[2])
-    e = dict(os.environ)
-    e["PYTHONPATH"] = os.pathsep.join(
-        [root] + [p for p in e.get("PYTHONPATH", "").split(os.pathsep) if p])
-    e.update(env or {})
-    return subprocess.Popen(
-        [sys.executable, "-c", src, name, str(worker_id), json.dumps(cfg)],
-        env=e)
+    return spawn_python(src, [name, str(worker_id), json.dumps(cfg)], env)
 
 
 def join_workers(procs, timeout: float = 120.0) -> List[Optional[int]]:

@@ -30,6 +30,7 @@ compressed-domain aggregation, folds the bytes on the host into a
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import time
 from typing import Any, Dict, List, Optional, Tuple
@@ -159,12 +160,13 @@ class CodecWire:
     def encode_to_bytes(self, grad) -> np.ndarray:
         """Encode ``grad`` (the template's tree or its leaves in order, in
         the JAX layout) on the wire's device and pack it into one
-        preallocated wire buffer (uint8, exactly ``wire_bytes``). Every
-        payload tensor is copied with ``non_blocking`` straight to its
-        place in a pinned buffer (through a pinned staging tensor where its
-        offset is not aligned to its element size), and one synchronize
-        precedes any host read."""
-        leaves = [g.to(self.device) for g in _leaves_of(grad)]
+        preallocated wire buffer (uint8, exactly ``wire_bytes``)."""
+        return self.pack(self.encode_payloads(grad))
+
+    def encode_payloads(self, grad) -> list:
+        """The units' payloads of ``grad`` on the wire's device."""
+        leaves = [torch.as_tensor(g).to(self.device)
+                  for g in _leaves_of(grad)]
         units = self.plan.pack_leaves(leaves) if self.plan is not None \
             else leaves
         payloads = []
@@ -173,6 +175,26 @@ class CodecWire:
                 p, self._states[i] = self.code.encode(g, self._states[i],
                                                       self._gen)
                 payloads.append(p)
+        return payloads
+
+    def decode_payloads(self, payloads) -> List[torch.Tensor]:
+        """The gradient's leaves that ``payloads`` (as
+        :meth:`encode_payloads` gives them) decode to, on their device:
+        each unit through the codec's ``decode``."""
+        with torch.no_grad():
+            units = [self.code.decode(p, s, d) for p, s, d in
+                     zip(payloads, self.shapes, self.dtypes)]
+        if self.plan is not None:
+            units = self.plan.unpack_leaves(units)
+        return units
+
+    def pack(self, payloads) -> np.ndarray:
+        """Pack device payloads into one of the two ping-pong wire buffers
+        (valid until the call after next). Every payload tensor is copied
+        with ``non_blocking`` straight to its place in a pinned buffer
+        (through a pinned staging tensor where its offset is not aligned
+        to its element size), and one synchronize precedes any host
+        read."""
         buf = self._send[self._send_idx]
         late = []
         k = 0
@@ -204,7 +226,7 @@ class CodecWire:
     def probe_fidelity(self, grad) -> Dict[str, Any]:
         raise NotImplementedError(
             "CodecWire.probe_fidelity (the numerics probe) is not ported "
-            "yet: ROADMAP queue 1 item 5 (telemetry/numerics.py)")
+            "yet: ROADMAP queue 1 item 4 (telemetry/numerics.py)")
 
     # -- receive -----------------------------------------------------------
     def payloads_from_bytes(self, buf) -> list:
@@ -341,7 +363,6 @@ class _ServerBase(PSServerCounters):
     def _init_wire(self, num_workers: int, template: Tree,
                    max_staleness: int, code, bucket_mb: float, frame: bool,
                    tree_slots: int, device: Device) -> int:
-        _frames.no_tree_slots(tree_slots)
         self.template = template
         self.num_workers = num_workers
         self.max_staleness = max_staleness
@@ -353,10 +374,22 @@ class _ServerBase(PSServerCounters):
         self._template_leaves, self._treedef = tree_flatten(template)
         payload = (self.wire.wire_bytes if self.wire
                    else self._flat_params * 4)
-        self._expected_payload = payload
+        # tree_slots > 0: an aggregation-tree parent, every push carrying
+        # a composed-lineage trailer inside its frame
+        self.tree_slots = int(tree_slots)
+        self.tree_composed = 0
+        self._wire_payload_bytes = payload
         self.frame = bool(frame)
+        if self.tree_slots:
+            if not self.frame:
+                raise ValueError("tree_slots requires frame=True (the "
+                                 "lineage trailer rides the framed wire)")
+            payload += _frames.trailer_bytes(self.tree_slots)
+            self._composed_queue: collections.deque = collections.deque()
+        self._expected_payload = payload
         if self.frame:
-            self._fingerprint = _frames.wire_fingerprint(self.wire, template)
+            self._fingerprint = _frames.wire_fingerprint(
+                self.wire, template, tree_slots=self.tree_slots)
             payload += _frames.HEADER_BYTES
         self.version = 0
         self.stale_drops = 0
@@ -364,6 +397,10 @@ class _ServerBase(PSServerCounters):
         self.grads_received = 0
         self.bytes_received = 0
         self.last_seen: Dict[int, float] = {}
+        # the trace IDs of the last consumed push, and of a batch's
+        self.last_push_meta: Optional[Dict[str, Any]] = None
+        self.last_batch_metas: List[Dict[str, Any]] = []
+        self._t0 = time.time()
         self._t0_mono = time.monotonic()
         return payload
 
@@ -462,6 +499,29 @@ class ShmPSServer(_ServerBase):
             if item is not None:
                 return item
 
+    def reset_worker_slot(self, worker: int) -> None:
+        """Empty a crashed worker's mailbox for its replacement (a process
+        killed mid-write leaves the slot wedged) and restart its liveness
+        clock (``dcn.py:704``). Only after its owner is dead."""
+        rc = self._lib.psq_reset_slot(self._h, worker)
+        if rc != 0:
+            raise ValueError(f"psq_reset_slot({worker}) -> {rc}")
+        self.last_seen[int(worker)] = time.time()
+
+    def stragglers(self, timeout: float) -> Dict[int, float]:
+        """Workers silent for ``timeout`` seconds, nothing pending in their
+        mailbox; never-seen workers age from the server's start
+        (``dcn.py:722``)."""
+        now = time.time()
+        out = {}
+        for w in range(self.num_workers):
+            if self._lib.psq_grad_pending(self._h, w) == 1:
+                continue  # pushed, awaiting consumption: alive
+            age = now - self.last_seen.get(w, self._t0)
+            if age > timeout:
+                out[w] = age
+        return out
+
     def close(self) -> None:
         if self._h:
             self._lib.psq_close(self._h)
@@ -480,7 +540,6 @@ class _WorkerBase:
     def _init_wire(self, worker_id: int, template: Tree, code, seed: int,
                    bucket_mb: float, frame: bool, tree_slots: int,
                    device: Device) -> None:
-        _frames.no_tree_slots(tree_slots)
         self.worker_id = worker_id
         self.template = template
         self.device = resolve_device(device)
@@ -489,14 +548,31 @@ class _WorkerBase:
                      if code is not None else None)
         self.frame = bool(frame)
         self._auto_seq = 0
+        self._tamper = None  # one-shot outgoing-bytes hook (faults)
+        self._wire_delay_s = 0.0  # one-shot post-seal delay (wire_delay)
+        # tree_slots > 0: pushes to an aggregation-tree parent carry a
+        # composed-lineage trailer (by default composing this worker)
+        self.tree_slots = int(tree_slots)
+        if self.tree_slots and not self.frame:
+            raise ValueError("tree_slots requires frame=True")
         payload = (self.wire.wire_bytes if self.wire
                    else flat_size(template) * 4)
         if self.frame:
-            self._fingerprint = _frames.wire_fingerprint(self.wire, template)
-            self._frame_buf = np.empty(_frames.HEADER_BYTES + payload,
-                                       np.uint8)
+            self._fingerprint = _frames.wire_fingerprint(
+                self.wire, template, tree_slots=self.tree_slots)
+            self._frame_buf = np.empty(
+                _frames.HEADER_BYTES + payload
+                + _frames.trailer_bytes(self.tree_slots), np.uint8)
         self._param_buf = np.empty(flat_size(template), np.float32)
         self.reads_total = 0
+
+    def set_tamper(self, fn) -> None:
+        """Arm a one-shot hook on the next push's sealed bytes (faults)."""
+        self._tamper = fn
+
+    def set_wire_delay(self, delay_s: float) -> None:
+        """Arm a one-shot sleep after the next push's seal (faults)."""
+        self._wire_delay_s = float(delay_s)
 
     def encode(self, grad) -> np.ndarray:
         """The push's payload bytes: the codec wire's, or the raw float32
@@ -506,21 +582,37 @@ class _WorkerBase:
         return flatten_params(_leaves_of(grad))
 
     def push_grad(self, grad, version: int, timeout: float = 30.0,
-                  lineage: Optional[Tuple[int, int]] = None) -> None:
+                  lineage: Optional[Tuple[int, int]] = None,
+                  composed=None) -> None:
         """Encode ``grad`` (the template's tree or its leaves, JAX layout)
         and push it tagged with ``version``. ``lineage=(step, seq)`` goes
-        into the frame header."""
+        into the frame header; on a tree wire ``composed`` lists the
+        trailer's trace IDs (default: this push alone)."""
         self.push_payload(self.encode(grad), version, timeout=timeout,
-                          lineage=lineage)
+                          lineage=lineage, composed=composed)
 
-    def _seal(self, flat: np.ndarray,
-              lineage: Optional[Tuple[int, int]]) -> np.ndarray:
-        if not self.frame:
-            return flat
-        step, seq = lineage if lineage is not None else (0, self._auto_seq)
-        self._auto_seq += 1
-        return _frames.seal_frame(self._frame_buf, flat, self._fingerprint,
-                                  step=step, seq=seq)
+    def _seal(self, flat: np.ndarray, lineage: Optional[Tuple[int, int]],
+              composed=None) -> np.ndarray:
+        """The bytes to send: the sealed frame (or ``flat`` unframed),
+        then the one-shot fault hooks: a tamper corrupts the sealed bytes,
+        a wire delay sleeps after the seal (``dcn.py:899-925``)."""
+        if self.frame:
+            step, seq = (lineage if lineage is not None
+                         else (0, self._auto_seq))
+            self._auto_seq += 1
+            if self.tree_slots and composed is None:
+                composed = [(self.worker_id, step, seq, time.time())]
+            flat = _frames.seal_frame(self._frame_buf, flat,
+                                      self._fingerprint, step=step, seq=seq,
+                                      composed=composed,
+                                      tree_slots=self.tree_slots)
+        if self._tamper is not None:
+            tamper, self._tamper = self._tamper, None
+            tamper(flat.view(np.uint8))
+        delay, self._wire_delay_s = self._wire_delay_s, 0.0
+        if delay:
+            time.sleep(delay)
+        return flat
 
     def read_params(self, timeout: float = 30.0) -> Tuple[Tree, int]:
         """The latest snapshot as the template's tree of numpy arrays."""
@@ -589,10 +681,11 @@ class ShmPSWorker(_WorkerBase):
 
     def push_payload(self, flat: np.ndarray, version: int,
                      timeout: float = 30.0,
-                     lineage: Optional[Tuple[int, int]] = None) -> None:
+                     lineage: Optional[Tuple[int, int]] = None,
+                     composed=None) -> None:
         """Push pre-encoded payload bytes; a full mailbox is retried until
         ``timeout``."""
-        flat = self._seal(flat, lineage)
+        flat = self._seal(flat, lineage, composed)
         deadline = time.time() + timeout
         while time.time() < deadline:
             rc = self._lib.psq_push_grad(self._h, self.worker_id,

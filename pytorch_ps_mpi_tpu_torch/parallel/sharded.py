@@ -1,0 +1,375 @@
+"""Sharded parameter servers (``pytorch_ps_mpi_tpu/parallel/sharded.py``).
+
+Li et al.'s key-sharded parameter server (OSDI'14): the flat parameter
+vector (the JAX leaves in order and layout, ``dcn.flatten_params``) is
+split into S contiguous slices, and each slice has its own server
+process over the TCP wire. A shard server keeps its slice and its
+optimizer state on the card, decodes each push there and publishes
+with one D2H. A worker computes its gradient on the card, flattens it
+there in the same order, slices it by :func:`shard_plan`, encodes each
+slice on the card and pushes it to its shard, tagged with that shard's
+snapshot version: each shard advances its own version, so the versions a
+worker reads may disagree across shards.
+
+SGD (with momentum) and Adam are elementwise, so a slice's update is the
+whole vector's update on that slice: sharding changes where the state
+lives, never the math (a 1-shard and a 2-shard run from the same seed
+agree when run synchronously).
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import time
+from pathlib import Path
+from typing import Any, Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+Tree = Any
+
+_CONTROL = ("a shard plan from a control directory (control.topo) is not "
+            "ported yet: ROADMAP queue 1 item 4 (telemetry/ and control/)")
+
+
+def shard_plan(n_total: int, n_shards: int) -> List[Tuple[int, int]]:
+    """Balanced contiguous [start, stop) slices of a length-``n_total``
+    vector; earlier shards take the remainder (sizes differ by <= 1)."""
+    if not 1 <= n_shards <= n_total:
+        raise ValueError(f"need 1 <= n_shards <= {n_total}, got {n_shards}")
+    base, rem = divmod(n_total, n_shards)
+    plan, start = [], 0
+    for s in range(n_shards):
+        stop = start + base + (1 if s < rem else 0)
+        plan.append((start, stop))
+        start = stop
+    return plan
+
+
+def planned_shards(control_dir: Optional[str], default: int) -> int:
+    """The shard count a new server generation boots with: ``default``;
+    the controller's plan in a control directory raises."""
+    if control_dir:
+        raise NotImplementedError(_CONTROL)
+    return int(default)
+
+
+def _slice_template(n: int) -> Tree:
+    return {"flat": np.zeros((n,), np.float32)}
+
+
+def _codec(cfg: Dict[str, Any]):
+    from pytorch_ps_mpi_tpu_torch.parallel.async_train import _codec as c
+
+    return c(cfg)
+
+
+def server_main(shard_id: int, n_shards: int, port: int,
+                cfg: Dict[str, Any], out_path: str) -> None:
+    """One shard server's process body (``sharded.py:78``): own slice
+    ``shard_id``, apply the updates in arrival order with shard-local
+    bounded staleness, and at the end write the final slice and the
+    metrics to ``out_path`` (.npz). It stops after consuming the fleet's
+    pushes (one a worker a step; in tree mode, the composed count).
+    ``cfg["server_slow_ms"][str(shard_id)]`` sleeps after each update (a
+    slow shard). With ``cfg["checkpoint_dir"]`` the shard saves its slice
+    and optimizer state under ``<dir>/shard<i>`` every
+    ``cfg["checkpoint_every"]`` applied updates; ``cfg["resume"]``
+    restores them with the crash-window version jump. With
+    ``cfg["idle_share"]`` the card's idle share from the first push on is
+    measured (:class:`IdleMeter`)."""
+    from pytorch_ps_mpi_tpu_torch.mesh import resolve_device
+    from pytorch_ps_mpi_tpu_torch.optim import OPTIMIZERS
+    from pytorch_ps_mpi_tpu_torch.parallel import async_train as at
+    from pytorch_ps_mpi_tpu_torch.parallel.tcp import TcpPSServer
+
+    device = resolve_device(cfg.get("device", "cuda"))
+    planned_shards(cfg.get("control_dir"), n_shards)
+    prob = at.make_problem(cfg, device)
+    flat0 = prob.flat_params()
+    start, stop = shard_plan(flat0.numel(), n_shards)[shard_id]
+    flat = flat0[start:stop].clone()
+    del prob, flat0
+    params = {"flat": flat}
+    hyper_cls, init_state, update_fn = OPTIMIZERS[cfg.get("optim", "sgd")]
+    h = hyper_cls(**cfg.get("hyper", {"lr": 0.05}))
+    state = init_state(params)
+    n_workers = int(cfg["n_workers"])
+    expected = sum(at.worker_cfg(cfg, w)[1] for w in range(n_workers))
+    slow = cfg.get("server_slow_ms")
+    slow_ms = float(slow.get(str(shard_id), 0.0)) \
+        if isinstance(slow, dict) else 0.0
+    # tree composition: the pushers are group leaders past n_workers
+    tree_mode = bool(cfg.get("tree"))
+    tree_slots = int(cfg.get("tree_slots", 0) or 0) if tree_mode else 0
+    id_space = n_workers + len(cfg.get("tree_members") or ())
+    server = TcpPSServer(port, num_workers=id_space,
+                         template=_slice_template(stop - start),
+                         max_staleness=int(cfg.get("max_staleness", 4)),
+                         code=_codec(cfg), frame=bool(cfg.get("frame_check")),
+                         tree_slots=tree_slots, device=device)
+    ckpt, applied_before = None, 0
+    checkpoint_every = int(cfg.get("checkpoint_every", 50))
+    if cfg.get("resume") and not cfg.get("checkpoint_dir"):
+        raise ValueError("cfg['resume'] requires cfg['checkpoint_dir']")
+    if cfg.get("checkpoint_dir"):
+        from pytorch_ps_mpi_tpu_torch.utils.checkpoint import \
+            CheckpointManager
+
+        ckpt = CheckpointManager(os.path.join(cfg["checkpoint_dir"],
+                                              f"shard{shard_id}"))
+        if cfg.get("resume"):
+            restored, applied_before, server.version = \
+                at._restore_ps_checkpoint(
+                    ckpt, {"flat": flat, "opt_state": state, "version": 0,
+                           "applied_total": 0, "checkpoint_every": 0},
+                    checkpoint_every)
+            flat.copy_(restored["flat"])
+            state = restored["opt_state"]
+    # the coordinator reads the bound port from this line
+    print(json.dumps({"shard": shard_id, "port": server.port}), flush=True)
+    pinned = torch.empty(flat.numel(), dtype=torch.float32,
+                         pin_memory=device.type == "cuda")
+    times = {"update_s": 0.0, "publish_s": 0.0}
+
+    def publish() -> None:
+        t0 = time.perf_counter()
+        pinned.copy_(flat)  # the one D2H a publish
+        server.publish_flat(pinned.numpy())
+        times["publish_s"] += time.perf_counter() - t0
+
+    launches0 = at.kernel_launches()
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    meter = at.IdleMeter(device) if cfg.get("idle_share") else None
+    try:
+        publish()
+        applied = 0
+        cadence = (at._PSCheckpointCadence(ckpt, checkpoint_every,
+                                           applied_before) if ckpt else None)
+        # a replacement server expects the whole job's pushes: workers
+        # restart from step 0 beside it
+        deadline = time.time() + float(cfg.get("server_timeout", 300.0))
+
+        def consumed() -> int:
+            return server.tree_composed if tree_mode else \
+                server.grads_received
+
+        while consumed() < expected and time.time() < deadline:
+            item = server.poll_grad()
+            if item is None:
+                time.sleep(0.0005)
+                continue
+            if meter is not None:
+                meter.start()  # from the first push on
+            _, _, grad = item
+            g = grad["flat"]
+            if tree_slots:
+                comp_n = (server._composed_queue.popleft()
+                          if server._composed_queue else 1)
+                if comp_n > 1:
+                    g = g / comp_n  # a leader's frame: its group's mean
+            t0 = time.perf_counter()
+            _, state = update_fn(params, {"flat": g}, state, h)
+            at._sync(device)
+            times["update_s"] += time.perf_counter() - t0
+            applied += 1
+            if slow_ms:
+                time.sleep(slow_ms / 1e3)
+            server.grad_publishes += 1
+            publish()
+            if cadence:
+                cadence.maybe_save({"flat": flat, "opt_state": state},
+                                   server, applied_before + applied)
+        idle = meter.stop() if meter is not None else {}
+        if cadence:
+            cadence.final_save({"flat": flat, "opt_state": state}, server,
+                               applied_before + applied)
+        m = server.metrics()
+        np.savez(
+            out_path, flat=flat.cpu().numpy(), start=start, stop=stop,
+            version=server.version, applied_total=applied_before + applied,
+            applied=applied, grads_received=m["grads_received"],
+            stale_drops=m["stale_drops"], decodes_done=server.decodes_done,
+            tree_composed=m["tree_composed"],
+            compression_ratio=m["compression_ratio"],
+            staleness_hist=json.dumps({int(k): int(v) for k, v in
+                                       server.staleness_seen.items()}),
+            launches=json.dumps({k: v - launches0[k] for k, v in
+                                 at.kernel_launches().items()}),
+            times=json.dumps(times), idle=json.dumps(idle),
+            peak_bytes=at._peak_bytes(device))
+    finally:
+        server.close()
+
+
+def worker_main_sharded(addrs: Sequence[str], worker_id: int,
+                        cfg: Dict[str, Any],
+                        out_path: Optional[str] = None) -> int:
+    """A worker against S shard servers (``sharded.py:367``): each step
+    reads every shard (one version each), loads the assembled vector
+    with one H2D, computes the gradient, flattens it on the card, and
+    pushes each slice, encoded on the card, to its shard tagged with that
+    shard's version. Writes the steps, the largest version spread seen,
+    its kernel launches, times and peak memory to ``out_path``."""
+    from pytorch_ps_mpi_tpu_torch.mesh import resolve_device
+    from pytorch_ps_mpi_tpu_torch.parallel import async_train as at
+    from pytorch_ps_mpi_tpu_torch.parallel.tcp import TcpPSWorker
+
+    device = resolve_device(cfg.get("device", "cuda"))
+    prob = at.make_problem(cfg, device)
+    flat_n = sum(p.numel() for p in prob.params)
+    plan = shard_plan(flat_n, len(addrs))
+    timeout = float(cfg.get("open_timeout", 60.0))
+    conns = []
+    for (start, stop), addr in zip(plan, addrs):
+        host, port = addr.rsplit(":", 1)
+        tmpl = _slice_template(stop - start)
+
+        def make_conn(host=host, port=int(port), tmpl=tmpl):
+            return TcpPSWorker(host, port, worker_id, tmpl, code=_codec(cfg),
+                               timeout=timeout,
+                               frame=bool(cfg.get("frame_check")),
+                               seed=int(cfg.get("seed", 0)), device=device)
+
+        if cfg.get("resilient"):
+            # each shard's connection recovers on its own
+            from pytorch_ps_mpi_tpu_torch.resilience.worker import \
+                ResilientWorker
+
+            conns.append(ResilientWorker(
+                make_conn, worker_id=worker_id,
+                seed=int(cfg.get("fault_seed", cfg.get("seed", 0))),
+                **cfg.get("resilience_kw", {})))
+        else:
+            conns.append(make_conn())
+    slow_ms, steps = at.worker_cfg(cfg, worker_id)
+    push_timeout = float(cfg.get("push_timeout", 60.0))
+    host_flat = torch.empty(flat_n, dtype=torch.float32,
+                            pin_memory=device.type == "cuda")
+    times: Dict[str, list] = {"read_s": [], "grad_s": [], "encode_s": [],
+                              "push_s": []}
+    launches0 = at.kernel_launches()
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    pushed = spread = 0
+    try:
+        for step in range(steps):
+            t0 = time.perf_counter()
+            versions = []
+            for (start, stop), w in zip(plan, conns):
+                sl, ver = w.read_flat(timeout=timeout)
+                host_flat[start:stop] = torch.from_numpy(sl)
+                versions.append(ver)
+            spread = max(spread, max(versions) - min(versions))
+            prob.load_flat(host_flat.to(device))
+            t1 = time.perf_counter()
+            _, grads = prob.grad_leaves(prob.batch_fn(step, worker_id))
+            g_flat = torch.cat([g.reshape(-1) for g in grads])
+            at._sync(device)
+            t2 = time.perf_counter()
+            if slow_ms:
+                time.sleep(slow_ms / 1e3)
+            enc = push = 0.0
+            for (start, stop), ver, w in zip(plan, versions, conns):
+                t3 = time.perf_counter()
+                payload = w.encode([g_flat[start:stop]])
+                t4 = time.perf_counter()
+                # one push a shard a step: the step is its seq too
+                w.push_payload(payload, ver, timeout=push_timeout,
+                               lineage=(step, step))
+                enc += t4 - t3
+                push += time.perf_counter() - t4
+            times["read_s"].append(t1 - t0)
+            times["grad_s"].append(t2 - t1)
+            times["encode_s"].append(enc)
+            times["push_s"].append(push)
+            pushed += 1
+    finally:
+        for w in conns:
+            w.close()
+    if out_path:
+        Path(out_path).write_text(json.dumps({
+            "worker": worker_id, "pushed": pushed,
+            "max_version_spread": spread, **times,
+            "launches": {k: v - launches0[k]
+                         for k, v in at.kernel_launches().items()},
+            "peak_bytes": at._peak_bytes(device)}))
+    return pushed
+
+
+def assemble(paths: Sequence[str], template: Tree) -> Tree:
+    """The whole parameter tree from the shards' .npz files; raises
+    unless the slices tile the flat vector exactly."""
+    from pytorch_ps_mpi_tpu_torch.parallel.dcn import (flat_size,
+                                                       unflatten_params)
+
+    flat = np.empty(flat_size(template), np.float32)
+    covered = np.zeros(flat.size, bool)
+    total = 0
+    for p in paths:
+        z = np.load(p, allow_pickle=False)
+        start, stop = int(z["start"]), int(z["stop"])
+        flat[start:stop] = z["flat"]
+        covered[start:stop] = True
+        total += stop - start
+    if total != flat.size or not covered.all():
+        raise ValueError(f"shards cover {int(covered.sum())} of "
+                         f"{flat.size} elements in {total}")
+    return unflatten_params(flat, template)
+
+
+def spawn_shard_server(shard_id: int, n_shards: int, cfg: Dict[str, Any],
+                       out_path: str,
+                       env: Optional[Dict[str, str]] = None,
+                       port: int = 0) -> subprocess.Popen:
+    """``server_main`` in a fresh interpreter on ``port`` (0: a free
+    one); it prints ``{"shard": i, "port": p}`` (:func:`read_server_port`).
+    A port given up front lets its workers start beside it."""
+    src = ("import json, sys\n"
+           "from pytorch_ps_mpi_tpu_torch.parallel.sharded import "
+           "server_main\n"
+           "server_main(int(sys.argv[1]), int(sys.argv[2]), "
+           "int(sys.argv[5]), json.loads(sys.argv[3]), sys.argv[4])\n")
+    from pytorch_ps_mpi_tpu_torch.parallel.async_train import spawn_python
+
+    return spawn_python(src, [str(shard_id), str(n_shards), json.dumps(cfg),
+                              out_path, str(port)], env,
+                        stdout=subprocess.PIPE)
+
+
+def read_server_port(proc, timeout: float = 120.0) -> int:
+    """Block until a spawned shard server prints its port line."""
+    import select
+
+    deadline = time.time() + timeout
+    while time.time() < deadline:
+        r, _, _ = select.select([proc.stdout], [], [], 0.5)
+        if r:
+            line = proc.stdout.readline()
+            if line:
+                return int(json.loads(line)["port"])
+        if proc.poll() is not None:
+            raise RuntimeError(f"shard server exited early: "
+                               f"{proc.returncode}")
+    raise TimeoutError("shard server never reported its port")
+
+
+def spawn_sharded_worker(addrs: Sequence[str], worker_id: int,
+                         cfg: Dict[str, Any], out_path: str,
+                         env: Optional[Dict[str, str]] = None
+                         ) -> subprocess.Popen:
+    """``worker_main_sharded`` in a fresh interpreter."""
+    src = ("import json, sys\n"
+           "from pytorch_ps_mpi_tpu_torch.parallel.sharded import "
+           "worker_main_sharded\n"
+           "sys.exit(0 if worker_main_sharded(json.loads(sys.argv[1]), "
+           "int(sys.argv[2]), json.loads(sys.argv[3]), sys.argv[4]) >= 0 "
+           "else 1)\n")
+    from pytorch_ps_mpi_tpu_torch.parallel.async_train import spawn_python
+
+    return spawn_python(src, [json.dumps(list(addrs)), str(worker_id),
+                              json.dumps(cfg), out_path], env)

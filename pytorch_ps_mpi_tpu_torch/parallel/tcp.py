@@ -16,7 +16,7 @@ from __future__ import annotations
 import ctypes
 import socket
 import time
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 
@@ -123,6 +123,7 @@ class TcpPSServer(_ServerBase):
             self._h, native.u8(self._batch_buf), self._batch_buf.nbytes,
             self._batch_metas, self._batch_max)
         if n <= 0:
+            self.last_batch_metas = []
             return []
         self.native_batches += 1
         self.native_batch_frames += int(n)
@@ -137,6 +138,33 @@ class TcpPSServer(_ServerBase):
                        int(m.step), int(m.seq), float(m.send_wall))
 
         return _frames.framed_batch_consume(self, gen(), raw=raw)
+
+    def connected(self, worker: int) -> bool:
+        """Does a socket claiming this worker id exist now? A crashed
+        worker's connection closes, a positive death signal
+        (``tcp.py:618``)."""
+        self._lib.tps_server_pump(self._h)
+        return bool(self._lib.tps_server_connected(self._h, worker))
+
+    def stragglers(self, timeout: float) -> Dict[int, float]:
+        """Workers with nothing queued and no open socket, silent for
+        ``timeout`` seconds (``tcp.py:626``); one never seen is reported
+        at once."""
+        self._lib.tps_server_pump(self._h)
+        now = time.time()
+        out = {}
+        for w in range(self.num_workers):
+            if self._lib.tps_server_pending(self._h, w) > 0:
+                continue  # pushed, awaiting consumption: alive
+            if self._lib.tps_server_connected(self._h, w) == 1:
+                continue  # an open socket: alive, maybe slow
+            if w not in self.last_seen:
+                out[w] = now - self._t0
+                continue
+            age = now - self.last_seen[w]
+            if age > timeout:
+                out[w] = age
+        return out
 
     def close(self) -> None:
         if self._h:
@@ -167,6 +195,7 @@ class TcpPSWorker(_WorkerBase):
             addr = socket.gethostbyname(host)
         except OSError as e:
             raise RuntimeError(f"cannot resolve PS host {host!r}: {e}") from e
+        self._addr = (addr, port, int(timeout * 1000))
         self._h = self._lib.tps_worker_connect(addr.encode(), port, worker_id,
                                                int(timeout * 1000))
         if not self._h:
@@ -195,6 +224,7 @@ class TcpPSWorker(_WorkerBase):
                 self.reads_not_modified += 1
                 return self._cached
             if n == -2:
+                self._reopen()
                 raise TimeoutError("tps_worker_read_params timed out")
             if n < 0:
                 raise RuntimeError(f"tps_worker_read_params -> {n}")
@@ -214,17 +244,35 @@ class TcpPSWorker(_WorkerBase):
 
     def push_payload(self, flat: np.ndarray, version: int,
                      timeout: float = 30.0,
-                     lineage: Optional[Tuple[int, int]] = None) -> None:
+                     lineage: Optional[Tuple[int, int]] = None,
+                     composed=None) -> None:
         """Push pre-encoded payload bytes and wait for the server's ack."""
-        flat = self._seal(flat, lineage)
+        flat = self._seal(flat, lineage, composed)
         rc = self._lib.tps_worker_push_grad(self._h,
                                             native.u8(flat.view(np.uint8)),
                                             flat.nbytes, version,
                                             int(timeout * 1000))
         if rc == -2:
+            self._reopen()
             raise TimeoutError("push_grad timed out awaiting server ack")
         if rc != 1:
             raise RuntimeError(f"tps_worker_push_grad -> {rc}")
+
+    def _reopen(self) -> None:
+        """A call that timed out can leave the rest of its reply on the
+        socket, where the next call would read it as its own header (the
+        JAX worker's next call then fails with a bad magic, ROADMAP queue
+        3 item 17): start a new connection instead. Raises
+        ``RuntimeError`` when the server is gone."""
+        addr, port, timeout_ms = self._addr
+        self.close()
+        # a short connect: a refused port is a dead server, not a slow one
+        self._h = self._lib.tps_worker_connect(addr.encode(), port,
+                                               self.worker_id,
+                                               min(timeout_ms, 1000))
+        if not self._h:
+            raise RuntimeError(f"tps_worker_connect({addr}:{port}) failed "
+                               "after a timed-out call")
 
     def close(self) -> None:
         if self._h:

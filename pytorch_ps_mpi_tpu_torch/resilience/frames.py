@@ -20,8 +20,17 @@ The fingerprint is computed from JAX's own description of a codec and
 of the template (``PyTreeDef(...)``), so a port worker and a JAX server,
 or the reverse, agree whenever their configurations do. A failed check
 is a counted rejection for that worker (``server._reject_frame``), never
-a server crash. The tree wire's lineage trailer (``tree_slots > 0``)
-belongs to the aggregation tree, ROADMAP queue 1 item 3, and raises.
+a server crash.
+
+**The composed-lineage trailer** (``frames.py:104-170``). A frame pushed
+by a tree leader composes many worker pushes into one payload
+(``parallel/tree.py``); their trace IDs ride a fixed-size trailer after
+the codec payload, inside the length- and CRC-checked region:
+``magic u32 ("PSTL") | count u32`` and ``K`` slots of ``worker u32 |
+step u32 | seq u32 | send_wall f64``, unused slots zeroed. A server with
+``tree_slots=K`` expects every payload to be ``wire_bytes +
+trailer_bytes(K)`` long, and ``K`` joins the fingerprint. A valid frame
+whose trailer magic or count is wrong is rejected as ``"trailer"``.
 """
 
 from __future__ import annotations
@@ -51,13 +60,66 @@ _LINEAGE_OFF = 20
 BATCH_REASONS = {1: "short", 2: "version", 3: "magic", 4: "size",
                  5: "config", 6: "corrupt"}
 
+#: lineage-trailer magic ("PSTL" little-endian)
+TRAILER_MAGIC = 0x4C545350
+_TRAILER_HEAD = struct.Struct("<II")          # magic, count
+_TRAILER_ENTRY = struct.Struct("<IIId")       # worker, step, seq, send_wall
+TRAILER_ENTRY_BYTES = _TRAILER_ENTRY.size
+assert TRAILER_ENTRY_BYTES == 20
 
-def no_tree_slots(tree_slots: int) -> None:
-    """Raise for a tree wire's lineage trailer, which the port lacks."""
-    if int(tree_slots):
-        raise NotImplementedError(
-            "tree_slots > 0 (the aggregation tree's lineage trailer) is not "
-            "ported yet: ROADMAP queue 1 item 3 (parallel/tree.py)")
+
+def trailer_bytes(slots: int) -> int:
+    """On-wire size of a ``slots``-capacity trailer (0 for none)."""
+    slots = int(slots)
+    return 0 if slots <= 0 else _TRAILER_HEAD.size + slots * TRAILER_ENTRY_BYTES
+
+
+def pack_trailer(out: np.ndarray, off: int, entries, slots: int) -> int:
+    """Write a trailer into ``out`` at ``off``; return the bytes written.
+    ``entries``: ``(worker, step, seq, send_wall)`` tuples or dicts with
+    those keys, the first ``slots`` of them kept, the rest zeroed."""
+    slots = int(slots)
+    norm = []
+    for e in entries or ():
+        if isinstance(e, dict):
+            norm.append((int(e["worker"]), int(e.get("step", 0)),
+                         int(e.get("seq", 0)),
+                         float(e.get("send_wall", 0.0))))
+        else:
+            w, s, q, t = e
+            norm.append((int(w), int(s), int(q), float(t)))
+    norm = norm[:slots]
+    _TRAILER_HEAD.pack_into(out, off, TRAILER_MAGIC, len(norm))
+    pos = off + _TRAILER_HEAD.size
+    for w, s, q, t in norm:
+        _TRAILER_ENTRY.pack_into(out, pos, w & 0xFFFFFFFF, s & 0xFFFFFFFF,
+                                 q & 0xFFFFFFFF, t)
+        pos += TRAILER_ENTRY_BYTES
+    end = off + trailer_bytes(slots)
+    out[pos:end] = 0
+    return end - off
+
+
+def read_composed(payload: np.ndarray, wire_bytes: int,
+                  slots: int) -> Optional[list]:
+    """The composed ``[{worker, step, seq, send_wall}, ...]`` of a
+    validated tree-wire payload (codec payload + trailer), or None for a
+    malformed trailer: wrong size or magic, or a count of 0 (it would
+    zero the root round's weighting denominator) or above ``slots``."""
+    slots = int(slots)
+    if payload.nbytes != wire_bytes + trailer_bytes(slots):
+        return None
+    magic, count = _TRAILER_HEAD.unpack_from(payload, wire_bytes)
+    if magic != TRAILER_MAGIC or count > slots or count == 0:
+        return None
+    out = []
+    pos = wire_bytes + _TRAILER_HEAD.size
+    for _ in range(count):
+        w, s, q, t = _TRAILER_ENTRY.unpack_from(payload, pos)
+        out.append({"worker": int(w), "step": int(s), "seq": int(q),
+                    "send_wall": float(t)})
+        pos += TRAILER_ENTRY_BYTES
+    return out
 
 
 def _codec_desc(code) -> dict:
@@ -78,8 +140,8 @@ def _codec_desc(code) -> dict:
 def wire_fingerprint(wire, template, tree_slots: int = 0) -> int:
     """64-bit fingerprint of the wire agreement (``frames.py:191``).
     ``wire`` is a ``parallel.dcn.CodecWire`` or None for the raw float32
-    wire; ``template`` the JAX-layout parameter tree."""
-    no_tree_slots(tree_slots)
+    wire; ``template`` the JAX-layout parameter tree. A nonzero
+    ``tree_slots`` joins the agreement (omitted at 0)."""
     from pytorch_ps_mpi_tpu_torch.utils.serialization import tree_flatten
 
     if wire is None:
@@ -97,6 +159,8 @@ def wire_fingerprint(wire, template, tree_slots: int = 0) -> int:
             "specs": [[list(s), d] for s, d in wire.spec_names],
             "treedef": str(wire.treedef),
         }
+    if int(tree_slots) > 0:
+        desc["tree_slots"] = int(tree_slots)
     blob = json.dumps(desc, sort_keys=True).encode()
     return int.from_bytes(hashlib.blake2b(blob, digest_size=8).digest(),
                           "little")
@@ -104,20 +168,26 @@ def wire_fingerprint(wire, template, tree_slots: int = 0) -> int:
 
 def seal_frame(out: np.ndarray, payload: np.ndarray, fingerprint: int,
                step: int = 0, seq: int = 0,
-               send_wall: Optional[float] = None) -> np.ndarray:
-    """Write header + payload into the uint8 buffer ``out`` (at least
-    ``HEADER_BYTES + payload.nbytes``) and return the frame's view."""
+               send_wall: Optional[float] = None,
+               composed=None, tree_slots: int = 0) -> np.ndarray:
+    """Write header + payload (+ a ``tree_slots`` trailer of
+    ``composed``) into the uint8 buffer ``out`` and return the frame's
+    view; the header's length and CRC cover payload and trailer."""
     if payload.dtype != np.uint8:
         payload = payload.view(np.uint8)
     payload = payload.reshape(-1)
     n = payload.nbytes
     out[HEADER_BYTES:HEADER_BYTES + n] = payload
-    body = out[HEADER_BYTES:HEADER_BYTES + n]
-    _HEADER.pack_into(out, 0, FRAME_MAGIC, n, zlib.crc32(body) & 0xFFFFFFFF,
-                      fingerprint, int(step) & 0xFFFFFFFF,
-                      int(seq) & 0xFFFFFFFF,
+    total = n
+    if int(tree_slots) > 0:
+        total += pack_trailer(out, HEADER_BYTES + n, composed or (),
+                              tree_slots)
+    body = out[HEADER_BYTES:HEADER_BYTES + total]
+    _HEADER.pack_into(out, 0, FRAME_MAGIC, total,
+                      zlib.crc32(body) & 0xFFFFFFFF, fingerprint,
+                      int(step) & 0xFFFFFFFF, int(seq) & 0xFFFFFFFF,
                       time.time() if send_wall is None else float(send_wall))
-    return out[:HEADER_BYTES + n]
+    return out[:HEADER_BYTES + total]
 
 
 def open_frame(buf: np.ndarray, fingerprint: int,
@@ -153,11 +223,36 @@ def read_lineage(buf: np.ndarray) -> Tuple[int, int, float]:
     return int(step), int(seq), float(send_wall)
 
 
-def _consume(server, wid: int, version: int, payload, full_bytes: int,
-             raw: bool):
+def _split_composed(server, wid: int, payload: np.ndarray):
+    """``(codec payload, composed entries, ok)`` of a validated payload
+    (``frames.py:346``): the identity on a server without tree slots; a
+    malformed trailer is a counted ``"trailer"`` rejection. Every valid
+    frame's composed count, stale drops included, advances
+    ``server.tree_composed``."""
+    slots = int(getattr(server, "tree_slots", 0) or 0)
+    if not slots:
+        return payload, None, True
+    entries = read_composed(payload, server._wire_payload_bytes, slots)
+    if entries is None:
+        server._reject_frame(wid, "trailer")
+        return None, None, False
+    server.tree_composed += len(entries)
+    log = getattr(server, "composed_log", None)
+    if log is not None:  # the trace IDs, where a driver asked for them
+        log.extend(entries)
+    return payload[:server._wire_payload_bytes], entries, True
+
+
+def _consume(server, wid: int, version: int, payload, lineage, raw: bool):
     """Count one validated push and apply bounded staleness: the
-    ``(worker, version, grad or payload)`` item, or None for a stale
-    drop."""
+    ``((worker, version, grad or payload), meta)`` pair, or None for a
+    malformed trailer or a stale drop. ``meta`` holds the push's trace
+    ID and, on a tree wire, its composed entries; the composed count of
+    a consumed push is queued on ``server._composed_queue``."""
+    full_bytes = payload.nbytes
+    payload, composed, ok = _split_composed(server, wid, payload)
+    if not ok:
+        return None
     staleness = max(0, server.version - version)
     server.staleness_seen[staleness] = server.staleness_seen.get(
         staleness, 0) + 1
@@ -166,8 +261,15 @@ def _consume(server, wid: int, version: int, payload, full_bytes: int,
     if staleness > server.max_staleness:
         server.stale_drops += 1
         return None
+    step, seq, send_wall = lineage
+    meta = {"worker": int(wid), "step": step, "seq": seq,
+            "version_read": int(version), "staleness": int(staleness),
+            "send_wall": send_wall}
+    if composed is not None:
+        meta["composed"] = composed
+        server._composed_queue.append(len(composed))
     grad = payload if raw else server._decode_payload(payload)
-    return int(wid), int(version), grad
+    return (int(wid), int(version), grad), meta
 
 
 def framed_batch_consume(server, frames_iter, raw: bool = False) -> list:
@@ -175,16 +277,19 @@ def framed_batch_consume(server, frames_iter, raw: bool = False) -> list:
     frames the native side already validated. ``frames_iter`` yields
     ``(worker, version, status, payload_view, step, seq, send_wall)``,
     status 0 meaning valid. Returns the consumed items; rejections and
-    stale drops are counted, not returned."""
-    out = []
-    for wid, version, status, payload, _, _, _ in frames_iter:
+    stale drops are counted, not returned. The consumed items' metas are
+    ``server.last_batch_metas``, in the same order."""
+    out, metas = [], []
+    for wid, version, status, payload, step, seq, wall in frames_iter:
         server.last_seen[wid] = time.time()
         if status:
             server._reject_frame(wid, BATCH_REASONS.get(status, "magic"))
             continue
-        item = _consume(server, wid, version, payload, payload.nbytes, raw)
-        if item is not None:
-            out.append(item)
+        got = _consume(server, wid, version, payload, (step, seq, wall), raw)
+        if got is not None:
+            out.append(got[0])
+            metas.append(got[1])
+    server.last_batch_metas = metas
     return out
 
 
@@ -195,7 +300,8 @@ def framed_poll(server, pop_once: Callable[[], Tuple[int, int, int]],
     ``server._grad_buf`` (``nbytes <= 0``: nothing pending). Each frame is
     validated before any bookkeeping; a bad one is a counted rejection
     and polling goes on. ``raw=True`` returns the validated payload bytes
-    (a view of the receive buffer) instead of decoding them."""
+    (a view of the receive buffer) instead of decoding them. The consumed
+    push's meta is ``server.last_push_meta``."""
     while True:
         n, wid, version = pop_once()
         if n <= 0:
@@ -206,6 +312,8 @@ def framed_poll(server, pop_once: Callable[[], Tuple[int, int, int]],
         if err is not None:
             server._reject_frame(wid, err)
             continue
-        item = _consume(server, wid, version, payload, payload.nbytes, raw)
-        if item is not None:
-            return item
+        got = _consume(server, wid, version, payload,
+                       read_lineage(server._grad_buf), raw)
+        if got is not None:
+            server.last_push_meta = got[1]
+            return got[0]

@@ -14,13 +14,25 @@ printed is the server's metrics as one JSON object.
         --codec sign --workers 4 --steps 10 --straggler-ms 500 \\
         --max-staleness 3
 
-The JAX CLI's telemetry, serving and resilience flags are accepted and
-raise ``NotImplementedError`` naming the ROADMAP item that brings them.
+Resilience: ``--resilient`` workers back off and reconnect across a
+server restart; ``--supervise`` runs the job under the
+:class:`Supervisor` (dead workers respawned, a crashed server restarted
+from ``--checkpoint-dir``; it implies ``--resilient``); ``--fault-plan``
+(JSON, or ``@file.json``; needs ``--supervise``), ``--fault-seed`` and
+``--fault-log-dir`` inject seeded faults:
+
+    python -m pytorch_ps_mpi_tpu_torch.train_async --model mlp \
+        --workers 2 --steps 6 --supervise --checkpoint-dir D \
+        --fault-plan '[{"at_step": 3, "worker": 1, "kind": "crash_worker"}]'
+
+The JAX CLI's telemetry and serving flags are accepted and raise
+``NotImplementedError`` naming the ROADMAP item that brings them.
 """
 
 from __future__ import annotations
 
 import argparse
+import glob
 import json
 import os
 from typing import Optional, Sequence
@@ -29,6 +41,7 @@ from pytorch_ps_mpi_tpu_torch.parallel.async_train import (UNPORTED,
                                                            join_workers,
                                                            make_problem,
                                                            serve, spawn_worker)
+from pytorch_ps_mpi_tpu_torch.resilience import Supervisor, normalize_plan
 
 #: the JAX CLI's flags the port does not have yet -> the cfg key whose
 #: ROADMAP item they wait for
@@ -39,8 +52,7 @@ _UNPORTED_FLAGS = {
     "snapshot-ring": "serving", "history": "timeseries",
     "profile": "profile", "slo": "slo", "freshness": "freshness",
     "hop-anatomy": "hop_anatomy", "control": "control",
-    "fleet-dir": "fleet_dir", "resilient": "resilient",
-    "supervise": "supervise", "fault-plan": "fault_plan",
+    "fleet-dir": "fleet_dir",
 }
 
 
@@ -73,9 +85,32 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--resume", action="store_true")
     ap.add_argument("--no-frame-check", action="store_true",
                     help="push without the PSF2 frame header")
+    ap.add_argument("--resilient", action="store_true",
+                    help="workers back off on timeouts and reconnect on "
+                         "EOF (they survive a server restart)")
+    ap.add_argument("--supervise", action="store_true",
+                    help="respawn dead workers and restart a crashed "
+                         "server from --checkpoint-dir; implies "
+                         "--resilient")
+    ap.add_argument("--fault-plan", default=None,
+                    help="seeded faults: a JSON list of {at_step, worker, "
+                         "kind}, or @path/to/plan.json")
+    ap.add_argument("--fault-seed", type=int, default=0,
+                    help="seed of the corrupt positions and the backoff "
+                         "jitter")
+    ap.add_argument("--fault-log-dir", default=None,
+                    help="directory of the per-process fired-fault JSONLs")
     for flag in _UNPORTED_FLAGS:
         ap.add_argument(f"--{flag}", default=None, nargs="?", const=True)
     return ap
+
+
+def _parse_fault_plan(spec: str) -> list:
+    """A fault plan from the command line: JSON, or ``@file.json``."""
+    if spec.startswith("@"):
+        with open(spec[1:]) as f:
+            return json.load(f)
+    return json.loads(spec)
 
 
 def main(argv: Optional[Sequence[str]] = None) -> dict:
@@ -87,6 +122,21 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
                 f"--{flag} is not ported yet: {UNPORTED[key]}")
     if args.resume and not args.checkpoint_dir:
         ap.error("--resume requires --checkpoint-dir")
+    if args.supervise:
+        args.resilient = True
+    fault_plan = None
+    if args.fault_plan:
+        try:
+            fault_plan = normalize_plan(_parse_fault_plan(args.fault_plan))
+        except (ValueError, OSError) as e:
+            ap.error(f"--fault-plan is not a valid plan: {e}")
+        if not args.supervise:
+            # a fixed received count is unreachable under drop or corrupt
+            # faults, and a crashed worker is respawned by nobody
+            ap.error("--fault-plan requires --supervise")
+        if any(f["kind"] == "crash_server" for f in fault_plan) \
+                and not args.checkpoint_dir:
+            ap.error("a crash_server fault needs --checkpoint-dir")
     device = "cpu" if os.environ.get("PS_PLATFORM") == "cpu" else "cuda"
     in_shape = (8,) if args.model == "mlp" else (32, 32, 3)
     cfg = {
@@ -111,6 +161,30 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
             cfg["bucket_mb"] = args.bucket_mb
     if args.straggler_ms:
         cfg["slow_ms"] = {str(args.workers - 1): args.straggler_ms}
+    if args.resilient:
+        cfg["resilient"] = True
+        # a failover shows when a push times out: short op timeouts
+        cfg["push_timeout"] = min(float(args.timeout), 10.0)
+    if fault_plan is not None:
+        cfg.update(fault_plan=fault_plan, fault_seed=args.fault_seed)
+        if args.fault_log_dir:
+            os.makedirs(args.fault_log_dir, exist_ok=True)
+            # fault logs append across respawns: one run, one fresh log
+            for old in glob.glob(os.path.join(args.fault_log_dir,
+                                              "faults-*.jsonl")):
+                os.remove(old)
+            cfg["fault_log_dir"] = args.fault_log_dir
+    if args.supervise:
+        cfg["max_staleness"] = args.max_staleness
+        if args.resume:
+            cfg["resume"] = True
+        params, metrics = Supervisor(
+            cfg, args.workers, port=args.port,
+            checkpoint_dir=args.checkpoint_dir,
+            checkpoint_every=args.checkpoint_every,
+            sync_barrier=args.sync_barrier, timeout=args.timeout).run()
+        print(json.dumps(metrics, default=str), flush=True)
+        return metrics
     code = None
     if args.codec:
         from pytorch_ps_mpi_tpu_torch.codecs import get_codec

@@ -131,9 +131,10 @@ class MetricsAccumulator:
 
 #: the keys of a PS server's ``metrics()``, the JAX package's
 #: ``telemetry.registry.PS_SERVER_METRIC_KEYS`` in its order. The port
-#: counts the wire, the staleness and the aggregation; the subsystems it
-#: does not have yet (numerics, lineage, anatomy, the read tier, the
-#: controller, the tree) report 0.0, as the JAX package's do unarmed.
+#: counts the wire, the staleness, the aggregation and the tree's composed
+#: pushes; the subsystems it does not have yet (numerics, lineage,
+#: anatomy, the read tier, the controller) report 0.0, as the JAX
+#: package's do unarmed.
 PS_SERVER_METRIC_KEYS = (
     "ts", "uptime_s", "grads_received", "bytes_received",
     "raw_bytes_per_grad", "wire_bytes_per_grad", "compression_ratio",
@@ -227,6 +228,7 @@ class PSServerCounters:
                                  / float(self.grad_publishes)
                                  if self.grad_publishes else 0.0),
             agg_fallbacks=float(self.agg_fallbacks),
+            tree_composed=float(getattr(self, "tree_composed", 0)),
             reads_total=float(getattr(self, "_reads_total", 0)),
             reads_not_modified=float(getattr(self, "_reads_not_modified",
                                              0)),

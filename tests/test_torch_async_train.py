@@ -5,7 +5,8 @@ Four spawn tests, each under its own time limit: (a) the CLI, two MLP
 workers over shm, async; (b) the sync barrier with int8, folded in the
 compressed domain, one decode a publish; (c) TCP with frames through the
 native batched ingest; (d) a resume from a checkpoint keeps the publish
-version monotonic. Unported options name their ROADMAP item."""
+version monotonic. Unported options name their ROADMAP item; the
+scale-out and resilience keys no longer raise."""
 
 from __future__ import annotations
 
@@ -120,10 +121,13 @@ def test_resume_keeps_the_version_monotonic(tmp_path):
 
 
 @pytest.mark.parametrize("key,item", [
-    ("telemetry_dir", "item 5"), ("read_port", "item 4"),
-    ("fault_plan", "item 3"), ("control", "item 5")])
+    ("telemetry_dir", "item 4"), ("read_port", "item 3"),
+    ("topo_actions", "item 4"), ("control", "item 4")])
 def test_unported_options_name_their_item(key, item):
     with pytest.raises(NotImplementedError, match=item):
         at.check_cfg({"model": "mlp", key: 1})
-    with pytest.raises(NotImplementedError, match="item 6"):
+    with pytest.raises(NotImplementedError, match="item 5"):
         at.check_cfg({"model": "gpt"})
+    # the scale-out and resilience keys are ported
+    at.check_cfg({"model": "mlp", "fault_plan": [{}], "resilient": True,
+                  "tree": True, "tree_members": [4], "supervise": True})

@@ -52,7 +52,9 @@ def test_probe_imported_every_module_of_the_port(probe):
                  "utils.checkpoint", "utils.native", "utils.serialization",
                  "resilience.frames", "parallel.dcn", "parallel.tcp",
                  "parallel.async_ps", "parallel.async_train",
-                 "train_async"):
+                 "train_async", "resilience.faults", "resilience.worker",
+                 "resilience.supervisor", "parallel.sharded",
+                 "parallel.tree", "train_sharded"):
         assert f"pytorch_ps_mpi_tpu_torch.{name}" in probe["modules"], name
 
 
@@ -67,17 +69,17 @@ def test_chip_smoke_fails_without_the_repo(tmp_path):
 
 #: (file under the port, a word of the unported option, its queue 1 item)
 UNPORTED_TEXTS = [
-    ("ps.py", "numerics", 5), ("ps.py", "profile=True", 5),
-    ("ps.py", "param_specs", 6), ("ps.py", "batch_spec", 6),
-    ("codecs/error_feedback.py", "HopErrorFeedback", 3),
-    ("models/bert.py", "ring", 6),
-    ("train.py", "gpt.py", 6), ("train.py", "moe.py", 6),
-    ("parallel/async_train.py", "telemetry_dir", 5),
-    ("parallel/async_train.py", "read_port", 4),
-    ("parallel/async_train.py", "fault_plan", 3),
-    ("parallel/async_train.py", "gpt.py", 6),
-    ("parallel/dcn.py", "probe_fidelity", 5),
-    ("resilience/frames.py", "tree_slots", 3),
+    ("ps.py", "numerics", 4), ("ps.py", "profile=True", 4),
+    ("ps.py", "param_specs", 5), ("ps.py", "batch_spec", 5),
+    ("models/bert.py", "ring", 5),
+    ("train.py", "gpt.py", 5), ("train.py", "moe.py", 5),
+    ("parallel/async_train.py", "telemetry_dir", 4),
+    ("parallel/async_train.py", "read_port", 3),
+    ("parallel/async_train.py", "topo_actions", 4),
+    ("parallel/async_train.py", "hop_anatomy", 4),
+    ("parallel/async_train.py", "gpt.py", 5),
+    ("parallel/dcn.py", "probe_fidelity", 4),
+    ("parallel/sharded.py", "control.topo", 4),
 ]
 
 

@@ -313,5 +313,8 @@ def test_every_rejection_reason_matches_jax():
 
 
 def test_tree_slots_name_their_item():
-    with pytest.raises(NotImplementedError, match="queue 1 item 3"):
-        tframes.wire_fingerprint(None, _template(), tree_slots=2)
+    # ported: a tree wire's slot count joins the fingerprint as in JAX
+    for slots in (0, 2):
+        assert tframes.wire_fingerprint(None, _template(),
+                                        tree_slots=slots) == \
+            jframes.wire_fingerprint(None, _template(), tree_slots=slots)
