@@ -199,7 +199,46 @@ Phases, one line each; the script exits non-zero if any fails:
                [0, 1, 2, 1], sign) two rounds on the card against the CPU
                (``check_async_ps``), then 3 rounds of sampled lags.
 
-9. scale_out -- last, after ``torch.cuda.empty_cache()``: sharded
+9. serving  -- after ``torch.cuda.empty_cache()``, cuDNN deterministic:
+               the read tier (``serving/``) beside A1's ResNet-50 fleet
+               (``run_serving``; the server and its native PSR1 read tier
+               in this process, workers, readers and replicas fresh
+               interpreters). V1: A1's fleet with
+               ``ef(topk(fraction=0.01, pallas=True))``, ``read_port=0``,
+               ring 8, checkpoints every 4; one reader process of 4 delta
+               and 4 full ``ServingReader`` threads reads in a loop while
+               it trains (every process of the phase with one intra-op
+               thread; a delta reader reads once the server has
+               pre-encoded a newer version's deltas): every version a
+               reader held hashes to the server's CRC-32 of it, each delta
+               reader applied a delta, the last read is the final flat bit
+               for bit, the native tier armed, ``exact_topk`` 7 launches a
+               kernel leaf a push on the workers; prints reads/s, read
+               p50/p95 ms by kind, delta bytes over the 94 MB full read,
+               ``coalesce_hits``, ``reads_shed`` and the publish's ms
+               split (host array allocation, D2H, transport, ring put,
+               pre-encode), then the same fleet unarmed, while V4's
+               replica starts: updates/s of the pair (one run each, not a
+               claim). V3 rides on V1: root -> replica 1 -> replica 2
+               (``serve_readonly --follow-endpoint``), an edge reader at
+               replica 2 holds the root's versions (CRCs) with FRS1
+               ``hop_count`` 2; once the root stops the replicas' lag is
+               at most 2; prints ``follower_bytes_relayed`` and the
+               publish -> visible ms a hop. V4: ``serve_readonly
+               --checkpoint-dir`` on V1's checkpoints; a reader here loads
+               what it read into ResNet-50 on the card and its held-out
+               loss equals the V1 server's bit for bit. V2: A1's fleet
+               (sign) with ``delta_codec="int8"``: the server's
+               ``quantize_int8`` launches equal its lossy sections (every
+               section of every encode, by the plan), ``dequantize_int8``
+               one a section of each probed encode, no lossy fallback, two
+               delta readers apply on the card (one ``dequantize_int8`` a
+               section a delta read) and stay within the bound the probe's
+               ``max_rel_error`` gives, summed over their deltas. V5 rides
+               on S2 (phase ``scale_out``). The kernel line gives each
+               kernel's launches in this phase (``launches_serving``).
+
+10. scale_out -- last, after ``torch.cuda.empty_cache()``: sharded
                servers, the aggregation tree and the supervisor
                (``run_scale_out``; every shard server, leader and worker a
                fresh interpreter on the card). S1: A1's ResNet-50, 2 shard
@@ -211,7 +250,11 @@ Phases, one line each; the script exits non-zero if any fails:
                the shards' versions diverging, ``assemble`` tiling the
                vector and the held-out loss falling. S2: identity, 1
                worker, 3 synchronous steps against 1 shard and against 2,
-               side by side: the final parameters equal bit for bit. T1:
+               side by side: the final parameters equal bit for bit; V5:
+               the shards' read tiers armed, each shard's tenant read
+               once the last update is in (then a zero push, no change
+               under SGD without momentum, ends the run), the reads
+               assembled equal the result bit for bit. T1:
                ``run_tree``, 4 workers in 2 groups, the leaf hop identity
                over TCP, the upstream hop int8 behind hop error feedback
                into a tree-mode root in this process, 3 pushes a worker:
@@ -707,14 +750,17 @@ def _int8_planted(n: int, case: str, gen) -> torch.Tensor:
     return x
 
 
-def check_quant_kernels(model, also: list, slices: list) -> dict:
+def check_quant_kernels(model, also: list, slices: list,
+                        sections: list) -> dict:
     """The int8 quantize and dequantize-sum kernels at ResNet-18's 62
     leaves and its buckets at ``BUCKET_MB``: bit-exact at world 1 and 8,
     planted cases, and timing (over the leaves). Both kernels also at the
     sizes ``also`` (the async and scale-out phases' ResNet-50 units: the
-    workers' and leaders' quantize, hop EF's decode) and ``slices`` (S1's
-    shard slices: the workers' quantize, the shard servers' decode), the
-    decode at world 1 as those paths run it."""
+    workers' and leaders' quantize, hop EF's decode), ``slices`` (S1's
+    shard slices: the workers' quantize, the shard servers' decode) and
+    ``sections`` (the serving phase's int8 delta sections: the server's
+    quantize and probe decode, the readers' decode), the decode at world
+    1 as those paths run it."""
     from pytorch_ps_mpi_tpu_torch.ops import quant as Q
 
     sizes = [p.numel() for p in model.parameters()]
@@ -734,7 +780,7 @@ def check_quant_kernels(model, also: list, slices: list) -> dict:
     cases = 0
     tile = Q._tile()
     past = Q._lib().quant_int8_grid(1 << 40) * tile + 4099
-    for n in sorted(set(sizes + buckets + also + slices)) + [
+    for n in sorted(set(sizes + buckets + also + slices + sections)) + [
             4099, 1000, tile - 1, tile, tile + 1, past]:
         for case in (("plain", "ties", "signed_zero", "nan", "inf",
                       "neg_inf", "zeros") if n >= 16 else ("plain",)):
@@ -749,7 +795,7 @@ def check_quant_kernels(model, also: list, slices: list) -> dict:
     # into their buffer (so no row is aligned), at world 1 and 8
     dequant_cases = 0
     r18 = sorted(set(sizes + buckets)) + [4099, 1000, 1028, 2_359_296 + 4]
-    for n in r18 + sorted(set(also + slices) - set(r18)):
+    for n in r18 + sorted(set(also + slices + sections) - set(r18)):
         for world in ((1, 8) if n in r18 else (1,)):
             for offset in (0, 1):
                 buf = torch.randint(-127, 128, (world * n + offset,),
@@ -770,8 +816,9 @@ def check_quant_kernels(model, also: list, slices: list) -> dict:
           sizes=len(set(sizes + buckets)) + 6,
           quantize_async_r50_sizes=len(set(also)),
           r50_units_and_s1_slices=len(set(also + slices)),
+          r50_delta_sections=len(set(sections)),
           quantize_cases=cases, dequant_cases=dequant_cases,
-          dequant_worlds="1,8 (R18); 1 (R50 units, S1 slices)",
+          dequant_worlds="1,8 (R18); 1 (R50 units, S1 slices, sections)",
           dequant_widths="n%16==0,n%16==4,odd,offset 1")
 
     xs = [1e-2 * torch.randn(n, generator=gen, device="cuda") for n in sizes]
@@ -883,10 +930,12 @@ TOPK_PLANTED = ("heavy ties", "NaN, ±Inf, ±0.0", "all ties", "all zeros",
                 "k = 1", "k = n - 1", "more NaNs than k", "odd n, misaligned")
 
 
-def check_topk_kernels(leaves: list):
+def check_topk_kernels(leaves: list, also: list = ()):
     """The top-k radix threshold and the whole exact top-k against their
-    plain versions at ResNet-50's 53 kernel-path leaves and the planted
-    cases, bit for bit, and timing. Returns (launches a call, results)."""
+    plain versions at ResNet-50's 53 kernel-path leaves, at the (n, k)
+    of ``also`` (the serving phase's ``small_inputs`` ResNet-50) and the
+    planted cases, bit for bit, and timing (over ``leaves``). Returns
+    (launches a call, results)."""
     from pytorch_ps_mpi_tpu_torch.ops import topk as T
 
     gen = torch.Generator(device="cuda").manual_seed(5)
@@ -906,7 +955,7 @@ def check_topk_kernels(leaves: list):
                 raise AssertionError(f"exact_topk changed from run to run: "
                                      f"{what}")
 
-    for n, k in sorted(set(leaves)):
+    for n, k in sorted(set(leaves) | set(also)):
         check(torch.randn(n, generator=gen, device="cuda"), k, f"n={n}")
     for case in TOPK_PLANTED:
         check(*_topk_planted(case, gen), case)
@@ -916,6 +965,7 @@ def check_topk_kernels(leaves: list):
         raise AssertionError(f"one exact_topk call made {launches} device "
                              f"launches, not {T.LAUNCHES}")
     phase("kernels", check="topk bit-exact", sizes=len(set(leaves)),
+          serving_sizes=len(set(also) - set(leaves)),
           planted="; ".join(TOPK_PLANTED), run_to_run="identical",
           launches_per_call=launches)
 
@@ -2896,6 +2946,755 @@ def run_async(card: str) -> None:
         shutil.rmtree(tmp, ignore_errors=True)
     phase("async", seconds=f"{time.perf_counter() - t0:.1f}")
 
+# -- phase serving: the read tier beside the async fleet ----------------------
+
+SERVING_LIMIT = 240.0  # seconds a serving run may take, spawn to join
+SERVING_RING = 8
+#: the V1 reader process's threads: delta readers, then full readers
+V1_DELTA_READERS = V1_FULL_READERS = 4
+V2_READERS = 2
+READ_POLL_S = 0.001  # a reader's pause after a not-modified reply
+#: the environment of the phase's fresh interpreters: one intra-op thread
+#: each. Eight processes share the host's 8 cores, and an ef∘top-k wire's
+#: payload layout comes from the codec's plain encode of zeros on the CPU
+#: (``CodecWire``): 4 workers at 8 threads each took 64-87 s to their
+#: first push on the H100's host
+FLEET_ENV = {"OMP_NUM_THREADS": "1"}
+
+#: a reader process: ``ServingReader`` threads that read in a loop until
+#: the stop file names the final version and each holds it; prints
+#: ``{"ready": true}`` once every root reader holds a version, then the
+#: report (per thread: reads and latencies by kind, the bytes of each
+#: full and delta read, the CRC-32 of every version held, the FRS1
+#: trailer's publish and arrival walls with the read's own, the lossy
+#: bound; its dequantize launches) as one JSON line
+_READER_SRC = r'''
+import json, os, sys, threading, time, zlib
+import numpy as np
+from pytorch_ps_mpi_tpu_torch.ops import quant
+from pytorch_ps_mpi_tpu_torch.parallel import async_train as at
+from pytorch_ps_mpi_tpu_torch.serving import ServingReader
+
+a = json.loads(sys.argv[1])
+tmpl = at.make_problem(a["model"], "cpu").template
+rel = float(a["max_rel_error"])
+first = threading.Barrier(sum(1 for s in a["readers"] if "port" in s) + 1)
+reports = [None] * len(a["readers"])
+
+
+def read_int(path):
+    try:
+        return int(open(path).read())
+    except (OSError, ValueError):
+        return None
+
+
+def loop(i, spec):
+    port = spec.get("port")
+    while port is None:  # the edge reader: its replica's port, when up
+        try:
+            port = int(open(spec["port_file"]).read())
+        except (OSError, ValueError):
+            time.sleep(0.05)
+    r = ServingReader("127.0.0.1", port, tmpl, timeout=60.0,
+                      want_delta=spec["want_delta"],
+                      serving_kw=a["serving_kw"], device=a["device"])
+    lat = {"full": [], "delta": [], "not_modified": []}
+    nbytes = {"full": [], "delta": []}
+    held, hops, hop_counts, bound = {}, [], set(), 0.0
+    t_first = None
+    while True:
+        while "ready_file" in spec and r.version:
+            # read once the server's deltas to a newer version are in
+            ready, stop = read_int(spec["ready_file"]), read_int(a["stop_file"])
+            if (ready or 0) > r.version or (stop is not None
+                                            and r.version >= stop):
+                break
+            time.sleep(a["poll_s"])
+        b0, prev = r.bytes_received, r._flat
+        c0 = (r.full_reads, r.delta_reads)
+        t0 = time.perf_counter()
+        _, ver = r.read_params()
+        dt = time.perf_counter() - t0
+        kind = ("full" if r.full_reads > c0[0] else "delta"
+                if r.delta_reads > c0[1] else "not_modified")
+        lat[kind].append(dt)
+        if kind != "not_modified":
+            nbytes[kind].append(r.bytes_received - b0)
+            held[ver] = zlib.crc32(r._flat)
+            if r.fresh is not None and r.fresh["version"] == ver:
+                # one host, one clock: the publish and arrival walls, and
+                # this read's, are comparable as they stand
+                doc = r.fresh
+                hops.append([doc["publish_wall"]]
+                            + [h["arrival_wall"] for h in doc["hops"]]
+                            + [r.fresh_recv_wall])
+                hop_counts.add(doc["hop_count"])
+            if kind == "full":
+                bound = 0.0
+            elif rel:
+                bound += (rel / (1 - rel) * float(np.linalg.norm(r._flat - prev))
+                          + 2.0 ** -23 * float(np.linalg.norm(r._flat)))
+        if t_first is None:
+            t_first = time.perf_counter()
+            if "port" in spec:
+                first.wait()
+        stop = read_int(a["stop_file"])
+        if stop is not None and ver >= stop:
+            break
+        if kind == "not_modified":
+            time.sleep(a["poll_s"])
+    if spec.get("save"):
+        np.save(spec["save"], r._flat)
+    reports[i] = {"name": spec["name"], "final": ver, "held": held,
+                  "lat": lat, "bytes": nbytes, "hops": hops,
+                  "hop_counts": sorted(hop_counts), "bound": bound,
+                  "shed_retries": r.shed_retries,
+                  "seconds": time.perf_counter() - t_first}
+    r.close()
+
+
+ts = [threading.Thread(target=loop, args=(i, s))
+      for i, s in enumerate(a["readers"])]
+for t in ts:
+    t.start()
+first.wait()
+print(json.dumps({"ready": True}), flush=True)
+for t in ts:
+    t.join()
+print(json.dumps({"readers": reports,
+                  "dequantize_launches": quant.dequant_sum.launches}),
+      flush=True)
+'''
+
+
+def _json_line(proc, what: str, timeout: float) -> dict:
+    """The next JSON line a spawned process prints on its stdout."""
+    import select
+
+    deadline = time.time() + timeout
+    while time.time() < deadline:
+        r, _, _ = select.select([proc.stdout], [], [], 0.5)
+        if r:
+            line = proc.stdout.readline()
+            if line.strip():
+                return json.loads(line)
+        if proc.poll() is not None:
+            raise AssertionError(f"{what} exited early: {proc.returncode}")
+    raise AssertionError(f"{what}: no line in {timeout} s")
+
+
+def _serve_readonly(args: list):
+    """``python -m pytorch_ps_mpi_tpu_torch.serve_readonly args`` in a
+    fresh interpreter, its stdout piped."""
+    from pytorch_ps_mpi_tpu_torch.parallel import async_train as at
+
+    src = ("import sys\n"
+           "from pytorch_ps_mpi_tpu_torch.serve_readonly import main\n"
+           "sys.exit(main(sys.argv[1:]))\n")
+    return at.spawn_python(src, [str(a) for a in args], FLEET_ENV,
+                           stdout=subprocess.PIPE)
+
+
+def _stop(proc, timeout: float = 60.0) -> dict:
+    """SIGINT a ``serve_readonly`` process; its ``final_serving`` line."""
+    import signal
+
+    proc.send_signal(signal.SIGINT)
+    out, _ = proc.communicate(timeout=timeout)
+    if proc.returncode != 0:
+        raise AssertionError(f"serve_readonly exited {proc.returncode}")
+    return json.loads(out.strip().splitlines()[-1])["final_serving"]
+
+
+def _ms_q(xs, q: float) -> str:
+    if not xs:
+        return "none"
+    s = sorted(xs)
+    return f"{s[min(len(s) - 1, int(round(q * (len(s) - 1))))] * 1e3:.3f}"
+
+
+class _RingHasher:
+    """CRC-32 of every version the server's core publishes: a thread
+    walks the snapshot ring every 20 ms (a version stays in the 8-deep
+    ring for 8 publishes) and hashes the versions it has not seen, the
+    GIL free while ``zlib.crc32`` runs."""
+
+    def __init__(self, server):
+        import threading
+
+        self.server = server
+        self.crcs: dict = {}
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+
+    def _sweep(self) -> None:
+        import zlib
+
+        core = self.server.serving_core
+        store = core._stores.get(core.default_tenant) if core else None
+        for v in (store.versions() if store is not None else ()):
+            if v not in self.crcs:
+                snap = store.acquire(v)
+                if snap is not None:
+                    self.crcs[v] = zlib.crc32(snap.flat)
+                    store.release(snap)
+
+    def _run(self) -> None:
+        while not self._stop.wait(0.02):
+            self._sweep()
+
+    def close(self) -> dict:
+        self._stop.set()
+        self._thread.join(timeout=30)
+        self._sweep()
+        return self.crcs
+
+
+def serving_fleet(label: str, cfg: dict, card: str, readers=None,
+                  replicas: int = 0, hash_versions: bool = False) -> dict:
+    """One ResNet-50 fleet (A1's) with the read tier armed (``readers``:
+    the reader process's threads) or not. The server is this process;
+    the workers, the reader process and ``replicas`` chained
+    ``serve_readonly --follow-endpoint`` replicas are fresh interpreters,
+    all spawned at once (a worker's first push comes ~15 s after its
+    spawn, the readers hold a version after ~10). The final version goes
+    to the reader process through a stop file. Returns the server's metrics
+    with the runs' reports; ``hash_versions``: the CRC-32 of every
+    version published (``crcs``)."""
+    import threading
+
+    from pytorch_ps_mpi_tpu_torch.parallel import async_train as at
+    from pytorch_ps_mpi_tpu_torch.parallel.dcn import (ShmPSServer,
+                                                       flatten_params)
+
+    workers = ASYNC_WORKERS
+    template = at.make_problem(cfg, "cuda").template
+    name = f"/psq_chip_smoke_{os.getpid()}_{label}"
+    server = ShmPSServer(name, workers, template, max_staleness=4,
+                         code=at._codec(cfg), frame=True, device="cuda")
+    d = cfg["stats_dir"]
+    stop_file = os.path.join(d, "stop")
+    out = {"procs": [], "replicas": [], "reader": None, "errors": []}
+    hasher = _RingHasher(server) if hash_versions else None
+    t0 = time.perf_counter()
+    timeline = {}
+
+    def mark(what: str) -> None:
+        timeline[what] = round(time.perf_counter() - t0, 3)
+
+    done = threading.Event()
+
+    def notify_ready() -> None:
+        """Write the newest version whose publish (with the native tier's
+        pre-encode of its deltas) has returned, for readers that read
+        only then (a spec's ``ready_file``)."""
+        seen = 0
+        while not done.wait(0.002):
+            core = server.serving_core
+            n = core.publishes if core is not None else 0
+            if n != seen:
+                tmp = os.path.join(d, "ready.tmp")
+                with open(tmp, "w") as f:
+                    f.write(str(n))
+                os.replace(tmp, os.path.join(d, "ready"))
+                seen = n
+
+    notifier = (threading.Thread(target=notify_ready, daemon=True)
+                if any("ready_file" in s for s in readers or ()) else None)
+    if notifier is not None:
+        notifier.start()
+
+    def start_workers() -> None:
+        mark("workers_spawned_s")
+        out["procs"] = [at.spawn_worker(name, i, cfg, FLEET_ENV)
+                        for i in range(workers)]
+
+    def arm() -> None:
+        """The reader process and the chain of replicas."""
+        try:
+            deadline = time.time() + SERVING_LIMIT
+            # the core attaches itself before it binds its read port
+            while (server.serving_core is None
+                   or server.serving_core.read_port is None):
+                if time.time() > deadline:
+                    raise AssertionError("the read tier never came up")
+                time.sleep(0.01)
+            up = server.serving_core.read_port
+            specs = [dict(s) for s in readers]
+            for s in specs:
+                if s.pop("root", False):
+                    s["port"] = up
+            kw = {"ring": SERVING_RING, **cfg.get("serving_kw", {})}
+            reader = at.spawn_python(_READER_SRC, [json.dumps({
+                "model": cfg, "readers": specs, "serving_kw": kw,
+                "device": "cuda", "stop_file": stop_file,
+                "poll_s": READ_POLL_S,
+                "max_rel_error": (kw.get("delta_max_rel_error", 0.05)
+                                  if kw.get("delta_codec") else 0.0)})],
+                FLEET_ENV, stdout=subprocess.PIPE)
+            out["reader"] = reader
+            for i in range(replicas):
+                rep = _serve_readonly([
+                    "--follow-endpoint", f"127.0.0.1:{up}", "--follow",
+                    "0.05", "--model", cfg["model"], "--read-port", "0",
+                    "--ring", SERVING_RING])
+                out["replicas"].append(rep)
+                up = _json_line(rep, f"{label} replica {i + 1}",
+                                SERVING_LIMIT)["read_port"]
+                mark(f"replica{i + 1}_up_s")
+            with open(os.path.join(d, "edge_port"), "w") as f:
+                f.write(str(up))
+            _json_line(reader, f"{label} reader", SERVING_LIMIT)
+            mark("readers_ready_s")
+        except BaseException as e:  # noqa: BLE001 - raised below
+            out["errors"].append(repr(e))
+
+    counters = kernel_counters()
+    for k in counters.values():
+        k.launches = 0
+    armer = None
+    try:
+        if readers:
+            armer = threading.Thread(target=arm)
+            armer.start()
+        start_workers()
+        total = sum(at.worker_cfg(cfg, i)[1] for i in range(workers))
+        params, m = at.serve(server, cfg, total_grads=0,
+                             total_received=total,
+                             timeout=SERVING_LIMIT,
+                             checkpoint_dir=cfg.get("checkpoint_dir"),
+                             checkpoint_every=cfg.get("checkpoint_every",
+                                                      0))
+        mark("serve_returned_s")
+        m["final_flat"] = flatten_params(params)
+        if armer is not None:
+            armer.join(timeout=SERVING_LIMIT)
+        if out["errors"]:
+            raise AssertionError(f"{label}: {out['errors']}")
+        codes = at.join_workers(out["procs"], timeout=SERVING_LIMIT)
+        if codes != [0] * workers:
+            raise AssertionError(f"{label}: worker exit codes {codes}")
+        m["final_version"] = server.version
+        # close() folds the native tier's counters and turns it off
+        m["read_native"] = server.serving_core.read_native
+        if readers:
+            with open(stop_file, "w") as f:
+                f.write(str(server.version))
+            m["reader"] = _json_line(out["reader"], f"{label} reader",
+                                     SERVING_LIMIT)
+            mark("readers_done_s")
+            m["reader_dequantize_launches"] = m["reader"][
+                "dequantize_launches"]
+            m["crcs"] = hasher.close() if hasher is not None else {}
+            m["core"] = server.serving_core
+            m["delta_codec"] = server.serving_core._deltas.get("default")
+    finally:
+        done.set()
+        if armer is not None:
+            armer.join(timeout=SERVING_LIMIT)
+        if hasher is not None:
+            hasher.close()
+        server.close()  # the root stops
+        at.join_workers(out["procs"], timeout=5.0)
+        if out["reader"] is not None:
+            at.join_workers([out["reader"]], timeout=30.0)
+        finals = []
+        for p in out["replicas"]:
+            try:
+                finals.append(_stop(p))
+            except (AssertionError, ValueError, IndexError,
+                    subprocess.TimeoutExpired) as e:
+                out["errors"].append(f"replica: {e!r}")
+            finally:
+                at.join_workers([p], timeout=5.0)
+    if out["errors"]:
+        raise AssertionError(f"{label}: {out['errors']}")
+    mark("stopped_s")
+    m["timeline"] = timeline
+    m["replica_finals"] = finals
+    m["worker_stats"] = [json.loads(open(os.path.join(
+        d, f"worker-{i}.json")).read()) for i in range(workers)]
+    m["worker_launches"] = [s["launches"] for s in m["worker_stats"]]
+    m["worker_pushes"] = [s["pushes"] for s in m["worker_stats"]]
+    if m["applied"] + m["stale_drops"] != total:
+        raise AssertionError(f"{label}: applied {m['applied']} + dropped "
+                             f"{m['stale_drops']} != {total}")
+    return m
+
+
+def serving_cfg(d: str, codec: str, codec_kw: dict, **kw) -> dict:
+    """A1's fleet (``async_cfg``: ResNet-50, 4 workers, worker 3 a 200 ms
+    straggler pushing twice and the others 6 times) with ``codec``."""
+    last = str(ASYNC_WORKERS - 1)
+    steps = {str(i): ASYNC_STEPS for i in range(ASYNC_WORKERS)}
+    return async_cfg("resnet50", d, slow_ms={last: 200.0},
+                     worker_steps={**steps, last: 2}, codec=codec,
+                     codec_kw=codec_kw, **kw)
+
+
+def async_topk_leaves() -> list:
+    """(n, k) of A1's ResNet-50 (``small_inputs``) leaves that take the
+    top-k kernel at fraction ``TOPK_FRACTION``."""
+    from pytorch_ps_mpi_tpu_torch.ops import topk as T
+
+    out = []
+    for n in async_sizes("resnet50"):
+        k = max(1, int(round(n * TOPK_FRACTION)))
+        if 4 * 2048 <= n <= T.MAX_N and k < n:
+            out.append((n, k))
+    return out
+
+
+def delta_sections(model: str) -> list:
+    """The element counts of the read tier's delta sections on a model's
+    async template (``serving/delta.py``, 4 MB)."""
+    from pytorch_ps_mpi_tpu_torch.parallel import async_train as at
+    from pytorch_ps_mpi_tpu_torch.parallel.dcn import flat_size
+    from pytorch_ps_mpi_tpu_torch.serving.delta import (DELTA_KNOBS,
+                                                        _flat_segments)
+
+    tmpl = at.make_problem(async_cfg(model, ""), "cuda").template
+    return [c for _, c in _flat_segments(
+        tmpl, DELTA_KNOBS["delta_bucket_mb"], flat_size(tmpl))]
+
+
+def _readers_check(label: str, rep: dict, crcs: dict, final: int) -> None:
+    """Every version a reader held hashes to the server's CRC-32 of it,
+    and each reader ended on the final version."""
+    for r in rep["readers"]:
+        if r["final"] != final:
+            raise AssertionError(f"{label} {r['name']}: ended on "
+                                 f"{r['final']}, not {final}")
+        bad = {v: c for v, c in r["held"].items()
+               if crcs.get(int(v)) != c}
+        if bad:
+            raise AssertionError(f"{label} {r['name']}: versions {sorted(bad)} "
+                                 "differ from the server's")
+
+
+def _kind_fields(readers: list) -> dict:
+    out = {}
+    for kind in ("full", "delta", "not_modified"):
+        xs = [t for r in readers for t in r["lat"][kind]]
+        out[f"{kind}_reads"] = len(xs)
+        out[f"{kind}_p50_ms"] = _ms_q(xs, 0.50)
+        out[f"{kind}_p95_ms"] = _ms_q(xs, 0.95)
+    return out
+
+
+def _run_fields(m: dict) -> dict:
+    """A fleet's wall, its timeline from the server's construction, and
+    its workers' medians a push (ms)."""
+    first = (m["wall_s"] - (m["applied"] - 1) / m["steady_updates_per_sec"]
+             if m["steady_updates_per_sec"] else m["wall_s"])
+    return {"wall_s": f"{m['wall_s']:.3f}",
+            "first_update_s": f"{first:.3f}",
+            "timeline": json.dumps(m["timeline"], separators=(",", ":")),
+            "worker_first_step_ms": json.dumps([round(sum(
+                w[k][0] for k in ("read_s", "grad_s", "encode_s", "push_s")
+                if w[k]) * 1e3, 1) for w in m["worker_stats"]],
+                separators=(",", ":")),
+            **{f"worker_{k[:-2]}_ms": _median_ms(m["worker_stats"], k)
+               for k in ("read_s", "grad_s", "encode_s", "push_s")}}
+
+
+def _publish_fields(m: dict) -> dict:
+    """The serve loop's publish, ms a publish, split: the allocation of
+    the version's own pinned array, the D2H copy into it, the transport's
+    publish, the ring put (with the FRS1 stamp), the native tier's
+    pre-encode of the ring's deltas."""
+    t, n = m["server_times"], max(m["core"].publishes, 1)
+    return {f"publish_{k}_ms": f"{t.get(f'publish_{k}_s', 0.0) / n * 1e3:.3f}"
+            for k in ("alloc", "d2h", "transport", "ring_put", "pre_encode")}
+
+
+def serving_v1(card: str, tmp: str, topk_launches: int, tally: dict):
+    """V1 (exact deltas) with V3 (the follower chain) riding on it.
+    Returns V1's cfg and metrics."""
+    d = os.path.join(tmp, "v1")
+    os.makedirs(d)
+    kw = {"inner_name": "topk", "fraction": TOPK_FRACTION, "pallas": True}
+    cfg = serving_cfg(d, "ef", kw, read_port=0,
+                      serving_kw={"ring": SERVING_RING},
+                      checkpoint_dir=os.path.join(d, "ckpt"),
+                      checkpoint_every=4)
+    save = os.path.join(d, "reader_final.npy")
+    # a delta reader reads once a newer version's deltas are in: the native
+    # tier answers in full until the serve thread has pre-encoded them, and
+    # a reader in a tight loop reads in that window every version
+    readers = ([{"name": f"delta{i}", "root": True, "want_delta": True,
+                 "ready_file": os.path.join(d, "ready")}
+                for i in range(V1_DELTA_READERS)]
+               + [{"name": f"full{i}", "root": True, "want_delta": False}
+                  for i in range(V1_FULL_READERS)]
+               + [{"name": "edge", "port_file": os.path.join(d, "edge_port"),
+                   "want_delta": True}])
+    readers[0]["save"] = save
+    t0 = time.perf_counter()
+    m = serving_fleet("V1", cfg, card, readers=readers, replicas=2,
+                      hash_versions=True)
+    final, crcs, core = m["final_version"], m["crcs"], m["core"]
+    if sorted(crcs) != list(range(1, final + 1)):
+        raise AssertionError(f"V1: hashed versions {sorted(crcs)} of 1.."
+                             f"{final}")
+    rep = m["reader"]
+    _readers_check("V1", rep, crcs, final)
+    if not np.array_equal(np.load(save).view(np.uint32),
+                          m["final_flat"].view(np.uint32)):
+        raise AssertionError("V1: the last read differs from the final flat")
+    if not m["read_native"]:
+        raise AssertionError("V1: the native read tier is not armed")
+    leaves = async_topk_leaves()
+    for i, got in enumerate(m["worker_launches"]):
+        _expect_launches(f"V1 worker {i}", got, {
+            "exact_topk": topk_launches * len(leaves)
+            * m["worker_pushes"][i]})
+        _tally(tally, got)
+    _expect_launches("V1 server", m["server_launches"], {})
+    root = [r for r in rep["readers"] if r["name"] != "edge"]
+    edge, = [r for r in rep["readers"] if r["name"] == "edge"]
+    for r in root[:V1_DELTA_READERS]:
+        if not r["lat"]["delta"]:
+            raise AssertionError(f"V1 {r['name']}: no delta applied in "
+                                 f"{len(r['held'])} versions held")
+    if edge["hop_counts"] != [2]:
+        raise AssertionError(f"V1/V3: the edge's hop counts "
+                             f"{edge['hop_counts']}")
+    lags = [f["replica_lag_versions"] for f in m["replica_finals"]]
+    if max(lags) > 2:
+        raise AssertionError(f"V3: replica lags {lags} after the root "
+                             "stopped")
+    full_bytes = m["final_flat"].nbytes
+    deltas = [b for r in root for b in r["bytes"]["delta"]]
+    reads = sum(len(r["lat"][k]) for r in root for k in r["lat"])
+    secs = max(r["seconds"] for r in root)
+    phase("serving", run="V1", card=repr(card), model="resnet50",
+          code="ef_topk", ring=SERVING_RING, read_native=m["read_native"],
+          pushes=int(m["grads_received"]), applied=int(m["applied"]),
+          stale_drops=int(m["stale_drops"]), versions=final,
+          readers=len(root), reads=reads, reads_per_s=f"{reads / secs:.1f}",
+          **_kind_fields(root),
+          delta_bytes_mean=int(statistics.mean(deltas)) if deltas else 0,
+          full_bytes=full_bytes,
+          delta_over_full=(f"{statistics.mean(deltas) / full_bytes:.5f}"
+                           if deltas else "none"),
+          coalesce_hits=int(m["coalesce_hits"]),
+          reads_shed=int(m["reads_shed"]),
+          shed_retries=sum(r["shed_retries"] for r in root),
+          crc_versions_checked=sum(len(r["held"]) for r in rep["readers"]),
+          delta_reads_by_delta_reader=json.dumps(
+              [len(r["lat"]["delta"]) for r in root[:V1_DELTA_READERS]],
+              separators=(",", ":")))
+    phase("serving", run="V1", card=repr(card), what="publish",
+          publishes=core.publishes, **_publish_fields(m),
+          updates_per_sec=f"{m['updates_per_sec']:.3f}",
+          steady_updates_per_sec=f"{m['steady_updates_per_sec']:.3f}",
+          **_run_fields(m))
+    # (publish, replica 1 arrival, replica 2 arrival, edge read) walls of
+    # the versions after the edge's first (published before it connected)
+    walls = [w for w in edge["hops"][1:] if len(w) == 4]
+    hop_ms = {name: (f"{statistics.median((w[i + 1] - w[i]) * 1e3 for w in walls):.3f}"
+                     if walls else "none")
+              for i, name in enumerate(("root_to_replica1",
+                                        "replica1_to_replica2",
+                                        "replica2_to_edge_read"))}
+    phase("serving", run="V3", card=repr(card), chain="root>replica1>"
+          "replica2>reader", hop_count=2, edge_versions=len(edge["held"]),
+          follow_poll_s=0.05,
+          **{f"publish_to_visible_p50_ms_{k}": v for k, v in hop_ms.items()},
+          follower_bytes_relayed=json.dumps(
+              [int(f["follower_bytes_relayed"]) for f in m["replica_finals"]],
+              separators=(",", ":")),
+          replica_lag_versions=json.dumps([round(x, 4) for x in lags],
+                                          separators=(",", ":")),
+          republished=json.dumps([f["republished"]
+                                  for f in m["replica_finals"]],
+                                 separators=(",", ":")),
+          seconds=f"{time.perf_counter() - t0:.1f}")
+    return cfg, m
+
+
+def serving_unarmed(card: str, tmp: str, m: dict, tally: dict) -> None:
+    """V1's fleet (its checkpoints too) with nothing armed: the pair
+    with V1's metrics ``m``."""
+    t0 = time.perf_counter()
+    du = os.path.join(tmp, "v1_unarmed")
+    os.makedirs(du)
+    kw = {"inner_name": "topk", "fraction": TOPK_FRACTION, "pallas": True}
+    mu = serving_fleet("V1u", serving_cfg(
+        du, "ef", kw, checkpoint_dir=os.path.join(du, "ckpt"),
+        checkpoint_every=4), card)
+    for got in mu["worker_launches"]:
+        _tally(tally, got)
+    phase("serving", what="armed_vs_unarmed", card=repr(card),
+          compares="V1 read tier armed (8 readers, 2 replicas) vs the same "
+          "fleet unarmed, one run each; V4's replica starts during the "
+          "unarmed run's start-up",
+          armed_steady_updates_per_sec=f"{m['steady_updates_per_sec']:.3f}",
+          unarmed_steady_updates_per_sec=(
+              f"{mu['steady_updates_per_sec']:.3f}"),
+          armed_updates_per_sec=f"{m['updates_per_sec']:.3f}",
+          unarmed_updates_per_sec=f"{mu['updates_per_sec']:.3f}",
+          unarmed_publish_ms=f"{mu['server_times']['publish_s'] / max(mu['applied'], 1) * 1e3:.3f}",
+          unarmed_applied=int(mu["applied"]),
+          unarmed_stale_drops=int(mu["stale_drops"]),
+          **{f"unarmed_{k}": v for k, v in _run_fields(mu).items()},
+          seconds=f"{time.perf_counter() - t0:.1f}")
+
+
+def serving_v4(card: str, cfg: dict, m: dict, meanwhile) -> None:
+    """V4: ``serve_readonly --checkpoint-dir`` on V1's checkpoints; a
+    reader here loads what it read into ResNet-50 on the card, and its
+    held-out loss must equal the V1 server's final one bit for bit
+    (cuDNN deterministic in both). ``meanwhile()`` runs while the
+    replica's interpreter starts."""
+    from pytorch_ps_mpi_tpu_torch.parallel import async_train as at
+    from pytorch_ps_mpi_tpu_torch.parallel.dcn import flatten_params
+    from pytorch_ps_mpi_tpu_torch.serving import ServingReader
+
+    proc = _serve_readonly(["--checkpoint-dir", cfg["checkpoint_dir"],
+                            "--model", "resnet50", "--read-port", "0",
+                            "--duration", SERVING_LIMIT])
+    try:
+        meanwhile()
+        t0 = time.perf_counter()
+        hello = _json_line(proc, "V4 serve_readonly", SERVING_LIMIT)
+        if hello["version"] != m["final_version"]:
+            raise AssertionError(f"V4: serves version {hello['version']}, "
+                                 f"V1 ended on {m['final_version']}")
+        prob = at.make_problem(cfg, "cuda")
+        r = ServingReader("127.0.0.1", hello["read_port"], prob.template)
+        t1 = time.perf_counter()
+        tree, ver = r.read_params()
+        read_ms = (time.perf_counter() - t1) * 1e3
+        r.close()
+        flat = flatten_params(tree)
+        prob.load_flat(torch.from_numpy(flat).to(prob.device))
+        loss = prob.eval_loss()
+    finally:
+        final = _stop(proc)
+    if loss != m["loss_final"] or not np.array_equal(
+            flat.view(np.uint32), m["final_flat"].view(np.uint32)):
+        raise AssertionError(f"V4: held-out loss {loss!r} vs the server's "
+                             f"{m['loss_final']!r}")
+    phase("serving", run="V4", card=repr(card), model="resnet50",
+          checkpoint_step=hello["checkpoint_step"], version=ver,
+          read_ms=f"{read_ms:.3f}", loss=f"{loss:.9g}",
+          server_loss=f"{m['loss_final']:.9g}", bit_equal=True,
+          reads_total=final["reads_total"],
+          seconds=f"{time.perf_counter() - t0:.1f}")
+
+
+def serving_v2(card: str, tmp: str, tally: dict) -> None:
+    """V2: A1's fleet (sign) with int8-lossy deltas, two delta readers
+    applying on the card."""
+    d = os.path.join(tmp, "v2")
+    os.makedirs(d)
+    t0 = time.perf_counter()
+    cfg = serving_cfg(d, "sign", {}, read_port=0,
+                      serving_kw={"ring": SERVING_RING,
+                                  "delta_codec": "int8"})
+    save = os.path.join(d, "reader_final.npy")
+    # each reads once a version's deltas are in: the native tier installs
+    # a version before the serve thread pre-encodes its deltas (~0.9 s a
+    # publish here), and a read in between is answered in full
+    readers = [{"name": f"delta{i}", "root": True, "want_delta": True,
+                "ready_file": os.path.join(d, "ready")}
+               for i in range(V2_READERS)]
+    readers[0]["save"] = save
+    m = serving_fleet("V2", cfg, card, readers=readers)
+    final, dc, core = m["final_version"], m["delta_codec"], m["core"]
+    rep = m["reader"]
+    sections = len(dc.segments)
+    probed = sum(1 for e in range(1, dc.encodes + 1)
+                 if e % dc.probe_every == 1 or dc.probe_every == 1)
+    if core.lossy_fallbacks() or dc.lossy_fallbacks:
+        raise AssertionError(f"V2: {dc.lossy_fallbacks} lossy fallbacks "
+                             f"(last probe {dc.last_probe_rel_error})")
+    if not m["read_native"]:
+        raise AssertionError("V2: the native read tier is not armed")
+    n50 = async_sizes("resnet50")
+    k50 = sum(1 for n in n50 if n % 1024 == 0)
+    want_server = {"quantize_int8": dc.encodes * sections,
+                   "dequant_sum": probed * sections,
+                   "unpack_signs_sum": k50 * int(m["decodes_done"])}
+    if (dc.lossy_encodes, dc.probes) != (want_server["quantize_int8"],
+                                         want_server["dequant_sum"]):
+        raise AssertionError(f"V2: {dc.lossy_encodes} lossy encodes, "
+                             f"{dc.probes} probe decodes; the plan gives "
+                             f"{want_server}")
+    _expect_launches("V2 server", m["server_launches"], want_server)
+    _tally(tally, m["server_launches"])
+    for i, got in enumerate(m["worker_launches"]):
+        _expect_launches(f"V2 worker {i}", got,
+                         {"encode_signs": k50 * m["worker_pushes"][i]})
+        _tally(tally, got)
+    delta_reads = sum(len(r["lat"]["delta"]) for r in rep["readers"])
+    if not delta_reads:
+        raise AssertionError("V2: no reader applied a delta")
+    if m["reader_dequantize_launches"] != delta_reads * sections:
+        raise AssertionError(f"V2 readers: {m['reader_dequantize_launches']} "
+                             f"dequantize launches for {delta_reads} delta "
+                             f"reads of {sections} sections")
+    _tally(tally, {"dequant_sum": m["reader_dequantize_launches"]})
+    for r in rep["readers"]:
+        if r["final"] != final:
+            raise AssertionError(f"V2 {r['name']}: ended on {r['final']}")
+    held = np.load(save)
+    err = float(np.linalg.norm(held - m["final_flat"]))
+    bound = rep["readers"][0]["bound"]
+    if not err <= bound:
+        raise AssertionError(f"V2: the reader is {err} from the final flat, "
+                             f"past the probe's bound {bound}")
+    full_bytes = m["final_flat"].nbytes
+    deltas = [b for r in rep["readers"] for b in r["bytes"]["delta"]]
+    phase("serving", run="V2", card=repr(card), model="resnet50",
+          code="sign", delta_codec="int8", read_native=m["read_native"],
+          pushes=int(m["grads_received"]), applied=int(m["applied"]),
+          versions=final, readers=V2_READERS, sections=sections,
+          encodes=dc.encodes, lossy_encodes=dc.lossy_encodes,
+          probe_decodes=dc.probes, lossy_fallbacks=dc.lossy_fallbacks,
+          last_probe_rel_error=f"{dc.last_probe_rel_error:.6f}",
+          reader_dequantize=m["reader_dequantize_launches"],
+          reader_err_l2=f"{err:.6g}", bound_l2=f"{bound:.6g}",
+          delta_over_full=(f"{statistics.mean(deltas) / full_bytes:.5f}"
+                           if deltas else "none"),
+          **_kind_fields(rep["readers"]), **_publish_fields(m),
+          updates_per_sec=f"{m['updates_per_sec']:.3f}",
+          steady_updates_per_sec=f"{m['steady_updates_per_sec']:.3f}",
+          **_run_fields(m), seconds=f"{time.perf_counter() - t0:.1f}")
+
+
+def run_serving(card: str, topk_launches: int) -> dict:
+    """Phase ``serving``: the read tier beside A1's ResNet-50 fleet on
+    the card, runs V1-V4 (V5 rides on S2 in ``scale_out``). Returns the
+    runs' kernel launches, summed over every process."""
+    import shutil
+    import tempfile
+
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_serving_")
+    tally: dict = {}
+    flags = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    try:
+        cfg, m1 = serving_v1(card, tmp, topk_launches, tally)
+        serving_v4(card, cfg, m1,
+                   lambda: serving_unarmed(card, tmp, m1, tally))
+        serving_v2(card, tmp, tally)
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark \
+            = flags
+        shutil.rmtree(tmp, ignore_errors=True)
+    phase("serving", launches=json.dumps(tally, sort_keys=True,
+                                         separators=(",", ":")),
+          seconds=f"{time.perf_counter() - t0:.1f}")
+    return tally
+
+
 SO_LIMIT = 240.0  # seconds a scale-out run may take, spawn to join
 S1_SHARDS = 2
 R50_UNITS = 161  # ResNet-50's leaves, the units of its wire
@@ -3069,9 +3868,12 @@ def s2_servers(tmp: str) -> dict:
 
     d = os.path.join(tmp, "s2")
     os.makedirs(d)
+    # the read tier armed on every shard (V5); the worker's last push is
+    # a zero gradient, which SGD without momentum applies as no change,
+    # so the shards hold the final state while their tenants are read
     cfg = async_cfg("resnet50", d, codec="identity", n_workers=1,
-                    steps=S2_STEPS, max_staleness=10**9, transport="tcp",
-                    server_timeout=SO_LIMIT)
+                    steps=S2_STEPS + 1, max_staleness=10**9,
+                    transport="tcp", server_timeout=SO_LIMIT, read_port=0)
     s2 = {"cfg": cfg, "runs": {}}
     for n in (1, 2):
         paths = [os.path.join(d, f"n{n}_shard{i}.npz") for i in range(n)]
@@ -3087,15 +3889,19 @@ def s2_procs(s2: dict) -> list:
     return [p for _, _, servers in s2["runs"].values() for p in servers]
 
 
-def _lone_sync_worker(prob, ports: list, cfg: dict) -> list:
-    """S2's one worker, driven from this process: each step reads every
-    shard once its version has moved past the last one read (so the step
-    sees its previous push applied on every shard), computes the
-    gradient and pushes each slice to its shard. Returns the steps'
-    gradient ms."""
+def _lone_sync_worker(prob, ports: list, cfg: dict,
+                      read_ports: list) -> tuple:
+    """S2's one worker, driven from this process: each of ``S2_STEPS``
+    steps reads every shard once its version has moved past the last one
+    read (so the step sees its previous push applied on every shard),
+    computes the gradient and pushes each slice to its shard. Then (V5)
+    it reads each shard's tenant ``shard<i>`` from its read tier once the
+    last update is in, and pushes a zero gradient that ends the run.
+    Returns the steps' gradient ms and the tenants' reads assembled."""
     from pytorch_ps_mpi_tpu_torch.codecs import get_codec
     from pytorch_ps_mpi_tpu_torch.parallel.sharded import shard_plan
     from pytorch_ps_mpi_tpu_torch.parallel.tcp import TcpPSWorker
+    from pytorch_ps_mpi_tpu_torch.serving import ServingReader
 
     flat_n = sum(p.numel() for p in prob.params)
     plan = shard_plan(flat_n, len(ports))
@@ -3106,8 +3912,9 @@ def _lone_sync_worker(prob, ports: list, cfg: dict) -> list:
              for (a, b), port in zip(plan, ports)]
     last, grad_ms = [0] * len(conns), []
     host = torch.empty(flat_n, dtype=torch.float32)
+    read = np.empty(flat_n, np.float32)
     try:
-        for step in range(cfg["steps"]):
+        for step in range(S2_STEPS):
             versions = []
             for i, ((a, b), w) in enumerate(zip(plan, conns)):
                 while True:
@@ -3127,10 +3934,26 @@ def _lone_sync_worker(prob, ports: list, cfg: dict) -> list:
             for (a, b), ver, w in zip(plan, versions, conns):
                 w.push_payload(w.encode([g[a:b]]), ver, timeout=SO_LIMIT,
                                lineage=(step, step))
+        for i, ((a, b), port) in enumerate(zip(plan, read_ports)):
+            r = ServingReader("127.0.0.1", port,
+                              {"flat": np.zeros((b - a,), np.float32)},
+                              tenant=f"shard{i}", timeout=SO_LIMIT)
+            while True:
+                tree, ver = r.read_params()
+                if ver > last[i]:
+                    break
+                time.sleep(0.0005)
+            r.close()
+            read[a:b] = tree["flat"]
+            last[i] = ver
+        for (a, b), ver, w in zip(plan, last, conns):
+            w.push_payload(w.encode([torch.zeros(b - a, device=prob.device)]),
+                           ver, timeout=SO_LIMIT,
+                           lineage=(S2_STEPS, S2_STEPS))
     finally:
         for w in conns:
             w.close()
-    return grad_ms
+    return grad_ms, read
 
 
 def scale_s2(card: str, s2: dict) -> None:
@@ -3143,9 +3966,12 @@ def scale_s2(card: str, s2: dict) -> None:
 
     t0 = time.perf_counter()
     cfg, runs = s2["cfg"], s2["runs"]
+    read_ports = {}
     for n, (_, ports, servers) in runs.items():
-        if [sharded.read_server_port(p, SO_LIMIT) for p in servers] != ports:
+        hellos = [sharded.read_server_hello(p, SO_LIMIT) for p in servers]
+        if [h["port"] for h in hellos] != ports:
             raise AssertionError(f"S2: servers not on {ports}")
+        read_ports[n] = [h["read_port"] for h in hellos]
     prob = at.make_problem(cfg, "cuda")
     flat0 = prob.flat_params().cpu().numpy()
     flags = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
@@ -3154,8 +3980,9 @@ def scale_s2(card: str, s2: dict) -> None:
     torch.backends.cudnn.benchmark = False
     torch.cuda.reset_peak_memory_stats()
     try:
-        grad_ms = {n: _lone_sync_worker(prob, ports, cfg)
-                   for n, (_, ports, _) in runs.items()}
+        worked = {n: _lone_sync_worker(prob, ports, cfg, read_ports[n])
+                  for n, (_, ports, _) in runs.items()}
+        grad_ms = {n: g for n, (g, _) in worked.items()}
     finally:
         torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark \
             = flags
@@ -3174,6 +4001,19 @@ def scale_s2(card: str, s2: dict) -> None:
     if not same or moved == 0.0:
         raise AssertionError(f"S2: 1 shard vs 2 shards equal bit for bit: "
                              f"{same}; moved {moved}")
+    for n, want in ((1, one), (2, two)):
+        if not np.array_equal(worked[n][1].view(np.uint32),
+                              want.view(np.uint32)):
+            raise AssertionError(f"V5: the {n}-shard tenants' reads, "
+                                 "assembled, differ from the result")
+    zs2 = [np.load(p) for p in runs[2][0]]
+    serving = [json.loads(str(z["serving"])) for z in zs2]
+    phase("serving", run="V5", card=repr(card), model="resnet50",
+          shards=2, tenants=json.dumps(sorted(t for s in serving
+                                              for t in s["tenants"])),
+          read_ports=json.dumps(read_ports[2]), bit_equal=True,
+          read_native=json.dumps([s["read_native"] for s in serving]),
+          shard_reads=json.dumps([s["reads_total"] for s in serving]))
     zs = [np.load(p) for n in (1, 2) for p in runs[n][0]]
     phase("scale_out", run="S2", card=repr(card), model="resnet50",
           code="identity", steps=S2_STEPS, bit_equal=same,
@@ -3472,9 +4312,11 @@ def main() -> int:
                             r50_async)
     check_decode_sum(model)
     results.update(check_quant_kernels(model, r50_async,
-                                       s1_slices(sum(r50_async))))
+                                       s1_slices(sum(r50_async)),
+                                       delta_sections("resnet50")))
     leaves = topk_leaves(r50)
-    topk_launches, topk_results = check_topk_kernels(leaves)
+    topk_launches, topk_results = check_topk_kernels(leaves,
+                                                     async_topk_leaves())
     results.update(topk_results)
     check_reference(model, "sign", "ResNet18-cifar-gn-f32")
     check_reference(model, "sign", "ResNet18-cifar-gn-f32",
@@ -3579,6 +4421,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     run_async(card)
     torch.cuda.empty_cache()
+    serving = run_serving(card, topk_launches)
+    torch.cuda.empty_cache()
     scale_out = run_scale_out(card)
     launches.setdefault("pack_signs", 0)
     launches.setdefault("unpack_signs", 0)
@@ -3592,6 +4436,7 @@ def main() -> int:
          "device_ms": r["device_ms"], "plain_ms": r["plain_ms"],
          "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
          "library_ms": r["library_ms"],
+         "launches_serving": serving.get(name, 0),
          "launches_scale_out": scale_out.get(name, 0)}
         for name, r in results.items()]}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -34,9 +34,11 @@ completes a round over the surviving workers once it has waited
 ``cfg["degraded_round_after"]`` seconds. With ``cfg["tree"]`` the server
 is an aggregation tree's root (``parallel/tree.py``): its pushers are
 group leaders whose frames compose several worker pushes, and each round
-is averaged by the composed count. The JAX package's telemetry, control
-and serving options raise ``NotImplementedError`` naming the ROADMAP
-item that brings them (:data:`UNPORTED`).
+is averaged by the composed count. ``cfg["serving"]`` or
+``cfg["read_port"]`` (0 picks a free port) arms the read tier
+(``serving/``) on the server, tuned by ``cfg["serving_kw"]``. The JAX
+package's telemetry and control options raise ``NotImplementedError``
+naming the ROADMAP item that brings them (:data:`UNPORTED`).
 """
 
 from __future__ import annotations
@@ -60,22 +62,21 @@ from pytorch_ps_mpi_tpu_torch.ps import _inverse
 
 Tree = Any
 
-_TELEMETRY = "ROADMAP queue 1 item 4 (telemetry/ and control/)"
-_SERVING = "ROADMAP queue 1 item 3 (the serving/ read tier)"
+_TELEMETRY = "ROADMAP queue 1 item 3 (telemetry/ and control/)"
 
 #: the JAX package's cfg keys the port does not have yet -> their item
-UNPORTED = {
-    **{k: _TELEMETRY for k in (
-        "telemetry_dir", "metrics_port", "health_dir", "health_port",
-        "health", "numerics", "numerics_dir", "numerics_kw", "lineage",
-        "lineage_dir", "trace", "anatomy", "timeseries", "timeseries_kw",
-        "slo", "slo_kw", "profile", "profile_dir", "fleet", "fleet_dir",
-        "control", "control_kw", "control_dir", "topo_actions",
-        "freshness", "hop_anatomy")},
-    **{k: _SERVING for k in ("serving", "read_port", "serving_kw")},
-}
+UNPORTED = {k: _TELEMETRY for k in (
+    "telemetry_dir", "metrics_port", "health_dir", "health_port", "health",
+    "numerics", "numerics_dir", "numerics_kw", "lineage", "lineage_dir",
+    "trace", "anatomy", "timeseries", "timeseries_kw", "slo", "slo_kw",
+    "profile", "profile_dir", "fleet", "fleet_dir", "control",
+    "control_kw", "control_dir", "topo_actions", "freshness",
+    "hop_anatomy")}
+#: the unported keys that are ports: set when not None, as in the JAX
+#: package, where 0 picks a free port
+_PORT_KEYS = ("metrics_port", "health_port")
 _GPT = ("model 'gpt' (models/gpt.py) is not ported yet: "
-        "ROADMAP queue 1 item 5")
+        "ROADMAP queue 1 item 4")
 
 
 #: seconds between two calls of ``serve``'s ``on_tick``
@@ -83,9 +84,11 @@ TICK_S = 0.2
 
 
 def check_cfg(cfg: Dict[str, Any]) -> None:
-    """Raise ``NotImplementedError`` for a set option the port lacks."""
+    """Raise ``NotImplementedError`` for a set option the port lacks: a
+    port key when it is not None (0 included), any other when true."""
     for key, where in UNPORTED.items():
-        if cfg.get(key) not in (None, False, 0, "", {}, []):
+        if (cfg.get(key) is not None if key in _PORT_KEYS
+                else cfg.get(key) not in (None, False, 0, "", {}, [])):
             raise NotImplementedError(
                 f"cfg[{key!r}] is not ported yet: {where}")
     if cfg.get("model") == "gpt":
@@ -549,9 +552,22 @@ def serve(server, cfg: Dict[str, Any], total_grads: int, *,
     divided by the composed worker-push count the frames' trailers carry
     (one a direct push), in the JAX package's order of operations.
     ``cfg["idle_share"]`` adds the card's idle share from the first
-    update on (:class:`IdleMeter`) to the metrics."""
+    update on (:class:`IdleMeter`) to the metrics.
+
+    The read tier (``async_train.py:805-813``, ``:1017-1024``): the loop
+    publishes through a :class:`~pytorch_ps_mpi_tpu_torch.serving.
+    ServingCore` on the server. Armed (``cfg["serving"]`` or
+    ``cfg["read_port"]``), each version is copied from the device into a
+    host array of its own, which the core's snapshot ring adopts, and
+    the metrics carry ``serving``, ``read_port`` and the publish's split
+    (``server_times``: ``publish_alloc_s``, ``publish_d2h_s``,
+    ``publish_transport_s``, ``publish_ring_put_s``,
+    ``publish_pre_encode_s``); the read server stays up until
+    ``server.close()``. Unarmed, the loop publishes from one pinned
+    buffer straight to the transport (``ServingCore.publish_device``)."""
     from pytorch_ps_mpi_tpu_torch.resilience.faults import (
         FaultInjector, InjectedServerCrash)
+    from pytorch_ps_mpi_tpu_torch.serving import ServingCore
 
     device = server.device
     prob = make_problem(cfg, device)
@@ -595,16 +611,13 @@ def serve(server, cfg: Dict[str, Any], total_grads: int, *,
 
         native.fold_lib()  # built before the first round, not in it
     agg_req = str(cfg.get("agg", "auto")).lower()
-    pinned = torch.empty(flat.numel(), dtype=torch.float32,
-                         pin_memory=device.type == "cuda")
-    host = pinned.numpy()
+    core = ServingCore(server, cfg)
     times = collections.defaultdict(float)
     marks: List[Tuple[float, int]] = []  # (seconds, applied) an update
 
     def publish() -> None:
         t0 = time.perf_counter()
-        pinned.copy_(flat)
-        server.publish_flat(host)
+        core.publish_device(flat)
         times["publish_s"] += time.perf_counter() - t0
 
     prob.load_flat(flat)
@@ -809,6 +822,9 @@ def serve(server, cfg: Dict[str, Any], total_grads: int, *,
         cadence.final_save({"flat": flat, "opt_state": state}, server,
                            applied_before + applied)
     prob.load_flat(flat)
+    if core.armed:
+        for k, v in core.publish_times.items():
+            times[f"publish_{k}"] = v
     m = dict(server.metrics())
     m.update(
         applied=float(applied),
@@ -835,6 +851,10 @@ def serve(server, cfg: Dict[str, Any], total_grads: int, *,
     if hasattr(server, "native_batches"):
         m["native_batches"] = float(server.native_batches)
         m["native_batch_frames"] = float(server.native_batch_frames)
+    if core.armed:
+        m["serving"] = core.serving_snapshot()
+        if core.read_port is not None:
+            m["read_port"] = core.read_port
     from pytorch_ps_mpi_tpu_torch.parallel.dcn import unflatten_params
 
     return unflatten_params(flat.cpu().numpy(), server.template), m

@@ -226,7 +226,7 @@ class CodecWire:
     def probe_fidelity(self, grad) -> Dict[str, Any]:
         raise NotImplementedError(
             "CodecWire.probe_fidelity (the numerics probe) is not ported "
-            "yet: ROADMAP queue 1 item 4 (telemetry/numerics.py)")
+            "yet: ROADMAP queue 1 item 3 (telemetry/numerics.py)")
 
     # -- receive -----------------------------------------------------------
     def payloads_from_bytes(self, buf) -> list:
@@ -523,6 +523,7 @@ class ShmPSServer(_ServerBase):
         return out
 
     def close(self) -> None:
+        self._close_serving()
         if self._h:
             self._lib.psq_close(self._h)
             self._h = None

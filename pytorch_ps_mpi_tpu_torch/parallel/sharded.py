@@ -32,7 +32,7 @@ import torch
 Tree = Any
 
 _CONTROL = ("a shard plan from a control directory (control.topo) is not "
-            "ported yet: ROADMAP queue 1 item 4 (telemetry/ and control/)")
+            "ported yet: ROADMAP queue 1 item 3 (telemetry/ and control/)")
 
 
 def shard_plan(n_total: int, n_shards: int) -> List[Tuple[int, int]]:
@@ -80,11 +80,16 @@ def server_main(shard_id: int, n_shards: int, port: int,
     ``cfg["checkpoint_every"]`` applied updates; ``cfg["resume"]``
     restores them with the crash-window version jump. With
     ``cfg["idle_share"]`` the card's idle share from the first push on is
-    measured (:class:`IdleMeter`)."""
+    measured (:class:`IdleMeter`). With ``cfg["serving"]`` or
+    ``cfg["read_port"]`` the shard serves its slice through a read tier
+    of its own under the tenant ``shard<i>`` (``sharded.py:178-248``): the
+    read port is always picked free (S shards share a host) and printed
+    in the hello line as ``read_port``."""
     from pytorch_ps_mpi_tpu_torch.mesh import resolve_device
     from pytorch_ps_mpi_tpu_torch.optim import OPTIMIZERS
     from pytorch_ps_mpi_tpu_torch.parallel import async_train as at
     from pytorch_ps_mpi_tpu_torch.parallel.tcp import TcpPSServer
+    from pytorch_ps_mpi_tpu_torch.serving import ServingCore
 
     device = resolve_device(cfg.get("device", "cuda"))
     planned_shards(cfg.get("control_dir"), n_shards)
@@ -129,16 +134,20 @@ def server_main(shard_id: int, n_shards: int, port: int,
                     checkpoint_every)
             flat.copy_(restored["flat"])
             state = restored["opt_state"]
-    # the coordinator reads the bound port from this line
-    print(json.dumps({"shard": shard_id, "port": server.port}), flush=True)
-    pinned = torch.empty(flat.numel(), dtype=torch.float32,
-                         pin_memory=device.type == "cuda")
+    scfg = dict(cfg)
+    if cfg.get("read_port") is not None:
+        scfg["read_port"] = 0
+    core = ServingCore(server, scfg, tenant=f"shard{shard_id}")
+    # the coordinator reads the bound ports from this line
+    hello = {"shard": shard_id, "port": server.port}
+    if core.read_port is not None:
+        hello["read_port"] = core.read_port
+    print(json.dumps(hello), flush=True)
     times = {"update_s": 0.0, "publish_s": 0.0}
 
     def publish() -> None:
         t0 = time.perf_counter()
-        pinned.copy_(flat)  # the one D2H a publish
-        server.publish_flat(pinned.numpy())
+        core.publish_device(flat)
         times["publish_s"] += time.perf_counter() - t0
 
     launches0 = at.kernel_launches()
@@ -201,6 +210,8 @@ def server_main(shard_id: int, n_shards: int, port: int,
             launches=json.dumps({k: v - launches0[k] for k, v in
                                  at.kernel_launches().items()}),
             times=json.dumps(times), idle=json.dumps(idle),
+            serving=json.dumps(core.serving_snapshot() if core.armed
+                               else {}),
             peak_bytes=at._peak_bytes(device))
     finally:
         server.close()
@@ -341,8 +352,10 @@ def spawn_shard_server(shard_id: int, n_shards: int, cfg: Dict[str, Any],
                         stdout=subprocess.PIPE)
 
 
-def read_server_port(proc, timeout: float = 120.0) -> int:
-    """Block until a spawned shard server prints its port line."""
+def read_server_hello(proc, timeout: float = 120.0) -> Dict[str, Any]:
+    """Block until a spawned shard server prints its hello line:
+    ``{"shard": i, "port": p}``, with ``"read_port"`` when its read tier
+    is armed."""
     import select
 
     deadline = time.time() + timeout
@@ -351,11 +364,16 @@ def read_server_port(proc, timeout: float = 120.0) -> int:
         if r:
             line = proc.stdout.readline()
             if line:
-                return int(json.loads(line)["port"])
+                return json.loads(line)
         if proc.poll() is not None:
             raise RuntimeError(f"shard server exited early: "
                                f"{proc.returncode}")
     raise TimeoutError("shard server never reported its port")
+
+
+def read_server_port(proc, timeout: float = 120.0) -> int:
+    """Block until a spawned shard server prints its port line."""
+    return int(read_server_hello(proc, timeout)["port"])
 
 
 def spawn_sharded_worker(addrs: Sequence[str], worker_id: int,

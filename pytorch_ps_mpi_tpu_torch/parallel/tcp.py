@@ -167,6 +167,7 @@ class TcpPSServer(_ServerBase):
         return out
 
     def close(self) -> None:
+        self._close_serving()
         if self._h:
             self._lib.tps_server_close(self._h)
             self._h = None

@@ -84,17 +84,17 @@ Leaves = Dict[Any, torch.Tensor]
 
 #: constructor option -> (its default, where its port is planned)
 _UNPORTED = {
-    "numerics": (False, "ROADMAP queue 1 item 4 (telemetry/numerics.py)"),
-    "param_specs": (None, "ROADMAP queue 1 item 5 (model-parallel "
+    "numerics": (False, "ROADMAP queue 1 item 3 (telemetry/numerics.py)"),
+    "param_specs": (None, "ROADMAP queue 1 item 4 (model-parallel "
                           "composition)"),
-    "mesh": (None, "ROADMAP queue 1 item 5 (the process group stands for "
+    "mesh": (None, "ROADMAP queue 1 item 4 (the process group stands for "
                    "the mesh until then)"),
-    "axis_name": ("data", "ROADMAP queue 1 item 5 (tuple aggregation "
+    "axis_name": ("data", "ROADMAP queue 1 item 4 (tuple aggregation "
                           "axes)"),
-    "batch_spec": (None, "ROADMAP queue 1 item 5 (model-parallel batch "
+    "batch_spec": (None, "ROADMAP queue 1 item 4 (model-parallel batch "
                          "layouts)"),
 }
-_PROFILE = "ROADMAP queue 1 item 4 (telemetry)"
+_PROFILE = "ROADMAP queue 1 item 3 (telemetry)"
 
 
 def _unported(what: str, where: str) -> NotImplementedError:

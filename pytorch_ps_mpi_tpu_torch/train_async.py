@@ -25,8 +25,12 @@ from ``--checkpoint-dir``; it implies ``--resilient``); ``--fault-plan``
         --workers 2 --steps 6 --supervise --checkpoint-dir D \
         --fault-plan '[{"at_step": 3, "worker": 1, "kind": "crash_worker"}]'
 
-The JAX CLI's telemetry and serving flags are accepted and raise
-``NotImplementedError`` naming the ROADMAP item that brings them.
+The read tier: ``--read-port 0`` (or a port) arms it on the server, the
+bound port in the last line as ``read_port``; ``--snapshot-ring K`` keeps
+K versions for delta reads. Readers use
+``pytorch_ps_mpi_tpu_torch.serving.ServingReader``. The JAX CLI's
+telemetry flags are accepted and raise ``NotImplementedError`` naming
+the ROADMAP item that brings them.
 """
 
 from __future__ import annotations
@@ -48,8 +52,7 @@ from pytorch_ps_mpi_tpu_torch.resilience import Supervisor, normalize_plan
 _UNPORTED_FLAGS = {
     "telemetry-dir": "telemetry_dir", "metrics-port": "metrics_port",
     "health-port": "health_port", "ps-top": "health", "trace": "trace",
-    "numerics": "numerics", "read-port": "read_port",
-    "snapshot-ring": "serving", "history": "timeseries",
+    "numerics": "numerics", "history": "timeseries",
     "profile": "profile", "slo": "slo", "freshness": "freshness",
     "hop-anatomy": "hop_anatomy", "control": "control",
     "fleet-dir": "fleet_dir",
@@ -100,6 +103,12 @@ def parser() -> argparse.ArgumentParser:
                          "jitter")
     ap.add_argument("--fault-log-dir", default=None,
                     help="directory of the per-process fired-fault JSONLs")
+    ap.add_argument("--read-port", type=int, default=None,
+                    help="arm the read tier on this port (0 picks one; "
+                         "the bound port in the last line as read_port)")
+    ap.add_argument("--snapshot-ring", type=int, default=None,
+                    help="with --read-port: versions kept for delta reads "
+                         "(default 8)")
     for flag in _UNPORTED_FLAGS:
         ap.add_argument(f"--{flag}", default=None, nargs="?", const=True)
     return ap
@@ -137,6 +146,9 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
         if any(f["kind"] == "crash_server" for f in fault_plan) \
                 and not args.checkpoint_dir:
             ap.error("a crash_server fault needs --checkpoint-dir")
+    if args.snapshot_ring is not None and args.read_port is None:
+        ap.error("--snapshot-ring needs --read-port (it sizes the read "
+                 "tier's snapshot ring)")
     device = "cpu" if os.environ.get("PS_PLATFORM") == "cpu" else "cuda"
     in_shape = (8,) if args.model == "mlp" else (32, 32, 3)
     cfg = {
@@ -159,6 +171,10 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
         cfg["codec"] = args.codec
         if args.bucket_mb:
             cfg["bucket_mb"] = args.bucket_mb
+    if args.read_port is not None:
+        cfg["read_port"] = args.read_port
+        if args.snapshot_ring is not None:
+            cfg["serving_kw"] = {"ring": args.snapshot_ring}
     if args.straggler_ms:
         cfg["slow_ms"] = {str(args.workers - 1): args.straggler_ms}
     if args.resilient:

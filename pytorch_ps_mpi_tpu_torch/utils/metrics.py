@@ -131,9 +131,9 @@ class MetricsAccumulator:
 
 #: the keys of a PS server's ``metrics()``, the JAX package's
 #: ``telemetry.registry.PS_SERVER_METRIC_KEYS`` in its order. The port
-#: counts the wire, the staleness, the aggregation and the tree's composed
-#: pushes; the subsystems it does not have yet (numerics, lineage,
-#: anatomy, the read tier, the controller) report 0.0, as the JAX
+#: counts the wire, the staleness, the aggregation, the tree's composed
+#: pushes and the read tier; the subsystems it does not have yet
+#: (numerics, lineage, anatomy, the controller) report 0.0, as the JAX
 #: package's do unarmed.
 PS_SERVER_METRIC_KEYS = (
     "ts", "uptime_s", "grads_received", "bytes_received",
@@ -171,10 +171,33 @@ def staleness_quantile(seen: Dict[int, int], q: float) -> float:
 
 
 class PSServerCounters:
-    """The counters a PS server keeps and :meth:`metrics`, the canonical
-    dict over them (the JAX package's ``PSServerTelemetry`` without the
-    Prometheus registry and the HTTP endpoint, which wait for the
-    telemetry item). Shared by the shm and the TCP server."""
+    """The counters a PS server keeps, :meth:`metrics` (the canonical dict
+    over them and an armed read tier's keys) and :meth:`scrape_registry`
+    (the JAX package's ``PSServerTelemetry`` without
+    ``ps_server_registry``'s collector and the HTTP endpoint, which wait
+    for ROADMAP queue 1 item 3). Shared by the shm and the TCP server."""
+
+    #: the read tier's :class:`~pytorch_ps_mpi_tpu_torch.serving.ServingCore`
+    #: when one was built on this server (``parallel/async_train.serve``,
+    #: ``parallel/sharded.server_main``); closed with the server
+    serving_core = None
+    _registry = None
+
+    def scrape_registry(self):
+        """This server's :class:`~pytorch_ps_mpi_tpu_torch.telemetry.
+        MetricsRegistry` (``registry.py:811``): the read tier's latency
+        histogram and its scrape collectors live on it."""
+        if self._registry is None:
+            from pytorch_ps_mpi_tpu_torch.telemetry import MetricsRegistry
+
+            self._registry = MetricsRegistry()
+        return self._registry
+
+    def _close_serving(self) -> None:
+        """The read tier dies with the server (``dcn.py:741-751``,
+        ``tcp.py:655-668``): a restart never leaks its listener."""
+        if self.serving_core is not None:
+            self.serving_core.close()
 
     #: payload decodes (one a consumed push on the decode path, one a
     #: round under compressed-domain aggregation)
@@ -229,8 +252,12 @@ class PSServerCounters:
                                  if self.grad_publishes else 0.0),
             agg_fallbacks=float(self.agg_fallbacks),
             tree_composed=float(getattr(self, "tree_composed", 0)),
-            reads_total=float(getattr(self, "_reads_total", 0)),
-            reads_not_modified=float(getattr(self, "_reads_not_modified",
-                                             0)),
         )
+        sc = self.serving_core
+        if sc is not None and sc.armed:
+            out.update(sc.read_metrics())
+        # the transport's own worker reads (TCP GET_PARAMS) count too
+        out["reads_total"] += float(getattr(self, "_reads_total", 0))
+        out["reads_not_modified"] += float(getattr(
+            self, "_reads_not_modified", 0))
         return out

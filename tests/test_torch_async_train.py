@@ -6,7 +6,8 @@ workers over shm, async; (b) the sync barrier with int8, folded in the
 compressed domain, one decode a publish; (c) TCP with frames through the
 native batched ingest; (d) a resume from a checkpoint keeps the publish
 version monotonic. Unported options name their ROADMAP item; the
-scale-out and resilience keys no longer raise."""
+scale-out, resilience and read-tier keys no longer raise, and a port key
+set to 0 counts as set."""
 
 from __future__ import annotations
 
@@ -16,6 +17,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 
 from pytorch_ps_mpi_tpu_torch.codecs import get_codec
@@ -121,13 +123,34 @@ def test_resume_keeps_the_version_monotonic(tmp_path):
 
 
 @pytest.mark.parametrize("key,item", [
-    ("telemetry_dir", "item 4"), ("read_port", "item 3"),
-    ("topo_actions", "item 4"), ("control", "item 4")])
+    ("telemetry_dir", "item 3"), ("metrics_port", "item 3"),
+    ("topo_actions", "item 3"), ("control", "item 3")])
 def test_unported_options_name_their_item(key, item):
     with pytest.raises(NotImplementedError, match=item):
         at.check_cfg({"model": "mlp", key: 1})
-    with pytest.raises(NotImplementedError, match="item 5"):
+    with pytest.raises(NotImplementedError, match="item 4"):
         at.check_cfg({"model": "gpt"})
-    # the scale-out and resilience keys are ported
+    # the scale-out, resilience and read-tier keys are ported
     at.check_cfg({"model": "mlp", "fault_plan": [{}], "resilient": True,
-                  "tree": True, "tree_members": [4], "supervise": True})
+                  "tree": True, "tree_members": [4], "supervise": True,
+                  "serving": True, "read_port": 1, "serving_kw": {"ring": 2}})
+
+
+@pytest.mark.parametrize("key", ["metrics_port", "health_port"])
+def test_port_zero_counts_as_set(key):
+    # port 0 picks a free port in the JAX package (serving/core.py:109,186,
+    # core.py:220-222): it arms the read tier, and the endpoint keys the
+    # port lacks raise instead of passing silently
+    at.check_cfg({"model": "mlp", "read_port": 0})
+    from pytorch_ps_mpi_tpu_torch.serving import ServingCore
+
+    core = ServingCore(None, {"read_port": 0, "read_native": False,
+                              "device": "cpu"}, template={"w": np.zeros(4)})
+    try:
+        assert core.armed and core.read_port > 0
+    finally:
+        core.close()
+    with pytest.raises(NotImplementedError, match="queue 1 item 3"):
+        at.check_cfg({"model": "mlp", key: 0})
+    with pytest.raises(NotImplementedError, match="queue 1 item 3"):
+        ServingCore(None, {"read_port": 0, key: 0}, template={})

@@ -54,7 +54,12 @@ def test_probe_imported_every_module_of_the_port(probe):
                  "parallel.async_ps", "parallel.async_train",
                  "train_async", "resilience.faults", "resilience.worker",
                  "resilience.supervisor", "parallel.sharded",
-                 "parallel.tree", "train_sharded"):
+                 "parallel.tree", "train_sharded", "serving",
+                 "serving.snapshots", "serving.delta", "serving.net",
+                 "serving.native_read", "serving.core", "serving.follower",
+                 "serve_readonly", "telemetry", "telemetry.registry",
+                 "telemetry.freshness", "telemetry.diagnosis",
+                 "telemetry.lineage"):
         assert f"pytorch_ps_mpi_tpu_torch.{name}" in probe["modules"], name
 
 
@@ -69,17 +74,27 @@ def test_chip_smoke_fails_without_the_repo(tmp_path):
 
 #: (file under the port, a word of the unported option, its queue 1 item)
 UNPORTED_TEXTS = [
-    ("ps.py", "numerics", 4), ("ps.py", "profile=True", 4),
-    ("ps.py", "param_specs", 5), ("ps.py", "batch_spec", 5),
-    ("models/bert.py", "ring", 5),
-    ("train.py", "gpt.py", 5), ("train.py", "moe.py", 5),
-    ("parallel/async_train.py", "telemetry_dir", 4),
-    ("parallel/async_train.py", "read_port", 3),
-    ("parallel/async_train.py", "topo_actions", 4),
-    ("parallel/async_train.py", "hop_anatomy", 4),
-    ("parallel/async_train.py", "gpt.py", 5),
-    ("parallel/dcn.py", "probe_fidelity", 4),
-    ("parallel/sharded.py", "control.topo", 4),
+    ("ps.py", "numerics", 3), ("ps.py", "profile=True", 3),
+    ("ps.py", "param_specs", 4), ("ps.py", "batch_spec", 4),
+    ("models/bert.py", "ring", 4),
+    ("train.py", "gpt.py", 4), ("train.py", "moe.py", 4),
+    ("parallel/async_train.py", "telemetry_dir", 3),
+    ("parallel/async_train.py", "metrics_port", 3),
+    ("parallel/async_train.py", "topo_actions", 3),
+    ("parallel/async_train.py", "hop_anatomy", 3),
+    ("parallel/async_train.py", "gpt.py", 4),
+    ("parallel/dcn.py", "probe_fidelity", 3),
+    ("parallel/sharded.py", "control.topo", 3),
+    ("serving/core.py", "fleet", 3),
+    ("serving/follower.py", "RoundAnatomy", 3),
+    ("serve_readonly.py", "--metrics-port", 3),
+    ("serve_readonly.py", "--control-dir", 3),
+    ("telemetry/__init__.py", "FreshnessTracker", 3),
+    ("telemetry/freshness.py", "FreshnessTracker", 3),
+    ("telemetry/diagnosis.py", "HealthMonitor", 3),
+    ("telemetry/lineage.py", "LineageTracker", 3),
+    ("telemetry/registry.py", "ps_server_registry", 3),
+    ("utils/metrics.py", "ps_server_registry", 3),
 ]
 
 
