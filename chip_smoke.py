@@ -274,6 +274,51 @@ Phases, one line each; the script exits non-zero if any fails:
                card under its server or root. The kernel line gives each
                kernel's launches in this phase (``launches_scale_out``).
 
+11. telemetry -- last, after ``torch.cuda.empty_cache()``: the per-process
+               telemetry layer (``run_telemetry``). N1: ResNet-18 (CIFAR
+               stem, b256) ``SGD(code=sign, numerics=True)`` per leaf and
+               at bucket_mb=16, 3 loss steps: the sign launches unchanged
+               (20 + 20, 2 + 2 a step), one device-to-host copy more in
+               a profiled step than the same step unarmed, the statistics
+               of a grads-only step against float64 on the host (rtol
+               1e-5) and, with a NaN and two Infs planted in one leaf,
+               ``nonfinite_total`` 3 and the finite part's norm; the step
+               ms armed and unarmed (10 steps each in turns, medians and
+               the median pair's difference) and the statistics alone
+               (their vector and its copy between syncs). N2:
+               ``step(profile=True)`` on ResNet-18 sign and on BERT-base
+               b4 s512 bf16 ``Adam(terngrad(use_pallas=True))``:
+               ``top_ops`` names ``sign_encode_kernel``,
+               ``sign_unpack_sum_kernel``, ``flash_fwd_tc``,
+               ``flash_bwd_dq_tc``, ``flash_bwd_dkv_tc``, ``tern_pack``
+               and ``tern_unpack_sum``, and each profiled step's
+               launches are a step's (20 + 20 sign; 12 + 24 flash, 107
+               packs and 63 unpack-sums) times its takes; then one BERT
+               step under
+               ``utils.tracing.trace`` with the flight recorder on, merged
+               by ``trace_export`` and read back. N3:
+               ``CodecWire.probe_fidelity`` on a ResNet-50 gradient for
+               sign, int8 and ef∘topk through the kernels, against the
+               same probe with their plain versions on the card (rtol
+               1e-5, the top-k index set exact), each probe's launches
+               asserted. N4: A1's fleet armed (``telemetry_dir``,
+               ``metrics_port=0``, ``health``, ``numerics`` skip with
+               probes every 2, ``lineage``/``trace`` with the anatomy), 4
+               pushes a worker, ``max_staleness`` 16 (no push is stale)
+               and a ``nan`` on worker 1's third: ``/metrics`` and
+               ``/health`` scraped while it runs, the nan push quarantined
+               exactly once and never applied, worker 1's next push
+               skipped, every other push applied, one lineage row and one
+               anatomy round a version, the probe rows of the cadence,
+               the recorder's JSONL read back, the loss falling, every
+               launch asserted; prints the verdicts, the anatomy's top
+               stage and steady updates/s armed over A1's. The kernel
+               line gives every kernel launch of this phase
+               (``launches_telemetry``): the script's process, no count
+               set to 0 in the phase (so the kernel side of N3's
+               comparisons and N1's profiled and timed steps are in it),
+               and N4's workers.
+
 Phase ``done`` gives the seconds the whole run took. The line before the
 last is a JSON object with one entry per kernel; the last line is
 ``{"ok": true, "device": {...}}``. This script imports
@@ -282,6 +327,7 @@ nothing of JAX or of the JAX package.
 
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import math
@@ -336,46 +382,25 @@ def _device_events(prof) -> list:
             if e.device_type == torch.autograd.DeviceType.CUDA]
 
 
-_TAKES = 5  # traces taken before a short one fails the run
-
-
 def _profiled(fn, cold: bool = False) -> list:
     """The device rows of one call of ``fn``, in launch order, after a
     warm-up call; ``cold``: with the 50 MB L2 flushed just before. Late
     in a long run of this script on an H100 the profiler dropped the
     first device rows of a trace (all of a one-kernel trace, the first of
     20 decode_sum calls, once 102 rows early in a run), while it still
-    recorded every runtime launch call. So each trace opens with
-    ``IdleMeter.LEAD`` spin kernels, and is whole only when its other
-    device rows match the launch calls made after them; a trace short of
-    rows is taken again, ``_TAKES`` times in all, and then fails the
-    run."""
-    from torch.profiler import ProfilerActivity, profile
+    recorded every runtime launch call. So each trace goes through
+    ``utils.tracing.profiled_rows``: it opens with ``tracing.LEAD`` spin
+    kernels, is whole only when its other device rows match the launch
+    calls made after them, and a trace short of rows is taken again,
+    ``tracing.TAKES`` times in all, and then fails the run."""
+    from pytorch_ps_mpi_tpu_torch.utils import tracing
 
-    from pytorch_ps_mpi_tpu_torch.parallel.async_train import IdleMeter
+    def flush():
+        torch.empty(2**27, dtype=torch.int8, device="cuda").fill_(1)
 
-    cuda = torch.autograd.DeviceType.CUDA
     fn()
-    for _ in range(_TAKES):
-        if cold:
-            torch.empty(2**27, dtype=torch.int8, device="cuda").fill_(1)
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(IdleMeter.LEAD):
-                torch.cuda._sleep(1)
-            fn()
-            torch.cuda.synchronize()
-        events = prof.events()
-        rows = sorted((e for e in events if e.device_type == cuda
-                       and "spin_kernel" not in e.name),
-                      key=lambda e: e.time_range.start)
-        launched = sum(e.name.startswith(IdleMeter.LAUNCH_CALLS)
-                       for e in events if e.device_type != cuda) \
-            - IdleMeter.LEAD
-        if rows and len(rows) == launched:
-            return rows
-    raise AssertionError(f"{_TAKES} profiler traces lost device rows: "
-                         f"{len(rows)} of {launched} launched")
+    return tracing.profiled_rows(fn, before=flush if cold else None,
+                                 exact=True)[1]
 
 
 def device_ms(fn, cold: bool = False) -> float:
@@ -2859,10 +2884,11 @@ def check_async_ps(card: str) -> None:
           staleness_hist=json.dumps(ps.staleness_hist, sort_keys=True))
 
 
-def run_async(card: str) -> None:
+def run_async(card: str) -> dict:
     """Phase 8 (``async``): the async parameter server on the card, runs
     A1-A4 (``PERF.md`` §4). The server is this process; the workers are
-    fresh interpreters on the same card (time-sliced)."""
+    fresh interpreters on the same card (time-sliced). Returns A1's
+    metrics (phase ``telemetry`` sets its armed fleet beside them)."""
     import shutil
     import tempfile
 
@@ -2945,6 +2971,7 @@ def run_async(card: str) -> None:
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     phase("async", seconds=f"{time.perf_counter() - t0:.1f}")
+    return a1
 
 # -- phase serving: the read tier beside the async fleet ----------------------
 
@@ -4257,6 +4284,591 @@ def run_scale_out(card: str) -> dict:
     return tally
 
 
+# -- phase telemetry: the per-process telemetry layer -------------------------
+
+#: steps of each N1 optimizer; pushes a worker and probe cadence of N4
+N1_STEPS = 3
+N1_PAIRS = 10  # armed/unarmed step pairs timed in turns
+N4_PUSHES = 4
+N4_PROBE_EVERY = 2
+N4_NAN = {"worker": 1, "at_step": 2}  # worker 1's third push
+#: N4's max_staleness, its push count: no push is dropped as stale, so the
+#: nan push always reaches the server's check
+N4_MAX_STALENESS = ASYNC_WORKERS * N4_PUSHES
+#: the kernel launches of one take of N2's profiled steps: ResNet-18 sign
+#: per leaf; BERT-base 12 flash layers (dq and dkv each count a backward
+#: launch), TernGrad's 107 packs over 63 leaves and 63 unpack-sums
+N2_LAUNCHES = {
+    "sign": {"encode_signs": 20, "unpack_signs_sum": 20},
+    "terngrad": {"flash_fwd": 12, "flash_bwd": 24, "tern_pack": 61 + 2 * 23,
+                 "tern_unpack": 63},
+}
+#: the hand kernels a profiled step's ``top_ops`` must name
+N2_KERNELS = {
+    "sign": ("sign_encode_kernel", "sign_unpack_sum_kernel"),
+    "terngrad": ("flash_fwd_tc", "flash_bwd_dq_tc", "flash_bwd_dkv_tc",
+                 "tern_pack", "tern_unpack_sum"),
+}
+
+
+def _host_numerics(opt, old: dict, grads: dict) -> dict:
+    """The numerics of a grads-only step in float64 on the host, from the
+    same gradients and the parameters before (``old``) and after."""
+    f64 = {k: g[0].double().cpu() for k, g in grads.items()}
+    fin = {k: torch.where(torch.isfinite(g), g, torch.zeros_like(g))
+           for k, g in f64.items()}
+    gss = sum(float(torch.sum(g * g)) for g in fin.values())
+    nonf = sum(int(torch.sum(~torch.isfinite(g))) for g in f64.values())
+    upd = sum(float(torch.sum((p.detach().double().cpu() - old[k]) ** 2))
+              for k, p in opt.params.items())
+    psq = sum(float(torch.sum(o * o)) for o in old.values())
+    out = {"grad_norm": math.sqrt(gss), "nonfinite_total": float(nonf),
+           "update_ratio": math.sqrt(upd) / math.sqrt(psq)}
+    plan = opt._bucket_plan
+    if plan is not None:
+        sums = [0.0] * plan.num_buckets
+        for slot, name in zip(plan.leaf_slots, plan.names):
+            sums[slot.bucket] += float(torch.sum(fin[name] ** 2))
+        out["bucket_grad_norms"] = [math.sqrt(s) for s in sums]
+    return out
+
+
+def _launch_counts() -> dict:
+    torch.cuda.synchronize()
+    return {n: k.launches for n, k in kernel_counters().items()}
+
+
+def _launched_since(before: dict) -> dict:
+    """The kernel launches of this process since ``before``
+    (:func:`_launch_counts`)."""
+    now = _launch_counts()
+    return {n: now[n] - before[n] for n in now if now[n] != before[n]}
+
+
+def _window(fn) -> tuple:
+    """``(fn(), launches)``: the kernel launches ``fn`` made, read as a
+    difference and not by setting the counts to 0, so that the phase's
+    own total (:func:`run_telemetry`) counts every launch of the phase."""
+    before = _launch_counts()
+    out = fn()
+    return out, _launched_since(before)
+
+
+def _dtoh_rows(rows) -> int:
+    return sum(1 for e in rows if "memcpy dtoh" in e.name.lower())
+
+
+def telemetry_n1() -> dict:
+    """N1: ResNet-18 (CIFAR stem, b256) ``SGD(code=sign, numerics=True)``
+    per leaf and at ``bucket_mb=16``: the statistics of a grads-only step
+    against float64 on the host (rtol 1e-5), a NaN and an Inf planted in
+    one leaf (the count exact, the norm the finite part's), the sign
+    launches of ``N1_STEPS`` loss steps unchanged by numerics, one
+    device-to-host copy more in a profiled step than without numerics,
+    the step ms with and without (``N1_PAIRS`` steps each in turns) and
+    the statistics' own ms."""
+    from torch.func import functional_call
+
+    from pytorch_ps_mpi_tpu_torch import SGD
+    from pytorch_ps_mpi_tpu_torch.data import (cross_entropy_loss,
+                                               synthetic_images)
+    from pytorch_ps_mpi_tpu_torch.models import ResNet18
+    from pytorch_ps_mpi_tpu_torch.utils import tracing
+
+    stream = synthetic_images("cifar10", BATCH, seed=0, device="cuda")
+    batches = [next(stream) for _ in range(N1_STEPS + 5)]
+    out = {}
+    for bucket_mb, per_step in ((0.0, {"encode_signs": 20,
+                                       "unpack_signs_sum": 20}),
+                                (BUCKET_MB, PLAN_LAUNCHES["sign"])):
+        models = [ResNet18(num_classes=10, small_inputs=True, seed=0,
+                           device="cuda") for _ in range(2)]
+
+        def loss_of(model):
+            def loss_fn(params, b):
+                x, y = b
+                return cross_entropy_loss(
+                    functional_call(model, params, (x,)), y)
+            return loss_fn
+
+        armed, plain = (SGD(ordered_params(m), lr=0.01, momentum=0.9,
+                            code=make_codec("sign"), device="cuda",
+                            bucket_mb=bucket_mb, numerics=numerics)
+                        for m, numerics in zip(models, (True, False)))
+        losses = [loss_of(m) for m in models]
+        # the sign launches of the armed loss steps: those of a step
+        def steps():
+            return [armed.step(loss_fn=losses[0], batch=b)[1]
+                    for b in batches[:N1_STEPS]]
+        datas, launches = _window(steps)
+        _expect(f"N1 bucket_mb={bucket_mb}", launches, per_step, N1_STEPS)
+        if not all(math.isfinite(d["grad_norm"]) and d["grad_norm"] > 0
+                   for d in datas):
+            raise AssertionError(f"N1: grad_norm {datas}")
+        # one device-to-host copy more a profiled step than unarmed
+        copies = []
+        for opt, lf in ((armed, losses[0]), (plain, losses[1])):
+            opt.step(loss_fn=lf, batch=batches[N1_STEPS])
+            _, rows, _ = tracing.profiled_rows(
+                lambda: opt.step(loss_fn=lf, batch=batches[N1_STEPS]))
+            copies.append(_dtoh_rows(rows))
+        if copies[0] != copies[1] + 1:
+            raise AssertionError(f"N1: {copies[0]} D2H copies armed, "
+                                 f"{copies[1]} unarmed")
+        # armed and unarmed steps in turns, the first of a pair alternating
+        pairs = ([], [])
+        for i in range(N1_PAIRS):
+            b = batches[i % len(batches)]
+            order = (0, 1) if i % 2 == 0 else (1, 0)
+            for j in order:
+                opt = (armed, plain)[j]
+                pairs[j].append(opt.step(loss_fn=losses[j], batch=b)[1]
+                                ["step_time"] * 1e3)
+        ms = [statistics.median(t) for t in pairs]
+        added = statistics.median(a - u for a, u in zip(*pairs))
+        # the statistics alone: the vector and its one copy, between syncs
+        from pytorch_ps_mpi_tpu_torch.telemetry.numerics import flat_f32
+
+        grads = {k: 1e-3 * p.detach() for k, p in armed.params.items()}
+        old = flat_f32(armed.params.values())
+        host = []
+        for _ in range(10):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            armed._numerics_vec(old, grads).cpu()
+            host.append((time.perf_counter() - t0) * 1e3)
+        stats_ms = statistics.median(host)
+        # the statistics of a grads-only step against float64 on the host,
+        # then with a NaN and an Inf planted in one leaf
+        gen = torch.Generator(device="cuda").manual_seed(11)
+        checks = {}
+        for planted in (False, True):
+            grads = {k: 1e-3 * torch.randn((WORLD,) + tuple(p.shape),
+                                           generator=gen, device="cuda")
+                     for k, p in armed.params.items()}
+            if planted:
+                leaf = grads["conv_init.weight"
+                             if "conv_init.weight" in grads
+                             else next(iter(grads))].view(-1)
+                leaf[7], leaf[11], leaf[13] = (float("nan"), float("inf"),
+                                               float("-inf"))
+            old = {k: p.detach().double().cpu()
+                   for k, p in armed.params.items()}
+            _, data = armed.step(grads=grads)
+            want = _host_numerics(armed, old, grads)
+            if planted:
+                if data["nonfinite_total"] != 3.0:
+                    raise AssertionError(f"N1: nonfinite_total "
+                                         f"{data['nonfinite_total']} != 3")
+                keys = ("grad_norm",)
+            else:
+                keys = ("grad_norm", "update_ratio", "nonfinite_total")
+            for k in keys:
+                if not math.isclose(data[k], want[k], rel_tol=1e-5):
+                    raise AssertionError(f"N1: {k} {data[k]} against "
+                                         f"{want[k]} on the host")
+            if bucket_mb and not planted:
+                got, exp = data["bucket_grad_norms"], want["bucket_grad_norms"]
+                if len(got) != len(exp) or not all(
+                        math.isclose(a, b, rel_tol=1e-5)
+                        for a, b in zip(got, exp)):
+                    raise AssertionError(f"N1: bucket norms {got} against "
+                                         f"{exp}")
+            checks["planted" if planted else "clean"] = {
+                k: data[k] for k in ("grad_norm", "update_ratio",
+                                     "nonfinite_total")}
+        phase("telemetry", run="N1", model="ResNet18-cifar-gn-f32",
+              code="sign", batch=BATCH, bucket_mb=bucket_mb,
+              launches=json.dumps(launches, separators=(",", ":")),
+              dtoh_armed=copies[0], dtoh_unarmed=copies[1],
+              step_ms_armed=f"{ms[0]:.3f}", step_ms_unarmed=f"{ms[1]:.3f}",
+              pairs=N1_PAIRS, added_ms_median_pair=f"{added:.3f}",
+              stats_alone_ms=f"{stats_ms:.3f}",
+              grad_norm=f"{checks['clean']['grad_norm']:.6f}",
+              update_ratio=f"{checks['clean']['update_ratio']:.6e}",
+              planted_nonfinite=int(checks["planted"]["nonfinite_total"]),
+              planted_grad_norm=f"{checks['planted']['grad_norm']:.6f}")
+        out[f"bucket_mb={bucket_mb}"] = ms
+        del armed, plain, models
+        torch.cuda.empty_cache()
+    return out
+
+
+def _top_ops_names(split: dict, code: str) -> dict:
+    names = [n for n, _ in split["top_ops"]]
+    where = {}
+    for want in N2_KERNELS[code]:
+        hits = [i for i, n in enumerate(names) if want in n]
+        if not hits:
+            raise AssertionError(f"N2 {code}: top_ops names no {want}: "
+                                 f"{names[:20]}")
+        where[want] = hits[0]
+    return where
+
+
+def telemetry_n2(tmp: str) -> None:
+    """N2: ``step(profile=True)`` on ResNet-18 sign and on BERT-base b4
+    s512 bf16 ``Adam(terngrad(use_pallas=True))``: ``top_ops`` names the
+    hand kernels, and each profiled step's launches are a step's times
+    the profiler's takes (:data:`N2_LAUNCHES`: a retake runs the step
+    again, from the state it began with); then a BERT step under ``utils.tracing.trace`` with the
+    flight recorder on, merged by ``trace_export`` into one Chrome trace,
+    read back and its host spans and device events counted."""
+    from torch.func import functional_call
+
+    from pytorch_ps_mpi_tpu_torch import SGD, Adam, telemetry
+    from pytorch_ps_mpi_tpu_torch.data import (cross_entropy_loss,
+                                               synthetic_images,
+                                               synthetic_mlm)
+    from pytorch_ps_mpi_tpu_torch.models import (BertConfig, BertMLM,
+                                                 ResNet18, mlm_loss)
+    from pytorch_ps_mpi_tpu_torch.utils import tracing
+
+    r18 = ResNet18(num_classes=10, small_inputs=True, seed=0, device="cuda")
+    opt = SGD(ordered_params(r18), lr=0.01, momentum=0.9,
+              code=make_codec("sign"), device="cuda")
+    x, y = next(synthetic_images("cifar10", BATCH, seed=0, device="cuda"))
+
+    def r18_loss(params, b):
+        return cross_entropy_loss(functional_call(r18, params, (b[0],)),
+                                  b[1])
+
+    opt.step(loss_fn=r18_loss, batch=(x, y))
+    data, launches = _window(lambda: opt.step(
+        loss_fn=r18_loss, batch=(x, y), profile=True)[1])
+    rank = _top_ops_names(opt.profile_split, "sign")
+    split = opt.profile_split
+    _expect("N2 sign", launches, N2_LAUNCHES["sign"], split["takes"])
+    phase("telemetry", run="N2", model="ResNet18-cifar-gn-f32", code="sign",
+          device_busy_s=f"{split['device_busy_s']:.6f}",
+          comm_s=f"{split['comm_s']:.6f}",
+          compute_s=f"{split['compute_s']:.6f}",
+          devices=split["devices"], device_rows=split["device_rows"],
+          takes=split["takes"], step_ms=f"{data['step_time'] * 1e3:.3f}",
+          top_ops_rank=json.dumps(rank, separators=(",", ":")),
+          launches=json.dumps(launches, separators=(",", ":")))
+    del opt, r18
+    bert = BertMLM(BertConfig(dtype=torch.bfloat16, attention="flash"),
+                   seed=0, device="cuda")
+    opt = Adam(ordered_params(bert), lr=1e-4, code=make_codec("terngrad"),
+               device="cuda")
+    b = next(synthetic_mlm(BERT_BATCH, BERT_SEQ, bert.cfg.vocab_size, seed=0,
+                           device="cuda"))
+
+    def bert_loss(params, batch):
+        logits = functional_call(bert, params, (batch["tokens"],))
+        return mlm_loss(logits, batch["targets"], batch["mask"])
+
+    opt.step(loss_fn=bert_loss, batch=b)
+    data, launches = _window(
+        lambda: opt.step(loss_fn=bert_loss, batch=b, profile=True)[1])
+    rank = _top_ops_names(opt.profile_split, "terngrad")
+    split = opt.profile_split
+    _expect("N2 terngrad", launches, N2_LAUNCHES["terngrad"],
+            split["takes"])
+    phase("telemetry", run="N2", model="BERT-base-mlm-bf16-flash",
+          code="terngrad", batch=f"{BERT_BATCH}x{BERT_SEQ}",
+          device_busy_s=f"{split['device_busy_s']:.6f}",
+          comm_s=f"{split['comm_s']:.6f}",
+          compute_s=f"{split['compute_s']:.6f}",
+          devices=split["devices"], device_rows=split["device_rows"],
+          takes=split["takes"], step_ms=f"{data['step_time'] * 1e3:.3f}",
+          top_ops_rank=json.dumps(rank, separators=(",", ":")),
+          launches=json.dumps(launches, separators=(",", ":")))
+    # the merged trace: recorder spans and the step's kernels in one file
+    rec = telemetry.configure(worker="chip_smoke")
+    try:
+        d = os.path.join(tmp, "device-trace")
+        t_wall = time.time()
+        with tracing.trace(d):
+            opt.step(loss_fn=bert_loss, batch=b)
+        path, counts = telemetry.export_chrome_trace(
+            os.path.join(tmp, "trace.json"), rec.events(),
+            device_trace_dir=d, device_t0_wall=t_wall)
+    finally:
+        telemetry.disable()
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    host = sum(1 for e in events if e.get("cat") == "host"
+               and e.get("ph") == "X")
+    device = sum(1 for e in events if e.get("cat") == "device"
+                 and e.get("ph") == "X")
+    names = {e["name"] for e in events if e.get("cat") == "device"}
+    if not host or not all(any(k in n for n in names)
+                           for k in ("tern_pack", "flash_fwd_tc")):
+        raise AssertionError(f"N2 trace: {host} host spans, {device} device "
+                             f"events, counts {counts}")
+    phase("telemetry", run="N2", what="merged_trace", host_spans=host,
+          device_events=device, mb=f"{os.path.getsize(path) / 1e6:.1f}")
+    del opt, bert
+    torch.cuda.empty_cache()
+
+
+@contextlib.contextmanager
+def _plain_kernels():
+    """The codecs' kernel wrappers swapped for their plain versions (on
+    the card) inside; restored on exit."""
+    from pytorch_ps_mpi_tpu_torch.ops import quant as Q
+    from pytorch_ps_mpi_tpu_torch.ops import sign as S
+    from pytorch_ps_mpi_tpu_torch.ops import topk as T
+
+    saved = [(S, "encode_signs", S.encode_signs),
+             (S, "unpack_signs_sum", S.unpack_signs_sum),
+             (Q, "quantize_int8", Q.quantize_int8),
+             (Q, "dequantize_int8", Q.dequantize_int8),
+             (T, "exact_topk", T.exact_topk)]
+    S.encode_signs = S.encode_signs_ref
+    S.unpack_signs_sum = S.unpack_signs_sum_ref
+    Q.quantize_int8 = Q.quantize_int8_ref
+    Q.dequantize_int8 = lambda q, s: Q.dequant_sum_ref(q.reshape(1, -1),
+                                                       s.reshape(1))
+    T.exact_topk = T.exact_topk_ref
+    try:
+        yield
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def telemetry_n3(tmp: str) -> None:
+    """N3: ``CodecWire.probe_fidelity`` on one ResNet-50 gradient (A1's
+    ``small_inputs`` model) for sign, int8 and ef(topk(0.01, pallas)), on
+    the card through the hand kernels, against the same probe with the
+    kernels' plain versions on the card: ``rel_error`` and ``cosine`` to
+    rtol 1e-5, bits/param and the unit exact, the top-k index set exact;
+    each probe's kernel launches asserted."""
+    from pytorch_ps_mpi_tpu_torch.ops import topk as T
+    from pytorch_ps_mpi_tpu_torch.parallel import async_train as at
+    from pytorch_ps_mpi_tpu_torch.parallel.dcn import CodecWire
+
+    prob = at.make_problem(async_cfg("resnet50", tmp), "cuda")
+    _, grads = prob.grad_leaves(prob.batch_fn(0, 0))
+    want_launches = {"sign": {"encode_signs": 1, "unpack_signs_sum": 1},
+                     "int8": {"quantize_int8": 1, "dequantize_int8": 1},
+                     "ef_topk": {"exact_topk": T.LAUNCHES}}
+    for name, want in want_launches.items():
+        wire = CodecWire(make_codec(name), prob.template, device="cuda")
+        got, launches = _window(lambda: wire.probe_fidelity(grads))
+        _expect(f"N3 {name}", launches, want, 1)
+        with _plain_kernels():
+            ref = wire.probe_fidelity(grads)
+        if (got["unit"], got["bits_per_param"]) != (ref["unit"],
+                                                    ref["bits_per_param"]):
+            raise AssertionError(f"N3 {name}: {got} against {ref}")
+        for k in ("rel_error", "cosine", "grad_norm"):
+            if not math.isclose(got[k], ref[k], rel_tol=1e-5):
+                raise AssertionError(f"N3 {name}: {k} {got[k]} against the "
+                                     f"plain versions' {ref[k]}")
+        extra = {}
+        if name == "ef_topk":
+            unit = grads[got["unit"]].reshape(-1)
+            inner = wire.code.inner
+            idx = inner.encode(unit)[0]["indices"]
+            with _plain_kernels():
+                ref_idx = inner.encode(unit)[0]["indices"]
+            if not torch.equal(torch.sort(idx.long())[0],
+                               torch.sort(ref_idx.long())[0]):
+                raise AssertionError("N3 ef_topk: the top-k index sets "
+                                     "differ")
+            extra = dict(k=int(idx.numel()),
+                         ef_residual_norm=f"{got['ef_residual_norm']:.6f}")
+        phase("telemetry", run="N3", model="resnet50-small", code=name,
+              unit=got["unit"], unit_size=int(grads[got["unit"]].numel()),
+              rel_error=f"{got['rel_error']:.6f}",
+              cosine=f"{got['cosine']:.6f}",
+              bits_per_param=f"{got['bits_per_param']:.4f}",
+              launches=json.dumps(launches, separators=(",", ":")), **extra)
+    del prob, grads
+    torch.cuda.empty_cache()
+
+
+def _scrape(port: int) -> tuple:
+    import urllib.request
+
+    base = f"http://127.0.0.1:{port}"
+    text = urllib.request.urlopen(base + "/metrics", timeout=10).read()
+    doc = json.loads(urllib.request.urlopen(base + "/health",
+                                            timeout=10).read())
+    return text.decode(), doc
+
+
+def telemetry_n4(card: str, tmp: str, a1: dict, workers: dict) -> None:
+    """N4: A1's fleet armed (ResNet-50 ``small_inputs``, b32, seed 5, SGD
+    lr 1e-4, 4 workers over shm, async, sign, worker 3 a 200 ms straggler,
+    ``N4_PUSHES`` pushes a worker; ``max_staleness`` above the push count,
+    :data:`N4_MAX_STALENESS`, where A1 has 4) with
+    ``telemetry_dir``, ``metrics_port=0``, ``health``, ``numerics``
+    (policy skip, probes every ``N4_PROBE_EVERY``), ``lineage`` with the
+    round anatomy and ``trace``; a ``nan`` fault on worker 1's third
+    push. ``/metrics`` and ``/health`` are scraped while it runs. The
+    workers' launches are added to ``workers``."""
+    from pytorch_ps_mpi_tpu_torch.codecs import get_codec
+    from pytorch_ps_mpi_tpu_torch.parallel import async_train as at
+    from pytorch_ps_mpi_tpu_torch.parallel.dcn import ShmPSServer
+    from pytorch_ps_mpi_tpu_torch.resilience.faults import normalize_plan
+    from pytorch_ps_mpi_tpu_torch.telemetry import (load_jsonl,
+                                                    load_lineage_rows)
+
+    tdir = os.path.join(tmp, "n4")
+    stats = os.path.join(tmp, "n4-stats")
+    os.makedirs(stats)
+    last = str(ASYNC_WORKERS - 1)
+    cfg = async_cfg("resnet50", stats, slow_ms={last: 200.0},
+                    steps=N4_PUSHES, codec="sign", telemetry_dir=tdir,
+                    metrics_port=0, health=True, health_dir=tdir,
+                    numerics=True, numerics_dir=tdir,
+                    numerics_kw={"policy": "skip",
+                                 "probe_every": N4_PROBE_EVERY},
+                    lineage=True, anatomy="auto", trace=True,
+                    fault_plan=normalize_plan([{**N4_NAN, "kind": "nan"}]))
+    template = at.make_problem(cfg, "cuda").template
+    name = f"/psq_chip_smoke_{os.getpid()}_N4"
+    server = ShmPSServer(name, ASYNC_WORKERS, template,
+                         max_staleness=N4_MAX_STALENESS,
+                         code=get_codec("sign"), frame=True, device="cuda")
+    scrapes = []
+
+    def on_tick():
+        http = getattr(server, "_metrics_http", None)
+        if http is not None and (not scrapes
+                                 or time.time() - scrapes[-1][0] > 1.0):
+            scrapes.append((time.time(),) + _scrape(http.port))
+
+    procs = []
+    total = ASYNC_WORKERS * N4_PUSHES
+    try:
+        procs = [at.spawn_worker(name, i, cfg) for i in range(ASYNC_WORKERS)]
+        _, m = at.serve(server, cfg, total_grads=0, total_received=total,
+                        timeout=ASYNC_LIMIT, on_tick=on_tick)
+        final = _scrape(m["metrics_port"])
+        codes = at.join_workers(procs, timeout=ASYNC_LIMIT)
+        if codes != [0] * ASYNC_WORKERS:
+            raise AssertionError(f"N4: worker exit codes {codes}")
+    finally:
+        server.close()
+        at.join_workers(procs, timeout=5.0)
+    if len(scrapes) < 2:
+        raise AssertionError(f"N4: {len(scrapes)} scrapes while running")
+    if "ps_grad_norm" not in final[0] or "ps_worker_health" not in final[0]:
+        raise AssertionError("N4: /metrics lacks the numerics or health "
+                             "series")
+    for _, text, doc in scrapes:
+        if not (text.startswith("# HELP") and doc.get("workers")):
+            raise AssertionError(f"N4: a scrape while running: {doc}")
+    # no push is stale: the nan push is checked, quarantined once and
+    # never applied, and worker 1's next push is dropped as quarantined
+    # under the skip policy; every other push is applied
+    rows = load_lineage_rows(os.path.join(tdir, "lineage-server.jsonl"))
+    pubs = [r for r in rows if r.get("kind") == "publish"]
+    applied_ids = {(p["worker"], p["step"]) for r in pubs
+                   for p in r["pushes"]}
+    fate = {(r["push"]["worker"], r["push"]["step"]): r["reason"]
+            for r in rows if r.get("kind") == "drop"}
+    nan_id = (N4_NAN["worker"], N4_NAN["at_step"])
+    nan_fate = fate.get(nan_id)
+    if nan_id in applied_ids or nan_fate != "numerics":
+        raise AssertionError(f"N4: the nan push's lineage: {nan_fate}")
+    num, reasons = m["numerics"], m["reject_reasons"]
+    ok = ((num["nonfinite_total"], num["quarantined"]) == (1, [1])
+          and reasons == {"nonfinite": 1, "quarantined": 1}
+          and m["stale_drops"] == 0)
+    if not ok or m["applied"] != total - 2:
+        raise AssertionError(f"N4: the nan push {nan_fate}, numerics {num}, "
+                             f"rejections {reasons}, applied "
+                             f"{m['applied']}, dropped {m['stale_drops']}")
+    with open(os.path.join(tdir, "anatomy-server.jsonl")) as f:
+        rounds = [json.loads(x) for x in f if x.strip()]
+    rounds = [r for r in rounds if r.get("kind") == "round"]
+    if not (len(pubs) == len(rounds) == int(m["applied"])
+            == int(m["anatomy_rounds"])):
+        raise AssertionError(f"N4: {len(pubs)} lineage rows, {len(rounds)} "
+                             f"anatomy rounds, {m['applied']} applied")
+    probes = {}
+    for w in range(ASYNC_WORKERS):
+        with open(os.path.join(tdir, f"numerics-{w}.jsonl")) as f:
+            probes[w] = [json.loads(x) for x in f if x.strip()]
+    want_probes = len(range(0, N4_PUSHES, N4_PROBE_EVERY))
+    if any(len(p) != want_probes for p in probes.values()):
+        raise AssertionError(f"N4: probe rows {probes}")
+    meta, events = load_jsonl(os.path.join(tdir, "server.jsonl"))
+    names = {e["name"] for e in events}
+    if not {"serve.update", "serve.consume",
+            "numerics.nonfinite"} <= names:
+        raise AssertionError(f"N4: recorder names {sorted(names)}")
+    for w in range(ASYNC_WORKERS):
+        load_jsonl(os.path.join(tdir, f"worker-{w}.jsonl"))
+    if not m["loss_final"] < m["loss_initial"]:
+        raise AssertionError(f"N4: the loss did not fall: "
+                             f"{m['loss_initial']} -> {m['loss_final']}")
+    # launches: an encode a kernel-layout unit a push and a probe's encode
+    # and decode on the workers; a decode a kernel-layout unit a decoded
+    # push on the server
+    sizes = async_sizes("resnet50")
+    k50 = sum(1 for n in sizes if n % 1024 == 0)
+    wstats = [json.loads(open(os.path.join(stats, f"worker-{i}.json")).read())
+              for i in range(ASYNC_WORKERS)]
+    for i, s in enumerate(wstats):
+        _expect_launches(f"N4 worker {i}", s["launches"],
+                         {"encode_signs": k50 * s["encodes"] + want_probes,
+                          "unpack_signs_sum": want_probes})
+        _tally(workers, s["launches"])
+    _expect_launches("N4 server", m["server_launches"],
+                     {"unpack_signs_sum": k50 * int(m["decodes_done"])})
+    health = {w["worker"]: w["verdict"] for w in m["health"]["workers"]}
+    if {str(w): v for w, v in health.items()}.get(
+            str(N4_NAN["worker"])) != "quarantined":
+        raise AssertionError(f"N4: health verdicts {health}")
+    crit = m["anatomy"]["critical_path"]
+    top = crit[0]["stage"] if crit else None
+    ratio = (m["steady_updates_per_sec"] / a1["steady_updates_per_sec"]
+             if a1 else float("nan"))
+    phase("telemetry", run="N4", card=repr(card), model="resnet50",
+          code="sign", workers=ASYNC_WORKERS, pushes=total,
+          applied=int(m["applied"]), stale_drops=int(m["stale_drops"]),
+          nan_push=nan_fate, rejected=json.dumps(reasons, sort_keys=True),
+          scrapes=len(scrapes) + 1, lineage_rows=len(pubs),
+          anatomy_rounds=len(rounds), probe_rows=sum(map(len,
+                                                         probes.values())),
+          recorder_events=len(events), health=json.dumps(health),
+          anatomy_top_stage=top,
+          codec_rel_error=f"{m['codec_rel_error']:.6f}",
+          grad_norm=f"{m['grad_norm']:.6f}",
+          update_ratio=f"{m['update_ratio']:.6e}",
+          steady_updates_per_sec=f"{m['steady_updates_per_sec']:.3f}",
+          armed_over_a1=f"{ratio:.3f}",
+          loss_before=f"{m['loss_initial']:.6f}",
+          loss_after=f"{m['loss_final']:.6f}")
+
+
+def run_telemetry(card: str, a1: dict = None) -> dict:
+    """Phase ``telemetry``: the per-process telemetry layer on the card,
+    runs N1-N4 (``PERF.md`` §4). Returns every kernel launch of the
+    phase: this process's (N1-N4 and N4's server, the kernel side of N3's
+    comparisons included; no count is set to 0 in the phase) and N4's
+    workers'."""
+    import shutil
+    import tempfile
+
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_telemetry_")
+    before = _launch_counts()
+    workers: dict = {}
+    try:
+        telemetry_n1()
+        telemetry_n2(tmp)
+        telemetry_n3(tmp)
+        telemetry_n4(card, tmp, a1, workers)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    tally: dict = {}
+    _tally(tally, _launched_since(before))
+    _tally(tally, workers)
+    phase("telemetry", launches=json.dumps(tally, sort_keys=True,
+                                           separators=(",", ":")),
+          seconds=f"{time.perf_counter() - t0:.1f}")
+    return tally
+
+
 SOURCES = {
     "encode_signs": ("sign.cu", "pytorch_ps_mpi_tpu/ops/sign_pallas.py:68"),
     "pack_signs": ("sign.cu", "pytorch_ps_mpi_tpu/ops/sign_pallas.py:104"),
@@ -4419,11 +5031,13 @@ def main() -> int:
     finally:
         torch.distributed.destroy_process_group()
     torch.cuda.empty_cache()
-    run_async(card)
+    a1 = run_async(card)
     torch.cuda.empty_cache()
     serving = run_serving(card, topk_launches)
     torch.cuda.empty_cache()
     scale_out = run_scale_out(card)
+    torch.cuda.empty_cache()
+    telemetry = run_telemetry(card, a1)
     launches.setdefault("pack_signs", 0)
     launches.setdefault("unpack_signs", 0)
 
@@ -4437,7 +5051,8 @@ def main() -> int:
          "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
          "library_ms": r["library_ms"],
          "launches_serving": serving.get(name, 0),
-         "launches_scale_out": scale_out.get(name, 0)}
+         "launches_scale_out": scale_out.get(name, 0),
+         "launches_telemetry": telemetry.get(name, 0)}
         for name, r in results.items()]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -80,6 +80,20 @@ class ErrorFeedback(Codec):
     def payload_bits(self, shape, dtype):
         return self.inner.payload_bits(shape, dtype)
 
+    def fidelity_probe(self, grad, state=(), rng=None):
+        """Probe the inner codec on the error-corrected gradient (what
+        rides the wire: grad + memory) and add the residual memory's norm
+        (``error_feedback.py:95-108``); EF's correctness hinges on that
+        residual staying bounded. Read-only, like the base probe."""
+        if not state:
+            state = self.init_state(tuple(grad.shape), grad.dtype,
+                                    grad.device)
+        corrected = grad + state["memory"]
+        out = self.inner.fidelity_probe(corrected, state["inner"], rng)
+        out["ef_residual_norm"] = float(torch.linalg.vector_norm(
+            state["memory"].to(torch.float32).reshape(-1)))
+        return out
+
 
 class HopErrorFeedback:
     """Per-hop error feedback for a tree leader's re-encode of its group

@@ -36,8 +36,19 @@ is an aggregation tree's root (``parallel/tree.py``): its pushers are
 group leaders whose frames compose several worker pushes, and each round
 is averaged by the composed count. ``cfg["serving"]`` or
 ``cfg["read_port"]`` (0 picks a free port) arms the read tier
-(``serving/``) on the server, tuned by ``cfg["serving_kw"]``. The JAX
-package's telemetry and control options raise ``NotImplementedError``
+(``serving/``) on the server, tuned by ``cfg["serving_kw"]``.
+
+The per-process telemetry (``telemetry/``) arms from the same cfg, in the
+server and in every worker: ``telemetry_dir`` (the flight recorder, its
+JSONL dumps and ``metrics.prom``), ``metrics_port``/``health_port`` (the
+``/metrics`` and ``/health`` endpoint), ``health``/``health_dir`` (worker
+beacons and the :class:`HealthMonitor`), ``numerics``/``numerics_dir``/
+``numerics_kw`` (every consumed push checked on the card before it can
+touch the update, the skip/zero/abort policy, and the workers'
+codec-fidelity probes), ``lineage``/``lineage_dir``/``trace`` (trace IDs
+billed to each published version) with ``anatomy`` (``"auto"``: armed
+with lineage), ``freshness`` and ``hop_anatomy``. The fleet
+observability plane and control options raise ``NotImplementedError``
 naming the ROADMAP item that brings them (:data:`UNPORTED`).
 """
 
@@ -62,19 +73,17 @@ from pytorch_ps_mpi_tpu_torch.ps import _inverse
 
 Tree = Any
 
-_TELEMETRY = "ROADMAP queue 1 item 3 (telemetry/ and control/)"
+_FLEET = ("ROADMAP queue 1 item 3 (the fleet observability plane and "
+          "control/)")
 
 #: the JAX package's cfg keys the port does not have yet -> their item
-UNPORTED = {k: _TELEMETRY for k in (
-    "telemetry_dir", "metrics_port", "health_dir", "health_port", "health",
-    "numerics", "numerics_dir", "numerics_kw", "lineage", "lineage_dir",
-    "trace", "anatomy", "timeseries", "timeseries_kw", "slo", "slo_kw",
-    "profile", "profile_dir", "fleet", "fleet_dir", "control",
-    "control_kw", "control_dir", "topo_actions", "freshness",
-    "hop_anatomy")}
-#: the unported keys that are ports: set when not None, as in the JAX
-#: package, where 0 picks a free port
-_PORT_KEYS = ("metrics_port", "health_port")
+UNPORTED = {k: _FLEET for k in (
+    "timeseries", "timeseries_kw", "slo", "slo_kw", "fleet", "fleet_dir",
+    "control", "control_kw", "control_dir", "topo_actions")}
+#: the continuous sampling profiler, which is not ``step(profile=True)``
+UNPORTED.update({k: "ROADMAP queue 1 item 3 (the sampling profiler, "
+                    "telemetry/profiler.py; not MPI_PS.step(profile=True))"
+                 for k in ("profile", "profile_dir")})
 _GPT = ("model 'gpt' (models/gpt.py) is not ported yet: "
         "ROADMAP queue 1 item 4")
 
@@ -82,13 +91,48 @@ _GPT = ("model 'gpt' (models/gpt.py) is not ported yet: "
 #: seconds between two calls of ``serve``'s ``on_tick``
 TICK_S = 0.2
 
+# update/wait latency buckets (seconds): sub-ms updates through
+# multi-second straggler waits
+_LATENCY_BUCKETS = (1e-4, 2.5e-4, 5e-4, 1e-3, 2.5e-3, 5e-3, 1e-2, 2.5e-2,
+                    5e-2, 0.1, 0.25, 0.5, 1.0, 2.5, 5.0, 10.0)
+
+
+def _telemetry_from_cfg(cfg: Dict[str, Any], worker: Any):
+    """The switch that costs nothing when off (``async_train.py:52``):
+    ``cfg["telemetry_dir"]`` installs the process-global flight recorder,
+    in the server and in every spawned worker (the cfg rides the spawn's
+    argv, so one key arms the fleet). Returns the recorder or None."""
+    from pytorch_ps_mpi_tpu_torch import telemetry
+
+    rec = telemetry.get_recorder()
+    if rec is None and cfg.get("telemetry_dir"):
+        rec = telemetry.configure(
+            capacity=int(cfg.get("telemetry_capacity", 65536)),
+            worker=worker)
+    return rec
+
+
+def _dump_recorder(cfg: Dict[str, Any], rec, filename: str) -> Optional[str]:
+    tdir = cfg.get("telemetry_dir")
+    if rec is None or not tdir:
+        return None
+    os.makedirs(tdir, exist_ok=True)
+    return rec.dump_jsonl(os.path.join(tdir, filename))
+
+
+def _arm_lineage(cfg: Dict[str, Any]) -> Dict[str, Any]:
+    """``cfg["trace"]`` is the CLI's name for lineage (``--trace``,
+    ``train_async.py:349``); the trace IDs ride the frames, so the
+    server's transport must be framed (``frame_check``)."""
+    if cfg.get("trace") and not cfg.get("lineage"):
+        cfg = {**cfg, "lineage": True}
+    return cfg
+
 
 def check_cfg(cfg: Dict[str, Any]) -> None:
-    """Raise ``NotImplementedError`` for a set option the port lacks: a
-    port key when it is not None (0 included), any other when true."""
+    """Raise ``NotImplementedError`` for a set option the port lacks."""
     for key, where in UNPORTED.items():
-        if (cfg.get(key) is not None if key in _PORT_KEYS
-                else cfg.get(key) not in (None, False, 0, "", {}, [])):
+        if cfg.get(key) not in (None, False, 0, "", {}, []):
             raise NotImplementedError(
                 f"cfg[{key!r}] is not ported yet: {where}")
     if cfg.get("model") == "gpt":
@@ -245,17 +289,13 @@ class IdleMeter:
     minus the union of the device rows ``torch.profiler`` records, over
     the span's wall time. A no-op off the card.
 
-    Late in a long process the profiler on an H100 has dropped the first
-    device rows of a trace while still recording every runtime launch
-    call, which leaves a short trace empty. So the trace opens with
-    :attr:`LEAD` spin kernels, there to be dropped, and a reading holds
-    an idle share only when the other device rows number at least the
-    launch calls made after them."""
-
-    LEAD = 256
-    #: runtime calls that put one row on the device
-    LAUNCH_CALLS = ("cudaLaunch", "cuLaunch", "cudaMemset", "cuMemset",
-                    "cudaMemcpy", "cuMemcpy")
+    The span cannot be taken again, so :mod:`utils.tracing`'s guard is
+    applied without retakes: the trace opens with
+    :data:`~pytorch_ps_mpi_tpu_torch.utils.tracing.LEAD` spin kernels
+    (late in a long process the profiler on an H100 has dropped a
+    trace's first device rows while still recording every launch call),
+    and a reading holds an idle share only when the other device rows
+    number at least the launch calls made after them."""
 
     def __init__(self, device: torch.device):
         self.device = device
@@ -265,13 +305,9 @@ class IdleMeter:
     def start(self) -> None:
         if self.device.type != "cuda" or self._prof is not None:
             return
-        from torch.profiler import ProfilerActivity, profile
+        from pytorch_ps_mpi_tpu_torch.utils.tracing import open_trace
 
-        self._prof = profile(activities=[ProfilerActivity.CUDA])
-        self._prof.__enter__()
-        for _ in range(self.LEAD):
-            torch.cuda._sleep(1)
-        torch.cuda.synchronize(self.device)
+        self._prof = open_trace(self.device)
         self._t0 = time.perf_counter()
 
     def stop(self) -> Dict[str, float]:
@@ -280,16 +316,13 @@ class IdleMeter:
         and ``idle_share`` (empty when nothing was profiled)."""
         if self._prof is None:
             return {}
+        from pytorch_ps_mpi_tpu_torch.utils.tracing import trace_rows
+
         torch.cuda.synchronize(self.device)
         wall = (time.perf_counter() - self._t0) * 1e3
         self._prof.__exit__(None, None, None)
-        cuda = torch.autograd.DeviceType.CUDA
-        events = self._prof.events()
-        spans = sorted((e.time_range.start, e.time_range.end)
-                       for e in events if e.device_type == cuda
-                       and "spin_kernel" not in e.name)
-        launched = sum(e.name.startswith(self.LAUNCH_CALLS)
-                       for e in events if e.device_type != cuda) - self.LEAD
+        rows, launched = trace_rows(self._prof)
+        spans = [(e.time_range.start, e.time_range.end) for e in rows]
         self._prof = None
         busy, cur_s, cur_e = 0.0, None, None
         for a, b in spans:
@@ -370,15 +403,42 @@ def worker_main(name: str, worker_id: int, cfg: Dict[str, Any]) -> int:
     :data:`CRASH_EXIT_CODE`). With ``cfg["stats_dir"]`` the worker
     writes its per-push times, encodes, kernel launches and peak memory
     to ``worker-<id>.json`` there (the times a list, one a push).
-    Returns the steps made."""
+
+    Telemetry (``async_train.py:252-495``): ``cfg["telemetry_dir"]``
+    records the read, grad, straggle and push spans into
+    ``worker-<id>.jsonl``; ``cfg["health_dir"]`` appends one beacon row a
+    step (compute and wire seconds) for the server's
+    :class:`HealthMonitor`; ``cfg["numerics_dir"]`` probes the wire's
+    codec fidelity on the pre-encode gradient every ``probe_every``
+    steps (``numerics_kw``), on the card through the codec's kernels,
+    into ``numerics-<id>.jsonl``. Returns the steps made."""
     from pytorch_ps_mpi_tpu_torch.resilience.faults import (CRASH_EXIT_CODE,
                                                             FaultInjector)
 
     device = resolve_device(cfg.get("device", "cuda"))
     prob = make_problem(cfg, device)
     slow_ms, steps = worker_cfg(cfg, worker_id)
+    rec = _telemetry_from_cfg(cfg, worker=worker_id)
     w = make_worker(name, worker_id, cfg, prob.template, device)
     inj = FaultInjector.from_cfg(cfg, role=worker_id)
+    prober, probe_every = None, 0
+    if cfg.get("numerics_dir") and getattr(w, "wire", None) is not None:
+        # the codec-fidelity half of the numerics layer runs here, on the
+        # pre-encode gradient: the server only sees decoded values
+        from pytorch_ps_mpi_tpu_torch.telemetry.numerics import (
+            NUMERICS_KNOBS, ProbeWriter)
+
+        probe_every = max(1, int((cfg.get("numerics_kw") or {}).get(
+            "probe_every", NUMERICS_KNOBS["probe_every"])))
+        prober = ProbeWriter(cfg["numerics_dir"], worker_id)
+    beacon = None
+    if cfg.get("health_dir"):
+        # one row a step with the durations the recorder spans measure,
+        # so the server attributes a straggle to compute or wire live
+        from pytorch_ps_mpi_tpu_torch.telemetry.diagnosis import \
+            BeaconWriter
+
+        beacon = BeaconWriter(cfg["health_dir"], worker_id)
     push_timeout = float(cfg.get("push_timeout", 60.0))
     times = collections.defaultdict(list)
     launches0 = kernel_launches()
@@ -387,11 +447,13 @@ def worker_main(name: str, worker_id: int, cfg: Dict[str, Any]) -> int:
     pushed = encodes = push_seq = 0
     try:
         for step in range(steps):
+            t_step0 = time.monotonic()
             drop = duplicate = poison = False
             for f in (inj.faults_at(step) if inj is not None else ()):
                 kind = f["kind"]
                 if kind == "crash_worker":
                     inj.fire(f)  # logged before the process dies
+                    _dump_recorder(cfg, rec, f"worker-{worker_id}.jsonl")
                     os._exit(CRASH_EXIT_CODE)
                 elif kind == "corrupt":
                     w.set_tamper(inj.make_tamper(f))  # fires at the push
@@ -413,18 +475,40 @@ def worker_main(name: str, worker_id: int, cfg: Dict[str, Any]) -> int:
                 w.set_tamper(None)
                 w.set_wire_delay(0.0)
             t0 = time.perf_counter()
+            m0 = time.monotonic()
             flat, version = w.read_flat()
             prob.load_flat(torch.from_numpy(flat).to(device))
             t1 = time.perf_counter()
+            if rec is not None:
+                rec.event("worker.read_params", kind="span", ts=m0,
+                          dur=time.monotonic() - m0, step=step)
+            m1 = time.monotonic()
             _, grads = prob.grad_leaves(prob.batch_fn(step, worker_id))
             if poison:
                 grads = [torch.full_like(g, float("nan")) for g in grads]
             _sync(device)
             t2 = time.perf_counter()
+            compute_s = time.monotonic() - m1
+            if rec is not None:
+                rec.event("worker.grad", kind="span", ts=m1, dur=compute_s,
+                          step=step, version=version)
+            if prober is not None and step % probe_every == 0:
+                try:
+                    prober.write(step, w.wire.probe_fidelity(grads))
+                except Exception:
+                    pass  # a probe must never take a worker down
+            straggle_s = 0.0
             if slow_ms:
+                m2 = time.monotonic()
                 time.sleep(slow_ms / 1e3)  # a deliberate straggler
+                straggle_s = time.monotonic() - m2
+                if rec is not None:
+                    rec.event("worker.straggle", kind="span", ts=m2,
+                              dur=straggle_s, step=step)
             if not drop:
                 t3 = time.perf_counter()
+                m3 = time.monotonic()
+                seq0 = push_seq
                 payload = w.encode(grads)  # on the card, D2H, one sync
                 encodes += 1
                 t4 = time.perf_counter()
@@ -435,11 +519,34 @@ def worker_main(name: str, worker_id: int, cfg: Dict[str, Any]) -> int:
                 t5 = time.perf_counter()
                 times["encode_s"].append(t4 - t3)
                 times["push_s"].append(t5 - t4)
+                if rec is not None:
+                    # seq joins the span so the trace export ties this
+                    # push to the server's consume span (a flow arrow)
+                    rec.event("worker.push_grad", kind="span", ts=m3,
+                              dur=time.monotonic() - m3, step=step,
+                              version=version, seq=seq0)
             times["read_s"].append(t1 - t0)
             times["grad_s"].append(t2 - t1)
             pushed += 1
+            if beacon is not None:
+                # the deliberate straggler sleep emulates slow compute;
+                # reads, pushes, retries and delay faults are the wire's
+                wire_s = max(0.0, (time.monotonic() - t_step0) - compute_s
+                             - straggle_s)
+                beacon.step(step, compute_s + straggle_s, wire_s, straggle_s,
+                            retries=getattr(w, "retries", 0),
+                            reconnects=getattr(w, "reconnects", 0))
+        if rec is not None and hasattr(w, "reconnects"):
+            rec.event("resilience.summary", worker=worker_id,
+                      retries=w.retries, reconnects=w.reconnects)
     finally:
         w.close()
+        _dump_recorder(cfg, rec, f"worker-{worker_id}.jsonl")
+        if prober is not None:
+            prober.close()
+        if beacon is not None:
+            beacon.close(retries=getattr(w, "retries", 0),
+                         reconnects=getattr(w, "reconnects", 0))
     if cfg.get("stats_dir"):
         launches = {k: v - launches0[k] for k, v in kernel_launches().items()}
         stats = {"worker": worker_id, "pushes": pushed, "encodes": encodes,
@@ -495,21 +602,25 @@ class _PSCheckpointCadence:
         self._save(state, server, applied_total)
 
 
-def _agg_armed(cfg: Dict[str, Any], server, sync_barrier: bool) -> bool:
+def _agg_armed(cfg: Dict[str, Any], server, sync_barrier: bool,
+               numerics_armed: bool = False) -> bool:
     """The JAX arming rule (``async_train.py:864-916``): a sync barrier,
-    a codec wire whose every unit aggregates, and an exact algebra unless
-    ``cfg["agg"] == "on"`` opts into an approximate one."""
+    a codec wire whose every unit aggregates, no numerics monitor (its
+    check of each push needs the decoded gradient), and an exact algebra
+    unless ``cfg["agg"] == "on"`` opts into an approximate one."""
     req = str(cfg.get("agg", "auto")).lower()
     if req not in ("auto", "on", "off"):
         raise ValueError(f"cfg['agg'] must be auto/on/off, got {req!r}")
     wire = server.wire
     armed = (req != "off" and sync_barrier and wire is not None
-             and wire.agg_supported
+             and wire.agg_supported and not numerics_armed
              and (req == "on" or wire.code.agg_exact))
     if req == "on" and not armed:
         why = ("no sync barrier" if not sync_barrier
                else "no codec wire" if wire is None
-               else "codec lacks an aggregation algebra")
+               else "codec lacks an aggregation algebra"
+               if not wire.agg_supported
+               else "numerics monitor armed")
         print(f"compressed-domain aggregation requested but not armed "
               f"({why}); falling back to decode-sum", flush=True)
     return armed
@@ -564,11 +675,26 @@ def serve(server, cfg: Dict[str, Any], total_grads: int, *,
     ``publish_transport_s``, ``publish_ring_put_s``,
     ``publish_pre_encode_s``); the read server stays up until
     ``server.close()``. Unarmed, the loop publishes from one pinned
-    buffer straight to the transport (``ServingCore.publish_device``)."""
+    buffer straight to the transport (``ServingCore.publish_device``).
+
+    The per-process telemetry (``async_train.py:597-700``) is the core's
+    (:meth:`ServingCore._build_monitors`) and this loop's: the recorder's
+    ``serve.grad``/``serve.update`` rows and ``ps_update_seconds``,
+    ``ps_poll_wait_seconds``, ``ps_applied_total`` and
+    ``ps_degraded_rounds_total`` on the scrape registry; the health
+    monitor fed each consumed push and each round; the numerics monitor's
+    check of each decoded push, on the card, before the update (a
+    quarantined worker leaves the barrier under ``skip``; ``abort`` ends
+    the loop with ``numerics_abort``) and its update-to-weight ratio at
+    probe cadence; each publish billed to its pushes (lineage) and its
+    round anatomy. The metrics then carry ``metrics_port``, ``health``,
+    ``numerics``, ``lineage``, ``anatomy``, ``freshness``/``hop`` and,
+    with ``telemetry_dir``, ``metrics_prom`` and ``telemetry_jsonl``."""
     from pytorch_ps_mpi_tpu_torch.resilience.faults import (
         FaultInjector, InjectedServerCrash)
     from pytorch_ps_mpi_tpu_torch.serving import ServingCore
 
+    cfg = _arm_lineage(cfg)
     device = server.device
     prob = make_problem(cfg, device)
     if tuple(np.shape(x) for x in _leaves(prob.template)) != tuple(
@@ -604,14 +730,32 @@ def serve(server, cfg: Dict[str, Any], total_grads: int, *,
             flat.copy_(restored["flat"])
             state = restored["opt_state"]
     inj = FaultInjector.from_cfg(cfg, role="server")
-    agg_armed = _agg_armed(cfg, server, sync_barrier)
+    rec = _telemetry_from_cfg(cfg, worker="server")
+    reg = server.scrape_registry()
+    h_update = reg.histogram(
+        "ps_update_seconds", _LATENCY_BUCKETS,
+        "optimizer update + publish wall per applied round")
+    h_wait = reg.histogram(
+        "ps_poll_wait_seconds", _LATENCY_BUCKETS,
+        "idle poll time preceding each consumed gradient (straggler wait)")
+    g_applied = reg.gauge("ps_applied_total",
+                          "gradients applied this serve call")
+    c_degraded = reg.counter(
+        "ps_degraded_rounds_total",
+        "sync-barrier rounds completed over a partial fleet "
+        "(transport-dead workers excluded)")
+    # the core builds the monitors and the endpoint before the arming
+    # rule below reads them
+    core = ServingCore(server, cfg)
+    monitor, numon, lint = core.health, core.numerics, core.lineage
+    probe_every = int(numon.knobs["probe_every"]) if numon else 0
+    agg_armed = _agg_armed(cfg, server, sync_barrier, numon is not None)
     server.agg_mode = 1.0 if agg_armed else 0.0
     if agg_armed:
         from pytorch_ps_mpi_tpu_torch.utils import native
 
         native.fold_lib()  # built before the first round, not in it
     agg_req = str(cfg.get("agg", "auto")).lower()
-    core = ServingCore(server, cfg)
     times = collections.defaultdict(float)
     marks: List[Tuple[float, int]] = []  # (seconds, applied) an update
 
@@ -640,6 +784,11 @@ def serve(server, cfg: Dict[str, Any], total_grads: int, *,
     # a straggler's first, and each enters exactly one round
     pending: Dict[int, collections.deque] = collections.defaultdict(
         collections.deque)
+    # when each worker first had a gradient queued in the current round:
+    # the health monitor's critical-path bookkeeping
+    round_ready: Dict[int, float] = {}
+    numerics_stop = False
+    next_probe = 0  # the applied count of the next update-ratio probe
     dead_workers: set = set()
     degrade_after = float(cfg.get("degraded_round_after", 5.0))
     tick_interval = float(cfg.get("tick_interval", TICK_S))
@@ -648,7 +797,7 @@ def serve(server, cfg: Dict[str, Any], total_grads: int, *,
     t_start = time.perf_counter()
     deadline = t_start + timeout
     next_tick = 0.0
-    round_t0 = t_start
+    round_t0 = wait_t0 = t_start
     draining = False
 
     def keep_going() -> bool:
@@ -689,17 +838,37 @@ def serve(server, cfg: Dict[str, Any], total_grads: int, *,
                 meter.stop()  # a crash ends the trace, not the process
             raise InjectedServerCrash(crash)
 
-    def apply(grad_flat: torch.Tensor, n_contrib: int) -> None:
-        nonlocal applied, state
+    def apply(grad_flat: torch.Tensor, n_contrib: int, up_t0: float,
+              lineage_workers=None) -> None:
+        nonlocal applied, state, next_probe
         if meter is not None:
             meter.start()
+        probe = numon is not None and applied >= next_probe
+        old = flat.clone() if probe else None
         t0 = time.perf_counter()
         _, state = update_fn(params, _views(grad_flat, layout), state, h)
         _sync(device)
         times["update_s"] += time.perf_counter() - t0
         applied += n_contrib
+        if probe:
+            # ||dp||/||p|| at probe cadence only: the old parameters are
+            # kept just long enough for one reduction on the card
+            numon.observe_update([old], [flat], applied_before + applied)
+            next_probe = applied + probe_every
         server.grad_publishes += 1
         publish()
+        up_dur = time.perf_counter() - up_t0
+        h_update.observe(up_dur)
+        g_applied.set(float(applied))
+        if rec is not None:
+            rec.event("serve.update", kind="span",
+                      ts=time.monotonic() - up_dur, dur=up_dur,
+                      step=applied, version=server.version)
+        if lint is not None:
+            # bill the published version with its composing pushes (one
+            # a worker of the round; the push just applied in async mode)
+            lint.observe_publish(server.version, up_dur,
+                                 workers=lineage_workers)
         marks.append((time.perf_counter() - t_start, applied))
         if cadence:
             cadence.maybe_save({"flat": flat, "opt_state": state}, server,
@@ -727,8 +896,10 @@ def serve(server, cfg: Dict[str, Any], total_grads: int, *,
     def try_round(only_queued: bool = False) -> bool:
         """One sync round over the active workers, if each has a gradient
         queued (``async_train.py:1077-1180``); ``only_queued`` (the tree
-        drain) completes a partial round over what is queued."""
-        nonlocal degraded_rounds, round_t0
+        drain) completes a partial round over what is queued. A worker
+        quarantined under the numerics ``skip`` policy leaves the
+        barrier, as a dead one does."""
+        nonlocal degraded_rounds, round_t0, wait_t0
         if tree_mode:
             active = [w for w in sorted(tree_members | tree_joined)
                       if w not in dead_workers]
@@ -736,8 +907,11 @@ def serve(server, cfg: Dict[str, Any], total_grads: int, *,
                 active = [w for w in active if pending[w]]
         else:
             active = [w for w in range(n_workers) if w not in dead_workers]
+        if numon is not None and numon.knobs["policy"] == "skip":
+            active = [w for w in active if not numon.is_quarantined(w)]
         if not active or any(not pending[w] for w in active):
             return False
+        up_t0 = time.perf_counter()
         entries = [pending[w].popleft() for w in active]
         total_comp = sum(comp_n for _, comp_n in entries)
         t0 = time.perf_counter()
@@ -757,11 +931,23 @@ def serve(server, cfg: Dict[str, Any], total_grads: int, *,
             for g, _ in entries[1:]:
                 summed += g
             summed /= total_comp
+        if monitor is not None:
+            # bill the round's critical path to the last-ready worker,
+            # then reopen the book for workers already queued again
+            monitor.observe_round(round_ready, active)
+            round_ready.clear()
+            for w2 in range(n_workers):
+                if pending[w2]:
+                    round_ready[w2] = up_t0
         if (bool(dead_workers) if tree_mode
                 else len(entries) < n_workers):
             degraded_rounds += 1
-        apply(summed, len(entries))
-        round_t0 = time.perf_counter()
+            c_degraded.inc()
+            if rec is not None:
+                rec.event("serve.degraded_round", step=applied,
+                          absent=sorted(dead_workers))
+        apply(summed, len(entries), up_t0, lineage_workers=active)
+        round_t0 = wait_t0 = time.perf_counter()
         return True
 
     while keep_going() and time.perf_counter() < deadline:
@@ -770,6 +956,7 @@ def serve(server, cfg: Dict[str, Any], total_grads: int, *,
             next_tick = now + tick_interval
             if on_tick is not None:
                 on_tick()
+            core.tick()  # the monitors' beacon and probe tails
             if stop_when is not None and not draining and stop_when():
                 draining = True  # consume what is queued, then return
             if sync_barrier and now - round_t0 > degrade_after:
@@ -783,31 +970,66 @@ def serve(server, cfg: Dict[str, Any], total_grads: int, *,
                 break
             time.sleep(0.0005)
             continue
-        wid, _, grad = item
+        wid, grad_version, grad = item
         # the frame's composed count, queued by the consume in item order
         comp_n = (composed_queue.popleft()
                   if composed_queue is not None else 1)
         if agg_armed:
             if not server.wire.payload_finite(grad):
                 server._reject_frame(wid, "nonfinite")
+                if lint is not None:
+                    lint.discard_last(wid, reason="nonfinite")
+                wait_t0 = time.perf_counter()
                 continue
             grad = np.copy(grad)  # the view dies at the next poll
-        else:
+        elif agg_req == "on":
+            server.agg_fallbacks += 1
+        wait_s = time.perf_counter() - wait_t0
+        h_wait.observe(wait_s)
+        staleness = max(0, server.version - grad_version)
+        if rec is not None:
+            rec.event("serve.grad", worker=wid, staleness=staleness,
+                      step=applied, version=grad_version)
+        if monitor is not None:
+            monitor.observe_grad(wid, staleness, wait_s)
+        if numon is not None:
+            # the decoded push checked on the card before it can touch
+            # the update; the policy decides its fate
+            action = numon.observe_push(wid, grad, applied_before + applied)
+            if action == "abort":
+                numerics_stop = True
+                if lint is not None:
+                    lint.discard_last(wid, reason="numerics")
+                break
+            if action == "skip":
+                if lint is not None:
+                    lint.discard_last(wid, reason="numerics")
+                wait_t0 = time.perf_counter()
+                continue
+            if action == "zero":
+                from pytorch_ps_mpi_tpu_torch.telemetry.numerics import \
+                    sanitize_tree
+
+                grad = sanitize_tree(grad)
+        if not agg_armed:
             grad = torch.cat([x.reshape(-1) for x in _leaves(grad)])
-            if agg_req == "on":
-                server.agg_fallbacks += 1
         times["ingest_s"] += time.perf_counter() - t0
         if sync_barrier:
             dead_workers.discard(wid)  # a push proves it alive
             if tree_mode:
                 tree_joined.add(wid)
             pending[wid].append((grad, comp_n))
-            try_round()
+            if monitor is not None and wid not in round_ready:
+                round_ready[wid] = time.perf_counter()
+            if not try_round():
+                wait_t0 = time.perf_counter()
         else:
+            up_t0 = time.perf_counter()
             if comp_n > 1:
                 # a composed frame carries its group's sum: its mean
                 grad = grad / comp_n
-            apply(grad, 1)
+            apply(grad, 1, up_t0)
+            wait_t0 = time.perf_counter()
     if tree_mode and sync_barrier:
         # consumed frames still queued compose one partial round each
         while try_round(only_queued=True):
@@ -821,6 +1043,12 @@ def serve(server, cfg: Dict[str, Any], total_grads: int, *,
     if cadence:
         cadence.final_save({"flat": flat, "opt_state": state}, server,
                            applied_before + applied)
+    if numon is not None:
+        # the workers' last probe rows land after the loop's last tick:
+        # drain them before any metrics snapshot reads the gauges, and
+        # close the trajectory on the final state
+        numon.tick()
+        numon._trajectory_row(applied_before + applied)
     prob.load_flat(flat)
     if core.armed:
         for k, v in core.publish_times.items():
@@ -855,6 +1083,34 @@ def serve(server, cfg: Dict[str, Any], total_grads: int, *,
         m["serving"] = core.serving_snapshot()
         if core.read_port is not None:
             m["read_port"] = core.read_port
+    if core.metrics_http_port is not None:
+        # the endpoint stays up until server.close()
+        m["metrics_port"] = core.metrics_http_port
+    if monitor is not None:
+        m["health"] = monitor.snapshot()
+    if numon is not None:
+        m["numerics"] = numon.snapshot()
+        if numerics_stop:
+            m["numerics_abort"] = numon.aborted
+        numon.close()
+    if lint is not None:
+        m["lineage"] = lint.snapshot()
+        lint.close()
+    if core.anatomy is not None:
+        # per-stage critical-path shares and the ranked what-if advisor
+        m["anatomy"] = core.anatomy.snapshot()
+        core.anatomy.close()
+    m.update(server.finalize_observability())
+    if cfg.get("telemetry_dir"):
+        # the final scrape beside the recorder dumps, for offline readers
+        prom_path = os.path.join(cfg["telemetry_dir"], "metrics.prom")
+        os.makedirs(cfg["telemetry_dir"], exist_ok=True)
+        with open(prom_path, "w") as f:
+            f.write(server.prometheus_text())
+        m["metrics_prom"] = prom_path
+    jsonl = _dump_recorder(cfg, rec, "server.jsonl")
+    if jsonl is not None:
+        m["telemetry_jsonl"] = jsonl
     from pytorch_ps_mpi_tpu_torch.parallel.dcn import unflatten_params
 
     return unflatten_params(flat.cpu().numpy(), server.template), m

@@ -224,9 +224,26 @@ class CodecWire:
         return out
 
     def probe_fidelity(self, grad) -> Dict[str, Any]:
-        raise NotImplementedError(
-            "CodecWire.probe_fidelity (the numerics probe) is not ported "
-            "yet: ROADMAP queue 1 item 3 (telemetry/numerics.py)")
+        """Online codec-fidelity probe on the largest wire unit (the
+        largest bucket, or the biggest leaf on the per-leaf wire), on the
+        wire's device through the codec's kernels
+        (``Codec.fidelity_probe``): decode-after-encode relative L2
+        error, cosine similarity and achieved bits-per-parameter, with
+        the unit's index and the codec's name (``dcn.py:254``).
+        Read-only: the wire's codec states and generator are untouched
+        (a stochastic codec draws from a generator of its own, seeded
+        alike every probe), so probing never perturbs what ships."""
+        leaves = [torch.as_tensor(g).to(self.device)
+                  for g in _leaves_of(grad)]
+        units = self.plan.pack_leaves(leaves) if self.plan is not None \
+            else leaves
+        i = max(range(len(units)), key=lambda j: numel(self.shapes[j]) or 1)
+        gen = (torch.Generator(device=self.device).manual_seed(0x9E3779B9)
+               if self.code.needs_rng else None)
+        out = self.code.fidelity_probe(units[i], self._states[i], gen)
+        out["unit"] = i
+        out["codec"] = type(self.code).__name__
+        return out
 
     # -- receive -----------------------------------------------------------
     def payloads_from_bytes(self, buf) -> list:

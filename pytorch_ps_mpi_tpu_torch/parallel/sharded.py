@@ -32,7 +32,8 @@ import torch
 Tree = Any
 
 _CONTROL = ("a shard plan from a control directory (control.topo) is not "
-            "ported yet: ROADMAP queue 1 item 3 (telemetry/ and control/)")
+            "ported yet: ROADMAP queue 1 item 3 (the fleet observability "
+            "plane and control/)")
 
 
 def shard_plan(n_total: int, n_shards: int) -> List[Tuple[int, int]]:
@@ -84,7 +85,17 @@ def server_main(shard_id: int, n_shards: int, port: int,
     ``cfg["read_port"]`` the shard serves its slice through a read tier
     of its own under the tenant ``shard<i>`` (``sharded.py:178-248``): the
     read port is always picked free (S shards share a host) and printed
-    in the hello line as ``read_port``."""
+    in the hello line as ``read_port``.
+
+    Per-shard telemetry (``sharded.py:143-200``): ``health``,
+    ``health_dir``, ``health_port`` or ``metrics_port`` arm the shard's
+    own :class:`HealthMonitor`, and a port its own ``/metrics`` and
+    ``/health`` endpoint, always on a free port, printed in the hello
+    line as ``health_port``; ``lineage`` on a framed wire bills each of
+    the shard's versions to its pushes (``lineage-shard<i>.jsonl``) with
+    the round anatomy (``anatomy-shard<i>.jsonl``); ``freshness`` and
+    ``hop_anatomy`` go through ``arm_observability``. The metrics file
+    then carries ``health`` and ``lineage``."""
     from pytorch_ps_mpi_tpu_torch.mesh import resolve_device
     from pytorch_ps_mpi_tpu_torch.optim import OPTIMIZERS
     from pytorch_ps_mpi_tpu_torch.parallel import async_train as at
@@ -134,12 +145,44 @@ def server_main(shard_id: int, n_shards: int, port: int,
                     checkpoint_every)
             flat.copy_(restored["flat"])
             state = restored["opt_state"]
+    # per-shard diagnosis: S shards cannot share one pinned port, so the
+    # endpoint's port is picked free and rides the hello line
+    monitor = health_port = None
+    if (cfg.get("health") or cfg.get("health_dir")
+            or cfg.get("health_port") is not None
+            or cfg.get("metrics_port") is not None):
+        from pytorch_ps_mpi_tpu_torch.telemetry.diagnosis import \
+            HealthMonitor
+
+        monitor = HealthMonitor(server, cfg)
+        if (cfg.get("health_port") is not None
+                or cfg.get("metrics_port") is not None):
+            health_port = server.start_metrics_http(0)
+    # per-shard lineage: staleness is shard-local, so lineage is too
+    tracker = None
+    if ((cfg.get("lineage") or cfg.get("lineage_dir"))
+            and cfg.get("frame_check")):
+        from pytorch_ps_mpi_tpu_torch.telemetry.lineage import \
+            LineageTracker
+
+        tracker = LineageTracker(server, cfg, name=f"shard{shard_id}")
+        if cfg.get("anatomy", "auto") not in (False, "off", 0):
+            from pytorch_ps_mpi_tpu_torch.telemetry.anatomy import \
+                RoundAnatomy
+
+            tracker.anatomy = RoundAnatomy(server, cfg,
+                                           name=f"shard{shard_id}")
     scfg = dict(cfg)
     if cfg.get("read_port") is not None:
         scfg["read_port"] = 0
-    core = ServingCore(server, scfg, tenant=f"shard{shard_id}")
+    # the shard's monitors are its own (built above)
+    core = ServingCore(server, scfg, tenant=f"shard{shard_id}",
+                       monitors=False)
+    server.arm_observability(cfg, name=f"shard{shard_id}")
     # the coordinator reads the bound ports from this line
     hello = {"shard": shard_id, "port": server.port}
+    if health_port is not None:
+        hello["health_port"] = health_port
     if core.read_port is not None:
         hello["read_port"] = core.read_port
     print(json.dumps(hello), flush=True)
@@ -174,7 +217,10 @@ def server_main(shard_id: int, n_shards: int, port: int,
                 continue
             if meter is not None:
                 meter.start()  # from the first push on
-            _, _, grad = item
+            wid, ver, grad = item
+            if monitor is not None:
+                monitor.observe_grad(wid, max(0, server.version - ver))
+            up_t0 = time.perf_counter()
             g = grad["flat"]
             if tree_slots:
                 comp_n = (server._composed_queue.popleft()
@@ -190,6 +236,9 @@ def server_main(shard_id: int, n_shards: int, port: int,
                 time.sleep(slow_ms / 1e3)
             server.grad_publishes += 1
             publish()
+            if tracker is not None:
+                tracker.observe_publish(server.version,
+                                        time.perf_counter() - up_t0)
             if cadence:
                 cadence.maybe_save({"flat": flat, "opt_state": state},
                                    server, applied_before + applied)
@@ -212,8 +261,15 @@ def server_main(shard_id: int, n_shards: int, port: int,
             times=json.dumps(times), idle=json.dumps(idle),
             serving=json.dumps(core.serving_snapshot() if core.armed
                                else {}),
+            health=(monitor.render_json() if monitor is not None else "{}"),
+            lineage=json.dumps(tracker.snapshot()
+                               if tracker is not None else {}),
             peak_bytes=at._peak_bytes(device))
     finally:
+        if tracker is not None:
+            if tracker.anatomy is not None:
+                tracker.anatomy.close()
+            tracker.close()
         server.close()
 
 

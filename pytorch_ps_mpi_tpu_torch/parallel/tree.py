@@ -77,6 +77,91 @@ def tree_slot_capacity(n_workers: int, group_size: int) -> int:
     return min(int(group_size), int(n_workers))
 
 
+class _HopLog:
+    """Buffered JSONL writer for ``lineage-leader<g>.jsonl`` (``tree.py:100``),
+    the leader's half of cross-hop lineage: one ``hop`` row an upstream
+    push (the composed trace IDs, the versions, the fold, encode and
+    push seconds and the hop EF's probe), ``leader_consume`` rows marked
+    ``lost`` for pushes that never went upstream, ``hop_partial`` for a
+    round that reached some shards only, and ``upstream_lost``."""
+
+    def __init__(self, dir: Optional[str], group_id: int,
+                 flush_every: int = 32):
+        self._f = None
+        self._pending = 0
+        self.flush_every = int(flush_every)
+        if dir:
+            os.makedirs(dir, exist_ok=True)
+            self._f = open(
+                os.path.join(dir, f"lineage-leader{group_id}.jsonl"), "a")
+
+    def row(self, doc: Dict[str, Any]) -> None:
+        if self._f is None:
+            return
+        self._f.write(json.dumps(doc) + "\n")
+        self._pending += 1
+        if self._pending >= self.flush_every:
+            self.flush()
+
+    def flush(self) -> None:
+        if self._f is not None and self._pending:
+            self._f.flush()
+            self._pending = 0
+
+    def close(self) -> None:
+        if self._f is not None:
+            self.flush()
+            self._f.close()
+            self._f = None
+
+
+class _HopTailer:
+    """Offset-tracked tailer of the leaders' ``hop-leader*.jsonl`` rows
+    (the JAX package's ``control.topo.HopTailer``): each :meth:`poll`
+    reads what was appended since the last one, parses the complete
+    lines (a torn tail waits for the next poll) and hands each row to
+    ``sink``; a sink's exception is swallowed."""
+
+    def __init__(self, dir: str, sink, pattern: str = "hop-*.jsonl"):
+        self.dir = dir
+        self.sink = sink
+        self.pattern = pattern
+        self._offsets: Dict[str, int] = {}
+        self.rows = 0
+
+    def poll(self) -> int:
+        import glob
+
+        fed = 0
+        for path in sorted(glob.glob(os.path.join(self.dir,
+                                                  self.pattern))):
+            off = self._offsets.get(path, 0)
+            try:
+                with open(path, "rb") as f:
+                    f.seek(off)
+                    chunk = f.read(1 << 20)
+            except OSError:
+                continue
+            last_nl = chunk.rfind(b"\n")
+            if last_nl < 0:
+                continue
+            self._offsets[path] = off + last_nl + 1
+            for line in chunk[:last_nl].splitlines():
+                try:
+                    row = json.loads(line)
+                except ValueError:
+                    continue
+                if not isinstance(row, dict):
+                    continue
+                try:
+                    self.sink(row)
+                except Exception:
+                    pass
+                fed += 1
+        self.rows += fed
+        return fed
+
+
 def _leader_knobs(cfg: Dict[str, Any]) -> Dict[str, Any]:
     kw = dict(LEADER_KNOBS)
     kw.update(cfg.get("leader_kw") or {})
@@ -108,7 +193,15 @@ def leader_main(upstream: Sequence[str], group_id: int,
     ``cfg["stats_dir"]`` it writes ``leader-<g>-<pid>.json`` there (at
     exit, and before an injected crash): its upstream pushes, the trace
     IDs it lost, its decodes, kernel launches, stage times and peak
-    memory. Returns the upstream pushes."""
+    memory. Returns the upstream pushes.
+
+    Telemetry (``tree.py:240-300``): with ``cfg["lineage_dir"]`` or
+    ``cfg["telemetry_dir"]`` the leader writes :class:`_HopLog`'s
+    ``lineage-leader<g>.jsonl``; ``cfg["hop_anatomy"]`` arms a
+    :class:`~pytorch_ps_mpi_tpu_torch.telemetry.hop_anatomy.HopAnatomy`
+    fed one round of sub-stage seconds a push (``hop-leader<g>.jsonl``,
+    which the root tails); ``metrics_port``/``health_port`` give the
+    leader a ``/metrics`` endpoint of its own on a free port."""
     from pytorch_ps_mpi_tpu_torch.codecs.error_feedback import \
         HopErrorFeedback
     from pytorch_ps_mpi_tpu_torch.mesh import resolve_device
@@ -169,6 +262,16 @@ def leader_main(upstream: Sequence[str], group_id: int,
         hops.append(HopErrorFeedback(c.wire,
                                      enabled=bool(cfg.get("hop_ef", True))))
     inj = FaultInjector.from_cfg(cfg, role=f"leader{group_id}")
+    if (cfg.get("metrics_port") is not None
+            or cfg.get("health_port") is not None):
+        server.start_metrics_http(0)
+    server.arm_observability(cfg, name=f"leader{group_id}")
+    # the hop's sub-stages come from the Python stage walls (the JAX
+    # package's native interval rings are not armed here: validate time
+    # stays inside ingest_wait)
+    hop_an = server.hop_anatomy
+    log = _HopLog(cfg.get("lineage_dir") or cfg.get("telemetry_dir"),
+                  group_id)
     print(json.dumps({"leader": int(group_id), "addr": addr, "wid": lid}),
           flush=True)
     stats: Dict[str, Any] = {
@@ -276,9 +379,14 @@ def leader_main(upstream: Sequence[str], group_id: int,
             if not (server.connected(w) if can_connect else w not in silent):
                 dead.add(w)
 
-    def lose(entries) -> None:
-        stats["lost"].extend([e["worker"], e["step"], e["seq"]]
-                             for e in entries)
+    def lose(entries, reason: Optional[str] = None) -> None:
+        for e in entries:
+            stats["lost"].append([e["worker"], e["step"], e["seq"]])
+            row = {"kind": "leader_consume", "lost": True}
+            if reason is not None:
+                row["reason"] = reason
+            row.update(worker=e["worker"], step=e["step"], seq=e["seq"])
+            log.row(row)
 
     def trace(w, meta) -> Dict[str, Any]:
         return {"worker": int(meta.get("worker", w)),
@@ -297,6 +405,7 @@ def leader_main(upstream: Sequence[str], group_id: int,
                     inj.fire(f)
                     slow_fold_s = float(f.get("slow_ms", 20.0)) / 1e3
         t0 = time.perf_counter()
+        t_fold0 = time.monotonic()
         agg = gwire.agg_begin()
         entries, root_vs = [], []
         for w in active:
@@ -306,9 +415,12 @@ def leader_main(upstream: Sequence[str], group_id: int,
                 time.sleep(slow_fold_s)
             entries.append(trace(w, meta))
             root_vs.append(vs)
+        t_fin0 = time.monotonic()
         np.concatenate([x.reshape(-1) for x in agg.finalize_leaves()],
                        out=staged.numpy())
         t1 = time.perf_counter()
+        fin_s = time.monotonic() - t_fin0
+        fold_s = t1 - t0
         dev = staged.to(device, non_blocking=True)  # the one H2D a round
         if sharded:
             units = [[dev[start:stop]] for start, stop in plan]
@@ -333,17 +445,43 @@ def leader_main(upstream: Sequence[str], group_id: int,
         except (TimeoutError, RuntimeError, OSError):
             upstream_down = True
             if not pushed:
-                lose(entries)  # nothing reached a shard
+                lose(entries, "upstream_lost")  # nothing reached a shard
+            else:
+                # earlier shards composed these entries: a partial row,
+                # not lost ones
+                log.row({"kind": "hop_partial", "leader": int(group_id),
+                         "round": rounds, "up_seq": up_seq,
+                         "pushed_shards": pushed, "n_shards": len(conns),
+                         "composed": entries, "t": time.time()})
+            log.flush()
             return
         t3 = time.perf_counter()
         times = stats["times"]
-        times["fold_s"] += t1 - t0
+        times["fold_s"] += fold_s
         times["h2d_encode_s"] += t2 - t1
         times["push_s"] += t3 - t2
         stats["upstream_pushes"] += len(conns)
         stats["composed"] += len(entries)
         if len(active) < len([w for w in group if w not in dead]) or dead:
             stats["partial_rounds"] += 1
+        log.row({"kind": "hop", "leader": int(group_id), "round": rounds,
+                 "leader_wid": int(lid), "up_seq": up_seq, "t": time.time(),
+                 "composed": entries, "versions": v_up,
+                 "fold_s": round(fold_s, 6), "encode_s": round(t2 - t1, 6),
+                 "push_s": round(t3 - t2, 6), **hops[0].probe()})
+        log.flush()
+        if hop_an is not None:
+            # the round's window opens where the previous push ended
+            hop_an.observe_round(
+                leader=int(group_id), round=rounds, frames=len(entries),
+                stages={"ingest_wait": max(t_fold0 - round_t0, 0.0),
+                        "validate": 0.0,
+                        "fold": max(fold_s - fin_s, 0.0),
+                        "finalize": fin_s, "encode": t2 - t1,
+                        "upstream_push": t3 - t2},
+                round_s=max(time.monotonic() - round_t0, 0.0),
+                drops=0, native=False)
+            hop_an.flush()  # the root's tailer reads the rows live
         stats["rounds"] += 1
         up_seq += 1
         round_t0 = time.monotonic()
@@ -359,7 +497,9 @@ def leader_main(upstream: Sequence[str], group_id: int,
             if upstream_down:
                 # the root is gone: what is queued is positively lost
                 for w in group:
-                    lose(trace(w, meta) for _, meta, _ in pending[w])
+                    lose([trace(w, meta) for _, meta, _ in pending[w]],
+                         "upstream_lost")
+                log.row({"kind": "upstream_lost", "t": time.time()})
                 break
             if pump_ingest():
                 continue
@@ -368,8 +508,9 @@ def leader_main(upstream: Sequence[str], group_id: int,
             if (crash_at is not None and stats["rounds"] >= int(crash_at)
                     and any(pending[w] for w in group)):
                 for w in group:
-                    lose(trace(w, meta) for _, meta, _ in pending[w])
+                    lose([trace(w, meta) for _, meta, _ in pending[w]])
                 write_stats()
+                log.close()
                 os._exit(LEADER_CRASH_EXIT_CODE)
             active = [w for w in group if w not in dead]
             if active and all(pending[w] for w in active):
@@ -408,6 +549,7 @@ def leader_main(upstream: Sequence[str], group_id: int,
             time.sleep(0.0005)
     finally:
         write_stats()
+        log.close()
         for c in conns:
             c.close()
         server.close()
@@ -684,7 +826,10 @@ def run_tree(cfg: Dict[str, Any], *, total_pushes: Optional[int] = None,
     The root stops when ``total_pushes`` worker pushes are composed, or
     when every worker and leader has exited. Returns the root's
     ``(params, metrics)`` with ``metrics["tree"]``: the groups, leader
-    respawns, exit codes and the composed trace IDs."""
+    respawns, exit codes and the composed trace IDs. With
+    ``cfg["hop_anatomy"]`` the root tails the leaders' ``hop-*.jsonl``
+    rows into its own :class:`HopAnatomy` (``tree.py:1055-1068``), the
+    fleet's hop scoreboard in its metrics' ``hop`` section."""
     from pytorch_ps_mpi_tpu_torch.parallel import async_train as at
     from pytorch_ps_mpi_tpu_torch.parallel.tcp import TcpPSServer
 
@@ -733,12 +878,21 @@ def run_tree(cfg: Dict[str, Any], *, total_pushes: Optional[int] = None,
             if hello["addr"] != addrs[g]:
                 raise RuntimeError(f"leader {g} listens on {hello['addr']}, "
                                    f"not {addrs[g]}")
+        hop_tailer = None
+        hop_dir = cfg.get("lineage_dir") or cfg.get("telemetry_dir")
+        if cfg.get("hop_anatomy") and hop_dir:
+            hop_tailer = _HopTailer(
+                hop_dir,
+                lambda row: (root.hop_anatomy.observe_row(row)
+                             if root.hop_anatomy is not None else None))
         respawn_cfg = dict(cfg)
         respawn_cfg["leader_kw"] = {
             k: v for k, v in (cfg.get("leader_kw") or {}).items()
             if k != "crash_at_round"}  # crash hooks are one-shot
 
         def on_tick():
+            if hop_tailer is not None:
+                hop_tailer.poll()
             for g, p in enumerate(leaders):
                 rc = p.poll()
                 if rc not in (None, 0) and respawns[g] < int(
@@ -749,11 +903,13 @@ def run_tree(cfg: Dict[str, Any], *, total_pushes: Optional[int] = None,
                                               env=leader_env)
 
         def stop_when():
-            if total_pushes is not None and root.tree_composed >= \
-                    total_pushes:
-                return True
-            return (all(p.poll() is not None for p in workers)
-                    and all(p.poll() is not None for p in leaders))
+            done = ((total_pushes is not None
+                     and root.tree_composed >= total_pushes)
+                    or (all(p.poll() is not None for p in workers)
+                        and all(p.poll() is not None for p in leaders)))
+            if done and hop_tailer is not None:
+                hop_tailer.poll()  # the last rows before the snapshot
+            return done
 
         params, m = at.serve(root, cfg, total_grads=10**9, timeout=timeout,
                              sync_barrier=not cfg.get("tree_async", False),

@@ -54,9 +54,15 @@ that fixes the codec, the optimizer, the topology and its lowering;
 ``MPI_PS`` and ``parallel.dp.make_sync_train_step`` both call it, and
 the staged pipeline ends in its tail, :func:`update_summed`.
 
+``numerics=True`` takes the JAX package's on-device gradient statistics
+inside every ``step`` and ``step_accumulate`` (one device-to-host copy of
+one float32 vector a step); ``step(profile=True)`` traces the step with
+``torch.profiler`` and fills ``comm_wait`` with its NCCL kernel time
+(``utils.tracing.profiled_device_split``). With a flight recorder
+installed (``telemetry.configure``) every step is a span there.
+
 The options the JAX constructor also accepts and the port does not have
-yet (``numerics``, ``param_specs``, ``mesh``, ``axis_name``,
-``batch_spec``) and the ``profile`` step argument raise
+yet (``param_specs``, ``mesh``, ``axis_name``, ``batch_spec``) raise
 ``NotImplementedError`` naming the ROADMAP item that brings them.
 """
 
@@ -66,6 +72,7 @@ import time
 from typing import (Any, Callable, Dict, List, NamedTuple, Optional, Tuple,
                     Union)
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -74,8 +81,11 @@ from pytorch_ps_mpi_tpu_torch.bucketing import (BucketPlan,
                                                 flatten_into_buckets,
                                                 plan_buckets,
                                                 unflatten_from_buckets)
-from pytorch_ps_mpi_tpu_torch.codecs import Codec, IdentityCodec
+from pytorch_ps_mpi_tpu_torch.codecs import (Codec, ErrorFeedback,
+                                             IdentityCodec)
 from pytorch_ps_mpi_tpu_torch.optim import OPTIMIZERS
+from pytorch_ps_mpi_tpu_torch.telemetry.numerics import flat_f32, leaf_sums
+from pytorch_ps_mpi_tpu_torch.telemetry.recorder import get_recorder
 from pytorch_ps_mpi_tpu_torch.utils.metrics import schema_dict
 
 Params = Dict[str, torch.Tensor]
@@ -84,7 +94,6 @@ Leaves = Dict[Any, torch.Tensor]
 
 #: constructor option -> (its default, where its port is planned)
 _UNPORTED = {
-    "numerics": (False, "ROADMAP queue 1 item 3 (telemetry/numerics.py)"),
     "param_specs": (None, "ROADMAP queue 1 item 4 (model-parallel "
                           "composition)"),
     "mesh": (None, "ROADMAP queue 1 item 4 (the process group stands for "
@@ -94,7 +103,11 @@ _UNPORTED = {
     "batch_spec": (None, "ROADMAP queue 1 item 4 (model-parallel batch "
                          "layouts)"),
 }
-_PROFILE = "ROADMAP queue 1 item 3 (telemetry)"
+_PROFILE_INSTRUMENT = (
+    "profile=True and instrument=True are mutually exclusive: instrument "
+    "runs a staged pipeline (host walls per stage) while profile traces "
+    "the fused step — construct the optimizer without instrument=True to "
+    "use profile")
 
 
 def _unported(what: str, where: str) -> NotImplementedError:
@@ -486,6 +499,17 @@ class MPI_PS:
         gather-and-decode-sum a leaf at a time (a psum codec's all-reduce
         keeps its buckets), so ``wire_lowering`` reads ``psum_staged`` or
         ``payload_gather_staged``.
+      numerics: take on-device gradient statistics inside every fused
+        ``step`` and ``step_accumulate`` (JAX ``ps.py:662``): the global
+        finite gradient norm (``grad_norm``), the NaN/Inf element count
+        (``nonfinite_total``), the update-to-weight ratio ``||dp||/||p||``
+        (``update_ratio``), the per-bucket gradient norms under a bucket
+        plan (``bucket_grad_norms``) and the error-feedback residual norm
+        under :class:`~pytorch_ps_mpi_tpu_torch.codecs.ErrorFeedback`
+        (``ef_residual_norm``). The reductions run on the tensors' device
+        and one float32 vector is copied to the host a step;
+        ``instrument=True`` stages and ``run_steps`` skip them, as in the
+        JAX package.
       device: where the parameters live; ``"cuda"`` by default, and it
         raises when no GPU is present. Pass ``device="cpu"`` to run on
         the CPU.
@@ -509,6 +533,7 @@ class MPI_PS:
         bucket_mb: float = 0.0,
         loss_reduction: Optional[str] = None,
         instrument: bool = False,
+        numerics: bool = False,
         device: mesh.Device = "cuda",
         donate_buffers: bool = False,
         **hyper,
@@ -554,6 +579,12 @@ class MPI_PS:
         self.comm_dtype = comm_dtype
         self.clip_norm = float(clip_norm)
         self.instrument = bool(instrument)
+        self.numerics = bool(numerics)
+        #: the last ``profile=True`` step's split (``device_busy_s``,
+        #: ``comm_s``, ``compute_s``, ``devices``, ``top_ops``)
+        self.profile_split: Optional[Dict[str, Any]] = None
+        self._nvec: Optional[torch.Tensor] = None
+        self._bucket_of_leaf: Optional[torch.Tensor] = None
         self._loss_reduction = loss_reduction or "pmean"
         self.rank = mesh.rank()
         self.size = mesh.world_size()
@@ -694,11 +725,132 @@ class MPI_PS:
         else:
             self.params = params
 
-    def _aggregate_update(self, grads: Params) -> None:
+    def _aggregate_update(self, grads: Params, stats: bool = False) -> None:
+        """Aggregate, update and take the new parameters; ``stats``: keep
+        the numerics vector of this step in ``_nvec``."""
+        old = None
+        if stats:
+            with torch.no_grad():  # a copy, outside any autograd graph
+                old = flat_f32(self.params.values())
         params, self.opt_state, self.codec_state = aggregate_update(
             self._pipe, self.params, grads, self.opt_state, self.codec_state,
             self._gen)
         self._set_params(params)
+        if stats:
+            self._nvec = self._numerics_vec(old, grads)
+
+    @torch.no_grad()
+    def _numerics_vec(self, old: torch.Tensor, grads: Params
+                      ) -> torch.Tensor:
+        """The step's statistics as one float32 vector on the device (JAX
+        ``ps.py:1295``)::
+
+            [grad_sumsq, nonfinite, update_sumsq, param_sumsq,
+             ef_residual_sumsq, *per_bucket_sumsq]
+
+        The gradient terms are this rank's, finite-masked and summed over
+        ranks in one all-reduce: the global gradient energy and NaN/Inf
+        count (counted in float32, as the JAX package does). The update
+        and parameter terms read the replicated parameters, before
+        (``old``, flattened) and after the step. Each term reduces the
+        leaves as one vector, a few launches a step whatever the leaf
+        count."""
+        g = flat_f32(grads.values())
+        finite = torch.isfinite(g)
+        clean = torch.where(finite, g, torch.zeros_like(g))
+        ranked = [torch.sum(torch.square(clean)),
+                  torch.sum(~finite).to(torch.float32)]
+        if isinstance(self.code, ErrorFeedback):
+            ranked.append(torch.sum(torch.square(flat_f32(
+                st["memory"] for st in self.codec_state.values()))))
+        else:
+            ranked.append(torch.zeros((), device=g.device))
+        ranked = torch.stack(ranked)
+        plan = self._bucket_plan
+        if plan is not None:
+            # each leaf's finite energy summed into its bucket
+            leaves = torch.square(leaf_sums(
+                clean, [t.numel() for t in grads.values()], 2))
+            if self._bucket_of_leaf is None:  # one copy to the device
+                self._bucket_of_leaf = torch.tensor(
+                    [s.bucket for s in plan.leaf_slots], device=g.device)
+            ranked = torch.cat([ranked, torch.zeros(
+                plan.num_buckets, device=g.device).index_add_(
+                    0, self._bucket_of_leaf, leaves)])
+        ranked = comms.allreduce_sum(ranked)
+        new = flat_f32(self.params.values())
+        upd = torch.stack([torch.sum(torch.square(new - old)),
+                           torch.sum(torch.square(old))])
+        return torch.cat([ranked[:2], upd, ranked[2:]])
+
+    def _fill_numerics(self, data: Dict[str, Any]) -> None:
+        """Unpack the step's statistics into its metrics dict (JAX
+        ``ps.py:1348``): the one device-to-host copy numerics costs a
+        step."""
+        v = self._nvec.cpu().numpy()
+        self._nvec = None
+        data["grad_norm"] = float(np.sqrt(v[0]))
+        data["nonfinite_total"] = float(v[1])
+        data["update_ratio"] = float(np.sqrt(v[2])) / max(
+            float(np.sqrt(v[3])), 1e-30)
+        if isinstance(self.code, ErrorFeedback):
+            data["ef_residual_norm"] = float(np.sqrt(v[4]))
+        if self._bucket_plan is not None:
+            data["bucket_grad_norms"] = [float(np.sqrt(x)) for x in v[5:]]
+
+    def _profiled_call(self, call: Callable[[], Any],
+                       data: Dict[str, Any]) -> Any:
+        """Run one fused step under ``torch.profiler`` and fill the
+        reference's ``comm_wait`` (``ps.py:162``) with the step's NCCL
+        kernel time, and ``profile_device_busy``, ``profile_compute`` and
+        ``profile_devices`` with the rest of the split (JAX ``ps.py:2085``);
+        the whole split, with its ``top_ops``, is :attr:`profile_split`.
+        On the card a trace that lost device rows is taken again from the
+        state the step began with (by every rank together), and fails
+        after a few takes."""
+        from pytorch_ps_mpi_tpu_torch.utils import tracing
+
+        reset = agree = None
+        if tracing.on_card(self.device):
+            def clone(t):
+                return t.detach().clone() if torch.is_tensor(t) else t
+
+            saved = comms.tree_map(clone, self.state_dict())
+
+            def reset():
+                # the optimizer steps its state in place and
+                # load_state_dict keeps the tensors it is given: each
+                # retake starts from a copy of ``saved``, never ``saved``
+                self.load_state_dict(comms.tree_map(clone, saved))
+
+            if self.size > 1:
+                # a retake runs the step's collectives: every rank
+                # retakes, or none does
+                def agree(whole: bool) -> bool:
+                    short = torch.tensor(0.0 if whole else 1.0,
+                                         device=self.device)
+                    return float(comms.allreduce_sum(short)) == 0.0
+        out, split = tracing.profiled_device_split(
+            call, device=self.device, reset=reset, agree=agree)
+        data["comm_wait"] = split["comm_s"]
+        data["profile_device_busy"] = split["device_busy_s"]
+        data["profile_compute"] = split["compute_s"]
+        data["profile_devices"] = float(split["devices"])
+        self.profile_split = split
+        return out
+
+    def _record_step(self, name: str, data: Dict[str, Any]) -> None:
+        """Mirror one step's metrics dict into the run-wide flight
+        recorder as a span ending now (JAX ``ps.py:1932``); a disabled
+        recorder costs this method's None-check."""
+        rec = get_recorder()
+        if rec is None:
+            return
+        dur = float(data.get("step_time", 0.0))
+        rec.event(name, kind="span", ts=time.monotonic() - dur, dur=dur,
+                  step=self._step_count,
+                  **{k: v for k, v in data.items()
+                     if isinstance(v, (int, float, str))})
 
     def _reduce_loss(self, loss: torch.Tensor) -> torch.Tensor:
         total = comms.allreduce_sum(loss)
@@ -875,9 +1027,15 @@ class MPI_PS:
         aux_state, batch)`` then returns ``(loss, new_aux)``, and
         ``new_aux`` averaged over ranks is kept in :attr:`aux_state` (pass
         that to the next step) and in :meth:`state_dict`.
+
+        ``profile=True`` traces this step with ``torch.profiler`` and fills
+        ``comm_wait`` with its NCCL kernel time, and
+        ``profile_device_busy``/``profile_compute``/``profile_devices``
+        with the rest of the split (:attr:`profile_split` keeps it whole,
+        ``top_ops`` included); not with ``instrument=True``.
         """
-        if profile:
-            raise _unported("step(profile=True)", _PROFILE)
+        if profile and self.instrument:
+            raise ValueError(_PROFILE_INSTRUMENT)
         self._check_step_args(grads, loss_fn, batch, aux_state)
         t0 = time.perf_counter()
         data = schema_dict(**self._metrics)
@@ -887,22 +1045,31 @@ class MPI_PS:
         if self.instrument:
             loss = self._step_instrumented(data, local, loss_fn, batch,
                                            aux_state)
-        elif loss_fn is not None:
-            loss = self._fused_step(loss_fn, batch, aux_state)
         else:
-            loss = None
-            self._aggregate_update(local)
+            if loss_fn is not None:
+                def call():
+                    return self._fused_step(loss_fn, batch, aux_state,
+                                            stats=self.numerics)
+            else:
+                def call():
+                    self._aggregate_update(local, stats=self.numerics)
+            loss = (self._profiled_call(call, data) if profile
+                    else call())
+            if self.numerics:
+                self._fill_numerics(data)
         if closure is not None:
             loss = closure()
         self._sync()
         data["step_time"] = time.perf_counter() - t0
         self._step_count += 1
+        self._record_step("ps.step", data)
         return loss, data
 
     def _fused_step(self, loss_fn: Callable, batch, aux_state=None,
-                    accum_steps: int = 0) -> torch.Tensor:
+                    accum_steps: int = 0, stats: bool = False
+                    ) -> torch.Tensor:
         loss, local = self._grad_stage(loss_fn, batch, aux_state, accum_steps)
-        self._aggregate_update(local)
+        self._aggregate_update(local, stats)
         return loss
 
     def step_accumulate(self, loss_fn: Callable, microbatches, *,
@@ -915,9 +1082,10 @@ class MPI_PS:
         aggregated and applied once; returns ``(mean_loss, data)``, the
         microbatches' mean loss reduced across ranks. Under
         ``instrument=True`` the accumulation is the grad stage, with
-        ``grad_time_per_microbatch`` its mean a microbatch."""
-        if profile:
-            raise _unported("step_accumulate(profile=True)", _PROFILE)
+        ``grad_time_per_microbatch`` its mean a microbatch.
+        ``profile=True`` traces the fused step as :meth:`step` does."""
+        if profile and self.instrument:
+            raise ValueError(_PROFILE_INSTRUMENT)
         accum_steps = _leading(microbatches)
         t0 = time.perf_counter()
         data = schema_dict(**self._metrics)
@@ -926,11 +1094,18 @@ class MPI_PS:
             loss = self._step_instrumented(data, None, loss_fn, microbatches,
                                            accum_steps=accum_steps)
         else:
-            loss = self._fused_step(loss_fn, microbatches,
-                                    accum_steps=accum_steps)
+            def call():
+                return self._fused_step(loss_fn, microbatches,
+                                        accum_steps=accum_steps,
+                                        stats=self.numerics)
+            loss = (self._profiled_call(call, data) if profile
+                    else call())
+            if self.numerics:
+                self._fill_numerics(data)
         self._sync()
         self._step_count += 1
         data["step_time"] = time.perf_counter() - t0
+        self._record_step("ps.step_accumulate", data)
         return loss, data
 
     def run_steps(self, loss_fn: Callable, batches, *, unroll: int = 1,
@@ -958,9 +1133,15 @@ class MPI_PS:
         losses = torch.stack(losses)
         self._sync()
         wall = time.perf_counter() - t0
-        return losses, {"step_time": wall / n_steps,
-                        "steps_per_sec": n_steps / wall,
-                        "n_steps": float(n_steps)}
+        data = {"step_time": wall / n_steps, "steps_per_sec": n_steps / wall,
+                "n_steps": float(n_steps)}
+        rec = get_recorder()
+        if rec is not None:
+            # one span for the N steps (JAX ``ps.py:2233``)
+            rec.event("ps.run_steps", kind="span",
+                      ts=time.monotonic() - wall, dur=wall,
+                      step=self._step_count, **data)
+        return losses, data
 
     def step_memory_analysis(self, loss_fn: Callable, batch, rng=None,
                              aux_state: Any = None) -> Dict[str, int]:

@@ -143,7 +143,8 @@ class FaultInjector:
 
     def fire(self, fault: Dict[str, Any]) -> Dict[str, Any]:
         """Mark ``fault`` fired and log its deterministic row, to the
-        list and, flushed and synced at once, to the fault log."""
+        list, flushed and synced at once to the fault log, and to the
+        flight recorder when one is installed."""
         self.fired.add(fault["id"])
         event = {"id": fault["id"], "kind": fault["kind"],
                  "worker": fault["worker"], "at_step": fault["at_step"]}
@@ -153,6 +154,9 @@ class FaultInjector:
                 f.write(json.dumps(event, sort_keys=True) + "\n")
                 f.flush()
                 os.fsync(f.fileno())
+        from pytorch_ps_mpi_tpu_torch.telemetry.recorder import record_event
+
+        record_event("fault.injected", **event)
         return event
 
     def corrupt(self, fault: Dict[str, Any], buf: np.ndarray) -> None:

@@ -44,6 +44,8 @@ from typing import Any, Callable, Optional, Tuple
 
 import numpy as np
 
+from pytorch_ps_mpi_tpu_torch.telemetry.recorder import record_event
+
 #: header magic ("PSF2" little-endian), the format version
 FRAME_MAGIC = 0x32465350
 #: the v1 magic ("PSF1"), recognized only to reject it as "version"
@@ -247,8 +249,13 @@ def _consume(server, wid: int, version: int, payload, lineage, raw: bool):
     """Count one validated push and apply bounded staleness: the
     ``((worker, version, grad or payload), meta)`` pair, or None for a
     malformed trailer or a stale drop. ``meta`` holds the push's trace
-    ID and, on a tree wire, its composed entries; the composed count of
-    a consumed push is queued on ``server._composed_queue``."""
+    ID, its bytes, send and receive walls, decode seconds and, on a tree
+    wire, its composed entries; it feeds ``server.lineage_tracker`` when
+    one is attached (a stale drop too, marked ``stale_drop``), and a
+    consumed push is a ``serve.consume`` span in the flight recorder
+    (``frames.py:433-540``). The composed count of a consumed push is
+    queued on ``server._composed_queue``."""
+    recv_wall = time.time()
     full_bytes = payload.nbytes
     payload, composed, ok = _split_composed(server, wid, payload)
     if not ok:
@@ -258,17 +265,36 @@ def _consume(server, wid: int, version: int, payload, lineage, raw: bool):
         staleness, 0) + 1
     server.grads_received += 1
     server.bytes_received += full_bytes
-    if staleness > server.max_staleness:
-        server.stale_drops += 1
-        return None
     step, seq, send_wall = lineage
     meta = {"worker": int(wid), "step": step, "seq": seq,
             "version_read": int(version), "staleness": int(staleness),
-            "send_wall": send_wall}
+            "bytes": int(full_bytes), "send_wall": send_wall,
+            "recv_wall": recv_wall}
     if composed is not None:
         meta["composed"] = composed
+    lt = getattr(server, "lineage_tracker", None)
+    if staleness > server.max_staleness:
+        server.stale_drops += 1
+        if lt is not None:
+            meta["stale_drop"] = True
+            lt.observe_consume(meta)
+        return None
+    t_dec = time.monotonic()
+    if raw:
+        grad = payload
+        meta["decode_s"] = 0.0  # deferred to the round's one decode
+    else:
+        grad = server._decode_payload(payload)
+        meta["decode_s"] = round(time.monotonic() - t_dec, 6)
+    # the server-side anchor of the cross-process flow arrow: the same
+    # (worker, step, seq) trace ID the worker's push span carries
+    record_event("serve.consume", kind="span", ts=t_dec,
+                 dur=meta["decode_s"], step=step, src_worker=int(wid),
+                 seq=seq, staleness=int(staleness))
+    if lt is not None:
+        lt.observe_consume(meta)
+    if composed is not None:
         server._composed_queue.append(len(composed))
-    grad = payload if raw else server._decode_payload(payload)
     return (int(wid), int(version), grad), meta
 
 

@@ -28,6 +28,7 @@ import time
 from typing import Any, Dict, List, Optional, Tuple
 
 from pytorch_ps_mpi_tpu_torch.resilience.faults import InjectedServerCrash
+from pytorch_ps_mpi_tpu_torch.telemetry.recorder import record_event
 
 Tree = Any
 
@@ -179,6 +180,8 @@ class Supervisor:
                 continue
             if rec.respawns >= self.max_worker_respawns:
                 rec.abandoned = True
+                record_event("supervisor.worker_abandoned", worker=rec.wid,
+                             exit_code=rc)
                 continue
             self._mark_crash_fault_fired(rec.wid)
             if hasattr(server, "reset_worker_slot"):
@@ -189,6 +192,8 @@ class Supervisor:
             rec.respawns += 1
             self.worker_respawns += 1
             self._reconnect_credit.discard(rec.wid)
+            record_event("supervisor.worker_respawn", worker=rec.wid,
+                         exit_code=rc, respawns=rec.respawns)
             self._spawn(rec.wid)
             self._respawn_watch[rec.wid] = time.time()
         for wid, t0 in list(self._respawn_watch.items()):
@@ -204,6 +209,7 @@ class Supervisor:
             if wid in server.last_seen:
                 self._reconnect_credit.discard(wid)
                 self.worker_reconnects += 1
+                record_event("supervisor.worker_reconnected", worker=wid)
 
     def _workers_done(self) -> bool:
         return all(r.done or r.abandoned for r in self._recs.values())
@@ -267,6 +273,10 @@ class Supervisor:
                         if not (r.done or r.abandoned)}
                     self._restart_watch = time.time()
                     resume = True
+                    record_event("supervisor.server_restart",
+                                 fault_id=getattr(e, "fault", {}).get("id"),
+                                 error=str(e),
+                                 restarts=self.server_restarts)
                     if self.server_restarts > self.max_server_restarts:
                         raise
                     if not self.checkpoint_dir:

@@ -26,6 +26,8 @@ import random
 import time
 from typing import Any, Callable, Optional
 
+from pytorch_ps_mpi_tpu_torch.telemetry.recorder import record_event
+
 
 class ResilientWorker:
     """Wraps a transport worker factory (``ShmPSWorker``/``TcpPSWorker``
@@ -81,10 +83,14 @@ class ResilientWorker:
             except (TimeoutError, RuntimeError, OSError) as e:
                 last = e
                 self.retries += 1
+                record_event("resilience.retry", worker=self.worker_id,
+                             op="connect", attempt=attempt, error=str(e))
                 self._backoff(attempt)
                 continue
             if not initial:
                 self.reconnects += 1
+                record_event("resilience.reconnect", worker=self.worker_id,
+                             attempt=attempt, reconnects=self.reconnects)
             w._tamper = self._tamper
             return w
         raise TimeoutError(f"worker {self.worker_id}: could not (re)connect "
@@ -112,6 +118,8 @@ class ResilientWorker:
                 last = e
                 self.retries += 1
                 in_a_row += 1
+                record_event("resilience.retry", worker=self.worker_id,
+                             op=op, attempt=attempt, error=str(e))
                 if in_a_row >= self.reconnect_after:
                     # timeouts on a live handle: an orphaned segment or a
                     # dead peer, so resolve the server again
@@ -122,6 +130,8 @@ class ResilientWorker:
             except (RuntimeError, OSError) as e:
                 last = e
                 self.retries += 1
+                record_event("resilience.retry", worker=self.worker_id,
+                             op=op, attempt=attempt, error=str(e))
                 self._reconnect()
         raise TimeoutError(f"worker {self.worker_id}: {op} failed after "
                            f"{self.max_retries} attempts: {last}") from last

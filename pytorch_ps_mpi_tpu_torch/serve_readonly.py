@@ -27,9 +27,13 @@ SIGINT), ``{"final_serving": {...}}``.
         --model mlp --read-port 0 --duration 60
 
 A lossy delta codec (``--serving-kw '{"delta_codec": "int8"}'``) encodes
-on the card, or on the CPU with ``PS_PLATFORM=cpu``. The JAX script's
-``--metrics-port``, ``--fleet-dir``, ``--telemetry-dir`` and
-``--control-dir`` raise ``NotImplementedError``: ROADMAP queue 1 item 3.
+on the card, or on the CPU with ``PS_PLATFORM=cpu``. ``--metrics-port``
+serves ``/metrics`` and ``/health`` (its ``serving`` section) from the
+core's own endpoint, the bound port in the hello as ``metrics_port``;
+in replica mode ``--telemetry-dir`` writes the follower's
+``reader_round`` anatomy rows (``anatomy-replica.jsonl``) there. The JAX
+script's ``--fleet-dir`` and ``--control-dir`` raise
+``NotImplementedError``: ROADMAP queue 1 item 3.
 """
 
 from __future__ import annotations
@@ -43,10 +47,10 @@ from typing import Optional, Sequence
 
 import numpy as np
 
-_TELEMETRY = "ROADMAP queue 1 item 3 (telemetry/ and control/)"
-#: the JAX script's flags that wait for the telemetry item
-_UNPORTED_FLAGS = ("metrics-port", "fleet-dir", "telemetry-dir",
-                   "control-dir")
+_FLEET = ("ROADMAP queue 1 item 3 (the fleet observability plane and "
+          "control/)")
+#: the JAX script's flags that wait for the fleet plane and control
+_UNPORTED_FLAGS = ("fleet-dir", "control-dir")
 
 
 def model_cfg(model: str) -> dict:
@@ -101,6 +105,12 @@ def parser() -> argparse.ArgumentParser:
                          "parameter template)")
     ap.add_argument("--read-port", type=int, default=0,
                     help="read-tier port (0 picks one; in the hello)")
+    ap.add_argument("--metrics-port", type=int, default=None,
+                    help="/metrics + /health port (0 picks one; in the "
+                         "hello)")
+    ap.add_argument("--telemetry-dir", default=None,
+                    help="replica mode: write the follower's reader_round "
+                         "anatomy rows (anatomy-replica.jsonl) here")
     ap.add_argument("--tenant", default="default",
                     help="tenant namespace this tier serves under")
     ap.add_argument("--ring", type=int, default=8,
@@ -135,7 +145,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     for flag in _UNPORTED_FLAGS:
         if getattr(args, flag.replace("-", "_")) is not None:
             raise NotImplementedError(
-                f"--{flag} is not ported yet: {_TELEMETRY}")
+                f"--{flag} is not ported yet: {_FLEET}")
     if not args.checkpoint_dir and not args.follow_endpoint:
         ap.error("--checkpoint-dir is required unless --follow-endpoint")
     serving_kw = {"ring": args.ring, "admission_depth": args.admission_depth}
@@ -145,7 +155,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
            "device": "cpu" if os.environ.get("PS_PLATFORM") == "cpu"
            else "cuda",
            "read_port": args.read_port, "read_native": args.read_native,
-           "serving_kw": serving_kw}
+           "serving_kw": serving_kw, "metrics_port": args.metrics_port}
     template = template_of(cfg)
     flat, version, step = None, 0, -1
     if args.checkpoint_dir:
@@ -157,21 +167,28 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     core = ServingCore(None, cfg, template=template, tenant=args.tenant)
     if flat is not None:
         core.publish(flat=flat, version=max(version, 1), tenant=args.tenant)
-    follower = None
+    follower = anatomy = None
     if args.follow_endpoint:
         up_host, _, up_port = str(args.follow_endpoint).rpartition(":")
+        if args.telemetry_dir:
+            from pytorch_ps_mpi_tpu_torch.telemetry.anatomy import \
+                RoundAnatomy
+
+            anatomy = RoundAnatomy(
+                None, {"telemetry_dir": args.telemetry_dir},
+                num_workers=1, name="replica")
         follower = FollowerLoop(
             core, up_host or "127.0.0.1", int(up_port), template=template,
             tenant=args.tenant, poll_s=args.follow or 0.25,
-            serving_kw=serving_kw).start()
+            serving_kw=serving_kw, anatomy=anatomy).start()
     hello = {"read_port": core.read_port, "tenant": args.tenant,
              "version": max(version, 1) if flat is not None else 0,
              "checkpoint_step": step, "native": core.read_native}
     if follower is not None:
         hello["upstream"] = args.follow_endpoint
         hello["fanout"] = args.fanout
-    print(json.dumps(hello), flush=True)
-
+    if core.metrics_http_port is not None:
+        hello["metrics_port"] = core.metrics_http_port
     deadline = time.time() + args.duration if args.duration else None
     last_step = step
     # idle backoff: a fresh checkpoint snaps the poll back to the base
@@ -180,6 +197,10 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     max_sleep = max(8.0, 4.0 * base_sleep) if args.follow else base_sleep
     sleep_s = base_sleep
     try:
+        # inside the try: a SIGINT sent as soon as the hello is read may
+        # land before print returns, and must still end with the final
+        # line and exit 0
+        print(json.dumps(hello), flush=True)
         while deadline is None or time.time() < deadline:
             time.sleep(sleep_s if deadline is None
                        else min(sleep_s, max(deadline - time.time(), 0)))
@@ -205,6 +226,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     finally:
         if follower is not None:
             follower.close()
+        if anatomy is not None:
+            anatomy.close()
         snap = core.serving_snapshot()
         core.close()
         final = {k: snap[k] for k in ("reads_total", "reads_delta",

@@ -22,10 +22,21 @@ replica sits on (``pytorch_ps_mpi_tpu/serving/core.py``).
 The tier arms on ``cfg["serving"]`` (in-process store only) or
 ``cfg["read_port"]`` (store plus a network read server; 0 picks a free
 port, read back as :attr:`read_port`). Unarmed with a server,
-:meth:`publish` is exactly the transport's publish. The JAX core's
-monitor plumbing (health, numerics, lineage), its own ``/metrics``
-endpoint and fleet registration come with ROADMAP queue 1 item 3 and
-raise ``NotImplementedError`` when the cfg asks for them.
+:meth:`publish` is exactly the transport's publish.
+
+The core also builds a server's monitors from the cfg (``core.py:264``):
+``health``/``health_dir``/``health_port`` a :class:`~pytorch_ps_mpi_tpu_torch.
+telemetry.diagnosis.HealthMonitor`, ``numerics``/``numerics_dir``/
+``numerics_kw`` a :class:`~pytorch_ps_mpi_tpu_torch.telemetry.numerics.
+NumericsMonitor`, ``lineage``/``lineage_dir`` (on a framed wire) a
+:class:`~pytorch_ps_mpi_tpu_torch.telemetry.lineage.LineageTracker` with
+its :class:`~pytorch_ps_mpi_tpu_torch.telemetry.anatomy.RoundAnatomy`
+(``cfg["anatomy"]``, ``"auto"`` by default), ``metrics_port``/
+``health_port`` the server's ``/metrics`` and ``/health`` endpoint, and
+``freshness``/``hop_anatomy`` through ``server.arm_observability``. A
+core without a server serves ``/metrics`` and ``/health`` from an
+endpoint of its own. The fleet registration (``fleet``/``fleet_dir``)
+comes with ROADMAP queue 1 item 3 and raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -67,13 +78,9 @@ _READ_BUCKETS = (1e-5, 2.5e-5, 5e-5, 1e-4, 2.5e-4, 5e-4, 1e-3, 2.5e-3,
 #: the address the read server binds
 READ_HOST = "0.0.0.0"
 
-_TELEMETRY = "ROADMAP queue 1 item 3 (telemetry/ and control/)"
-#: cfg keys of the JAX core's monitors, endpoint and fleet: ports count
-#: as set when they are not None (0 picks a free port), the rest when true
-_UNPORTED_PORTS = ("metrics_port", "health_port")
-_UNPORTED_FLAGS = ("health", "health_dir", "numerics", "numerics_dir",
-                   "numerics_kw", "lineage", "lineage_dir", "fleet",
-                   "fleet_dir", "freshness")
+_FLEET = "ROADMAP queue 1 item 3 (the fleet observability plane)"
+#: cfg keys of the JAX core's fleet registration
+_UNPORTED_FLAGS = ("fleet", "fleet_dir")
 
 #: the read counters the native tier keeps in C++ and folds into the core's
 _NATIVE_COUNTERS = ("reads_total", "reads_full", "reads_delta",
@@ -90,16 +97,12 @@ def _seq_quantile(sorted_xs, q: float) -> float:
 
 
 def check_unported(cfg: Dict[str, Any]) -> None:
-    """Raise ``NotImplementedError`` for the JAX core's monitor, endpoint
-    and fleet options (``core.py:216-325``), which the port lacks."""
-    for key in _UNPORTED_PORTS:
-        if cfg.get(key) is not None:
-            raise NotImplementedError(
-                f"cfg[{key!r}] is not ported yet: {_TELEMETRY}")
+    """Raise ``NotImplementedError`` for the JAX core's fleet options
+    (``core.py:239-262``), which the port lacks."""
     for key in _UNPORTED_FLAGS:
         if cfg.get(key):
             raise NotImplementedError(
-                f"cfg[{key!r}] is not ported yet: {_TELEMETRY}")
+                f"cfg[{key!r}] is not ported yet: {_FLEET}")
 
 
 class ServingCore:
@@ -109,11 +112,13 @@ class ServingCore:
     standalone (read-only, replica or test) core; ``cfg`` is the fleet's
     config dict. ``device`` is where a lossy delta codec encodes (the
     server's device, else ``cfg["device"]``, else the card).
+    ``monitors=False`` skips the monitor construction for a caller that
+    builds its own (the shard server).
     """
 
     def __init__(self, server=None, cfg: Optional[Dict[str, Any]] = None,
                  *, template: Tree = None, tenant: str = DEFAULT_TENANT,
-                 device=None):
+                 device=None, monitors: bool = True):
         cfg = cfg or {}
         check_unported(cfg)
         self.cfg = cfg
@@ -131,6 +136,16 @@ class ServingCore:
                           or cfg.get("read_port") is not None)
         self.admission_depth = int(self.knobs["admission_depth"])
         self.retry_after_s = float(self.knobs["retry_after_s"])
+        # -- monitor plumbing (``core.py:112-120``) -----------------------
+        self.health = None
+        self.numerics = None
+        self.lineage = None
+        self.anatomy = None
+        self.metrics_http_port: Optional[int] = None
+        #: a standalone core's freshness tracker; a server's lives on the
+        #: server (``arm_observability``)
+        self.freshness_tracker = None
+        self._own_http = None
         if server is not None:
             self._reg = server.scrape_registry()
         else:
@@ -223,6 +238,98 @@ class ServingCore:
         if server is not None:
             # attached last: a thread that finds the core finds its port
             server.serving_core = self
+            if monitors:
+                self._build_monitors(cfg)
+        else:
+            self._start_own_http(cfg)
+
+    # -- monitor plumbing ---------------------------------------------------
+    def _build_monitors(self, cfg: Dict[str, Any]) -> None:
+        """Health, numerics and lineage monitors, the round anatomy, the
+        metrics endpoint and the per-process observability plane of a
+        server (``core.py:264-337``), so every core-based server wires
+        them alike."""
+        server = self.server
+        if (cfg.get("health") or cfg.get("health_dir")
+                or cfg.get("health_port") is not None):
+            from pytorch_ps_mpi_tpu_torch.telemetry.diagnosis import \
+                HealthMonitor
+
+            # attaches itself to server.health_monitor (the /health
+            # route) and registers its instruments on the scrape registry
+            self.health = HealthMonitor(server, cfg)
+        if (cfg.get("numerics") or cfg.get("numerics_dir")
+                or cfg.get("numerics_kw")):
+            from pytorch_ps_mpi_tpu_torch.telemetry.numerics import \
+                NumericsMonitor
+
+            # attaches itself to server.numerics_monitor: the canonical
+            # metrics grow the numerics keys, /health gains "numerics",
+            # and the serve loop validates every consumed push
+            self.numerics = NumericsMonitor(server, cfg)
+        if cfg.get("lineage") or cfg.get("lineage_dir"):
+            if getattr(server, "frame", False):
+                from pytorch_ps_mpi_tpu_torch.telemetry.lineage import \
+                    LineageTracker
+
+                # attaches itself to server.lineage_tracker: the framed
+                # consume feeds it every consumed push's trace ID
+                self.lineage = LineageTracker(server, cfg)
+                anat = cfg.get("anatomy", "auto")
+                if anat not in (False, "off", 0):
+                    from pytorch_ps_mpi_tpu_torch.telemetry.anatomy import \
+                        RoundAnatomy
+
+                    # rides armed lineage by default ("auto"), fed one
+                    # publish row a version by the tracker
+                    self.anatomy = RoundAnatomy(server, cfg)
+                    self.lineage.anatomy = self.anatomy
+            else:
+                # the trace ID rides the frame header: without frames
+                # there is nothing on the wire to trace
+                print("lineage tracing requires frame_check=True; "
+                      "not armed", flush=True)
+        http_port = cfg.get("metrics_port")
+        if http_port is None:
+            http_port = cfg.get("health_port")  # one endpoint serves both
+        if http_port is not None and hasattr(server, "start_metrics_http"):
+            self.metrics_http_port = server.start_metrics_http(
+                int(http_port))
+            print(f"prometheus /metrics + /health on port "
+                  f"{self.metrics_http_port}", flush=True)
+        if hasattr(server, "arm_observability"):
+            server.arm_observability(cfg)
+
+    def _start_own_http(self, cfg: Dict[str, Any]) -> None:
+        """A standalone core (no transport server) serves ``/metrics`` and
+        ``/health`` from an endpoint of its own (``core.py:216-238``)."""
+        http_port = cfg.get("metrics_port")
+        if http_port is None:
+            http_port = cfg.get("health_port")
+        if http_port is None:
+            return
+        import json
+
+        from pytorch_ps_mpi_tpu_torch.telemetry.http_server import \
+            MetricsHTTPServer
+
+        self._own_http = MetricsHTTPServer(
+            self._reg.prometheus_text, port=int(http_port),
+            routes={"/health": lambda: (json.dumps(
+                {"armed": False, "workers": [], "ts": time.time(),
+                 "uptime_s": round(time.monotonic() - self._t0, 3),
+                 "serving": self.serving_snapshot()}),
+                "application/json")})
+        self.metrics_http_port = self._own_http.port
+
+    def tick(self) -> None:
+        """Monitor upkeep at the owning loop's tick cadence (same thread
+        as the transport pumps, as the monitors require): the beacon and
+        probe tails."""
+        if self.health is not None:
+            self.health.tick()
+        if self.numerics is not None:
+            self.numerics.tick()
 
     # -- publish ----------------------------------------------------------
     def _ensure_tenant(self, tenant: str, template: Tree) -> SnapshotStore:
@@ -356,6 +463,9 @@ class ServingCore:
         try:
             doc = _freshness.unpack_trailer(blob)
         except ValueError:
+            ft = self._fresh_tracker()
+            if ft is not None:
+                ft.note_reject()
             return b"", None
         with self._lock:
             self._fresh[tenant] = {
@@ -364,7 +474,16 @@ class ServingCore:
             vis = _freshness.visible_latency_ms(doc)
             if vis is not None:
                 self._fresh_lat.append(vis)
+        ft = self._fresh_tracker()
+        if ft is not None:
+            ft.note_publish(tenant, doc)
         return blob, doc
+
+    def _fresh_tracker(self):
+        ft = self.freshness_tracker
+        if ft is None and self.server is not None:
+            ft = getattr(self.server, "freshness_tracker", None)
+        return ft
 
     def fresh_trailer(self, tenant: Optional[str] = None,
                       version: Optional[int] = None) -> bytes:
@@ -735,7 +854,11 @@ class ServingCore:
         """Tear down the network read server. The native tier's counters
         and freshness pair die with its C++ handle, so its final block
         folds into the core's own counters first: accounting after
-        ``close`` reads the same whichever loop served."""
+        ``close`` reads the same whichever loop served. A standalone
+        core's own ``/metrics`` endpoint closes too."""
+        if self._own_http is not None:
+            self._own_http.close()
+            self._own_http = None
         if self.read_server is None:
             return
         self.read_server.close()

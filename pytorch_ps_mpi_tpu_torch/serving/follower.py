@@ -15,9 +15,9 @@ Accounting goes through the local core: ``replica_lag_versions`` (how
 far the replica trailed the upstream version it pulled, decayed by an
 EWMA on idle polls) and ``follower_bytes_relayed``. Every republish
 relays the upstream's FRS1 trailer with this hop's record appended, so
-a version's trailer carries the whole chain from the root. The JAX
-loop's ``anatomy`` sink (a ``RoundAnatomy`` given a row for each version
-pulled) comes with ROADMAP queue 1 item 3.
+a version's trailer carries the whole chain from the root. With
+``anatomy`` (a :class:`~pytorch_ps_mpi_tpu_torch.telemetry.anatomy.
+RoundAnatomy`), each version pulled is a ``reader_round`` row there.
 """
 
 from __future__ import annotations
@@ -49,13 +49,19 @@ class FollowerLoop:
     poll_s:
         Pull cadence: every ``not_modified`` doubles the sleep from
         ``poll_s`` up to :data:`MAX_POLL_S`; a new version resets it.
+    anatomy:
+        Optional :class:`~pytorch_ps_mpi_tpu_torch.telemetry.anatomy.
+        RoundAnatomy`; each version pulled feeds it one reader round
+        (pull wall, age at pull, lag), the replica's own critical-path
+        record.
     """
 
     def __init__(self, core, host: str, port: int, *,
                  template=None, tenant: str = "",
                  poll_s: float = 0.25, timeout: float = 10.0,
-                 serving_kw: Optional[dict] = None):
+                 serving_kw: Optional[dict] = None, anatomy=None):
         self.core = core
+        self.anatomy = anatomy
         self.host = str(host)
         self.port = int(port)
         self.template = template if template is not None else core.template
@@ -162,14 +168,17 @@ class FollowerLoop:
                 self.republished += 1
                 self._sleep_s = self.poll_s
                 outcome = "republished"
-                return {"outcome": outcome, "version": int(version),
-                        "lag": lag,
-                        # wall age (this clock, skew-corrected) of the
-                        # version at the moment it was pulled
-                        "age_ms": round(reader.fresh_age_ms(), 3),
-                        "relayed_bytes": int(max(fresh, 0)),
-                        "pull_s": round(time.perf_counter() - t0, 6),
-                        "upstream": f"{self.host}:{self.port}"}
+                row = {"outcome": outcome, "version": int(version),
+                       "lag": lag,
+                       # wall age (this clock, skew-corrected) of the
+                       # version at the moment it was pulled
+                       "age_ms": round(reader.fresh_age_ms(), 3),
+                       "relayed_bytes": int(max(fresh, 0)),
+                       "pull_s": round(time.perf_counter() - t0, 6),
+                       "upstream": f"{self.host}:{self.port}"}
+                if self.anatomy is not None:
+                    self.anatomy.observe_reader_round(dict(row))
+                return row
             self.not_modified += 1
             # idle: the observed lag DECAYS (EWMA toward zero) — the
             # replica is provably current, but the spike that preceded

@@ -14,7 +14,9 @@ launcher's ``--platform cpu``). Every rank draws its own batches
 from the same weights (seed 0). The data is synthetic; ``bert_mlm`` is
 ``BertConfig.base()`` at sequence length 128, on the card in bfloat16
 with the flash attention kernels. The last line printed is a JSON object
-of ``Trainer.fit``'s metrics.
+of ``Trainer.fit``'s metrics. ``--telemetry-dir D`` installs the flight
+recorder and dumps ``train.jsonl`` (every step a span) into D at the
+end; the JAX package's ``tools/telemetry_report.py`` summarizes it.
 """
 
 from __future__ import annotations
@@ -170,6 +172,9 @@ def parser() -> argparse.ArgumentParser:
                     help="per-stage timing metrics")
     ap.add_argument("--checkpoint-dir", default=None)
     ap.add_argument("--log-every", type=int, default=5)
+    ap.add_argument("--telemetry-dir", default=None,
+                    help="enable the run-wide flight recorder; dumps "
+                         "train.jsonl into this directory at exit")
     return ap
 
 
@@ -178,6 +183,11 @@ def main(argv=None) -> Dict[str, float]:
     args = ap.parse_args(argv)
     if args.adamw and args.optim != "adam":
         ap.error("--adamw requires --optim adam")
+    if args.telemetry_dir:
+        from pytorch_ps_mpi_tpu_torch import telemetry
+
+        os.makedirs(args.telemetry_dir, exist_ok=True)
+        telemetry.configure(worker="trainer")
     device = mesh.resolve_device(
         "cpu" if os.environ.get("PS_PLATFORM") == "cpu" else "cuda")
     if device.type == "cuda" and device.index is None:
@@ -224,6 +234,12 @@ def main(argv=None) -> Dict[str, float]:
         summary = trainer.fit(batches, args.steps, log_every=args.log_every)
     finally:
         batches.close()  # stops the batch thread before the process exits
+    if args.telemetry_dir:
+        from pytorch_ps_mpi_tpu_torch import telemetry
+
+        path = telemetry.get_recorder().dump_jsonl(
+            os.path.join(args.telemetry_dir, "train.jsonl"))
+        print(f"telemetry: {path}", flush=True)
     print(json.dumps({k: (None if v is None else round(float(v), 6))
                       for k, v in summary.items()}), flush=True)
     return summary

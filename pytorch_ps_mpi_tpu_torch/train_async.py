@@ -28,9 +28,27 @@ from ``--checkpoint-dir``; it implies ``--resilient``); ``--fault-plan``
 The read tier: ``--read-port 0`` (or a port) arms it on the server, the
 bound port in the last line as ``read_port``; ``--snapshot-ring K`` keeps
 K versions for delta reads. Readers use
-``pytorch_ps_mpi_tpu_torch.serving.ServingReader``. The JAX CLI's
-telemetry flags are accepted and raise ``NotImplementedError`` naming
-the ROADMAP item that brings them.
+``pytorch_ps_mpi_tpu_torch.serving.ServingReader``.
+
+Telemetry: ``--telemetry-dir D`` writes every process's flight-recorder
+JSONL, ``metrics.prom``, the lineage, anatomy and numerics rows and a
+merged Chrome trace (``trace.json``, with the server's kernels on the
+card) into D, and serves ``/metrics`` and ``/health``
+(``--metrics-port``, 0 by default there); ``--health-port`` arms the
+health monitor and its worker beacons; ``--trace``/``--no-trace`` arm
+lineage (on by default with ``--telemetry-dir`` and frames);
+``--numerics`` checks every push and probes the codec's fidelity
+(``--numerics-policy``, ``--numerics-probe-every``); ``--freshness`` and
+``--hop-anatomy`` arm the read-path and tree-hop planes:
+
+    PS_PLATFORM=cpu python -m pytorch_ps_mpi_tpu_torch.train_async \
+        --model mlp --workers 2 --steps 5 --metrics-port 0 \
+        --health-port 0 --numerics --telemetry-dir D
+
+The JAX CLI's fleet-plane and control flags (``--history``, ``--slo``,
+``--profile``, ``--control``, ``--fleet-dir``, ``--ps-top``) are
+accepted and raise ``NotImplementedError`` naming the ROADMAP item that
+brings them.
 """
 
 from __future__ import annotations
@@ -48,14 +66,10 @@ from pytorch_ps_mpi_tpu_torch.parallel.async_train import (UNPORTED,
 from pytorch_ps_mpi_tpu_torch.resilience import Supervisor, normalize_plan
 
 #: the JAX CLI's flags the port does not have yet -> the cfg key whose
-#: ROADMAP item they wait for
+#: ROADMAP item they wait for (the live dashboard renders the fleet pane)
 _UNPORTED_FLAGS = {
-    "telemetry-dir": "telemetry_dir", "metrics-port": "metrics_port",
-    "health-port": "health_port", "ps-top": "health", "trace": "trace",
-    "numerics": "numerics", "history": "timeseries",
-    "profile": "profile", "slo": "slo", "freshness": "freshness",
-    "hop-anatomy": "hop_anatomy", "control": "control",
-    "fleet-dir": "fleet_dir",
+    "ps-top": "fleet", "history": "timeseries", "profile": "profile",
+    "slo": "slo", "control": "control", "fleet-dir": "fleet_dir",
 }
 
 
@@ -109,6 +123,44 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--snapshot-ring", type=int, default=None,
                     help="with --read-port: versions kept for delta reads "
                          "(default 8)")
+    ap.add_argument("--telemetry-dir", default=None,
+                    help="full telemetry into this directory: every "
+                         "process's flight-recorder JSONL, metrics.prom, "
+                         "lineage/anatomy/numerics rows and a merged "
+                         "trace.json; implies --metrics-port 0")
+    ap.add_argument("--metrics-port", type=int, default=None,
+                    help="serve Prometheus /metrics (+ /health) on this "
+                         "port (0 picks one; bound port in the last line "
+                         "as metrics_port)")
+    ap.add_argument("--health-port", type=int, default=None,
+                    help="arm the HealthMonitor and serve /health beside "
+                         "/metrics on this port (0 picks one); the worker "
+                         "beacons land in --telemetry-dir, else a "
+                         "temporary dir")
+    ap.add_argument("--trace", action="store_true", default=None,
+                    help="arm gradient lineage: each published version "
+                         "billed to its pushes (lineage-server.jsonl), "
+                         "round anatomy, flow arrows in trace.json; needs "
+                         "--telemetry-dir and frames")
+    ap.add_argument("--no-trace", dest="trace", action="store_false",
+                    help="no lineage (otherwise implied by "
+                         "--telemetry-dir)")
+    ap.add_argument("--numerics", action="store_true",
+                    help="check every consumed push on the server's "
+                         "device (NaN/Inf counted and quarantined), "
+                         "grad-norm and update-ratio statistics, worker "
+                         "codec-fidelity probes, postmortems")
+    ap.add_argument("--numerics-policy", choices=["skip", "zero", "abort"],
+                    default="skip",
+                    help="the fate of a non-finite push")
+    ap.add_argument("--numerics-probe-every", type=int, default=25,
+                    help="codec-fidelity probe / trajectory cadence "
+                         "(steps)")
+    ap.add_argument("--freshness", action="store_true",
+                    help="arm the read-path freshness tracker "
+                         "(freshness-server.jsonl in --telemetry-dir)")
+    ap.add_argument("--hop-anatomy", action="store_true",
+                    help="arm the tree leaders' hop occupancy tracing")
     for flag in _UNPORTED_FLAGS:
         ap.add_argument(f"--{flag}", default=None, nargs="?", const=True)
     return ap
@@ -149,6 +201,12 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     if args.snapshot_ring is not None and args.read_port is None:
         ap.error("--snapshot-ring needs --read-port (it sizes the read "
                  "tier's snapshot ring)")
+    if args.trace and not args.telemetry_dir:
+        ap.error("--trace needs --telemetry-dir (lineage rows and the "
+                 "flow-event trace land there)")
+    if args.trace and args.no_frame_check:
+        ap.error("--trace needs frame checking (the trace ID rides the "
+                 "frame header); drop --no-frame-check")
     device = "cpu" if os.environ.get("PS_PLATFORM") == "cpu" else "cuda"
     in_shape = (8,) if args.model == "mlp" else (32, 32, 3)
     cfg = {
@@ -175,6 +233,7 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
         cfg["read_port"] = args.read_port
         if args.snapshot_ring is not None:
             cfg["serving_kw"] = {"ring": args.snapshot_ring}
+    _telemetry_cfg(args, cfg)
     if args.straggler_ms:
         cfg["slow_ms"] = {str(args.workers - 1): args.straggler_ms}
     if args.resilient:
@@ -199,6 +258,8 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
             checkpoint_dir=args.checkpoint_dir,
             checkpoint_every=args.checkpoint_every,
             sync_barrier=args.sync_barrier, timeout=args.timeout).run()
+        if args.telemetry_dir:
+            metrics.update(_export_telemetry(args.telemetry_dir))
         print(json.dumps(metrics, default=str), flush=True)
         return metrics
     code = None
@@ -223,6 +284,19 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
         name = f"/psq_train_torch_{os.getpid()}"
         server = ShmPSServer(name, **kw)
     procs = []
+    device_trace_dir = device_t0_wall = None
+    trace_cm = None
+    if args.telemetry_dir and device == "cuda":
+        # the server's kernels, the device half of the merged timeline;
+        # the workers' story arrives through their JSONLs
+        import time
+
+        from pytorch_ps_mpi_tpu_torch.utils.tracing import trace
+
+        device_trace_dir = os.path.join(args.telemetry_dir, "device-trace")
+        trace_cm = trace(device_trace_dir)
+        trace_cm.__enter__()
+        device_t0_wall = time.time()
     try:
         procs = [spawn_worker(name, i, cfg) for i in range(args.workers)]
         _, metrics = serve(server, cfg, total_grads=0,
@@ -236,10 +310,96 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
             if rc != 0:
                 raise SystemExit(f"worker exited {rc}")
     finally:
+        if trace_cm is not None:
+            trace_cm.__exit__(None, None, None)
+        # the /metrics + /health endpoint closes with the server
         server.close()
         join_workers(procs, timeout=5.0)
+    if args.telemetry_dir:
+        metrics.update(_export_telemetry(args.telemetry_dir,
+                                         device_trace_dir, device_t0_wall))
     print(json.dumps(metrics, default=str), flush=True)
     return metrics
+
+
+def _telemetry_cfg(args, cfg: dict) -> None:
+    """The telemetry flags as cfg keys (``train_async.py:286-384``)."""
+    import tempfile
+
+    if args.telemetry_dir:
+        os.makedirs(args.telemetry_dir, exist_ok=True)
+        # a reused dir must not leak a previous run's rows into this run's
+        # trace
+        for stale in (glob.glob(os.path.join(args.telemetry_dir, "*.jsonl"))
+                      + glob.glob(os.path.join(args.telemetry_dir,
+                                               "trace.json"))
+                      + glob.glob(os.path.join(args.telemetry_dir,
+                                               "postmortem-*.json"))):
+            os.remove(stale)
+        cfg["telemetry_dir"] = args.telemetry_dir
+        if args.metrics_port is None:
+            args.metrics_port = 0
+        if args.fault_log_dir is None:
+            cfg.setdefault("fault_log_dir", args.telemetry_dir)
+    if (args.trace or (args.trace is None and args.telemetry_dir
+                       and cfg["frame_check"])):
+        cfg["lineage"] = True
+        cfg["lineage_dir"] = args.telemetry_dir
+    if args.numerics:
+        cfg["numerics"] = True
+        # one dir, both ends: workers append probe rows, the server tails
+        # them and writes postmortems beside them
+        cfg["numerics_dir"] = (args.telemetry_dir
+                               or tempfile.mkdtemp(prefix="ps_numerics_"))
+        cfg["numerics_kw"] = {"policy": args.numerics_policy,
+                              "probe_every": args.numerics_probe_every}
+    if args.freshness:
+        cfg["freshness"] = True
+    if args.hop_anatomy:
+        cfg["hop_anatomy"] = True
+    if args.metrics_port is not None:
+        cfg["metrics_port"] = args.metrics_port
+    if args.health_port is not None:
+        cfg["health_port"] = args.health_port
+        cfg["health_dir"] = (args.telemetry_dir
+                             or tempfile.mkdtemp(prefix="ps_health_"))
+
+
+def _export_telemetry(tdir: str, device_trace_dir=None,
+                      device_t0_wall=None) -> dict:
+    """Merge every process's flight-recorder JSONL, the lineage flow
+    arrows and hop tracks, and the server's device trace into
+    ``trace.json`` (``train_async.py:530``); returns the artifact paths
+    and counts. The JSONLs are readable by the JAX package's
+    ``tools/telemetry_report.py``."""
+    from pytorch_ps_mpi_tpu_torch.telemetry import (clock_offsets_from_rows,
+                                                    export_chrome_trace,
+                                                    is_sidecar, load_jsonl,
+                                                    load_hop_rows,
+                                                    load_lineage_rows)
+
+    files = sorted(f for f in glob.glob(os.path.join(tdir, "*.jsonl"))
+                   if not is_sidecar(f))
+    events = []
+    for f in files:
+        events.extend(load_jsonl(f)[1])
+    lineage_rows = []
+    for f in sorted(glob.glob(os.path.join(tdir, "lineage-*.jsonl"))):
+        lineage_rows.extend(load_lineage_rows(f))
+    offsets = clock_offsets_from_rows(lineage_rows) if lineage_rows else None
+    hop_rows = []
+    for f in sorted(glob.glob(os.path.join(tdir, "hop-*.jsonl"))):
+        hop_rows.extend(load_hop_rows(f))
+    path, counts = export_chrome_trace(
+        os.path.join(tdir, "trace.json"), events,
+        device_trace_dir=device_trace_dir, device_t0_wall=device_t0_wall,
+        lineage_rows=lineage_rows or None, clock_offsets=offsets,
+        hop_rows=hop_rows or None)
+    return {"telemetry_trace": path,
+            "telemetry_trace_host_events": counts["host"],
+            "telemetry_trace_device_events": counts["device"],
+            "telemetry_trace_flows": counts["flow"],
+            "telemetry_files": files}
 
 
 if __name__ == "__main__":

@@ -24,6 +24,7 @@ from typing import Any, Callable, Dict, Iterator, List, Optional
 import torch
 
 from pytorch_ps_mpi_tpu_torch.ps import MPI_PS
+from pytorch_ps_mpi_tpu_torch.telemetry.recorder import get_recorder
 from pytorch_ps_mpi_tpu_torch.utils.checkpoint import CheckpointManager
 from pytorch_ps_mpi_tpu_torch.utils.metrics import MetricsAccumulator
 
@@ -98,7 +99,12 @@ class Trainer:
     def save(self) -> None:
         if self.ckpt is None:
             raise RuntimeError("no checkpoint_dir configured")
-        self.ckpt.save(self.step_count, self._state())
+        rec = get_recorder()
+        if rec is None:
+            self.ckpt.save(self.step_count, self._state())
+        else:
+            with rec.span("trainer.checkpoint", step=self.step_count):
+                self.ckpt.save(self.step_count, self._state())
         self._last_saved_step = self.step_count
 
     def maybe_restore(self) -> bool:
@@ -150,6 +156,8 @@ class Trainer:
         last_loss = None
         done = 0
         while done < num_steps:
+            rec = get_recorder()  # one attribute read a step when off
+            span_t0 = time.monotonic()
             if self.scan_chunk > 1 and num_steps - done >= self.scan_chunk:
                 chunk = stack_batches([next(batches)
                                        for _ in range(self.scan_chunk)])
@@ -170,6 +178,16 @@ class Trainer:
             self.metrics.add(data)
             done += n
             self.step_count += n
+            if rec is not None:
+                if n > 1:
+                    rec.event("trainer.step_chunk", kind="span", ts=span_t0,
+                              dur=time.monotonic() - span_t0,
+                              step=self.step_count, loss=last_loss,
+                              n_steps=n)
+                else:
+                    rec.event("trainer.step", kind="span", ts=span_t0,
+                              dur=time.monotonic() - span_t0,
+                              step=self.step_count, loss=last_loss)
             if log_every and done % log_every == 0:
                 rate = done / (time.perf_counter() - t0)
                 print(f"step {self.step_count}: loss={last_loss:.4f} "

@@ -122,35 +122,62 @@ def test_resume_keeps_the_version_monotonic(tmp_path):
     assert m2["loss_initial"] == pytest.approx(m1["loss_final"], rel=1e-6)
 
 
+#: the telemetry keys this package has (the rest of the JAX package's
+#: observability and control keys name ROADMAP queue 1 item 3)
+TELEMETRY_KEYS = ("telemetry_dir", "metrics_port")
+
+
 @pytest.mark.parametrize("key,item", [
     ("telemetry_dir", "item 3"), ("metrics_port", "item 3"),
     ("topo_actions", "item 3"), ("control", "item 3")])
 def test_unported_options_name_their_item(key, item):
-    with pytest.raises(NotImplementedError, match=item):
+    if key in TELEMETRY_KEYS:
+        # ported: accepted, and the fleet/control keys beside it still
+        # name the item
         at.check_cfg({"model": "mlp", key: 1})
+        with pytest.raises(NotImplementedError, match=item):
+            at.check_cfg({"model": "mlp", key: 1, "fleet_dir": "d"})
+    else:
+        with pytest.raises(NotImplementedError, match=item):
+            at.check_cfg({"model": "mlp", key: 1})
     with pytest.raises(NotImplementedError, match="item 4"):
         at.check_cfg({"model": "gpt"})
-    # the scale-out, resilience and read-tier keys are ported
+    # the scale-out, resilience, read-tier and telemetry keys are ported
     at.check_cfg({"model": "mlp", "fault_plan": [{}], "resilient": True,
                   "tree": True, "tree_members": [4], "supervise": True,
-                  "serving": True, "read_port": 1, "serving_kw": {"ring": 2}})
+                  "serving": True, "read_port": 1, "serving_kw": {"ring": 2},
+                  "health": True, "health_port": 0, "numerics": True,
+                  "numerics_kw": {"policy": "skip"}, "lineage": True,
+                  "trace": True, "anatomy": "auto", "freshness": True,
+                  "hop_anatomy": True})
+    with pytest.raises(NotImplementedError, match="sampling profiler"):
+        at.check_cfg({"model": "mlp", "profile": True})
 
 
 @pytest.mark.parametrize("key", ["metrics_port", "health_port"])
 def test_port_zero_counts_as_set(key):
     # port 0 picks a free port in the JAX package (serving/core.py:109,186,
-    # core.py:220-222): it arms the read tier, and the endpoint keys the
-    # port lacks raise instead of passing silently
-    at.check_cfg({"model": "mlp", "read_port": 0})
+    # core.py:220-222): it arms the read tier, and a standalone core's
+    # own /metrics + /health endpoint
+    import urllib.request
+
+    at.check_cfg({"model": "mlp", "read_port": 0, key: 0})
     from pytorch_ps_mpi_tpu_torch.serving import ServingCore
 
     core = ServingCore(None, {"read_port": 0, "read_native": False,
-                              "device": "cpu"}, template={"w": np.zeros(4)})
+                              "device": "cpu", key: 0},
+                       template={"w": np.zeros(4)})
     try:
         assert core.armed and core.read_port > 0
+        assert core.metrics_http_port > 0
+        base = f"http://127.0.0.1:{core.metrics_http_port}"
+        text = urllib.request.urlopen(base + "/metrics",
+                                      timeout=10).read().decode()
+        assert "ps_read_seconds" in text
+        doc = json.loads(urllib.request.urlopen(base + "/health",
+                                                timeout=10).read())
+        assert doc["armed"] is False and "serving" in doc
     finally:
         core.close()
     with pytest.raises(NotImplementedError, match="queue 1 item 3"):
-        at.check_cfg({"model": "mlp", key: 0})
-    with pytest.raises(NotImplementedError, match="queue 1 item 3"):
-        ServingCore(None, {"read_port": 0, key: 0}, template={})
+        ServingCore(None, {"read_port": 0, "fleet_dir": "d"}, template={})

@@ -245,7 +245,14 @@ def test_error_feedback_memory_lives_on_the_param_device_and_round_trips():
     dict(axis_name=("a", "b")),
 ])
 def test_unported_options_raise(kw):
-    _, model = mlp_pair()
+    variables, model = mlp_pair()
+    if "numerics" in kw:
+        # ported: a step carries the statistics
+        opt = SGD(model, device="cpu", lr=0.1, **kw)
+        _, data = opt.step(grads=torch_grads(
+            model, stacked_grads(variables, 1, 0)))
+        assert data["grad_norm"] > 0 and data["nonfinite_total"] == 0.0
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         SGD(model, device="cpu", **kw)
 
@@ -253,21 +260,29 @@ def test_unported_options_raise(kw):
 @pytest.mark.parametrize("call", ["profile", "aux_state", "step_accumulate",
                                   "run_steps"])
 def test_unported_step_paths_raise(call):
-    """``profile=True`` is not ported (it names its ROADMAP item); a
-    grads-only step has no forward pass to give new aux state (JAX
-    ``ps.py:2036-2041``); ``run_steps`` needs one leading step axis."""
+    """``profile=True`` traces the step (on the CPU a split of zeros with
+    the JAX keys) and is refused beside ``instrument=True``, in ``step``
+    and ``step_accumulate`` (JAX ``ps.py:1813``); a grads-only step has
+    no forward pass to give new aux state (JAX ``ps.py:2036-2041``);
+    ``run_steps`` needs one leading step axis."""
     variables, model = mlp_pair()
     opt = SGD(model, device="cpu", lr=0.1)
     grads = torch_grads(model, stacked_grads(variables, 1, 0))
     if call == "profile":
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            opt.step(grads=grads, profile=True)
+        _, data = opt.step(grads=grads, profile=True)
+        assert data["profile_devices"] == 0.0
+        assert set(opt.profile_split) >= {"device_busy_s", "comm_s",
+                                          "compute_s", "devices", "top_ops"}
+        staged = SGD(mlp_pair()[1], device="cpu", lr=0.1, instrument=True)
+        with pytest.raises(ValueError, match="mutually exclusive"):
+            staged.step(grads=grads, profile=True)
     elif call == "aux_state":
         with pytest.raises(NotImplementedError, match="loss_fn path"):
             opt.step(grads=grads, aux_state={})
     elif call == "step_accumulate":
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            opt.step_accumulate(None, None, profile=True)
+        staged = SGD(model, device="cpu", lr=0.1, instrument=True)
+        with pytest.raises(ValueError, match="mutually exclusive"):
+            staged.step_accumulate(None, None, profile=True)
     else:
         with pytest.raises(ValueError, match="leading"):
             opt.run_steps(None, (torch.zeros(2, 1), torch.zeros(3, 1)))
@@ -444,7 +459,7 @@ def test_instrumented_aux_and_accumulate_equal_the_fused_steps():
     assert data["accum_steps"] == 2
     assert data["grad_time_per_microbatch"] == pytest.approx(
         data["grad_time"] / 2)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="mutually exclusive"):
         staged.step_accumulate(plain_loss, micro, profile=True)
 
 

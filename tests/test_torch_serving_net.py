@@ -482,4 +482,4 @@ def test_serve_readonly_serves_a_checkpoint(tmp_path):
         from pytorch_ps_mpi_tpu_torch import serve_readonly
 
         serve_readonly.main(["--checkpoint-dir", str(tmp_path),
-                             "--metrics-port", "0"])
+                             "--fleet-dir", str(tmp_path)])
