@@ -273,6 +273,11 @@ Phases, one line each; the script exits non-zero if any fails:
                timings, every role's peak GB and the idle share of the
                card under its server or root. The kernel line gives each
                kernel's launches in this phase (``launches_scale_out``).
+               Phase ``control``'s O3 rides on S1 (the shards' fleet cards
+               and a read tier's in one directory, its ``/fleet`` scraped
+               while they run: 3 members, the shards' counters summed,
+               the skew section) and R1 (the restarted server's card at a
+               new endpoint, one card at a time, none left).
 
 11. telemetry -- last, after ``torch.cuda.empty_cache()``: the per-process
                telemetry layer (``run_telemetry``). N1: ResNet-18 (CIFAR
@@ -318,6 +323,40 @@ Phases, one line each; the script exits non-zero if any fails:
                set to 0 in the phase (so the kernel side of N3's
                comparisons and N1's profiled and timed steps are in it),
                and N4's workers.
+
+12. control  -- last, after ``torch.cuda.empty_cache()``: the fleet
+               observability plane and the controller (``run_control``).
+               O1: A2's fleet with the history, SLO rules, the sampling
+               profiler in every process, lineage, beacons and a fleet
+               card: ``/history`` read while it runs (monotone), its
+               ``push_e2e_p95_ms`` equal to lineage's exact p95 (1%), no
+               verdict, serve-loop frames in the collapsed stacks, the
+               ``wc_fold`` counters grown, 161 ``quantize_int8`` a push;
+               prints the plane's self-timed cost and steady updates/s
+               over A2's. O2: A1's fleet with a 600 ms straggler under
+               ``max_staleness`` 5: exactly one latched ``stale_drops``
+               verdict, re-derived by replaying ``timeseries-server.jsonl``.
+               C (``tools/control_smoke.py``'s scenario at ResNet-50):
+               boot codec identity, ladder identity -> int8, two workers
+               wire-bound by delay faults, a 2.5 s straggler, a ``nan``
+               worker, the Python read tier at depth 2 and ring 2 under
+               pipelined storms, replicas armed. C1: one renegotiation and
+               one retire, no healthy worker's frame rejected, each
+               worker's frames on epoch 0 then 1 (``epoch_frames``), 0
+               ``quantize_int8`` before its switch and 161 a push after,
+               161 ``dequant_sum`` an int8 frame on the server. C2: only
+               the straggler de-weighted, the ``nan`` worker readmitted
+               and applied again. C3: a storm sheds, the depth rises
+               until one runs shed-free, the ring grows on ageouts. C4:
+               ``Controller.replay`` byte-identical, 0 flaps. C5: a
+               replica out (its card appears) and in (its card goes); the
+               same scenario uncontrolled for the loss (reported). C1tcp:
+               A3's ResNet-18 over TCP, identity -> int8: native batches
+               flat through the transition, growing after. C5 tree: T1's
+               tree with ``topo_actions`` and a hot leader: a split behind
+               a new leader, a merge once cold, every push composed or
+               lost exactly once. The kernel line gives every launch of
+               the phase (``launches_control``).
 
 Phase ``done`` gives the seconds the whole run took. The line before the
 last is a JSON object with one entry per kernel; the last line is
@@ -2887,8 +2926,9 @@ def check_async_ps(card: str) -> None:
 def run_async(card: str) -> dict:
     """Phase 8 (``async``): the async parameter server on the card, runs
     A1-A4 (``PERF.md`` §4). The server is this process; the workers are
-    fresh interpreters on the same card (time-sliced). Returns A1's
-    metrics (phase ``telemetry`` sets its armed fleet beside them)."""
+    fresh interpreters on the same card (time-sliced). Returns A1's and
+    A2's metrics (phases ``telemetry`` and ``control`` set their armed
+    fleets beside them)."""
     import shutil
     import tempfile
 
@@ -2971,7 +3011,7 @@ def run_async(card: str) -> dict:
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     phase("async", seconds=f"{time.perf_counter() - t0:.1f}")
-    return a1
+    return a1, a2
 
 # -- phase serving: the read tier beside the async fleet ----------------------
 
@@ -3806,23 +3846,96 @@ def _flat_of(paths, template) -> np.ndarray:
     return flatten_params(assemble(paths, template))
 
 
+class _FleetWatch:
+    """Phase control's O3 beside a scale-out run: a thread that reads the
+    fleet directory's cards, and ``/fleet`` from ``port``, every 0.25 s
+    until stopped."""
+
+    def __init__(self, fdir: str, port: int = None):
+        import threading
+
+        self.fdir, self.port = fdir, port
+        self.cards, self.panes, self.errors = [], [], []
+        self._stop = threading.Event()
+        self._t = threading.Thread(target=self._run, daemon=True)
+        self._t.start()
+
+    def _run(self) -> None:
+        from pytorch_ps_mpi_tpu_torch.telemetry.fleet import list_endpoints
+
+        while not self._stop.is_set():
+            self.cards.append([(e["name"], e["url"])
+                               for e in list_endpoints(self.fdir)])
+            if self.port is not None:
+                try:
+                    self.panes.append(_http_json(self.port, "/fleet"))
+                except Exception as e:  # a member mid-start: kept, reported
+                    self.errors.append(repr(e))
+            self._stop.wait(0.25)
+
+    def stop(self) -> None:
+        self._stop.set()
+        self._t.join(timeout=30.0)
+
+
+def _o3_pane(card: str, watch: _FleetWatch, shards: int) -> None:
+    """O3: one ``/fleet`` scrape that covered every shard server and the
+    read tier, every member reachable, the shards' counters summed and
+    the per-shard skew section present."""
+    full = [p for p in watch.panes
+            if p.get("n_members") == shards + 1
+            and p.get("n_ok") == shards + 1
+            and p["fleet"].get("grads_received", 0) > 0]
+    if not full:
+        raise AssertionError(f"O3: no /fleet scrape covered {shards} shards "
+                             f"and the read tier: {watch.panes[-1:]}, "
+                             f"errors {watch.errors[-3:]}")
+    pane = full[-1]
+    members = pane["members"].values()
+    roles = sorted(m["role"] for m in members)
+    summed = sum(m["metrics"].get("grads_received", 0.0) for m in members)
+    if (roles != ["read"] + ["shard"] * shards
+            or pane["fleet"]["grads_received"] != summed
+            or "grads_received" not in pane["skew"]):
+        raise AssertionError(f"O3: pane {pane}")
+    phase("control", run="O3", card=repr(card), scrapes=len(watch.panes),
+          members=len(pane["members"]), roles=json.dumps(roles),
+          grads_received=pane["fleet"]["grads_received"],
+          skew=json.dumps(pane["skew"]["grads_received"], sort_keys=True))
+
+
 def scale_s1(card: str, tmp: str, tally: dict) -> None:
     """S1: 2 shard servers over TCP, 4 workers, int8, async, max_staleness
     4, shard 1 slowed 50 ms an update, 3 pushes a worker a shard,
-    checkpoints a shard every 4 updates."""
+    checkpoints a shard every 4 updates. O3 (phase ``control``) rides on
+    it: the shards register their fleet cards, a read tier in this
+    process registers its own, and its ``/fleet`` is scraped while the
+    shards run."""
     from pytorch_ps_mpi_tpu_torch.parallel import async_train as at
+    from pytorch_ps_mpi_tpu_torch.serving import ServingCore
 
     d = os.path.join(tmp, "s1")
     os.makedirs(d)
+    fdir = os.path.join(d, "fleet")
     shards, workers, steps = S1_SHARDS, 4, 3
     cfg = async_cfg("resnet50", d, codec="int8", n_workers=workers,
                     steps=steps, max_staleness=4, transport="tcp",
                     server_slow_ms={"1": 50.0}, server_timeout=SO_LIMIT,
                     checkpoint_dir=os.path.join(d, "ckpt"),
-                    checkpoint_every=4, idle_share=True)
+                    checkpoint_every=4, idle_share=True, fleet_dir=fdir)
+    tier = ServingCore(None, {"read_port": 0, "metrics_port": 0,
+                              "fleet_dir": fdir, "device": "cuda",
+                              "fleet_kw": {"min_poll_s": 0.0}},
+                       template=at.make_problem(cfg, "cuda").template)
+    watch = _FleetWatch(fdir, tier.metrics_http_port)
     t0 = time.perf_counter()
-    paths, stats = shard_fleet(cfg, shards, workers, d, "s1")
+    try:
+        paths, stats = shard_fleet(cfg, shards, workers, d, "s1")
+    finally:
+        watch.stop()
+        tier.close()
     wall = time.perf_counter() - t0
+    _o3_pane(card, watch, shards)
     zs = [np.load(p, allow_pickle=False) for p in paths]
     for i, st in enumerate(stats):
         # one quantize a slice a push
@@ -4188,18 +4301,36 @@ def scale_r1(card: str, tmp: str, tally: dict) -> None:
 
     d = os.path.join(tmp, "r1")
     os.makedirs(d)
+    fdir = os.path.join(d, "fleet")
     cfg = async_cfg("resnet18", d, codec="sign", steps=8, resilient=True,
                     push_timeout=3.0, slow_ms={"0": 100.0, "1": 100.0},
                     fault_plan=R1_PLAN, fault_seed=4,
                     fault_log_dir=os.path.join(d, "faults"),
-                    idle_share=True)
+                    idle_share=True, fleet_dir=fdir, metrics_port=0)
     counters = kernel_counters()
     for k in counters.values():
         k.launches = 0
+    watch = _FleetWatch(fdir)
     t0 = time.perf_counter()
-    _, m = Supervisor(cfg, 2, checkpoint_dir=os.path.join(d, "ckpt"),
-                      checkpoint_every=4, timeout=SO_LIMIT).run()
+    try:
+        _, m = Supervisor(cfg, 2, checkpoint_dir=os.path.join(d, "ckpt"),
+                          checkpoint_every=4, timeout=SO_LIMIT).run()
+    finally:
+        watch.stop()
     wall = time.perf_counter() - t0
+    # O3: the restarted server generation re-registered its card: one
+    # card at a time, named "server", at a new endpoint
+    urls = []
+    for cards in watch.cards:
+        if len(cards) > 1 or any(n != "server" for n, _ in cards):
+            raise AssertionError(f"O3: fleet cards {cards}")
+        if cards and (not urls or urls[-1] != cards[0][1]):
+            urls.append(cards[0][1])
+    if len(urls) != 2 or os.listdir(fdir):
+        raise AssertionError(f"O3: the server's card at {urls}, left "
+                             f"{os.listdir(fdir)}")
+    phase("control", run="O3", card=repr(card), what="restart",
+          server_cards=json.dumps(urls))
     server = {k: v.launches for k, v in counters.items()}
     fired = sorted((e["id"], e["kind"]) for role in ("0", "1", "server")
                    for e in load_fault_log(os.path.join(
@@ -4869,6 +5000,735 @@ def run_telemetry(card: str, a1: dict = None) -> dict:
     return tally
 
 
+# -- phase control: the fleet observability plane and the controller ---------
+
+CONTROL_LIMIT = 300.0  # seconds a control fleet may take, spawn to join
+#: the rules of O1 and O2: stale drops a second (target 0.1/s), and the
+#: exact push e2e p95 against a target no healthy fleet reaches; windows
+#: short enough for a run of seconds
+CONTROL_SLO = {"rules": [
+    {"name": "stale_drops", "key": "stale_drops", "mode": "rate",
+     "target": 0.1},
+    {"name": "push_e2e_p95", "key": "push_e2e_p95_ms", "mode": "value",
+     "target": 60000.0}],
+    "short_window_s": 2.0, "long_window_s": 4.0, "eval_every_s": 0.2}
+#: O2: the straggler's sleep a step and the bound its pushes exceed
+O2_SLOW_MS = 400.0
+O2_MAX_STALENESS = 5
+#: C: pushes of the healthy workers and of the straggler (worker 1), the
+#: delay that makes a healthy step wire-bound, the straggler's sleep, the
+#: nan worker and its steps, and the controller's knobs (after
+#: ``tools/control_smoke.py``'s, its cooldowns a second)
+C_STEPS, C_STRAGGLER_STEPS = 36, 9
+C_DELAY_MS, C_SLOW_MS = 150.0, 1200.0
+C_NAN = {"worker": 2, "steps": (2, 3)}
+C_KNOBS = {"eval_every_s": 0.25, "warmup_s": 1.0, "cooldown_s": 1.0,
+           "settle_s": 8.0, "window_s": 3.0, "probation_s": 1.5,
+           # past the fleet's p50 by 3 versions, not the default 1: at
+           # ResNet-50 on an H100 a healthy worker's staleness EWMA
+           # reached p50 + 1.1 and p50 + 1.98, its wires built at boot
+           # (PERF.md section 6); the straggler's reaches p50 + 10
+           "lr_stale_margin": 3.0,
+           "shed_hi_per_s": 0.5, "ring_grow_per_s": 0.5, "ring_max": 8,
+           "read_p95_target_ms": 30000.0, "replica_max": 1,
+           "replica_cooldown_s": 1.0, "replica_shed_per_s": 2.0,
+           "ladder": [{"codec": "identity"}, {"codec": "int8"}]}
+C_SERVING = {"admission_depth": 2, "ring": 2, "retry_after_s": 0.01}
+#: C5: the workers' pace and leader 0's fold sleep a payload (ms), under
+#: the pace for one payload, so the slow hop queues little; the pushes of
+#: group 0's workers (0 and 1), enough for the split's new leader to
+#: boot on the card and take most of worker 1's; and those of group 1's
+#: (2 and 3), which go on until group 0's hop, idle once its workers are
+#: done, is cold and merges back. The sync root paces every group at
+#: ~4 s a push on an H100. The pace is slow on purpose: at 300 ms the
+#: ResNet-50 hop's own fold keeps the advisor's saving at 0.29-0.58, at
+#: 1 s at 0.02-0.08 with one group pushing (PERF.md section 6)
+C5_PACE_MS, C5_SLOW_MS = 1000.0, 500.0
+C5_HOT_STEPS, C5_STEPS = 12, 18
+#: C5's saving thresholds: a split at 0.4, a merge under half of it. The
+#: replan cooldown is the default 20 s: a merge waits 40 s after the
+#: split, until group 0 is done (at 0.5 s one merged on a dip while it
+#: pushed and split again at once)
+C5_HOT_FRAC = 0.4
+#: the storm: sockets, and requests pipelined on each before any reply
+STORM_SOCKETS, STORM_DEPTH = 4, 6
+
+
+def _http_json(port: int, path: str) -> dict:
+    import urllib.request
+
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}",
+                                timeout=10) as r:
+        return json.loads(r.read())
+
+
+def control_fleet(label: str, cfg: dict, workers: int, *, code_name: str,
+                  sync_barrier: bool = False, max_staleness: int = 10**9,
+                  on_tick=None, beside=None) -> tuple:
+    """One fleet of the phase: the server in this process, ``workers``
+    fresh interpreters on the card with one intra-op thread each.
+    ``beside(server, stop)`` runs on a thread while the fleet serves (the
+    readers of C); ``on_tick(server, last)`` at the serve loop's tick and
+    once more (``last``) after it, while the endpoint lives. Returns
+    ``(metrics, worker stats, server)``; the server is closed, its
+    counters kept."""
+    import threading
+
+    from pytorch_ps_mpi_tpu_torch.codecs import get_codec
+    from pytorch_ps_mpi_tpu_torch.parallel import async_train as at
+
+    cfg = {**cfg, "codec": code_name}
+    template = at.make_problem(cfg, cfg["device"]).template
+    kw = dict(max_staleness=max_staleness, code=get_codec(code_name),
+              frame=True, device=cfg["device"])
+    if cfg.get("transport") == "tcp":
+        from pytorch_ps_mpi_tpu_torch.parallel.tcp import TcpPSServer
+
+        server = TcpPSServer(0, workers, template, **kw)
+        name = f"127.0.0.1:{server.port}"
+    else:
+        from pytorch_ps_mpi_tpu_torch.parallel.dcn import ShmPSServer
+
+        name = f"/psq_chip_smoke_{os.getpid()}_{label}"
+        server = ShmPSServer(name, workers, template, **kw)
+    procs, stop, side, box = [], threading.Event(), None, {}
+    total = sum(at.worker_cfg(cfg, i)[1] for i in range(workers))
+    try:
+        procs = [at.spawn_worker(name, i, cfg, env=FLEET_ENV)
+                 for i in range(workers)]
+        if beside is not None:
+            def run_beside():
+                try:
+                    box["beside"] = beside(server, stop)
+                except BaseException as e:  # raised below, not lost
+                    box["error"] = e
+
+            side = threading.Thread(target=run_beside, daemon=True)
+            side.start()
+        _, m = at.serve(server, cfg, total_grads=0, total_received=total,
+                        sync_barrier=sync_barrier, timeout=CONTROL_LIMIT,
+                        on_tick=None if on_tick is None
+                        else (lambda: on_tick(server, False)))
+        codes = at.join_workers(procs, timeout=CONTROL_LIMIT)
+        if codes != [0] * workers:
+            raise AssertionError(f"{label}: worker exit codes {codes}")
+        if on_tick is not None:
+            on_tick(server, True)  # a last look while the endpoint lives
+    finally:
+        stop.set()
+        if side is not None:
+            side.join(timeout=120.0)
+        server.close()
+        at.join_workers(procs, timeout=5.0)
+    if "error" in box:
+        raise AssertionError(f"{label}: beside the fleet: "
+                             f"{box['error']!r}") from box["error"]
+    m["beside"] = box.get("beside")
+    stats = [json.loads(open(os.path.join(cfg["stats_dir"],
+                                          f"worker-{i}.json")).read())
+             for i in range(workers)]
+    if m["grads_received"] != total:
+        raise AssertionError(f"{label}: {m['grads_received']} received of "
+                             f"{total}, rejected "
+                             f"{m['reject_reasons']} in {m['wall_s']:.1f} s")
+    return m, stats, server
+
+
+def control_o1(card: str, tmp: str, a2: dict, tally: dict) -> None:
+    """O1: A2's fleet (ResNet-50, 4 workers over shm, int8 under the sync
+    barrier, agg auto: the host fold, worker 3 a 200 ms straggler, 3
+    pushes a worker) with everything of the observability plane armed:
+    the history, the SLO rules :data:`CONTROL_SLO`, the sampling profiler
+    in the server and the workers, lineage (``trace``), beacons, the
+    fleet card. ``/history`` is read while it runs."""
+    from pytorch_ps_mpi_tpu_torch.telemetry import (load_lineage_rows,
+                                                    load_profile)
+    from pytorch_ps_mpi_tpu_torch.telemetry.profiler import native_counters
+
+    d = os.path.join(tmp, "o1")
+    os.makedirs(d)
+    last = str(ASYNC_WORKERS - 1)
+    cfg = async_cfg("resnet50", d, slow_ms={last: 200.0},
+                    steps=ASYNC_STEPS // 2, telemetry_dir=d,
+                    metrics_port=0, timeseries=True, slo=True,
+                    slo_kw=CONTROL_SLO, profile=True, trace=True,
+                    health=True, health_dir=d,
+                    fleet_dir=os.path.join(d, "fleet"))
+    reads, p95 = [], []
+
+    def on_tick(server, last):
+        http = getattr(server, "_metrics_http", None)
+        if http is not None and (last or not reads
+                                 or time.time() - reads[-1][0] > 0.5):
+            reads.append((time.time(), _http_json(
+                http.port, "/history?key=grads_received&window=600")))
+            if last:
+                p95.append(_http_json(
+                    http.port, "/history?key=push_e2e_p95_ms&window=600"))
+
+    folds0 = (native_counters().get("wirecodec") or {}).get("fold_calls", 0)
+    t0 = time.perf_counter()
+    m, stats, _ = control_fleet("O1", cfg, ASYNC_WORKERS, code_name="int8",
+                                sync_barrier=True, max_staleness=4,
+                                on_tick=on_tick)
+    wall = time.perf_counter() - t0
+    folds = (native_counters().get("wirecodec") or {}).get(
+        "fold_calls", 0) - folds0
+    for i, s in enumerate(stats):
+        _expect_launches(f"O1 worker {i}", s["launches"],
+                         {"quantize_int8": R50_UNITS * s["pushes"]})
+        _tally(tally, s["launches"])
+    _expect_launches("O1 server", m["server_launches"], {})
+    if (m["agg_mode"], m["decodes_per_publish"]) != (1.0, 1.0):
+        raise AssertionError(f"O1: agg_mode {m['agg_mode']}, "
+                             f"decodes_per_publish {m['decodes_per_publish']}")
+    rounds = int(m["publish_version"]) - 1
+    if folds < R50_UNITS * ASYNC_WORKERS * rounds:
+        raise AssertionError(f"O1: native_counters gives {folds} wc_fold "
+                             f"calls for {rounds} rounds")
+    # a read before the first sample answers "unknown key"
+    docs = [doc for _, doc in reads if "points" in doc]
+    if len(docs) < 2:
+        raise AssertionError(f"O1: /history answered {len(docs)} of "
+                             f"{len(reads)} reads")
+    for doc in docs:
+        ts = [p[0] for p in doc["points"]]
+        if ts != sorted(ts) or len(set(ts)) != len(ts):
+            raise AssertionError(f"O1: /history timestamps {ts}")
+    final = docs[-1]["points"]
+    if not final or final[-1][1] != m["grads_received"]:
+        raise AssertionError(f"O1: /history ends at {final[-1:]}, "
+                             f"received {m['grads_received']}")
+    # the p95 in the history against lineage's exact distribution
+    rows = load_lineage_rows(os.path.join(d, "lineage-server.jsonl"))
+    e2e = sorted(p["e2e_s"] * 1e3 for r in rows if r.get("kind") == "publish"
+                 for p in r["pushes"] if p.get("e2e_s") is not None)
+    exact = e2e[min(len(e2e) - 1, int(round(0.95 * (len(e2e) - 1))))]
+    # the last point is the closing sample, on the final counters (the
+    # raw tier: no downsampling within a run of seconds)
+    hist = p95[0]["points"][-1][1]
+    if abs(hist - exact) > 0.01 * exact:
+        raise AssertionError(f"O1: /history's push_e2e_p95_ms {hist} "
+                             f"against lineage's exact {exact}")
+    if m["slo"]["breaches_total"] != 0:
+        raise AssertionError(f"O1: SLO verdicts {m['slo']['recent_verdicts']}")
+    _, counts = load_profile(os.path.join(d, "profile-server.txt"))
+    if not any("serve (async_train.py)" in s for s in counts):
+        raise AssertionError("O1: no serve-loop frame in the server's "
+                             "collapsed stacks")
+    for i in range(ASYNC_WORKERS):
+        if not os.path.exists(os.path.join(d, f"profile-worker-{i}.txt")):
+            raise AssertionError(f"O1: no profile of worker {i}")
+    # the plane's self-timed cost: the history's and the SLO's sampling on
+    # the serve thread, the sampler thread's own time
+    cost = (m["history"]["overhead_s"] + m["slo"]["overhead_s"]
+            + m["profile"]["overhead_frac"] * m["wall_s"])
+    # the fleet's wire share from the beacons (would the codec rule
+    # downshift unforced? wire_hi is 0.65)
+    comp = sorted(w["compute_ewma_s"] for w in m["health"]["workers"]
+                  if w["compute_ewma_s"] is not None)
+    wire = sorted(w["wire_ewma_s"] for w in m["health"]["workers"]
+                  if w["wire_ewma_s"] is not None)
+    med = (lambda xs: xs[len(xs) // 2] if xs else 0.0)
+    frac = med(wire) / max(med(wire) + med(comp), 1e-9)
+    phase("control", run="O1", card=repr(card), model="resnet50",
+          code="int8", discipline="sync_barrier", workers=ASYNC_WORKERS,
+          pushes=int(m["grads_received"]), rounds=rounds, wc_fold_calls=folds,
+          history_reads=len(docs), history_samples=m["history"]["samples"],
+          push_e2e_p95_ms_history=f"{hist:.3f}",
+          push_e2e_p95_ms_lineage=f"{exact:.3f}",
+          slo_breaches=m["slo"]["breaches_total"],
+          profile_samples=m["profile"]["samples"],
+          obs_cost_s=f"{cost:.4f}", obs_cost_share=f"{cost / m['wall_s']:.5f}",
+          steady_updates_per_sec=f"{m['steady_updates_per_sec']:.3f}",
+          armed_over_a2=f"{m['steady_updates_per_sec'] / a2['steady_updates_per_sec']:.3f}",
+          wire_frac_beacons=f"{frac:.3f}", wall_s=f"{wall:.3f}")
+
+
+def control_o2(card: str, tmp: str, tally: dict) -> None:
+    """O2: A1's fleet (sign, async) with worker 3 an ``O2_SLOW_MS``
+    straggler under ``max_staleness`` :data:`O2_MAX_STALENESS`: its
+    pushes are dropped as stale and the ``stale_drops`` rule trips exactly
+    one latched verdict; replaying the persisted ``timeseries-server.jsonl``
+    re-derives it."""
+    from pytorch_ps_mpi_tpu_torch.telemetry import (SLOWatchdog,
+                                                    load_timeseries_rows)
+
+    d = os.path.join(tmp, "o2")
+    os.makedirs(d)
+    last = str(ASYNC_WORKERS - 1)
+    cfg = async_cfg("resnet50", d, slow_ms={last: O2_SLOW_MS}, steps=16,
+                    worker_steps={last: 5}, telemetry_dir=d,
+                    timeseries=True, slo=True, slo_kw=CONTROL_SLO)
+    m, stats, _ = control_fleet("O2", cfg, ASYNC_WORKERS, code_name="sign",
+                                max_staleness=O2_MAX_STALENESS)
+    k50 = sum(1 for n in async_sizes("resnet50") if n % 1024 == 0)
+    for i, s in enumerate(stats):
+        _expect_launches(f"O2 worker {i}", s["launches"],
+                         {"encode_signs": k50 * s["pushes"]})
+        _tally(tally, s["launches"])
+    _expect_launches("O2 server", m["server_launches"],
+                     {"unpack_signs_sum": k50 * int(m["decodes_done"])})
+    verdicts = [json.loads(x) for x in open(os.path.join(
+        d, "slo-server.jsonl"))]
+    breaches = [(v["rule"], v["kind"]) for v in verdicts
+                if v["kind"] == "breach"]
+    if m["stale_drops"] < 1 or breaches != [("stale_drops", "breach")]:
+        raise AssertionError(f"O2: {m['stale_drops']} stale drops, "
+                             f"verdicts {verdicts}")
+    rows = load_timeseries_rows(os.path.join(d, "timeseries-server.jsonl"))
+    kw = {k: v for k, v in CONTROL_SLO.items() if k != "rules"}
+    replayed = SLOWatchdog.replay(rows, rules=CONTROL_SLO["rules"], **kw)
+    if [(v["rule"], v["kind"]) for v in replayed] != [
+            (v["rule"], v["kind"]) for v in verdicts]:
+        raise AssertionError(f"O2: replayed {replayed}, live {verdicts}")
+    phase("control", run="O2", card=repr(card), model="resnet50",
+          code="sign", workers=ASYNC_WORKERS, straggler_ms=O2_SLOW_MS,
+          max_staleness=O2_MAX_STALENESS, pushes=int(m["grads_received"]),
+          stale_drops=int(m["stale_drops"]),
+          verdicts=json.dumps([[v["rule"], v["kind"],
+                                round(v["burn_long"], 3)] for v in verdicts]),
+          replayed=len(replayed), history_rows=len(rows))
+
+
+def _recv_reply(sock, buf) -> int:
+    """Read one PSR1 reply off ``sock`` into ``buf``; returns its kind."""
+    from pytorch_ps_mpi_tpu_torch.serving.net import _REP
+
+    hdr = b""
+    while len(hdr) < _REP.size:
+        got = sock.recv(_REP.size - len(hdr))
+        if not got:
+            raise ConnectionError("read tier closed mid-reply")
+        hdr += got
+    _, kind, flen, _, _, _, _, plen = _REP.unpack(hdr)
+    left, view = int(plen) + int(flen), memoryview(buf)
+    while left:
+        n = sock.recv_into(view[:min(left, len(view))])
+        if not n:
+            raise ConnectionError("read tier closed mid-payload")
+        left -= n
+    return int(kind)
+
+
+def c_readers(server, stop) -> dict:
+    """Beside C: (1) pipelined storms of not-modified reads,
+    :data:`STORM_SOCKETS` sockets × :data:`STORM_DEPTH` requests written
+    before any reply is read, every 0.6 s until one completes shed-free
+    (the depth then holds the whole burst); (2) a reader whose base is
+    version 1 (always aged out of a 2-deep ring, so each read is a ring
+    ageout and a full reply), every 0.4 s while the storms run; (3) the
+    fleet directory's cards, every 0.2 s."""
+    import socket as so
+
+    from pytorch_ps_mpi_tpu_torch.serving.net import pack_request
+    from pytorch_ps_mpi_tpu_torch.telemetry.fleet import list_endpoints
+
+    out = {"storms": [], "ageout_reads": 0, "cards": []}
+    while (getattr(server, "serving_core", None) is None
+           or server.serving_core.latest_version() < 2):
+        if stop.is_set():
+            return out
+        time.sleep(0.05)
+    core = server.serving_core
+    port, fdir = core.read_port, core.cfg.get("fleet_dir")
+    buf = bytearray(64 << 20)
+    ageout = so.create_connection(("127.0.0.1", port), timeout=60.0)
+    next_ageout = 0.0
+    deadline = time.time() + 90.0
+    try:
+        while not stop.is_set() and time.time() < deadline:
+            socks, kinds = [], []
+            have = core.latest_version()
+            try:
+                for _ in range(STORM_SOCKETS):
+                    s = so.create_connection(("127.0.0.1", port),
+                                             timeout=60.0)
+                    s.sendall(pack_request(have, True) * STORM_DEPTH)
+                    socks.append(s)
+                for s in socks:
+                    kinds += [_recv_reply(s, buf) for _ in range(STORM_DEPTH)]
+            finally:
+                for s in socks:
+                    s.close()
+            out["storms"].append(sum(1 for k in kinds if k == 3))
+            if len(out["storms"]) >= 2 and out["storms"][-1] == 0:
+                break  # service restored under the same load
+            t_end = time.time() + 0.6
+            while time.time() < t_end and not stop.is_set():
+                if time.time() >= next_ageout:
+                    next_ageout = time.time() + 0.4
+                    ageout.sendall(pack_request(1, True))
+                    if _recv_reply(ageout, buf) != 3:
+                        out["ageout_reads"] += 1
+                if fdir:
+                    out["cards"].append(sorted(
+                        e["name"] for e in list_endpoints(fdir)))
+                time.sleep(0.1)
+        # the storms are over: watch the replica scale back in
+        t_end = time.time() + 15.0
+        while fdir and not stop.is_set() and time.time() < t_end:
+            out["cards"].append(sorted(e["name"]
+                                       for e in list_endpoints(fdir)))
+            time.sleep(0.2)
+    finally:
+        ageout.close()
+    return out
+
+
+def c_cfg(d: str, controlled: bool) -> dict:
+    """C's scenario (``tools/control_smoke.py``'s, at A1's ResNet-50 on
+    the card): boot codec identity; workers 0 and 3 delayed
+    :data:`C_DELAY_MS` a step (the beacons' wire bucket: a wire-bound
+    fleet); worker 1 a :data:`C_SLOW_MS` straggler; worker 2 pushing NaN
+    at its steps :data:`C_NAN`; the numerics skip policy, no probes.
+    Controlled: the controller with the ladder identity -> int8, the
+    structural actions (replicas), the Python read tier with admission
+    depth 2 and a 2-deep ring, the fleet card."""
+    plan = ([{"at_step": s, "worker": w, "kind": "delay",
+              "delay_ms": C_DELAY_MS} for s in range(C_STEPS)
+             for w in (0, 3)]
+            + [{"at_step": s, "worker": C_NAN["worker"], "kind": "nan"}
+               for s in C_NAN["steps"]])
+    from pytorch_ps_mpi_tpu_torch.resilience.faults import normalize_plan
+
+    cfg = async_cfg("resnet50", d, steps=C_STEPS,
+                    worker_steps={"1": C_STRAGGLER_STEPS},
+                    slow_ms={"1": C_SLOW_MS}, health=True, health_dir=d,
+                    numerics=True, numerics_kw={"policy": "skip"},
+                    telemetry_dir=d, fault_plan=normalize_plan(plan),
+                    fault_seed=1)
+    if controlled:
+        cfg.update(control=True, control_dir=d, control_kw=dict(C_KNOBS),
+                   topo_actions=True, read_port=0, read_native="off",
+                   serving_kw=dict(C_SERVING), metrics_port=0,
+                   fleet_dir=os.path.join(d, "fleet"))
+    return cfg
+
+
+def control_c(card: str, tmp: str, tally: dict) -> tuple:
+    """C1-C4 and C5's replicas: the controlled run and the same scenario
+    uncontrolled (:func:`c_cfg`). Returns the controlled run's actions
+    and its seconds."""
+    from pytorch_ps_mpi_tpu_torch.control import Controller
+    from pytorch_ps_mpi_tpu_torch.telemetry import load_timeseries_rows
+
+    d = os.path.join(tmp, "c")
+    os.makedirs(d)
+    cfg = c_cfg(d, controlled=True)
+    t0 = time.perf_counter()
+    m, stats, server = control_fleet("C", cfg, ASYNC_WORKERS,
+                                     code_name="identity", beside=c_readers)
+    wall = time.perf_counter() - t0
+    ctl = m["control"]
+    acts = [json.loads(x) for x in open(os.path.join(
+        d, "control-server.jsonl"))]
+
+    def by(rule, act=None):
+        return [a for a in acts if a["rule"] == rule
+                and (act is None or a["action"] == act)]
+
+    # C1: the downshift, its epochs and its kernels
+    if not (ctl["epoch"] >= 1 and ctl["ladder_idx"] == 1
+            and by("codec", "renegotiate") and by("codec", "epoch_retire")
+            and ctl["exec_errors"] == 0):
+        raise AssertionError(f"C1: control {ctl}, codec rows "
+                             f"{by('codec')}")
+    rej = m["frames_rejected_by_worker"]
+    if any(rej.get(w, 0) for w in range(ASYNC_WORKERS)
+           if w != C_NAN["worker"]):
+        raise AssertionError(f"C1: rejections {rej}")
+    frames = server.epoch_frames
+    if getattr(server, "epoch_regressions", 0):
+        raise AssertionError(f"C1: {server.epoch_regressions} frames on "
+                             "an epoch older than their worker's last")
+    int8_frames = 0
+    for i, s in enumerate(stats):
+        sw = s["switches"]
+        if len(sw) != 1 or sw[0]["codec"] != "int8":
+            raise AssertionError(f"C1 worker {i}: switches {sw}")
+        before, after = sw[0]["pushes_before"], s["pushes"] - sw[0][
+            "pushes_before"]
+        if {e: n for e, n in frames.get(i, {}).items() if n} != {
+                e: n for e, n in {0: before, 1: after}.items() if n}:
+            raise AssertionError(f"C1 worker {i}: frames by epoch "
+                                 f"{frames.get(i)}, switched after "
+                                 f"{before} of {s['pushes']} pushes")
+        _expect_launches(f"C1 worker {i} before its switch",
+                         sw[0]["launches_before"], {})
+        _expect_launches(f"C1 worker {i}", s["launches"],
+                         {"quantize_int8": R50_UNITS * after})
+        _tally(tally, s["launches"])
+        int8_frames += after
+    _expect_launches("C1 server", m["server_launches"],
+                     {"dequant_sum": R50_UNITS * int8_frames})
+    # C2: the straggler de-weighted alone; the nan worker readmitted
+    scales = by("lr_scale")
+    if not scales or min(a["new"] for a in scales) >= 1.0 or any(
+            a["worker"] != 1 for a in scales):
+        raise AssertionError(f"C2: lr_scale rows {scales}")
+    nw = C_NAN["worker"]
+    applied_nan = stats[nw]["pushes"] - rej.get(nw, 0)
+    if not (by("evict", "readmit_quarantine")
+            and m["numerics"]["readmissions"] == 1
+            and not m["numerics"]["quarantined"] and applied_nan >= 1):
+        raise AssertionError(f"C2: readmissions "
+                             f"{m['numerics']['readmissions']}, "
+                             f"{applied_nan} of worker {nw}'s pushes applied")
+    # C3: sheds, a depth raise, a storm shed-free; the ring grown
+    side = m["beside"]
+    ups = [a for a in by("read_tier", "depth") if a["new"] > a["old"]]
+    rings = [a for a in by("read_tier", "ring") if a["new"] > a["old"]]
+    if not (side["storms"] and side["storms"][0] > 0 and ups
+            and side["storms"][-1] == 0 and m["reads_shed"] > 0
+            and rings and side["ageout_reads"] > 0):
+        raise AssertionError(f"C3: storms {side['storms']}, depth rows "
+                             f"{ups}, ring rows {rings}, ageout reads "
+                             f"{side['ageout_reads']}")
+    # C5: a replica out (its card appears) and back in (its card goes)
+    reps = by("topo", "replica")
+    seen = [c for c in side["cards"] if any(n.startswith("replica-")
+                                           for n in c)]
+    if not (len(reps) >= 2 and reps[0]["new"] == 1 and reps[-1]["new"] == 0
+            and seen and not any(n.startswith("replica-")
+                                 for n in side["cards"][-1])):
+        raise AssertionError(f"C5: replica rows {reps}, cards "
+                             f"{side['cards'][-3:]}")
+    # C4: replay, byte for byte; no flap
+    rows = load_timeseries_rows(os.path.join(
+        d, "timeseries-control-server.jsonl"))
+    replayed = Controller.replay(rows, num_workers=ASYNC_WORKERS, cfg=cfg,
+                                 depth=C_SERVING["admission_depth"],
+                                 ring=C_SERVING["ring"])
+    if json.dumps(replayed) != json.dumps(acts) or ctl["flaps"] != 0:
+        raise AssertionError(f"C4: {len(replayed)} replayed of "
+                             f"{len(acts)} actions, flaps {ctl['flaps']}")
+    # each worker's staleness EWMA over the fleet's p50, at its highest:
+    # what the lr rule holds against lr_stale_margin
+    over = {w: max((r["m"].get(f"w{w}_stale", 0.0)
+                    - r["m"].get("stale_p50", 0.0) for r in rows),
+                   default=0.0)
+            for w in range(ASYNC_WORKERS)}
+    # the same scenario uncontrolled, for the loss
+    du = os.path.join(tmp, "c_un")
+    os.makedirs(du)
+    mu, su, _ = control_fleet("U", c_cfg(du, controlled=False),
+                              ASYNC_WORKERS, code_name="identity")
+    for s in su:
+        _expect_launches("U worker", s["launches"], {})
+    reneg = by("codec", "renegotiate")[0]
+    phase("control", run="C", card=repr(card), model="resnet50",
+          workers=ASYNC_WORKERS, pushes=int(m["grads_received"]),
+          actions=len(acts), flaps=ctl["flaps"], epoch=ctl["epoch"],
+          reneg_verdict=json.dumps(reneg["verdict"], sort_keys=True),
+          epoch_old_frames=ctl["epoch_old_frames"],
+          frames_by_epoch=json.dumps({str(w): frames.get(w, {})
+                                      for w in range(ASYNC_WORKERS)}),
+          int8_pushes=int8_frames,
+          lr_scale=json.dumps(sorted({(a["worker"], a["new"])
+                                      for a in scales})),
+          stale_over_p50_max=json.dumps({w: round(v, 3)
+                                         for w, v in over.items()}),
+          readmissions=m["numerics"]["readmissions"],
+          storms=json.dumps(side["storms"]), reads_shed=int(m["reads_shed"]),
+          depth=ctl["admission_depth"], ring=ctl["ring"],
+          replica_rows=len(reps), replayed=len(replayed),
+          compression=f"{m['compression_ratio']:.2f}",
+          loss_controlled=f"{m['loss_final']:.6f}",
+          loss_uncontrolled=f"{mu['loss_final']:.6f}",
+          loss_ratio=f"{m['loss_final'] / max(mu['loss_final'], 1e-12):.4f}",
+          wall_s=f"{wall:.3f}")
+    return acts, wall
+
+
+def control_c1_tcp(card: str, tmp: str, tally: dict) -> None:
+    """C1 over TCP: A3's ResNet-18, 2 workers, identity -> int8 with both
+    workers delayed :data:`C_DELAY_MS` a step. The native batched ingest
+    stops while the transition lasts and grows again after the retire."""
+    d = os.path.join(tmp, "c1tcp")
+    os.makedirs(d)
+    steps = 24
+    from pytorch_ps_mpi_tpu_torch.resilience.faults import normalize_plan
+
+    plan = [{"at_step": s, "worker": w, "kind": "delay",
+             "delay_ms": C_DELAY_MS} for s in range(steps) for w in (0, 1)]
+    knobs = {k: C_KNOBS[k] for k in ("eval_every_s", "warmup_s",
+                                     "cooldown_s", "window_s", "ladder")}
+    cfg = async_cfg("resnet18", d, transport="tcp", steps=steps,
+                    health=True, health_dir=d, telemetry_dir=d,
+                    control=True, control_dir=d,
+                    control_kw={**knobs, "settle_min_s": 1.0,
+                                "settle_s": 4.0,
+                                "pin": ("lr_scale", "evict", "read_tier")},
+                    fault_plan=normalize_plan(plan), fault_seed=2)
+    ticks = []
+
+    def on_tick(server, last):
+        ticks.append((bool(getattr(server, "_epoch_transition", False)),
+                      int(server.native_batches),
+                      int(getattr(server, "_epoch", 0))))
+
+    m, stats, server = control_fleet("C1tcp", cfg, 2, code_name="identity",
+                                     on_tick=on_tick)
+    during = [b for tr, b, _ in ticks if tr]
+    after = [b for tr, b, ep in ticks if not tr and ep >= 1]
+    r18 = len(async_sizes("resnet18"))
+    for i, s in enumerate(stats):
+        (sw,) = s["switches"]
+        _expect_launches(f"C1tcp worker {i}", s["launches"],
+                         {"quantize_int8": r18 * (s["pushes"]
+                                                  - sw["pushes_before"])})
+        _tally(tally, s["launches"])
+    if not (during and after and max(during) == min(during)
+            and after[-1] > during[-1] and m["frames_rejected"] == 0
+            and m["control"]["epoch"] == 1):
+        raise AssertionError(f"C1tcp: native batches during the transition "
+                             f"{during[:1]}..{during[-1:]}, after "
+                             f"{after[-1:]}, rejected {m['frames_rejected']}, "
+                             f"epoch {m['control']['epoch']}")
+    phase("control", run="C1tcp", card=repr(card), model="resnet18",
+          transport="tcp", workers=2, pushes=int(m["grads_received"]),
+          epoch_old_frames=m["control"]["epoch_old_frames"],
+          native_batches_during=during[-1], native_batches_final=after[-1],
+          frames_by_epoch=json.dumps(server.epoch_frames))
+
+
+def control_c5_tree(card: str, tmp: str, tally: dict) -> None:
+    """C5: T1's tree (ResNet-50, 4 workers in 2 groups, identity leaf hop
+    over TCP, int8 upstream behind hop EF) with ``topo_actions``: leader
+    0 sleeps :data:`C5_SLOW_MS` a folded payload (``slow_leader``, from
+    its first round on) while the workers are paced at
+    :data:`C5_PACE_MS`, so group 0 is the hot hop until it splits behind
+    a freshly spawned leader; once group 0's workers are done
+    (:data:`C5_HOT_STEPS` pushes) and its hop has gone cold (the advisor
+    over the last 4 rounds), the group merges back while group 1 pushes
+    on. Every push is composed at the root or positively lost, exactly
+    once."""
+    from pytorch_ps_mpi_tpu_torch.parallel import tree
+    from pytorch_ps_mpi_tpu_torch.resilience.faults import normalize_plan
+
+    d = os.path.join(tmp, "c5")
+    os.makedirs(d)
+    steps = {0: C5_HOT_STEPS, 1: C5_HOT_STEPS, 2: C5_STEPS, 3: C5_STEPS}
+    cfg = async_cfg("resnet50", d, codec="int8", n_workers=4, group_size=2,
+                    steps=C5_STEPS, max_staleness=10**9, transport="tcp",
+                    worker_steps={str(w): n for w, n in steps.items()},
+                    slow_ms={str(w): C5_PACE_MS for w in range(4)},
+                    trace=True, lineage_dir=d, control_dir=d,
+                    topo_actions=True,
+                    anatomy_kw={"window": 4, "stage_window": 16},
+                    control_kw={"pin": ("codec", "lr_scale", "evict",
+                                        "read_tier"),
+                                "eval_every_s": 0.2, "warmup_s": 0.5,
+                                "leader_fold_hot_frac": C5_HOT_FRAC,
+                                "leader_churn_replan": 10**9,
+                                "replica_max": 0},
+                    fault_plan=normalize_plan([{
+                        "at_step": 0, "worker": "leader0",
+                        "kind": "slow_leader", "slow_ms": C5_SLOW_MS}]),
+                    fault_seed=1)
+    _, m = tree.run_tree(cfg, total_pushes=sum(steps.values()),
+                         timeout=SO_LIMIT,
+                         worker_env=FLEET_ENV, leader_env=FLEET_ENV)
+    t = m["tree"]
+    events = t.get("topo_events", [])
+    acts = [json.loads(x) for x in open(os.path.join(
+        d, "control-server.jsonl"))]
+    kinds = [a["action"] for a in acts if a["rule"] == "topo"]
+    replanned = [e for e in events if e["act"] == "replanned"]
+    merged = [e for e in events if e["act"] == "merged"]
+    # the topo rule's inputs over the run, every fourth evaluation
+    rows = [json.loads(x)["m"] for x in open(os.path.join(
+        d, "timeseries-control-server.jsonl"))]
+    t_0 = rows[0]["ts"] if rows else 0.0
+    phase("control", run="C5", what="topo_inputs", inputs=json.dumps(
+        [[round(r["ts"] - t_0, 1), r.get("lf_top"),
+          round(r.get("lf_saving_frac", 0.0), 3), r.get("hot_group"),
+          r.get("tree_groups")] for r in rows[::4]], separators=(",", ":")),
+          events=json.dumps([[e["act"], round(e["t"] - t_0, 1)]
+                             for e in events], separators=(",", ":")))
+    leaders = [json.load(open(os.path.join(d, f)))
+               for f in sorted(os.listdir(d)) if f.startswith("leader-")]
+    workers = [json.load(open(os.path.join(d, f"worker-{w}.json")))
+               for w in range(4)]
+    composed = [tuple(e) for e in t["composed_ids"]]
+    lost = [tuple(e) for ld in leaders for e in ld["lost"]]
+    expect = {(w, s, s) for w, n in steps.items() for s in range(n)}
+    if (len(set(composed)) != len(composed) or set(composed) & set(lost)
+            or set(composed) | set(lost) != expect):
+        raise AssertionError(f"C5: {len(composed)} composed and {len(lost)} "
+                             f"lost of {len(expect)} pushes")
+    # the pushes the split's own leader folded
+    split_pushes = sum(ld["upstream_pushes"] for ld in leaders
+                       if replanned and ld["group"]
+                       == replanned[0]["new_group"])
+    if not (replanned and merged and "group_replan" in kinds
+            and "group_merge" in kinds and m["control"]["flaps"] == 0
+            and replanned[0]["group"] == 0 and split_pushes >= 1
+            and t["worker_codes"] == [0] * 4):
+        raise AssertionError(f"C5: topo rows {kinds}, events "
+                             f"{[e['act'] for e in events]}, worker codes "
+                             f"{t['worker_codes']}, {split_pushes} pushes "
+                             "through the split's leader")
+    for ld in leaders:
+        _expect_launches(f"C5 leader {ld['group']}", ld["launches"],
+                         {"quantize_int8": R50_UNITS * ld["upstream_pushes"],
+                          "dequant_sum": R50_UNITS * ld["upstream_pushes"]})
+        _tally(tally, ld["launches"])
+    for i, w in enumerate(workers):
+        _expect_launches(f"C5 worker {i}", w["launches"],
+                         {"quantize_int8": R50_UNITS * w["root_encodes"]})
+        _tally(tally, w["launches"])
+    phase("control", run="C5", card=repr(card), model="resnet50",
+          pushes=len(expect), composed=len(composed), lost=len(lost),
+          topo=json.dumps(kinds), groups_split_to=replanned[0]["new_group"],
+          moved=json.dumps(replanned[0]["moved"]),
+          split_leader_pushes=split_pushes,
+          leader_codes=json.dumps(t["leader_codes"]),
+          hot_verdict=json.dumps(replanned[0]["verdict"], sort_keys=True))
+
+
+def run_control(card: str, a2: dict) -> dict:
+    """Phase ``control``: the fleet observability plane and the
+    controller on the card, legs O1, O2 and C1-C5 (``PERF.md`` §4; O3
+    rides on ``scale_out``'s S1 and R1). Returns every kernel launch of
+    the phase: this process's and its workers' and leaders'."""
+    import shutil
+    import tempfile
+
+    from pytorch_ps_mpi_tpu_torch.utils import native
+
+    if native.fast_path_disabled():
+        raise AssertionError("PS_NO_NATIVE is set: phase control runs the "
+                             "native folds and ingest")
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_control_")
+    before = _launch_counts()
+    tally: dict = {}
+    seconds = {}
+    try:
+        for leg, fn in (("O1", lambda: control_o1(card, tmp, a2, tally)),
+                        ("O2", lambda: control_o2(card, tmp, tally)),
+                        ("C", lambda: control_c(card, tmp, tally)),
+                        ("C1tcp", lambda: control_c1_tcp(card, tmp, tally)),
+                        ("C5", lambda: control_c5_tree(card, tmp, tally))):
+            t = time.perf_counter()
+            fn()
+            seconds[leg] = round(time.perf_counter() - t, 1)
+            phase("control", leg=leg, seconds=seconds[leg])
+            torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    # the servers' and the root's launches are this process's, read as a
+    # difference; the workers' and leaders' were tallied from their stats
+    _tally(tally, _launched_since(before))
+    phase("control", launches=json.dumps(tally, sort_keys=True,
+                                         separators=(",", ":")),
+          legs=json.dumps(seconds, separators=(",", ":")),
+          seconds=f"{time.perf_counter() - t0:.1f}")
+    return tally
+
+
 SOURCES = {
     "encode_signs": ("sign.cu", "pytorch_ps_mpi_tpu/ops/sign_pallas.py:68"),
     "pack_signs": ("sign.cu", "pytorch_ps_mpi_tpu/ops/sign_pallas.py:104"),
@@ -5031,13 +5891,15 @@ def main() -> int:
     finally:
         torch.distributed.destroy_process_group()
     torch.cuda.empty_cache()
-    a1 = run_async(card)
+    a1, a2 = run_async(card)
     torch.cuda.empty_cache()
     serving = run_serving(card, topk_launches)
     torch.cuda.empty_cache()
     scale_out = run_scale_out(card)
     torch.cuda.empty_cache()
     telemetry = run_telemetry(card, a1)
+    torch.cuda.empty_cache()
+    control = run_control(card, a2)
     launches.setdefault("pack_signs", 0)
     launches.setdefault("unpack_signs", 0)
 
@@ -5052,7 +5914,8 @@ def main() -> int:
          "library_ms": r["library_ms"],
          "launches_serving": serving.get(name, 0),
          "launches_scale_out": scale_out.get(name, 0),
-         "launches_telemetry": telemetry.get(name, 0)}
+         "launches_telemetry": telemetry.get(name, 0),
+         "launches_control": control.get(name, 0)}
         for name, r in results.items()]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

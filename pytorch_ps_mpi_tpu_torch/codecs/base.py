@@ -122,6 +122,10 @@ class Codec:
     #: for approximations (sign's vote counts), which the training step
     #: never uses
     agg_exact: bool = True
+    #: the ``pytorch_ps_mpi_tpu_torch.ops`` modules whose kernels encode
+    #: and decode launch on a card (``CodecWire.load_kernels`` loads them
+    #: before a wire switches to this codec)
+    kernel_ops: Tuple[str, ...] = ()
 
     def init_state(self, shape: Tuple[int, ...], dtype,
                    device: Optional[torch.device] = None) -> Any:

@@ -29,6 +29,12 @@ class ErrorFeedback(Codec):
         self.inner = inner
         self.needs_rng = inner.needs_rng
 
+    @property
+    def kernel_ops(self):
+        """The inner codec's kernel libraries (not an attribute of the
+        instance, whose keywords describe the wire)."""
+        return self.inner.kernel_ops
+
     def init_state(self, shape, dtype, device=None):
         return {"memory": torch.zeros(shape, dtype=dtype, device=device),
                 "inner": self.inner.init_state(shape, dtype, device)}

@@ -39,6 +39,7 @@ class _ScaleFoldedInt8(Codec):
     temporary and add: the same two roundings). Subclasses give the
     scale, batched and per frame."""
 
+    kernel_ops = ("quant",)
     supports_aggregate = True
 
     def _batch_scales(self, payloads) -> torch.Tensor:

@@ -30,6 +30,7 @@ from pytorch_ps_mpi_tpu_torch.codecs.topk import TopKCodec
 class RandomKCodec(TopKCodec):
     needs_rng = True
     order_dependent = True
+    kernel_ops = ()  # a random selection: no top-k kernel
 
     def __init__(self, k: int = 0, fraction: float = 0.0,
                  unbiased: bool = True):

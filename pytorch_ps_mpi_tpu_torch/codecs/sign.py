@@ -49,6 +49,7 @@ class SignCodec(Codec):
     """
 
     bucketable = True
+    kernel_ops = ("sign",)
     supports_aggregate = True
     agg_exact = False
 

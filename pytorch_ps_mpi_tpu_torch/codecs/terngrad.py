@@ -78,6 +78,7 @@ def _unpack_flat(packed: torch.Tensor, n: int) -> torch.Tensor:
 
 @register_codec("terngrad")
 class TernGradCodec(Codec):
+    kernel_ops = ("tern",)
     needs_rng = True
     bucketable = True
     supports_aggregate = True

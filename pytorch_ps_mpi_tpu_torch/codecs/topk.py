@@ -54,6 +54,7 @@ class TopKCodec(Codec):
     which tied elements they take.
     """
 
+    kernel_ops = ("topk",)
     # SparCML index-merge: the aggregate is the ranks' pairs concatenated
     supports_aggregate = True
 

@@ -47,9 +47,14 @@ beacons and the :class:`HealthMonitor`), ``numerics``/``numerics_dir``/
 touch the update, the skip/zero/abort policy, and the workers'
 codec-fidelity probes), ``lineage``/``lineage_dir``/``trace`` (trace IDs
 billed to each published version) with ``anatomy`` (``"auto"``: armed
-with lineage), ``freshness`` and ``hop_anatomy``. The fleet
-observability plane and control options raise ``NotImplementedError``
-naming the ROADMAP item that brings them (:data:`UNPORTED`).
+with lineage), ``freshness`` and ``hop_anatomy``.
+
+The fleet observability plane (``telemetry/{timeseries,slo,profiler,
+fleet}.py``) arms from ``timeseries``/``timeseries_kw``, ``slo``/
+``slo_kw``, ``profile``/``profile_dir`` (the sampling profiler, in the
+server and every worker) and ``fleet``/``fleet_dir``; the self-driving
+controller (``control/``) from ``control``/``control_kw``/``control_dir``
+and, for structural actions, ``topo_actions``.
 """
 
 from __future__ import annotations
@@ -73,19 +78,8 @@ from pytorch_ps_mpi_tpu_torch.ps import _inverse
 
 Tree = Any
 
-_FLEET = ("ROADMAP queue 1 item 3 (the fleet observability plane and "
-          "control/)")
-
-#: the JAX package's cfg keys the port does not have yet -> their item
-UNPORTED = {k: _FLEET for k in (
-    "timeseries", "timeseries_kw", "slo", "slo_kw", "fleet", "fleet_dir",
-    "control", "control_kw", "control_dir", "topo_actions")}
-#: the continuous sampling profiler, which is not ``step(profile=True)``
-UNPORTED.update({k: "ROADMAP queue 1 item 3 (the sampling profiler, "
-                    "telemetry/profiler.py; not MPI_PS.step(profile=True))"
-                 for k in ("profile", "profile_dir")})
 _GPT = ("model 'gpt' (models/gpt.py) is not ported yet: "
-        "ROADMAP queue 1 item 4")
+        "ROADMAP queue 1 item 3")
 
 
 #: seconds between two calls of ``serve``'s ``on_tick``
@@ -130,11 +124,7 @@ def _arm_lineage(cfg: Dict[str, Any]) -> Dict[str, Any]:
 
 
 def check_cfg(cfg: Dict[str, Any]) -> None:
-    """Raise ``NotImplementedError`` for a set option the port lacks."""
-    for key, where in UNPORTED.items():
-        if cfg.get(key) not in (None, False, 0, "", {}, []):
-            raise NotImplementedError(
-                f"cfg[{key!r}] is not ported yet: {where}")
+    """Raise ``NotImplementedError`` for a model the port lacks."""
     if cfg.get("model") == "gpt":
         raise NotImplementedError(_GPT)
 
@@ -411,7 +401,19 @@ def worker_main(name: str, worker_id: int, cfg: Dict[str, Any]) -> int:
     :class:`HealthMonitor`; ``cfg["numerics_dir"]`` probes the wire's
     codec fidelity on the pre-encode gradient every ``probe_every``
     steps (``numerics_kw``), on the card through the codec's kernels,
-    into ``numerics-<id>.jsonl``. Returns the steps made."""
+    into ``numerics-<id>.jsonl``. ``cfg["profile"]``/``profile_dir``
+    runs the sampling profiler (``profile-worker-<id>.txt``).
+
+    The controller's worker half (``async_train.py:283-352``): with
+    ``control``/``control_kw``/``topo_actions`` (or ``control_dir``) the
+    worker polls ``control-epoch.json`` between steps and switches its
+    wire to a renegotiated codec (:func:`~pytorch_ps_mpi_tpu_torch.control.
+    apply_epoch`: a malformed document is ignored, a kernel build or
+    load failure raises), and a tree leaf polls ``control-topo.json``
+    and repoints to the leader its ``assign`` map names. With
+    ``stats_dir`` the stats record ``switches``: for each switch, the
+    pushes before it and the kernel launches up to it. Returns the steps
+    made."""
     from pytorch_ps_mpi_tpu_torch.resilience.faults import (CRASH_EXIT_CODE,
                                                             FaultInjector)
 
@@ -421,6 +423,31 @@ def worker_main(name: str, worker_id: int, cfg: Dict[str, Any]) -> int:
     rec = _telemetry_from_cfg(cfg, worker=worker_id)
     w = make_worker(name, worker_id, cfg, prob.template, device)
     inj = FaultInjector.from_cfg(cfg, role=worker_id)
+    control_dir = cfg.get("control_dir") or (
+        cfg.get("telemetry_dir")
+        if (cfg.get("control") or cfg.get("control_kw")
+            or cfg.get("topo_actions")) else None)
+    epoch_state: Dict[str, Any] = {"epoch": 0, "mtime": 0}
+    topo_state: Dict[str, Any] = {"seq": 0, "mtime": 0}
+    switches: List[Dict[str, Any]] = []
+    ladder = (cfg.get("control_kw") or {}).get("ladder")
+    if control_dir is not None and ladder:
+        # every rung's wire is built now, not in the step that switches
+        # (whose staleness the controller's lr rule reads)
+        from pytorch_ps_mpi_tpu_torch import control as _control
+
+        _control.prepare_ladder(w, ladder, boot=_control.rung_key(
+            cfg) if cfg.get("codec") else None)
+    wprof = None
+    prof_dir = cfg.get("profile_dir") or (cfg.get("telemetry_dir")
+                                          if cfg.get("profile") else None)
+    if prof_dir:
+        # the serve loop's sampler, one profile-worker-<id>.txt a worker
+        from pytorch_ps_mpi_tpu_torch.telemetry.profiler import \
+            SamplingProfiler
+
+        wprof = SamplingProfiler(name=f"worker-{worker_id}", dir=prof_dir,
+                                 **(cfg.get("profile_kw") or {})).start()
     prober, probe_every = None, 0
     if cfg.get("numerics_dir") and getattr(w, "wire", None) is not None:
         # the codec-fidelity half of the numerics layer runs here, on the
@@ -448,6 +475,27 @@ def worker_main(name: str, worker_id: int, cfg: Dict[str, Any]) -> int:
     try:
         for step in range(steps):
             t_step0 = time.monotonic()
+            if control_dir is not None:
+                from pytorch_ps_mpi_tpu_torch import control as _control
+
+                doc = _control.poll_epoch(control_dir, epoch_state)
+                # a malformed document returns False; a kernel fault raises
+                if doc is not None and _control.apply_epoch(w, doc):
+                    switches.append({
+                        "epoch": int(doc["epoch"]), "codec": doc["codec"],
+                        "pushes_before": pushed,
+                        "launches_before": {
+                            k: v - launches0[k]
+                            for k, v in kernel_launches().items()}})
+                if hasattr(w, "repoint"):
+                    from pytorch_ps_mpi_tpu_torch.control.topo import \
+                        poll_topo
+
+                    tdoc = poll_topo(control_dir, topo_state)
+                    addr = ((tdoc or {}).get("assign") or {}).get(
+                        str(worker_id))
+                    if addr:
+                        w.repoint(addr)
             drop = duplicate = poison = False
             for f in (inj.faults_at(step) if inj is not None else ()):
                 kind = f["kind"]
@@ -542,6 +590,9 @@ def worker_main(name: str, worker_id: int, cfg: Dict[str, Any]) -> int:
     finally:
         w.close()
         _dump_recorder(cfg, rec, f"worker-{worker_id}.jsonl")
+        if wprof is not None:
+            wprof.stop()
+            wprof.write()
         if prober is not None:
             prober.close()
         if beacon is not None:
@@ -556,7 +607,8 @@ def worker_main(name: str, worker_id: int, cfg: Dict[str, Any]) -> int:
                  "reconnects": getattr(w, "reconnects", 0),
                  "fallback_pushes": getattr(w, "fallback_pushes", 0),
                  "root_encodes": getattr(w, "root_encodes", 0),
-                 "wire_bytes": w.wire.wire_bytes if w.wire else None}
+                 "wire_bytes": w.wire.wire_bytes if w.wire else None,
+                 "switches": switches}
         path = Path(cfg["stats_dir"]) / f"worker-{worker_id}.json"
         path.write_text(json.dumps(stats))
     return pushed
@@ -689,7 +741,20 @@ def serve(server, cfg: Dict[str, Any], total_grads: int, *,
     probe cadence; each publish billed to its pushes (lineage) and its
     round anatomy. The metrics then carry ``metrics_port``, ``health``,
     ``numerics``, ``lineage``, ``anatomy``, ``freshness``/``hop`` and,
-    with ``telemetry_dir``, ``metrics_prom`` and ``telemetry_jsonl``."""
+    with ``telemetry_dir``, ``metrics_prom`` and ``telemetry_jsonl``.
+
+    The observability plane (``async_train.py:701-731``) arms through
+    the core (``server.arm_observability``): the history is sampled and
+    the SLO rules evaluated at the tick, from host counters; the
+    metrics gain ``history``, ``slo`` and ``profile``. The controller
+    (``cfg["control"]``, ``control_kw``, ``control_dir``) is fed at the
+    tick and at each consumed push (``async_train.py:827-849``): it
+    renegotiates the codec through a wire-epoch bump (aggregation is
+    suspended across it, and a push queued before it is decoded with the
+    wire it was encoded with), weights each push by its worker's
+    staleness scale, evicts churning workers from the barrier and
+    readmits quarantined ones, and tunes the read tier; the metrics gain
+    ``control`` (with ``epoch_old_frames``)."""
     from pytorch_ps_mpi_tpu_torch.resilience.faults import (
         FaultInjector, InjectedServerCrash)
     from pytorch_ps_mpi_tpu_torch.serving import ServingCore
@@ -749,13 +814,45 @@ def serve(server, cfg: Dict[str, Any], total_grads: int, *,
     core = ServingCore(server, cfg)
     monitor, numon, lint = core.health, core.numerics, core.lineage
     probe_every = int(numon.knobs["probe_every"]) if numon else 0
+    # the controller before the aggregation arming: a restarted
+    # generation may restore the fleet's wire epoch, which the arming
+    # must see
+    ctl = None
+    if cfg.get("control") or cfg.get("control_kw") or cfg.get("control_dir"):
+        from pytorch_ps_mpi_tpu_torch.control import Controller
+
+        ctl = Controller(server, cfg, core=core)
     agg_armed = _agg_armed(cfg, server, sync_barrier, numon is not None)
     server.agg_mode = 1.0 if agg_armed else 0.0
+    if ctl is not None:
+        ctl.set_agg(agg_armed)
     if agg_armed:
         from pytorch_ps_mpi_tpu_torch.utils import native
 
         native.fold_lib()  # built before the first round, not in it
     agg_req = str(cfg.get("agg", "auto")).lower()
+    boot_wire = server.wire
+
+    def agg_now() -> bool:
+        """Folding in the compressed domain is live unless the controller
+        suspended it around a renegotiation, an old epoch may still be in
+        flight, or a renegotiated wire lacks the algebra under the boot
+        arming's exactness rule (``async_train.py:892-906``)."""
+        if not agg_armed:
+            return False
+        if ctl is not None and ctl.agg_suspended:
+            return False
+        if getattr(server, "_epoch_table", None):
+            return False
+        w = server.wire
+        if w is not boot_wire:
+            ok = w.__dict__.get("_agg_ok")
+            if ok is None:
+                ok = w.agg_supported and (agg_req == "on"
+                                          or w.code.agg_exact)
+                w.__dict__["_agg_ok"] = ok
+            return ok
+        return True
     times = collections.defaultdict(float)
     marks: List[Tuple[float, int]] = []  # (seconds, applied) an update
 
@@ -806,14 +903,20 @@ def serve(server, cfg: Dict[str, Any], total_grads: int, *,
         return applied < total_grads
 
     def next_item():
+        # each item rides with the wire it was validated against at poll
+        # time (None: decoded), so a suspension or an epoch bump in the
+        # middle of the inbox never misreads a payload
         if inbox:
             return inbox.popleft()
+        raw = agg_now()
+        enc = server.wire if raw else None
         if batch_poll is not None:
-            batch = batch_poll(raw=agg_armed)
+            batch = batch_poll(raw=raw)
             if batch is not None:
-                inbox.extend(batch)
+                inbox.extend((it, enc) for it in batch)
                 return inbox.popleft() if inbox else None
-        return server.poll_grad(raw=agg_armed)
+        item = server.poll_grad(raw=raw)
+        return None if item is None else (item, enc)
 
     # cfg["idle_share"]: the card's idle share from the first update on
     meter = IdleMeter(device) if cfg.get("idle_share") else None
@@ -909,16 +1012,22 @@ def serve(server, cfg: Dict[str, Any], total_grads: int, *,
             active = [w for w in range(n_workers) if w not in dead_workers]
         if numon is not None and numon.knobs["policy"] == "skip":
             active = [w for w in active if not numon.is_quarantined(w)]
+        if ctl is not None:
+            # controller-evicted workers leave the barrier as quarantined
+            # ones do; the backoff readmission brings them back
+            active = [w for w in active if not ctl.is_evicted(w)]
         if not active or any(not pending[w] for w in active):
             return False
         up_t0 = time.perf_counter()
         entries = [pending[w].popleft() for w in active]
-        total_comp = sum(comp_n for _, comp_n in entries)
+        total_comp = sum(e[1] for e in entries)
         t0 = time.perf_counter()
-        if agg_armed:
-            # the round's payloads folded on the host, one decode
-            agg = server.wire.agg_begin()
-            for buf, _ in entries:
+        cur_wire = server.wire
+        if agg_now() and all(e[3] is cur_wire for e in entries):
+            # the round's payloads folded on the host, one decode; the
+            # controller's weights cannot scale a compressed payload
+            agg = cur_wire.agg_begin()
+            for buf, *_ in entries:
                 agg.fold(buf)
             leaves = agg.finalize_leaves()
             server.decodes_done += 1
@@ -927,9 +1036,26 @@ def serve(server, cfg: Dict[str, Any], total_grads: int, *,
                 [x.reshape(-1) for x in leaves]) * inv).to(device)
             times["fold_s"] += time.perf_counter() - t0
         else:
-            summed = entries[0][0].clone()
-            for g, _ in entries[1:]:
-                summed += g
+            grads, wgts = [], []
+            for g, _, wgt, enc in entries:
+                if enc is not None:
+                    # queued raw before a suspension or an epoch bump:
+                    # decoded now with the wire it was encoded with
+                    g = torch.cat([x.reshape(-1) for x in _leaves(
+                        server._decode_payload(g, wire=enc))])
+                grads.append(g)
+                wgts.append(float(wgt))
+            if all(wt == 1.0 for wt in wgts):
+                summed = grads[0].clone()
+                for g in grads[1:]:
+                    summed += g
+            else:
+                # staleness-aware weights (AsySG-InCon): the denominator
+                # stays the composed count, so a weight only shrinks the
+                # stale worker's step
+                summed = grads[0] * wgts[0]
+                for g, wt in zip(grads[1:], wgts[1:]):
+                    summed += g * wt
             summed /= total_comp
         if monitor is not None:
             # bill the round's critical path to the last-ready worker,
@@ -956,7 +1082,13 @@ def serve(server, cfg: Dict[str, Any], total_grads: int, *,
             next_tick = now + tick_interval
             if on_tick is not None:
                 on_tick()
-            core.tick()  # the monitors' beacon and probe tails
+            core.tick()  # the monitors' tails, the history and the SLO
+            if ctl is not None:
+                # the verdict -> action sweep (self-throttled): one input
+                # row persisted, the engine run, its actions executed
+                ctl.tick()
+                if agg_armed:
+                    server.agg_mode = 1.0 if agg_now() else 0.0
             if stop_when is not None and not draining and stop_when():
                 draining = True  # consume what is queued, then return
             if sync_barrier and now - round_t0 > degrade_after:
@@ -964,25 +1096,25 @@ def serve(server, cfg: Dict[str, Any], total_grads: int, *,
                 while try_round():
                     pass
         t0 = time.perf_counter()
-        item = next_item()
-        if item is None:
+        pair = next_item()
+        if pair is None:
             if draining:
                 break
             time.sleep(0.0005)
             continue
-        wid, grad_version, grad = item
+        (wid, grad_version, grad), item_wire = pair
         # the frame's composed count, queued by the consume in item order
         comp_n = (composed_queue.popleft()
                   if composed_queue is not None else 1)
-        if agg_armed:
-            if not server.wire.payload_finite(grad):
+        if item_wire is not None:
+            if not item_wire.payload_finite(grad):
                 server._reject_frame(wid, "nonfinite")
                 if lint is not None:
                     lint.discard_last(wid, reason="nonfinite")
                 wait_t0 = time.perf_counter()
                 continue
             grad = np.copy(grad)  # the view dies at the next poll
-        elif agg_req == "on":
+        elif agg_req == "on" and not agg_armed:
             server.agg_fallbacks += 1
         wait_s = time.perf_counter() - wait_t0
         h_wait.observe(wait_s)
@@ -992,6 +1124,10 @@ def serve(server, cfg: Dict[str, Any], total_grads: int, *,
                       step=applied, version=grad_version)
         if monitor is not None:
             monitor.observe_grad(wid, staleness, wait_s)
+        if ctl is not None:
+            # per-worker staleness: the lr_scale rule's input when
+            # lineage's exact windows are off
+            ctl.observe_push(wid, staleness)
         if numon is not None:
             # the decoded push checked on the card before it can touch
             # the update; the policy decides its fate
@@ -1011,21 +1147,49 @@ def serve(server, cfg: Dict[str, Any], total_grads: int, *,
                     sanitize_tree
 
                 grad = sanitize_tree(grad)
-        if not agg_armed:
+        if item_wire is None:
             grad = torch.cat([x.reshape(-1) for x in _leaves(grad)])
+            if agg_armed and not bool(torch.isfinite(grad).all()):
+                # aggregation suspended around a renegotiation: the push
+                # arrived decoded, and with the numerics monitor off (the
+                # arming rule) the non-finite screen follows it here
+                server._reject_frame(wid, "nonfinite")
+                if lint is not None:
+                    lint.discard_last(wid, reason="nonfinite")
+                wait_t0 = time.perf_counter()
+                continue
         times["ingest_s"] += time.perf_counter() - t0
         if sync_barrier:
             dead_workers.discard(wid)  # a push proves it alive
             if tree_mode:
                 tree_joined.add(wid)
-            pending[wid].append((grad, comp_n))
+            if ctl is not None and ctl.is_evicted(wid):
+                # an evicted worker's pushes are dropped, not queued: a
+                # backlog would re-apply stale gradients after the
+                # readmission (no rejection count, which feeds the churn
+                # verdict)
+                if lint is not None:
+                    lint.discard_last(wid, reason="evicted")
+                if rec is not None:
+                    rec.event("serve.evicted_drop", worker=wid)
+                wait_t0 = time.perf_counter()
+                continue
+            pending[wid].append((
+                grad, comp_n,
+                ctl.push_weight(wid) if ctl is not None else 1.0,
+                item_wire))
             if monitor is not None and wid not in round_ready:
                 round_ready[wid] = time.perf_counter()
             if not try_round():
                 wait_t0 = time.perf_counter()
         else:
             up_t0 = time.perf_counter()
-            if comp_n > 1:
+            wgt = ctl.push_weight(wid) if ctl is not None else 1.0
+            if wgt != 1.0:
+                # the controller's staleness weight, the group mean folded
+                # into the same product
+                grad = grad * wgt / comp_n
+            elif comp_n > 1:
                 # a composed frame carries its group's sum: its mean
                 grad = grad / comp_n
             apply(grad, 1, up_t0)
@@ -1100,6 +1264,17 @@ def serve(server, cfg: Dict[str, Any], total_grads: int, *,
         # per-stage critical-path shares and the ranked what-if advisor
         m["anatomy"] = core.anatomy.snapshot()
         core.anatomy.close()
+    if ctl is not None:
+        snap = ctl.snapshot()
+        # every old-epoch frame consumed across a renegotiation: they
+        # would have been "config" rejections without the epoch table
+        snap["epoch_old_frames"] = int(server.epoch_old_frames)
+        m["control"] = snap
+        ctl.close()
+    if server.timeseries_db is not None:
+        # one closing sample on the final counters (forced past the
+        # ingest throttle)
+        server.timeseries_db.sample(server.metrics(), force=True)
     m.update(server.finalize_observability())
     if cfg.get("telemetry_dir"):
         # the final scrape beside the recorder dumps, for offline readers

@@ -85,6 +85,12 @@ def _leaves_of(grad) -> list:
         else tree_flatten(grad)[0]
 
 
+class KernelLoadError(RuntimeError):
+    """A codec's kernel library did not build or load on the card: a
+    fault of the installation, never a malformed request, so the
+    controller and the workers let it propagate."""
+
+
 class CodecWire:
     """The fixed-spec byte wire of a codec's payloads
     (``parallel/dcn.py:106``): encode before send, decode on receive.
@@ -139,8 +145,44 @@ class CodecWire:
         pin = self.device.type == "cuda"
         self._send = [torch.empty(self.wire_bytes, dtype=torch.uint8,
                                   pin_memory=pin) for _ in range(2)]
-        self._staging: Dict[Tuple[int, int], torch.Tensor] = {}
+        # a payload tensor whose offset is not aligned to its element size
+        # goes through a pinned staging tensor of its own: made here, so a
+        # wire's first push costs what every later one does
+        self._staging: Dict[Tuple[int, int], torch.Tensor] = {
+            (idx, k): torch.empty(numel(s), dtype=d, pin_memory=pin)
+            for idx in range(2)
+            for k, ((s, d), off) in enumerate(zip(self._flat_specs,
+                                                   self._offsets))
+            if off % d.itemsize}
         self._send_idx = 0
+
+    def load_kernels(self) -> None:
+        """Build and load, on a card, the kernel libraries of the codec's
+        encode and decode (the ``ops`` modules its ``kernel_ops`` names),
+        without launching one. A build or load failure raises
+        :class:`KernelLoadError` here, before anything switches to this
+        wire. Nothing to do on the CPU, where the plain versions run."""
+        if self.device.type != "cuda":
+            return
+        from importlib import import_module
+
+        for name in self.code.kernel_ops:
+            mod = import_module(f"pytorch_ps_mpi_tpu_torch.ops.{name}")
+            try:
+                mod._lib()
+            except Exception as e:
+                raise KernelLoadError(
+                    f"{type(self.code).__name__}: the kernels of "
+                    f"{mod.__name__} did not build or load: {e}") from e
+
+    def retire(self) -> None:
+        """Release the pinned ping-pong send buffers once the wire is
+        retired: the device's stream is synchronized first, so the last
+        non-blocking copy into them has completed."""
+        if self.device.type == "cuda":
+            torch.cuda.current_stream(self.device).synchronize()
+        self._send = []
+        self._staging = {}
 
     def _payload_struct(self, shape, dtype):
         """The payload layout of one unit, from an encode of zeros on the
@@ -206,12 +248,7 @@ class CodecWire:
                 if off % dtype.itemsize == 0:
                     dst = buf[off:off + nb].view(dtype)
                 else:
-                    key = (self._send_idx, k)
-                    dst = self._staging.get(key)
-                    if dst is None:
-                        dst = torch.empty(numel(shape), dtype=dtype,
-                                          pin_memory=buf.is_pinned())
-                        self._staging[key] = dst
+                    dst = self._staging[(self._send_idx, k)]
                     late.append((off, nb, dst))
                 dst.copy_(t.reshape(-1), non_blocking=True)
                 k += 1
@@ -424,12 +461,14 @@ class _ServerBase(PSServerCounters):
     def publish(self, params: Tree) -> None:
         self.publish_flat(flatten_params(params))
 
-    def _decode_payload(self, payload: np.ndarray) -> Tree:
+    def _decode_payload(self, payload: np.ndarray, wire=None) -> Tree:
         """Payload bytes (a view of the receive buffer) -> the gradient
-        as the template's tree of tensors on the server's device."""
+        as the template's tree of tensors on the server's device.
+        ``wire`` is an old epoch's wire during a codec renegotiation."""
         self.decodes_done += 1
-        if self.wire is not None:
-            return self.wire.decode_from_bytes(payload)
+        wire = wire if wire is not None else self.wire
+        if wire is not None:
+            return wire.decode_from_bytes(payload)
         flat = torch.from_numpy(np.frombuffer(payload, np.float32).copy())
         flat = flat.to(self.device)
         out, off = [], 0
@@ -438,6 +477,67 @@ class _ServerBase(PSServerCounters):
             out.append(flat[off:off + n].reshape(shape))
             off += n
         return self._treedef.unflatten(out)
+
+    # -- codec renegotiation (the controller's wire-epoch bump) -----------
+    def renegotiate_wire(self, code, bucket_mb: float = 0.0) -> None:
+        """Install a new codec wire as the current epoch
+        (``dcn.py:404``, ``:601``): the new :class:`CodecWire` is built on
+        the server's device with its kernels loaded, the old wire stays
+        in ``_epoch_table`` so in-flight old-epoch frames are consumed
+        with it, and the new fingerprint becomes current. The fingerprint
+        is the epoch discriminator, so the transport protocol does not
+        change. A ladder rung's frame may not exceed the boot wire's:
+        every transport buffer was sized once, at boot."""
+        if not self.frame:
+            raise RuntimeError("wire renegotiation requires frame_check "
+                               "(the fingerprint is the epoch handshake)")
+        if self.wire is None:
+            raise RuntimeError("wire renegotiation requires a codec wire")
+        if self.tree_slots:
+            raise RuntimeError("wire renegotiation is not supported on "
+                               "tree wires (the hop codec is the tree's "
+                               "own agreement)")
+        if getattr(self, "agg_mode", 0.0):
+            raise RuntimeError("suspend compressed-domain aggregation "
+                               "before renegotiating (mixed-epoch payloads "
+                               "cannot share one accumulator)")
+        new_wire = CodecWire(code, self.template, bucket_mb=bucket_mb,
+                             device=self.device)
+        new_frame = new_wire.wire_bytes + _frames.HEADER_BYTES
+        # the cap is the boot wire's frame, latched at the first
+        # renegotiation, when self.wire is still the boot wire
+        cap = self.__dict__.setdefault(
+            "_reneg_frame_cap",
+            self._expected_payload + _frames.HEADER_BYTES)
+        if new_frame > cap:
+            raise ValueError(
+                f"renegotiated wire needs {new_frame} B frames but the "
+                f"boot wire (and every worker's frame buffer) was sized "
+                f"for {cap} B: ladder entries must not exceed the boot "
+                "wire's payload size")
+        new_wire.load_kernels()
+        table = self.__dict__.setdefault("_epoch_table", {})
+        table[self._fingerprint] = {"wire": self.wire,
+                                    "expected": self._expected_payload,
+                                    "epoch": getattr(self, "_epoch", 0)}
+        while len(table) > 2:  # at most two retiring epochs in flight
+            table.pop(next(iter(table)))["wire"].retire()
+        self._epoch = getattr(self, "_epoch", 0) + 1
+        self.wire = new_wire
+        self._fingerprint = _frames.wire_fingerprint(new_wire,
+                                                     self.template)
+        self._expected_payload = new_wire.wire_bytes
+        self._wire_payload_bytes = new_wire.wire_bytes
+        self._epoch_transition = True
+
+    def finish_renegotiation(self) -> None:
+        """Retire every old epoch: a retired fingerprint's frames are
+        counted ``"config"`` rejections again, and the old wires' pinned
+        buffers are released."""
+        for ep in getattr(self, "_epoch_table", {}).values():
+            ep["wire"].retire()
+        self._epoch_table = {}
+        self._epoch_transition = False
 
     def _finish_pop(self, n: int, worker: int, version: int, raw: bool):
         """The unframed wire's bookkeeping of one popped push: the item,
@@ -561,7 +661,8 @@ class _WorkerBase:
         self.worker_id = worker_id
         self.template = template
         self.device = resolve_device(device)
-        self.wire = (CodecWire(code, template, seed=seed + worker_id,
+        self._seed = seed + worker_id  # a renegotiated wire's seed too
+        self.wire = (CodecWire(code, template, seed=self._seed,
                                bucket_mb=bucket_mb, device=self.device)
                      if code is not None else None)
         self.frame = bool(frame)
@@ -583,6 +684,8 @@ class _WorkerBase:
                 + _frames.trailer_bytes(self.tree_slots), np.uint8)
         self._param_buf = np.empty(flat_size(template), np.float32)
         self.reads_total = 0
+        #: ladder rungs' wires built ahead of their epochs (prepare_wire)
+        self._prepared: Dict[Any, CodecWire] = {}
 
     def set_tamper(self, fn) -> None:
         """Arm a one-shot hook on the next push's sealed bytes (faults)."""
@@ -631,6 +734,53 @@ class _WorkerBase:
         if delay:
             time.sleep(delay)
         return flat
+
+    def _new_wire(self, code, bucket_mb: float) -> Optional[CodecWire]:
+        """A codec wire for a renegotiated epoch on this worker's device,
+        seeded alike, its kernels loaded (a build or load failure
+        raises); None when this worker cannot switch to it: an unframed
+        or codec-less wire, a tree trailer wire, or a payload the
+        boot-sized frame buffer cannot hold."""
+        if not self.frame or self.wire is None or self.tree_slots:
+            return None
+        wire = CodecWire(code, self.template, seed=self._seed,
+                         bucket_mb=bucket_mb, device=self.device)
+        if _frames.HEADER_BYTES + wire.wire_bytes > self._frame_buf.nbytes:
+            return None
+        wire.load_kernels()
+        return wire
+
+    def prepare_wire(self, key, code, bucket_mb: float = 0.0) -> bool:
+        """Build the wire of a ladder rung (named ``key``) before its
+        epoch comes, so that :meth:`renegotiate` at a step swaps it in:
+        the build (an encode of zeros of every unit on the CPU, for the
+        payload layout, the codec's state and the pinned buffers) then
+        falls outside any push, whose staleness the controller reads.
+        A kernel build or load failure raises here. Returns False where
+        :meth:`renegotiate` would decline."""
+        wire = self._new_wire(code, bucket_mb)
+        if wire is not None:
+            self._prepared[key] = wire
+        return wire is not None
+
+    def renegotiate(self, code, bucket_mb: float = 0.0, key=None) -> bool:
+        """Switch to a renegotiated codec epoch (``dcn.py:447``, ``:938``):
+        the wire :meth:`prepare_wire` built for ``key``, else a new one
+        (:meth:`_new_wire`: its kernels loaded before the switch), and
+        its fingerprint. Returns False, declining, where
+        :meth:`_new_wire` gives None; a declining worker keeps pushing
+        its old epoch, which the server consumes until that epoch
+        retires. The old wire's pinned buffers are released once its
+        stream has drained."""
+        new_wire = self._prepared.pop(key, None)
+        if new_wire is None:
+            new_wire = self._new_wire(code, bucket_mb)
+        if new_wire is None:
+            return False
+        old, self.wire = self.wire, new_wire
+        self._fingerprint = _frames.wire_fingerprint(new_wire, self.template)
+        old.retire()
+        return True
 
     def read_params(self, timeout: float = 30.0) -> Tuple[Tree, int]:
         """The latest snapshot as the template's tree of numpy arrays."""

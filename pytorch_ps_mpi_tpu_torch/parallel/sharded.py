@@ -31,11 +31,6 @@ import torch
 
 Tree = Any
 
-_CONTROL = ("a shard plan from a control directory (control.topo) is not "
-            "ported yet: ROADMAP queue 1 item 3 (the fleet observability "
-            "plane and control/)")
-
-
 def shard_plan(n_total: int, n_shards: int) -> List[Tuple[int, int]]:
     """Balanced contiguous [start, stop) slices of a length-``n_total``
     vector; earlier shards take the remainder (sizes differ by <= 1)."""
@@ -51,11 +46,15 @@ def shard_plan(n_total: int, n_shards: int) -> List[Tuple[int, int]]:
 
 
 def planned_shards(control_dir: Optional[str], default: int) -> int:
-    """The shard count a new server generation boots with: ``default``;
-    the controller's plan in a control directory raises."""
-    if control_dir:
-        raise NotImplementedError(_CONTROL)
-    return int(default)
+    """The shard count a new server generation boots with
+    (``sharded.py:62``): the controller's split or merge plan in
+    ``control_dir``'s ``control-topo.json`` (a plan, never applied to a
+    live generation: a shard move rehashes the key space), else
+    ``default``."""
+    from pytorch_ps_mpi_tpu_torch.control.topo import \
+        planned_shards as _planned
+
+    return _planned(control_dir, default)
 
 
 def _slice_template(n: int) -> Tree:
@@ -94,8 +93,13 @@ def server_main(shard_id: int, n_shards: int, port: int,
     line as ``health_port``; ``lineage`` on a framed wire bills each of
     the shard's versions to its pushes (``lineage-shard<i>.jsonl``) with
     the round anatomy (``anatomy-shard<i>.jsonl``); ``freshness`` and
-    ``hop_anatomy`` go through ``arm_observability``. The metrics file
-    then carries ``health`` and ``lineage``."""
+    ``hop_anatomy`` go through ``arm_observability``, as do the history,
+    SLO and profiler keys and, with ``fleet_dir``, the shard's fleet card
+    (``shard<i>``, role ``shard``; a free endpoint is bound for it). The
+    controller (``control``/``control_kw``/``control_dir``) runs its
+    per-worker and read-tier rules on the shard's own verdicts
+    (``control-shard<i>.jsonl``), its codec rule off. The metrics file
+    then carries ``health``, ``lineage``, ``slo`` and ``control``."""
     from pytorch_ps_mpi_tpu_torch.mesh import resolve_device
     from pytorch_ps_mpi_tpu_torch.optim import OPTIMIZERS
     from pytorch_ps_mpi_tpu_torch.parallel import async_train as at
@@ -103,7 +107,6 @@ def server_main(shard_id: int, n_shards: int, port: int,
     from pytorch_ps_mpi_tpu_torch.serving import ServingCore
 
     device = resolve_device(cfg.get("device", "cuda"))
-    planned_shards(cfg.get("control_dir"), n_shards)
     prob = at.make_problem(cfg, device)
     flat0 = prob.flat_params()
     start, stop = shard_plan(flat0.numel(), n_shards)[shard_id]
@@ -178,7 +181,24 @@ def server_main(shard_id: int, n_shards: int, port: int,
     # the shard's monitors are its own (built above)
     core = ServingCore(server, scfg, tenant=f"shard{shard_id}",
                        monitors=False)
-    server.arm_observability(cfg, name=f"shard{shard_id}")
+    # the shard's fleet plane (``sharded.py:195-221``): history, SLO and
+    # profiler, and with a fleet_dir this shard's card under shard<i> (a
+    # restarted shard rejoins under its name), which needs a live
+    # endpoint; the controller's codec rule stays off, since one shard
+    # cannot move the fleet's fingerprint alone
+    if (cfg.get("fleet_dir") or cfg.get("fleet")) and health_port is None:
+        health_port = server.start_metrics_http(0)
+    ocfg = dict(cfg)
+    ocfg["fleet_role"] = "shard"
+    ocfg.pop("fleet_name", None)
+    server.arm_observability(ocfg, name=f"shard{shard_id}")
+    ctl = None
+    if cfg.get("control") or cfg.get("control_kw") or cfg.get("control_dir"):
+        from pytorch_ps_mpi_tpu_torch.control import Controller
+
+        ctl = Controller(server, {**cfg, "control_kw": {
+            **(cfg.get("control_kw") or {}), "ladder": None}},
+            core=core, name=f"shard{shard_id}")
     # the coordinator reads the bound ports from this line
     hello = {"shard": shard_id, "port": server.port}
     if health_port is not None:
@@ -210,7 +230,16 @@ def server_main(shard_id: int, n_shards: int, port: int,
             return server.tree_composed if tree_mode else \
                 server.grads_received
 
+        next_tick = 0.0
+        tick_s = float(cfg.get("tick_interval", at.TICK_S))
         while consumed() < expected and time.time() < deadline:
+            now = time.monotonic()
+            if now >= next_tick:
+                next_tick = now + tick_s
+                if server.timeseries_db is not None:
+                    server.observability_tick()  # history and SLO
+                if ctl is not None:
+                    ctl.tick()
             item = server.poll_grad()
             if item is None:
                 time.sleep(0.0005)
@@ -218,15 +247,22 @@ def server_main(shard_id: int, n_shards: int, port: int,
             if meter is not None:
                 meter.start()  # from the first push on
             wid, ver, grad = item
+            staleness = max(0, server.version - ver)
             if monitor is not None:
-                monitor.observe_grad(wid, max(0, server.version - ver))
+                monitor.observe_grad(wid, staleness)
+            if ctl is not None:
+                ctl.observe_push(wid, staleness)
             up_t0 = time.perf_counter()
             g = grad["flat"]
+            comp_n = 1
             if tree_slots:
                 comp_n = (server._composed_queue.popleft()
                           if server._composed_queue else 1)
-                if comp_n > 1:
-                    g = g / comp_n  # a leader's frame: its group's mean
+            wgt = ctl.push_weight(wid) if ctl is not None else 1.0
+            if wgt != 1.0:
+                g = g * wgt / comp_n  # the shard-local staleness weight
+            elif comp_n > 1:
+                g = g / comp_n  # a leader's frame: its group's mean
             t0 = time.perf_counter()
             _, state = update_fn(params, {"flat": g}, state, h)
             at._sync(device)
@@ -264,8 +300,13 @@ def server_main(shard_id: int, n_shards: int, port: int,
             health=(monitor.render_json() if monitor is not None else "{}"),
             lineage=json.dumps(tracker.snapshot()
                                if tracker is not None else {}),
+            slo=json.dumps(server.slo_watchdog.snapshot()
+                           if server.slo_watchdog is not None else {}),
+            control=json.dumps(ctl.snapshot() if ctl is not None else {}),
             peak_bytes=at._peak_bytes(device))
     finally:
+        if ctl is not None:
+            ctl.close()
         if tracker is not None:
             if tracker.anatomy is not None:
                 tracker.anatomy.close()

@@ -28,6 +28,22 @@ from pytorch_ps_mpi_tpu_torch.resilience import frames as _frames
 from pytorch_ps_mpi_tpu_torch.utils import native
 
 
+def native_profile_stats() -> Optional[dict]:
+    """The epoll pump's cycle counters (calls, events, wall ns, frames
+    validated), the native half of the sampling profiler
+    (``tcp.py:222``). Reads an already loaded library only, never
+    builds one: None when ``native/tcpps.cpp`` is not loaded."""
+    lib = native._LIBS.get("tcpps")
+    if lib is None:
+        return None
+    calls, events = ctypes.c_uint64(), ctypes.c_uint64()
+    ns, frames = ctypes.c_uint64(), ctypes.c_uint64()
+    lib.tps_profile_stats(ctypes.byref(calls), ctypes.byref(events),
+                          ctypes.byref(ns), ctypes.byref(frames))
+    return {"pump_calls": int(calls.value), "pump_events": int(events.value),
+            "pump_ns": int(ns.value), "frames_validated": int(frames.value)}
+
+
 class TcpPSServer(_ServerBase):
     """Serves snapshots and consumes gradients arriving over TCP in
     arrival order (``tcp.py:243``); ``port=0`` picks a free port (read
@@ -69,6 +85,53 @@ class TcpPSServer(_ServerBase):
                                         ctypes.byref(nm))
         self._reads_total = int(total.value)
         self._reads_not_modified = int(nm.value)
+
+    def hop_stamps_arm(self, capacity: int) -> bool:
+        """Arm (``capacity > 0``) or disarm (0) the native per-frame
+        ingest stamp ring the hop anatomy drains (``tcp.py:369``); True
+        when it is live. ``PS_NO_NATIVE`` keeps the Python stamps. Call
+        from the pump-owning thread only."""
+        if native.fast_path_disabled():
+            return False
+        if int(self._lib.tps_abi_hop_stamp_bytes()) != ctypes.sizeof(
+                native.HopStamp):
+            raise RuntimeError("native/tcpps.cpp HopStamp ABI drift")
+        ok = int(self._lib.tps_hop_stamps_arm(int(capacity))) == 0
+        self._hop_stamps_armed = ok and capacity > 0
+        return self._hop_stamps_armed
+
+    def drain_hop_stamps(self, max_stamps: int = 4096
+                         ) -> Optional[Tuple[list, int]]:
+        """``([(t_ns, validate_ns, bytes, worker, status), ...], dropped)``
+        from the armed stamp ring, oldest first, or None when it is not
+        armed (``tcp.py:385``). Pump-owning thread only."""
+        if not getattr(self, "_hop_stamps_armed", False):
+            return None
+        buf = (native.HopStamp * int(max_stamps))()
+        dropped = ctypes.c_uint64()
+        n = int(self._lib.tps_hop_stamps_drain(buf, int(max_stamps),
+                                               ctypes.byref(dropped)))
+        return ([(int(buf[i].t_ns), int(buf[i].validate_ns),
+                  int(buf[i].bytes), int(buf[i].worker),
+                  int(buf[i].status)) for i in range(n)],
+                int(dropped.value))
+
+    def finish_renegotiation(self) -> None:
+        """Retire every old epoch (``tcp.py:448``) and point the native
+        frame validator, and the batch buffer's sizing, at the current
+        wire: the batched ingest, bypassed during the transition, is
+        re-armed."""
+        super().finish_renegotiation()
+        if self._batch_max:
+            payload = self._expected_payload
+            self._lib.tps_server_set_frame_check(self._h, self._fingerprint,
+                                                 payload)
+            batch_max = max(1, min(64, (16 << 20) // max(payload, 1)))
+            if batch_max * payload > self._batch_buf.nbytes:
+                self._batch_buf = np.empty(batch_max * payload, np.uint8)
+            if batch_max != self._batch_max:
+                self._batch_metas = (native.BatchMeta * batch_max)()
+                self._batch_max = batch_max
 
     def publish_flat(self, flat: np.ndarray) -> None:
         """Publish a float32 snapshot of the template's leaves."""
@@ -112,9 +175,15 @@ class TcpPSServer(_ServerBase):
     def poll_grad_batch(self, raw: bool = False) -> Optional[list]:
         """The native batched ingest (``tcp.py:520``): the consumed
         ``(worker, version, grad)`` list ([] when nothing is pending), or
-        None when it is unavailable (frames off, or ``PS_NO_NATIVE``).
+        None when it is unavailable (frames off, ``PS_NO_NATIVE``, or a
+        codec renegotiation in transition).
         Raw payload views alias the batch buffer until the next call."""
         if not self._batch_max or native.fast_path_disabled():
+            return None
+        if getattr(self, "_epoch_transition", False):
+            # mid-renegotiation the C++ validator knows one fingerprint:
+            # the Python framed poll consumes both epochs until
+            # finish_renegotiation re-arms it
             return None
         self._check_raw(raw)
         self._lib.tps_server_pump(self._h)

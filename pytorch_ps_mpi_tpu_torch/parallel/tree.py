@@ -19,8 +19,13 @@ composed count from the trailers, so degraded groups, ragged groups and
 direct-to-root pushes all weight exactly. When a leader dies, its
 group's :class:`TreeWorkerConn` pushes to the root directly, composing
 itself, and probes the leader's pinned address to rejoin;
-:func:`run_tree` respawns the leader on that port. The leaders' lineage
-rows, hop anatomy and topology replans raise with their ROADMAP item.
+:func:`run_tree` respawns the leader on that port. With
+``cfg["hop_anatomy"]`` a leader drains the native interval rings (the
+TCP ingest's validate stamps, the host folds' spans) into its hop rows;
+with ``cfg["topo_actions"]`` the controller at the root splits a hot
+group behind a freshly spawned leader and merges it back
+(:class:`~pytorch_ps_mpi_tpu_torch.control.topo.TreeTopoActuator`), the
+moved workers repointing through ``control-topo.json``.
 """
 
 from __future__ import annotations
@@ -113,53 +118,6 @@ class _HopLog:
             self.flush()
             self._f.close()
             self._f = None
-
-
-class _HopTailer:
-    """Offset-tracked tailer of the leaders' ``hop-leader*.jsonl`` rows
-    (the JAX package's ``control.topo.HopTailer``): each :meth:`poll`
-    reads what was appended since the last one, parses the complete
-    lines (a torn tail waits for the next poll) and hands each row to
-    ``sink``; a sink's exception is swallowed."""
-
-    def __init__(self, dir: str, sink, pattern: str = "hop-*.jsonl"):
-        self.dir = dir
-        self.sink = sink
-        self.pattern = pattern
-        self._offsets: Dict[str, int] = {}
-        self.rows = 0
-
-    def poll(self) -> int:
-        import glob
-
-        fed = 0
-        for path in sorted(glob.glob(os.path.join(self.dir,
-                                                  self.pattern))):
-            off = self._offsets.get(path, 0)
-            try:
-                with open(path, "rb") as f:
-                    f.seek(off)
-                    chunk = f.read(1 << 20)
-            except OSError:
-                continue
-            last_nl = chunk.rfind(b"\n")
-            if last_nl < 0:
-                continue
-            self._offsets[path] = off + last_nl + 1
-            for line in chunk[:last_nl].splitlines():
-                try:
-                    row = json.loads(line)
-                except ValueError:
-                    continue
-                if not isinstance(row, dict):
-                    continue
-                try:
-                    self.sink(row)
-                except Exception:
-                    pass
-                fed += 1
-        self.rows += fed
-        return fed
 
 
 def _leader_knobs(cfg: Dict[str, Any]) -> Dict[str, Any]:
@@ -266,10 +224,20 @@ def leader_main(upstream: Sequence[str], group_id: int,
             or cfg.get("health_port") is not None):
         server.start_metrics_http(0)
     server.arm_observability(cfg, name=f"leader{group_id}")
-    # the hop's sub-stages come from the Python stage walls (the JAX
-    # package's native interval rings are not armed here: validate time
-    # stays inside ingest_wait)
+    # the hop's sub-stages (``tree.py:250-267``): the native interval
+    # rings behind the stage walls, per-frame validate stamps (TCP) and
+    # per-fold-call spans; both drop and count on overflow, and neither
+    # arms under PS_NO_NATIVE or on shm, where validate stays inside
+    # ingest_wait
+    from pytorch_ps_mpi_tpu_torch.utils import native as wc_native
+
     hop_an = server.hop_anatomy
+    hop_stamps_on = hop_spans_on = False
+    if hop_an is not None:
+        ring_cap = int(hop_an.knobs["ring_capacity"])
+        stamp_arm = getattr(server, "hop_stamps_arm", None)
+        hop_stamps_on = bool(stamp_arm(ring_cap)) if stamp_arm else False
+        hop_spans_on = wc_native.fold_spans_arm(ring_cap)
     log = _HopLog(cfg.get("lineage_dir") or cfg.get("telemetry_dir"),
                   group_id)
     print(json.dumps({"leader": int(group_id), "addr": addr, "wid": lid}),
@@ -471,16 +439,29 @@ def leader_main(upstream: Sequence[str], group_id: int,
                  "push_s": round(t3 - t2, 6), **hops[0].probe()})
         log.flush()
         if hop_an is not None:
-            # the round's window opens where the previous push ended
+            # the round's window opens where the previous push ended; the
+            # rings are drained on this thread, which pumps and folds
+            validate_s, drops, fold_calls, fold_busy_s = 0.0, 0, 0, 0.0
+            got = server.drain_hop_stamps() if hop_stamps_on else None
+            if got is not None:
+                validate_s = sum(st[1] for st in got[0]) / 1e9
+                drops += got[1]
+            got = wc_native.fold_spans_drain() if hop_spans_on else None
+            if got is not None:
+                fold_calls = len(got[0])
+                fold_busy_s = sum(e - b for b, e, _ in got[0]) / 1e9
+                drops += got[1]
             hop_an.observe_round(
                 leader=int(group_id), round=rounds, frames=len(entries),
-                stages={"ingest_wait": max(t_fold0 - round_t0, 0.0),
-                        "validate": 0.0,
+                stages={"ingest_wait": max(t_fold0 - round_t0 - validate_s,
+                                           0.0),
+                        "validate": validate_s,
                         "fold": max(fold_s - fin_s, 0.0),
                         "finalize": fin_s, "encode": t2 - t1,
                         "upstream_push": t3 - t2},
                 round_s=max(time.monotonic() - round_t0, 0.0),
-                drops=0, native=False)
+                drops=drops, native=bool(hop_stamps_on or hop_spans_on),
+                fold_calls=fold_calls, fold_busy_s=fold_busy_s)
             hop_an.flush()  # the root's tailer reads the rows live
         stats["rounds"] += 1
         up_seq += 1
@@ -606,6 +587,34 @@ class TreeWorkerConn:
     def set_wire_delay(self, delay_s: float) -> None:
         if self._conn is not None:
             self._conn._wire_delay_s = float(delay_s)
+
+    def renegotiate(self, code, bucket_mb: float = 0.0, key=None) -> bool:
+        """Decline a codec renegotiation (``tree.py:734``): the group
+        codec and the root's trailer wire are the tree's own agreement,
+        which the leader re-encodes; the leaf keeps its epoch."""
+        return False
+
+    def repoint(self, addr: str) -> bool:
+        """Re-parent this leaf to the leader at ``addr`` (a group split
+        or merge, ``tree.py:744``). Idempotent; a failed connect takes
+        the failover path (root fallback, or the pinned-address retry),
+        whose rejoin probe then aims at the new address."""
+        addr = str(addr)
+        if (addr == self.leader_addr and self._mode == "leader"
+                and self._leader is not None):
+            return True
+        self.leader_addr = addr
+        old, self._leader = self._leader, None
+        if old is not None:
+            try:
+                old.close()
+            except Exception:
+                pass
+        if self._connect_leader(float(self.kw["probe_timeout"])):
+            self.reconnects += 1
+            return True
+        self._failover()
+        return False
 
     def _connect_leader(self, timeout: float, initial: bool = False) -> bool:
         from pytorch_ps_mpi_tpu_torch.parallel.dcn import ShmPSWorker
@@ -829,7 +838,12 @@ def run_tree(cfg: Dict[str, Any], *, total_pushes: Optional[int] = None,
     respawns, exit codes and the composed trace IDs. With
     ``cfg["hop_anatomy"]`` the root tails the leaders' ``hop-*.jsonl``
     rows into its own :class:`HopAnatomy` (``tree.py:1055-1068``), the
-    fleet's hop scoreboard in its metrics' ``hop`` section."""
+    fleet's hop scoreboard in its metrics' ``hop`` section. With
+    ``cfg["topo_actions"]`` (and the controller's cfg) the root holds a
+    :class:`~pytorch_ps_mpi_tpu_torch.control.topo.TreeTopoActuator` over
+    these supervision lists, ``replan_max`` spare worker ids, and the
+    shape bulletin ``root.topo_state``; ``metrics["tree"]["topo_events"]``
+    lists what it did."""
     from pytorch_ps_mpi_tpu_torch.parallel import async_train as at
     from pytorch_ps_mpi_tpu_torch.parallel.tcp import TcpPSServer
 
@@ -848,7 +862,10 @@ def run_tree(cfg: Dict[str, Any], *, total_pushes: Optional[int] = None,
                          "'identity' ships raw floats)")
     device = cfg.get("device", "cuda")
     template = at.make_problem(cfg, device).template
-    root = TcpPSServer(0, n_workers + len(groups), template,
+    # each group split promotes one new leader worker id
+    spare = (int((cfg.get("control_kw") or {}).get("replan_max", 1))
+             if cfg.get("topo_actions") else 0)
+    root = TcpPSServer(0, n_workers + len(groups) + spare, template,
                        max_staleness=int(cfg.get("max_staleness", 4)),
                        code=code, bucket_mb=float(cfg.get("bucket_mb", 0.0)),
                        frame=True, tree_slots=slots, device=device)
@@ -878,17 +895,39 @@ def run_tree(cfg: Dict[str, Any], *, total_pushes: Optional[int] = None,
             if hello["addr"] != addrs[g]:
                 raise RuntimeError(f"leader {g} listens on {hello['addr']}, "
                                    f"not {addrs[g]}")
+        from pytorch_ps_mpi_tpu_torch.control.topo import (HopTailer,
+                                                          TreeTopoActuator)
+
         hop_tailer = None
         hop_dir = cfg.get("lineage_dir") or cfg.get("telemetry_dir")
         if cfg.get("hop_anatomy") and hop_dir:
-            hop_tailer = _HopTailer(
+            hop_tailer = HopTailer(
                 hop_dir,
                 lambda row: (root.hop_anatomy.observe_row(row)
-                             if root.hop_anatomy is not None else None))
+                             if root.hop_anatomy is not None else None),
+                pattern="hop-*.jsonl")
         respawn_cfg = dict(cfg)
         respawn_cfg["leader_kw"] = {
             k: v for k, v in (cfg.get("leader_kw") or {}).items()
             if k != "crash_at_round"}  # crash hooks are one-shot
+        actuator = tailer = None
+        if cfg.get("topo_actions"):
+            # structural control (``tree.py:1046-1090``): the actuator
+            # splits and merges groups through these supervision lists,
+            # so a promoted leader is respawned like a boot one; the
+            # leaders' lineage rows feed the live advisor's hot group
+            actuator = TreeTopoActuator(
+                cfg=respawn_cfg, groups=groups, leaders=leaders,
+                leader_ports=ports, leader_addrs=addrs, respawns=respawns,
+                root_addr=root_addr, leader_env=leader_env)
+            root.topo_actuator = actuator
+            if hop_dir:
+                tailer = HopTailer(
+                    hop_dir,
+                    lambda row: (root.anatomy.observe_hop(row)
+                                 if root.anatomy is not None else None))
+            root.topo_state = {"groups": len(groups), "leader_respawns": 0,
+                               "hot_churn_group": -1}
 
         def on_tick():
             if hop_tailer is not None:
@@ -901,6 +940,16 @@ def run_tree(cfg: Dict[str, Any], *, total_pushes: Optional[int] = None,
                     leaders[g] = spawn_leader([root_addr], g, groups[g],
                                               respawn_cfg, port=ports[g],
                                               env=leader_env)
+            if actuator is not None:
+                actuator.pump()  # reaps a split leader's hello, no wait
+                root.topo_state = {
+                    "groups": actuator.active_groups,
+                    "leader_respawns": max(respawns),
+                    "hot_churn_group": (
+                        max(range(len(respawns)), key=respawns.__getitem__)
+                        if max(respawns) > 0 else -1)}
+            if tailer is not None:
+                tailer.poll()
 
         def stop_when():
             done = ((total_pushes is not None
@@ -922,10 +971,16 @@ def run_tree(cfg: Dict[str, Any], *, total_pushes: Optional[int] = None,
             "leader_codes": at.join_workers(leaders, timeout=60.0),
             "composed_ids": [[e["worker"], e["step"], e["seq"]]
                              for e in root.composed_log]}
+        if actuator is not None:
+            m["tree"]["topo_events"] = list(actuator.events)
         return params, m
     finally:
-        for p in workers + leaders:
+        # a split leader still booting is in no list yet
+        pending = getattr(root, "topo_actuator", None)
+        pending = pending._pending if pending is not None else None
+        extra = [pending["proc"]] if pending is not None else []
+        for p in workers + leaders + extra:
             if p.poll() is None:
                 p.terminate()
-        at.join_workers(workers + leaders, timeout=10.0)
+        at.join_workers(workers + leaders + extra, timeout=10.0)
         root.close()

@@ -94,13 +94,13 @@ Leaves = Dict[Any, torch.Tensor]
 
 #: constructor option -> (its default, where its port is planned)
 _UNPORTED = {
-    "param_specs": (None, "ROADMAP queue 1 item 4 (model-parallel "
+    "param_specs": (None, "ROADMAP queue 1 item 3 (model-parallel "
                           "composition)"),
-    "mesh": (None, "ROADMAP queue 1 item 4 (the process group stands for "
+    "mesh": (None, "ROADMAP queue 1 item 3 (the process group stands for "
                    "the mesh until then)"),
-    "axis_name": ("data", "ROADMAP queue 1 item 4 (tuple aggregation "
+    "axis_name": ("data", "ROADMAP queue 1 item 3 (tuple aggregation "
                           "axes)"),
-    "batch_spec": (None, "ROADMAP queue 1 item 4 (model-parallel batch "
+    "batch_spec": (None, "ROADMAP queue 1 item 3 (model-parallel batch "
                          "layouts)"),
 }
 _PROFILE_INSTRUMENT = (

@@ -245,7 +245,44 @@ def _split_composed(server, wid: int, payload: np.ndarray):
     return payload[:server._wire_payload_bytes], entries, True
 
 
-def _consume(server, wid: int, version: int, payload, lineage, raw: bool):
+def _open_with_epochs(server, buf: np.ndarray):
+    """Open a frame against the server's current wire agreement, else
+    against a still-accepted older epoch (``frames.py:312``): a codec
+    renegotiation keeps the retiring wire in ``server._epoch_table``, so
+    an in-flight old-epoch frame is consumed, decoded with its own wire,
+    and counted in ``server.epoch_old_frames``, never rejected. Returns
+    ``(payload, err, wire, epoch)``; ``wire`` is None for a current-epoch
+    frame."""
+    payload, err = open_frame(buf, server._fingerprint,
+                              server._expected_payload)
+    if err is None:
+        return payload, None, None, getattr(server, "_epoch", 0)
+    table = getattr(server, "_epoch_table", None)
+    if err in ("config", "size") and table:
+        for fp_old, ep in table.items():
+            payload, err2 = open_frame(buf, fp_old, ep["expected"])
+            if err2 is None:
+                server.epoch_old_frames += 1
+                return payload, None, ep["wire"], ep["epoch"]
+    return None, err, None, None
+
+
+def note_epoch(server, wid: int, epoch: int) -> None:
+    """The epoch of a worker's validated frame: ``server._epoch_seen``
+    (the controller's retire signal), the per-worker count of frames a
+    wire epoch (``server.epoch_frames``) and ``server.epoch_regressions``,
+    frames older than the worker's last one."""
+    seen = server.__dict__.setdefault("_epoch_seen", {})
+    if epoch < seen.get(wid, epoch):
+        server.epoch_regressions = getattr(server, "epoch_regressions",
+                                           0) + 1
+    seen[wid] = epoch
+    per = server.__dict__.setdefault("epoch_frames", {}).setdefault(wid, {})
+    per[epoch] = per.get(epoch, 0) + 1
+
+
+def _consume(server, wid: int, version: int, payload, lineage, raw: bool,
+             wire=None):
     """Count one validated push and apply bounded staleness: the
     ``((worker, version, grad or payload), meta)`` pair, or None for a
     malformed trailer or a stale drop. ``meta`` holds the push's trace
@@ -254,7 +291,8 @@ def _consume(server, wid: int, version: int, payload, lineage, raw: bool):
     one is attached (a stale drop too, marked ``stale_drop``), and a
     consumed push is a ``serve.consume`` span in the flight recorder
     (``frames.py:433-540``). The composed count of a consumed push is
-    queued on ``server._composed_queue``."""
+    queued on ``server._composed_queue``. ``wire`` is an old epoch's
+    wire: its frame is decoded with it, in raw mode too."""
     recv_wall = time.time()
     full_bytes = payload.nbytes
     payload, composed, ok = _split_composed(server, wid, payload)
@@ -280,11 +318,11 @@ def _consume(server, wid: int, version: int, payload, lineage, raw: bool):
             lt.observe_consume(meta)
         return None
     t_dec = time.monotonic()
-    if raw:
+    if raw and wire is None:
         grad = payload
         meta["decode_s"] = 0.0  # deferred to the round's one decode
     else:
-        grad = server._decode_payload(payload)
+        grad = server._decode_payload(payload, wire=wire)
         meta["decode_s"] = round(time.monotonic() - t_dec, 6)
     # the server-side anchor of the cross-process flow arrow: the same
     # (worker, step, seq) trace ID the worker's push span carries
@@ -311,6 +349,7 @@ def framed_batch_consume(server, frames_iter, raw: bool = False) -> list:
         if status:
             server._reject_frame(wid, BATCH_REASONS.get(status, "magic"))
             continue
+        note_epoch(server, wid, getattr(server, "_epoch", 0))
         got = _consume(server, wid, version, payload, (step, seq, wall), raw)
         if got is not None:
             out.append(got[0])
@@ -325,21 +364,24 @@ def framed_poll(server, pop_once: Callable[[], Tuple[int, int, int]],
     ``pop_once()`` gives ``(nbytes, worker, version)`` with the frame in
     ``server._grad_buf`` (``nbytes <= 0``: nothing pending). Each frame is
     validated before any bookkeeping; a bad one is a counted rejection
-    and polling goes on. ``raw=True`` returns the validated payload bytes
-    (a view of the receive buffer) instead of decoding them. The consumed
-    push's meta is ``server.last_push_meta``."""
+    and polling goes on; during a codec renegotiation an old epoch's
+    frame is consumed with its own wire (:func:`_open_with_epochs`).
+    ``raw=True`` returns the validated payload bytes (a view of the
+    receive buffer) instead of decoding them. The consumed push's meta is
+    ``server.last_push_meta``."""
     while True:
         n, wid, version = pop_once()
         if n <= 0:
             return None
         server.last_seen[wid] = time.time()
-        payload, err = open_frame(server._grad_buf[:n], server._fingerprint,
-                                  server._expected_payload)
+        payload, err, old_wire, epoch = _open_with_epochs(
+            server, server._grad_buf[:n])
         if err is not None:
             server._reject_frame(wid, err)
             continue
+        note_epoch(server, wid, epoch)
         got = _consume(server, wid, version, payload,
-                       read_lineage(server._grad_buf), raw)
+                       read_lineage(server._grad_buf), raw, wire=old_wire)
         if got is not None:
             server.last_push_meta = got[1]
             return got[0]

@@ -31,9 +31,12 @@ on the card, or on the CPU with ``PS_PLATFORM=cpu``. ``--metrics-port``
 serves ``/metrics`` and ``/health`` (its ``serving`` section) from the
 core's own endpoint, the bound port in the hello as ``metrics_port``;
 in replica mode ``--telemetry-dir`` writes the follower's
-``reader_round`` anatomy rows (``anatomy-replica.jsonl``) there. The JAX
-script's ``--fleet-dir`` and ``--control-dir`` raise
-``NotImplementedError``: ROADMAP queue 1 item 3.
+``reader_round`` anatomy rows (``anatomy-<fleet name>.jsonl``) there.
+``--fleet-dir`` registers the tier's endpoint card for the fleet pane
+(``read-tier``, or ``replica-<pid>`` with role ``replica`` when it
+follows an endpoint; needs ``--metrics-port``) and serves ``/fleet``;
+``--control-dir`` makes a replica poll ``control-topo.json`` there and
+re-parent its subscription when the ``replica_upstream`` map names it.
 """
 
 from __future__ import annotations
@@ -46,12 +49,6 @@ import time
 from typing import Optional, Sequence
 
 import numpy as np
-
-_FLEET = ("ROADMAP queue 1 item 3 (the fleet observability plane and "
-          "control/)")
-#: the JAX script's flags that wait for the fleet plane and control
-_UNPORTED_FLAGS = ("fleet-dir", "control-dir")
-
 
 def model_cfg(model: str) -> dict:
     """The async fleet's cfg of ``model`` as ``train_async`` builds it
@@ -134,18 +131,19 @@ def parser() -> argparse.ArgumentParser:
                          "Python loop) or off")
     ap.add_argument("--duration", type=float, default=0.0,
                     help="exit after this many seconds (0: until SIGINT)")
-    for flag in _UNPORTED_FLAGS:
-        ap.add_argument(f"--{flag}", default=None)
+    ap.add_argument("--fleet-dir", default=None,
+                    help="register this tier's endpoint card here "
+                         "(role=replica when following an endpoint)")
+    ap.add_argument("--control-dir", default=None,
+                    help="replica mode: poll control-topo.json here and "
+                         "re-parent the subscription when its "
+                         "replica_upstream map names this replica")
     return ap
 
 
 def main(argv: Optional[Sequence[str]] = None) -> int:
     ap = parser()
     args = ap.parse_args(argv)
-    for flag in _UNPORTED_FLAGS:
-        if getattr(args, flag.replace("-", "_")) is not None:
-            raise NotImplementedError(
-                f"--{flag} is not ported yet: {_FLEET}")
     if not args.checkpoint_dir and not args.follow_endpoint:
         ap.error("--checkpoint-dir is required unless --follow-endpoint")
     serving_kw = {"ring": args.ring, "admission_depth": args.admission_depth}
@@ -156,6 +154,14 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
            else "cuda",
            "read_port": args.read_port, "read_native": args.read_native,
            "serving_kw": serving_kw, "metrics_port": args.metrics_port}
+    if args.fleet_dir:
+        cfg["fleet_dir"] = args.fleet_dir
+        cfg["fleet_name"] = (f"replica-{os.getpid()}"
+                             if args.follow_endpoint else "read-tier")
+        if args.follow_endpoint:
+            cfg["fleet_role"] = "replica"
+            cfg["fleet_meta"] = {"upstream": args.follow_endpoint,
+                                 "fanout": args.fanout}
     template = template_of(cfg)
     flat, version, step = None, 0, -1
     if args.checkpoint_dir:
@@ -176,7 +182,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
 
             anatomy = RoundAnatomy(
                 None, {"telemetry_dir": args.telemetry_dir},
-                num_workers=1, name="replica")
+                num_workers=1, name=str(cfg.get("fleet_name") or "replica"))
         follower = FollowerLoop(
             core, up_host or "127.0.0.1", int(up_port), template=template,
             tenant=args.tenant, poll_s=args.follow or 0.25,
@@ -190,6 +196,28 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     if core.metrics_http_port is not None:
         hello["metrics_port"] = core.metrics_http_port
     deadline = time.time() + args.duration if args.duration else None
+    topo_state = {"seq": 0, "mtime": 0}
+    replica_name = str(cfg.get("fleet_name") or f"replica-{os.getpid()}")
+
+    def poll_reparent() -> None:
+        # structural control: a scale event may rebuild the replica tree;
+        # control-topo.json's replica_upstream map names each replica's
+        # parent, and repoint is idempotent
+        if not (args.control_dir and follower is not None):
+            return
+        from pytorch_ps_mpi_tpu_torch.control.topo import poll_topo
+
+        doc = poll_topo(args.control_dir, topo_state)
+        up = ((doc or {}).get("replica_upstream") or {}).get(replica_name)
+        if not up:
+            return
+        host, _, port = str(up).rpartition(":")
+        try:
+            if follower.repoint(host or "127.0.0.1", int(port)):
+                print(json.dumps({"reparented": up}), flush=True)
+        except (TypeError, ValueError):
+            pass
+
     last_step = step
     # idle backoff: a fresh checkpoint snaps the poll back to the base
     # period; every empty poll doubles it
@@ -204,6 +232,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         while deadline is None or time.time() < deadline:
             time.sleep(sleep_s if deadline is None
                        else min(sleep_s, max(deadline - time.time(), 0)))
+            poll_reparent()
             if not (args.follow and args.checkpoint_dir):
                 continue
             try:

@@ -35,8 +35,11 @@ its :class:`~pytorch_ps_mpi_tpu_torch.telemetry.anatomy.RoundAnatomy`
 ``health_port`` the server's ``/metrics`` and ``/health`` endpoint, and
 ``freshness``/``hop_anatomy`` through ``server.arm_observability``. A
 core without a server serves ``/metrics`` and ``/health`` from an
-endpoint of its own. The fleet registration (``fleet``/``fleet_dir``)
-comes with ROADMAP queue 1 item 3 and raises ``NotImplementedError``.
+endpoint of its own, and with ``fleet``/``fleet_dir`` registers it for
+the fleet pane (``telemetry/fleet.py``: name ``cfg["fleet_name"]`` or
+``read-tier``, role ``cfg["fleet_role"]`` or ``read``) and serves
+``/fleet`` there. The controller's actuators are
+:meth:`ServingCore.set_admission_depth` and :meth:`ServingCore.set_ring`.
 """
 
 from __future__ import annotations
@@ -78,10 +81,6 @@ _READ_BUCKETS = (1e-5, 2.5e-5, 5e-5, 1e-4, 2.5e-4, 5e-4, 1e-3, 2.5e-3,
 #: the address the read server binds
 READ_HOST = "0.0.0.0"
 
-_FLEET = "ROADMAP queue 1 item 3 (the fleet observability plane)"
-#: cfg keys of the JAX core's fleet registration
-_UNPORTED_FLAGS = ("fleet", "fleet_dir")
-
 #: the read counters the native tier keeps in C++ and folds into the core's
 _NATIVE_COUNTERS = ("reads_total", "reads_full", "reads_delta",
                     "reads_not_modified", "reads_shed", "coalesce_hits",
@@ -96,15 +95,6 @@ def _seq_quantile(sorted_xs, q: float) -> float:
                                int(round(q * (len(sorted_xs) - 1))))])
 
 
-def check_unported(cfg: Dict[str, Any]) -> None:
-    """Raise ``NotImplementedError`` for the JAX core's fleet options
-    (``core.py:239-262``), which the port lacks."""
-    for key in _UNPORTED_FLAGS:
-        if cfg.get(key):
-            raise NotImplementedError(
-                f"cfg[{key!r}] is not ported yet: {_FLEET}")
-
-
 class ServingCore:
     """Snapshots and the read path, independent of any trainer loop.
 
@@ -113,14 +103,16 @@ class ServingCore:
     config dict. ``device`` is where a lossy delta codec encodes (the
     server's device, else ``cfg["device"]``, else the card).
     ``monitors=False`` skips the monitor construction for a caller that
-    builds its own (the shard server).
+    builds its own (the shard server). A standalone core scrapes into
+    ``registry`` (a fresh one by default); the read server binds
+    ``read_host``.
     """
 
     def __init__(self, server=None, cfg: Optional[Dict[str, Any]] = None,
                  *, template: Tree = None, tenant: str = DEFAULT_TENANT,
-                 device=None, monitors: bool = True):
+                 device=None, monitors: bool = True, registry=None,
+                 read_host: str = READ_HOST):
         cfg = cfg or {}
-        check_unported(cfg)
         self.cfg = cfg
         self.server = server
         self.default_tenant = str(tenant)
@@ -151,7 +143,8 @@ class ServingCore:
         else:
             from pytorch_ps_mpi_tpu_torch.telemetry import MetricsRegistry
 
-            self._reg = MetricsRegistry()
+            self._reg = registry if registry is not None \
+                else MetricsRegistry()
 
         # -- read-path state ----------------------------------------------
         self._lock = threading.Lock()
@@ -223,7 +216,7 @@ class ServingCore:
                         try:
                             self.read_server = NativeReadServer(
                                 self, port=int(cfg["read_port"]),
-                                host=READ_HOST)
+                                host=read_host)
                             self.read_native = True
                         except RuntimeError:
                             self.read_server = None  # port taken etc.
@@ -232,8 +225,10 @@ class ServingCore:
                     ReadTierServer
 
                 self.read_server = ReadTierServer(
-                    self, port=int(cfg["read_port"]), host=READ_HOST)
+                    self, port=int(cfg["read_port"]), host=read_host)
             self.read_port = self.read_server.port
+        self._fleet = None
+        self._fleet_registration = None
         self._register_scrape()
         if server is not None:
             # attached last: a thread that finds the core finds its port
@@ -321,15 +316,37 @@ class ServingCore:
                  "serving": self.serving_snapshot()}),
                 "application/json")})
         self.metrics_http_port = self._own_http.port
+        # the read tier joins the fleet pane like any server
+        # (``core.py:239-262``): it registers its endpoint and serves the
+        # merged /fleet snapshot itself
+        if cfg.get("fleet") or cfg.get("fleet_dir"):
+            from pytorch_ps_mpi_tpu_torch.telemetry import fleet as _fleet
+
+            self._fleet = _fleet.FleetMonitor(
+                endpoints=cfg.get("fleet_endpoints"),
+                fleet_dir=cfg.get("fleet_dir"),
+                **(cfg.get("fleet_kw") or {}))
+            self._own_http.add_route("/fleet", self._fleet.render_http)
+            if cfg.get("fleet_dir"):
+                fname = str(cfg.get("fleet_name") or "read-tier")
+                _fleet.register_endpoint(
+                    cfg["fleet_dir"], fname, self._own_http.port,
+                    role=cfg.get("fleet_role", "read"),
+                    **(cfg.get("fleet_meta") or {}))
+                self._fleet_registration = (cfg["fleet_dir"], fname)
 
     def tick(self) -> None:
         """Monitor upkeep at the owning loop's tick cadence (same thread
         as the transport pumps, as the monitors require): the beacon and
-        probe tails."""
+        probe tails, then the history sample and the SLO sweep (both
+        self-throttled, one attribute check when unarmed)."""
         if self.health is not None:
             self.health.tick()
         if self.numerics is not None:
             self.numerics.tick()
+        srv = self.server
+        if srv is not None and srv.timeseries_db is not None:
+            srv.observability_tick()
 
     # -- publish ----------------------------------------------------------
     def _ensure_tenant(self, tenant: str, template: Tree) -> SnapshotStore:
@@ -534,6 +551,26 @@ class ServingCore:
     def note_shed(self) -> None:
         with self._lock:
             self.reads_shed += 1
+
+    # -- the controller's actuators (``core.py:522``, ``:548``) ----------
+    def set_admission_depth(self, depth: int) -> None:
+        """Live admission-depth change: the Python read loop reads
+        ``admission_depth`` at every enqueue, the native one is told."""
+        if depth < 1:
+            raise ValueError(f"admission depth must be >= 1, got {depth}")
+        self.admission_depth = int(depth)
+        if self.read_native:
+            self.read_server.set_admission(self.admission_depth,
+                                           self.retry_after_s)
+
+    def set_ring(self, ring: int) -> None:
+        """Live snapshot-ring resize of every tenant's store (and of the
+        stores made later)."""
+        self.knobs["ring"] = int(ring)
+        with self._lock:
+            stores = list(self._stores.values())
+        for store in stores:
+            store.resize(int(ring))
 
     def set_replica_lag(self, lag: float) -> None:
         """Versions this replica trails its upstream (the follower feeds
@@ -855,7 +892,14 @@ class ServingCore:
         and freshness pair die with its C++ handle, so its final block
         folds into the core's own counters first: accounting after
         ``close`` reads the same whichever loop served. A standalone
-        core's own ``/metrics`` endpoint closes too."""
+        core's own ``/metrics`` endpoint closes too, its fleet card
+        removed first."""
+        reg, self._fleet_registration = self._fleet_registration, None
+        if reg is not None:
+            from pytorch_ps_mpi_tpu_torch.telemetry.fleet import \
+                deregister_endpoint
+
+            deregister_endpoint(*reg)
         if self._own_http is not None:
             self._own_http.close()
             self._own_http = None

@@ -6,8 +6,10 @@ upstream read port (the root's or another replica's) and republishes
 every new version, pinned to the upstream's version number, into a
 local :class:`~.core.ServingCore`, whose own read server then serves
 readers or further replicas; follower -> follower builds the tree.
-Each ``not_modified`` poll doubles the sleep up to :data:`MAX_POLL_S`; a
-new version resets it to ``poll_s``. A lost upstream (root restart,
+Each ``not_modified`` poll doubles the sleep up to ``max_poll_s``
+(:data:`MAX_POLL_S` by default); a new version resets it to ``poll_s``.
+:meth:`FollowerLoop.repoint` re-parents the subscription (the elastic
+read tier's structural control). A lost upstream (root restart,
 partition) tears the reader down and re-dials with the same backoff,
 while the replica keeps serving its last version.
 
@@ -46,9 +48,9 @@ class FollowerLoop:
     template:
         Parameter pytree template (defaults to ``core.template``);
         required to decode the upstream payloads.
-    poll_s:
-        Pull cadence: every ``not_modified`` doubles the sleep from
-        ``poll_s`` up to :data:`MAX_POLL_S`; a new version resets it.
+    poll_s / max_poll_s:
+        Pull cadence bounds: every ``not_modified`` doubles the sleep
+        from ``poll_s`` up to ``max_poll_s``; a new version resets it.
     anatomy:
         Optional :class:`~pytorch_ps_mpi_tpu_torch.telemetry.anatomy.
         RoundAnatomy`; each version pulled feeds it one reader round
@@ -58,7 +60,8 @@ class FollowerLoop:
 
     def __init__(self, core, host: str, port: int, *,
                  template=None, tenant: str = "",
-                 poll_s: float = 0.25, timeout: float = 10.0,
+                 poll_s: float = 0.25, max_poll_s: float = MAX_POLL_S,
+                 timeout: float = 10.0,
                  serving_kw: Optional[dict] = None, anatomy=None):
         self.core = core
         self.anatomy = anatomy
@@ -70,7 +73,7 @@ class FollowerLoop:
                              "(pass template= or arm the core with one)")
         self.tenant = str(tenant)
         self.poll_s = float(poll_s)
-        self.max_poll_s = max(MAX_POLL_S, self.poll_s)
+        self.max_poll_s = max(float(max_poll_s), self.poll_s)
         self.timeout = float(timeout)
         self.serving_kw = dict(serving_kw or {})
         from pytorch_ps_mpi_tpu_torch.telemetry.diagnosis import Ewma
@@ -130,6 +133,21 @@ class FollowerLoop:
             except Exception:
                 pass
             self._reader = None
+
+    def repoint(self, host: str, port: int) -> bool:
+        """Re-parent the subscription (``follower.py:146``): tear the
+        reader down and aim the next poll at ``host:port``. Idempotent;
+        the local core keeps serving its last version across the switch,
+        and versions are the root's, so a re-parented replica never goes
+        backwards. True when the endpoint changed."""
+        host, port = str(host), int(port)
+        if (host, port) == (self.host, self.port) \
+                and self._reader is not None:
+            return False
+        self.host, self.port = host, port
+        self._teardown()
+        self._sleep_s = self.poll_s  # re-dial the new parent promptly
+        return True
 
     def step(self) -> Dict[str, Any]:
         """One poll against upstream.  Returns a status row

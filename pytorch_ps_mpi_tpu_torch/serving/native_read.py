@@ -96,6 +96,7 @@ def get_read_lib() -> Optional[ctypes.CDLL]:
                                       ctypes.c_double]),
         "tps_read_fresh_stats": (ctypes.c_int, [
             vp, ctypes.c_char_p, ctypes.POINTER(_ReadFreshStats)]),
+        "tps_read_set_admission": (None, [vp, u64, ctypes.c_double]),
         "tps_read_wake": (None, [vp]),
         "tps_read_close": (None, [vp]),
         "tps_abi_psr_magic": (ctypes.c_uint32, []),
@@ -284,6 +285,12 @@ class NativeReadServer:
 
     def connections(self) -> int:
         return self.stats()["conns"]
+
+    def set_admission(self, depth: int, retry_after_s: float) -> None:
+        """Live admission change (``native_read.py:333``): the C++ loop
+        reads the bound at every enqueue, under its own mutex."""
+        self._lib.tps_read_set_admission(self._handle, int(depth),
+                                         float(retry_after_s))
 
     def close(self) -> None:
         if self._stop.is_set():

@@ -539,5 +539,19 @@ class ServingReader:
         birth = _fresh.birth_wall_local(self.fresh) + self.reader_skew_s()
         return max(0.0, (t - birth) * 1e3)
 
+    def fresh_delivery_row(self, reader: str = "reader") -> Dict[str, Any]:
+        """One reader-delivery row for the freshness plane
+        (``FreshnessTracker.note_delivery``'s input, ``net.py:557``)."""
+        doc = self.fresh
+        return {
+            "reader": reader,
+            "tenant": self.client.tenant or "default",
+            "version": self.version,
+            "age_ms": round(self.fresh_age_ms(), 3),
+            "hop_count": doc["hop_count"] if doc is not None else 0,
+            "root_gen": doc["root_gen"] if doc is not None else 0,
+            "t": time.time(),
+        }
+
     def close(self) -> None:
         self.client.close()

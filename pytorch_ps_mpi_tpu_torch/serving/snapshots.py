@@ -96,6 +96,22 @@ class SnapshotStore:
                     self._zombies[old] = dropped
         return snap
 
+    def resize(self, ring: int) -> None:
+        """Live ring-depth change (``snapshots.py:104``, the controller's
+        read-tier tuning): growing admits more versions; shrinking evicts
+        the oldest at once, a held snapshot parked until its last
+        release, as :meth:`put` does."""
+        if ring < 1:
+            raise ValueError(f"snapshot ring must hold >= 1, got {ring}")
+        with self._lock:
+            self.ring = int(ring)
+            while len(self._order) > self.ring:
+                old = self._order.pop(0)
+                dropped = self._by_version.pop(old, None)
+                self.evictions += 1
+                if dropped is not None and dropped.refs > 0:
+                    self._zombies[old] = dropped
+
     def latest(self) -> Optional[Snapshot]:
         with self._lock:
             if not self._order:

@@ -28,9 +28,19 @@ the JAX package's modules of it, framework-free and copied here, and
 - :mod:`freshness <.freshness>` — the read path's FRS1 trailer and
   :class:`FreshnessTracker`'s publish→visible rows.
 
-The fleet observability plane (``timeseries``, ``slo``, the sampling
-``profiler``, ``fleet``) and ``control/`` come with ROADMAP queue 1
-item 3.
+- :mod:`timeseries <.timeseries>` — :class:`MetricsHistory`, the
+  in-process TSDB (raw and 1 s/10 s/60 s rings a canonical key, sampled
+  at the serve loop's tick from host counters, persisted, served at
+  ``/history``).
+- :mod:`slo <.slo>` — :class:`SLOWatchdog`'s latched multi-window
+  burn-rate verdicts over that history, replayable from its rows.
+- :mod:`profiler <.profiler>` — :class:`SamplingProfiler`, the always-on
+  collapsed-stack sampler (a host thread that makes no CUDA call), and
+  the native fold and pump cycle counters.
+- :mod:`fleet <.fleet>` — :class:`FleetMonitor`'s ``/fleet`` pane over
+  every registered server and read tier.
+
+The controller that acts on these verdicts is ``control/``.
 """
 
 from typing import Dict, Optional
@@ -124,6 +134,27 @@ from pytorch_ps_mpi_tpu_torch.telemetry.numerics import (
     tree_stats,
     update_weight_ratio,
 )
+from pytorch_ps_mpi_tpu_torch.telemetry.timeseries import (
+    MetricsHistory,
+    history_from_rows,
+    load_timeseries_rows,
+)
+from pytorch_ps_mpi_tpu_torch.telemetry.profiler import (
+    SamplingProfiler,
+    load_profile,
+    merge_profiles,
+    top_frames,
+)
+from pytorch_ps_mpi_tpu_torch.telemetry.slo import (
+    SLOWatchdog,
+    derive_targets,
+)
+from pytorch_ps_mpi_tpu_torch.telemetry.fleet import (
+    FleetMonitor,
+    deregister_endpoint,
+    parse_prometheus_text,
+    register_endpoint,
+)
 from pytorch_ps_mpi_tpu_torch.telemetry.trace_export import (
     export_chrome_trace,
     merged_trace_events,
@@ -183,6 +214,19 @@ __all__ = [
     "NumericsMonitor",
     "ProbeWriter",
     "sanitize_tree",
+    "MetricsHistory",
+    "history_from_rows",
+    "load_timeseries_rows",
+    "SamplingProfiler",
+    "load_profile",
+    "merge_profiles",
+    "top_frames",
+    "SLOWatchdog",
+    "derive_targets",
+    "FleetMonitor",
+    "deregister_endpoint",
+    "parse_prometheus_text",
+    "register_endpoint",
     "tree_stats",
     "update_weight_ratio",
     "export_chrome_trace",

@@ -765,9 +765,26 @@ class PSServerTelemetry:
     #: the canonical ``reads_*`` metrics source), set by
     #: :class:`~pytorch_ps_mpi_tpu_torch.serving.ServingCore` on construction
     serving_core: Optional[Any] = None
-    #: the self-driving controller's slot (the ``control_*`` canonical
-    #: keys read it); the port has no controller yet, so it stays None
+    #: the attached self-driving controller (the ``control_*`` canonical
+    #: keys' source and ``/health``'s ``control`` section), set by
+    #: :class:`~pytorch_ps_mpi_tpu_torch.control.Controller`
     controller: Optional[Any] = None
+    #: old-epoch frames consumed during codec-renegotiation transitions
+    #: (``renegotiate_wire`` keeps the retiring wire accepted: these
+    #: frames would have been ``"config"`` rejections without it)
+    epoch_old_frames: int = 0
+    #: the retained metrics history (``/history``'s source), set by
+    #: :meth:`arm_observability` — see :mod:`.timeseries`
+    timeseries_db: Optional[Any] = None
+    #: the SLO burn-rate watchdog (``/health``'s ``slo`` section and the
+    #: ``ps_slo_*`` instruments), set by :meth:`arm_observability`
+    slo_watchdog: Optional[Any] = None
+    #: the fleet poller (``/fleet``'s source), set by
+    #: :meth:`arm_observability` — see :mod:`.fleet`
+    fleet_monitor: Optional[Any] = None
+    #: the continuous sampling profiler, set (and started) by
+    #: :meth:`arm_observability` — see :mod:`.profiler`
+    profiler: Optional[Any] = None
     #: the read-path freshness tracker (publish→edge propagation rows +
     #: the age-of-information plane), set by :meth:`arm_observability`
     #: — see :mod:`.freshness`
@@ -829,12 +846,44 @@ class PSServerTelemetry:
                 # the monitor-less route still reports the round
                 # anatomy: critical-path shares + the what-if advisor
                 doc["anatomy"] = self.anatomy.snapshot()
+            if self.slo_watchdog is not None:
+                doc["slo"] = self.slo_watchdog.snapshot()
+            if self.controller is not None:
+                # the monitor-less route still reports the controller:
+                # action counts, eviction state, epoch
+                doc["control"] = self.controller.snapshot()
             if self.hop_anatomy is not None:
                 # the monitor-less route still reports the hop anatomy:
                 # sub-stage occupancy + the streaming-headroom board
                 doc["hop"] = self.hop_anatomy.snapshot()
+            if self.timeseries_db is not None:
+                doc["history"] = self.timeseries_db.snapshot()
             return json.dumps(doc)
         return mon.render_json()
+
+    def history_json(self, query: Optional[Dict[str, Any]] = None
+                     ) -> "tuple[str, str]":
+        """The ``/history`` body: the TSDB's query reply, or an explicit
+        not-armed marker (as the unarmed ``/health``)."""
+        import json
+
+        db = self.timeseries_db
+        if db is None:
+            return (json.dumps({"armed": False, "key_names": []}),
+                    "application/json")
+        return db.render_http(query)
+
+    def fleet_json(self, query: Optional[Dict[str, Any]] = None
+                   ) -> "tuple[str, str]":
+        """The ``/fleet`` body: the fleet poller's merged snapshot, or an
+        explicit not-armed marker."""
+        import json
+
+        fm = self.fleet_monitor
+        if fm is None:
+            return (json.dumps({"armed": False, "members": {}}),
+                    "application/json")
+        return fm.render_http(query)
 
     def start_metrics_http(self, port: int = 0,
                            host: str = "0.0.0.0") -> int:
@@ -854,7 +903,9 @@ class PSServerTelemetry:
             self._metrics_http = MetricsHTTPServer(
                 self.prometheus_text, port=port, host=host,
                 routes={"/health": lambda: (self.health_json(),
-                                            "application/json")},
+                                            "application/json"),
+                        "/history": self.history_json,
+                        "/fleet": self.fleet_json},
             )
         return self._metrics_http.port
 
@@ -864,16 +915,45 @@ class PSServerTelemetry:
         if http is not None:
             http.close()
 
-    # -- the per-process observability plane ------------------------------
+    # -- the observability plane ------------------------------------------
     def arm_observability(self, cfg: Dict[str, Any], *,
                           name: str = "server") -> None:
-        """Attach the read-path freshness tracker (``cfg["freshness"]`` /
-        ``freshness_kw``) and the leader-hop occupancy profiler
-        (``cfg["hop_anatomy"]`` / ``hop_anatomy_kw``) from the job
-        ``cfg``: the one wiring point ``serve()`` (through the
-        ServingCore) and ``sharded.server_main`` share. Both write into
-        ``telemetry_dir``."""
-        out_dir = cfg.get("telemetry_dir")
+        """Attach the observability plane from the job ``cfg``
+        (``registry.py:915``): the one wiring point ``serve()`` (through
+        the ServingCore) and ``sharded.server_main`` share.
+
+        - ``timeseries``/``timeseries_kw``: the in-process TSDB, sampled
+          by :meth:`observability_tick` on the serve thread from host
+          counters only, persisted into ``timeseries_dir`` (else
+          ``telemetry_dir``), served at ``/history``;
+        - ``slo``/``slo_kw``: the burn-rate watchdog over that TSDB (it
+          arms the TSDB), verdicts into ``slo-<name>.jsonl``, the flight
+          recorder and ``/health``'s ``slo`` section;
+        - ``profile``/``profile_dir``/``profile_kw``: the continuous
+          sampling profiler, started here, written to
+          ``profile-<name>.txt`` by :meth:`finalize_observability`;
+        - ``fleet``/``fleet_dir``/``fleet_kw``: the fleet poller behind
+          ``/fleet``; with a ``fleet_dir`` and a live metrics endpoint
+          this server registers itself there (``cfg["fleet_name"]`` or
+          ``name``), so a restarted generation rejoins under its name;
+        - ``freshness``/``freshness_kw`` and ``hop_anatomy``/
+          ``hop_anatomy_kw``: the read-path freshness tracker and the
+          leader-hop occupancy profiler, writing into ``telemetry_dir``.
+        """
+        out_dir = cfg.get("timeseries_dir") or cfg.get("telemetry_dir")
+        if (cfg.get("timeseries") or cfg.get("timeseries_kw")
+                or cfg.get("slo") or cfg.get("slo_kw")):
+            from pytorch_ps_mpi_tpu_torch.telemetry.timeseries import \
+                MetricsHistory
+
+            self.timeseries_db = MetricsHistory(
+                dir=out_dir, name=name, **(cfg.get("timeseries_kw") or {}))
+        if cfg.get("slo") or cfg.get("slo_kw"):
+            from pytorch_ps_mpi_tpu_torch.telemetry.slo import SLOWatchdog
+
+            # attaches itself to self.slo_watchdog + scrape registry
+            SLOWatchdog(self, cfg, history=self.timeseries_db, name=name,
+                        dir=out_dir)
         if cfg.get("freshness") or cfg.get("freshness_kw"):
             from pytorch_ps_mpi_tpu_torch.telemetry.freshness import (
                 FreshnessTracker,
@@ -891,13 +971,71 @@ class PSServerTelemetry:
             # tree leader FEEDS it per round (parallel.tree); the root
             # arms it too and replays the leaders' tailed rows into it
             HopAnatomy(self, cfg, name=name)
+        if cfg.get("profile") or cfg.get("profile_dir"):
+            from pytorch_ps_mpi_tpu_torch.telemetry.profiler import \
+                SamplingProfiler
+
+            self.profiler = SamplingProfiler(
+                name=name,
+                dir=cfg.get("profile_dir") or cfg.get("telemetry_dir"),
+                **(cfg.get("profile_kw") or {})).start()
+        if cfg.get("fleet") or cfg.get("fleet_dir"):
+            from pytorch_ps_mpi_tpu_torch.telemetry import fleet as _fleet
+
+            self.fleet_monitor = _fleet.FleetMonitor(
+                endpoints=cfg.get("fleet_endpoints"),
+                fleet_dir=cfg.get("fleet_dir"),
+                **(cfg.get("fleet_kw") or {}))
+            http = getattr(self, "_metrics_http", None)
+            if cfg.get("fleet_dir") and http is not None:
+                fname = str(cfg.get("fleet_name") or name)
+                # extra card fields (a tree leader's group and members)
+                # ride the registration verbatim
+                _fleet.register_endpoint(
+                    cfg["fleet_dir"], fname, http.port,
+                    role=cfg.get("fleet_role", "server"),
+                    **(cfg.get("fleet_meta") or {}))
+                self.__dict__["_fleet_registration"] = (
+                    cfg["fleet_dir"], fname)
+
+    def observability_tick(self) -> None:
+        """Sample the TSDB and evaluate the SLO rules, from the owning
+        loop at tick cadence on the transport pumps' thread. The sample
+        is :meth:`metrics`: host counters, never a device read. One
+        attribute check when nothing is armed."""
+        db = self.timeseries_db
+        if db is not None:
+            db.sample(self.metrics())
+            wd = self.slo_watchdog
+            if wd is not None:
+                wd.evaluate()
 
     def finalize_observability(self) -> Dict[str, Any]:
-        """Flush the freshness and hop-anatomy planes and return their
-        final sections. Idempotent (the serve loop calls it to collect
-        its metrics sections; ``close()`` calls it again as a
-        backstop); the sources stay attached until ``server.close()``."""
+        """Stop the profiler, flush the history, the SLO, freshness and
+        hop-anatomy planes, and return their final sections and artifact
+        paths. Idempotent (the serve loop calls it to collect its metrics
+        sections; ``close()`` calls it again as a backstop). The sources
+        and the fleet registration stay attached: ``/history`` and
+        ``/fleet`` answer, and the member keeps its card, until the
+        endpoint dies with ``server.close()``."""
         out: Dict[str, Any] = {}
+        first = not self.__dict__.get("_obs_closed", False)
+        self.__dict__["_obs_closed"] = True
+        prof = self.profiler
+        if prof is not None:
+            prof.stop()
+            path = prof.write() if first else None
+            out["profile"] = prof.snapshot()
+            if path is not None:
+                out["profile"]["file"] = path
+        db = self.timeseries_db
+        if db is not None:
+            db.close()  # flush buffered rows; queries keep working
+            out["history"] = db.snapshot()
+        wd = self.slo_watchdog
+        if wd is not None:
+            wd.close()
+            out["slo"] = wd.snapshot()
         ft = self.freshness_tracker
         if ft is not None:
             ft.close()
@@ -906,4 +1044,17 @@ class PSServerTelemetry:
         if ha is not None:
             ha.close()
             out["hop"] = ha.snapshot()
+        return out
+
+    def close_observability(self) -> Dict[str, Any]:
+        """:meth:`finalize_observability` and the fleet deregistration:
+        the transport ``close()`` teardown, so a member leaves the pane
+        only when its server generation really dies."""
+        out = self.finalize_observability()
+        reg = self.__dict__.pop("_fleet_registration", None)
+        if reg is not None:
+            from pytorch_ps_mpi_tpu_torch.telemetry.fleet import \
+                deregister_endpoint
+
+            deregister_endpoint(*reg)
         return out

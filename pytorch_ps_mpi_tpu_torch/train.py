@@ -51,9 +51,9 @@ CONFIGS = ["mlp_mnist", "resnet18_cifar10", "resnet50_imagenet", "bert_mlm",
 #: configurations of the JAX package whose models the port lacks
 UNPORTED = {
     "switch_mlm": "the Switch MoE model (models/moe.py) is not ported yet: "
-                  "ROADMAP queue 1 item 4",
+                  "ROADMAP queue 1 item 3",
     "gpt_lm": "the GPT model (models/gpt.py) is not ported yet: ROADMAP "
-              "queue 1 item 4",
+              "queue 1 item 3",
 }
 
 

@@ -45,10 +45,21 @@ lineage (on by default with ``--telemetry-dir`` and frames);
         --model mlp --workers 2 --steps 5 --metrics-port 0 \
         --health-port 0 --numerics --telemetry-dir D
 
-The JAX CLI's fleet-plane and control flags (``--history``, ``--slo``,
-``--profile``, ``--control``, ``--fleet-dir``, ``--ps-top``) are
-accepted and raise ``NotImplementedError`` naming the ROADMAP item that
-brings them.
+The fleet observability plane and the controller
+(``train_async.py:94-190`` of the JAX example): ``--history`` retains
+every canonical metric (``timeseries-server.jsonl``, ``/history``),
+``--slo`` arms the burn-rate watchdog over it (``--slo-target
+KEY=VALUE`` overrides a target), ``--profile`` runs the sampling
+profiler in the server and every worker (``profile-*.txt``), these three
+in ``--telemetry-dir``; ``--control`` arms the self-driving controller
+(its action and input rows and ``control-epoch.json`` in
+``--telemetry-dir``); ``--fleet-dir`` registers the server for the
+fleet pane and serves ``/fleet``; ``--ps-top`` runs ``python -m
+pytorch_ps_mpi_tpu_torch.ps_top`` against the live endpoint:
+
+    PS_PLATFORM=cpu python -m pytorch_ps_mpi_tpu_torch.train_async \
+        --model mlp --workers 2 --steps 30 --control --telemetry-dir D \
+        --health-port 0
 """
 
 from __future__ import annotations
@@ -59,18 +70,13 @@ import json
 import os
 from typing import Optional, Sequence
 
-from pytorch_ps_mpi_tpu_torch.parallel.async_train import (UNPORTED,
-                                                           join_workers,
+import subprocess
+import sys
+
+from pytorch_ps_mpi_tpu_torch.parallel.async_train import (join_workers,
                                                            make_problem,
                                                            serve, spawn_worker)
 from pytorch_ps_mpi_tpu_torch.resilience import Supervisor, normalize_plan
-
-#: the JAX CLI's flags the port does not have yet -> the cfg key whose
-#: ROADMAP item they wait for (the live dashboard renders the fleet pane)
-_UNPORTED_FLAGS = {
-    "ps-top": "fleet", "history": "timeseries", "profile": "profile",
-    "slo": "slo", "control": "control", "fleet-dir": "fleet_dir",
-}
 
 
 def parser() -> argparse.ArgumentParser:
@@ -161,8 +167,32 @@ def parser() -> argparse.ArgumentParser:
                          "(freshness-server.jsonl in --telemetry-dir)")
     ap.add_argument("--hop-anatomy", action="store_true",
                     help="arm the tree leaders' hop occupancy tracing")
-    for flag in _UNPORTED_FLAGS:
-        ap.add_argument(f"--{flag}", default=None, nargs="?", const=True)
+    ap.add_argument("--history", action="store_true",
+                    help="arm the metrics history (TSDB): every canonical "
+                         "key retained in raw and 1s/10s/60s tiers, "
+                         "timeseries-server.jsonl in --telemetry-dir, "
+                         "served at /history")
+    ap.add_argument("--slo", action="store_true",
+                    help="arm the SLO burn-rate watchdog over the history "
+                         "(implies --history): latched verdicts into "
+                         "slo-server.jsonl, /health's slo section")
+    ap.add_argument("--slo-target", action="append", default=[],
+                    help="override one SLO target, KEY=VALUE (repeatable; "
+                         "e.g. push_e2e_p95_ms=250)")
+    ap.add_argument("--profile", action="store_true",
+                    help="arm the sampling profiler in the server and "
+                         "every worker (profile-*.txt in --telemetry-dir)")
+    ap.add_argument("--control", action="store_true",
+                    help="arm the self-driving controller (needs "
+                         "--telemetry-dir for its action and replay rows "
+                         "and control-epoch.json)")
+    ap.add_argument("--fleet-dir", default=None,
+                    help="register the server's endpoint here and serve "
+                         "the merged /fleet snapshot")
+    ap.add_argument("--ps-top", action="store_true",
+                    help="run the ps_top dashboard against the live "
+                         "/health endpoint for the run (implies "
+                         "--health-port 0)")
     return ap
 
 
@@ -177,10 +207,6 @@ def _parse_fault_plan(spec: str) -> list:
 def main(argv: Optional[Sequence[str]] = None) -> dict:
     ap = parser()
     args = ap.parse_args(argv)
-    for flag, key in _UNPORTED_FLAGS.items():
-        if getattr(args, flag.replace("-", "_")) is not None:
-            raise NotImplementedError(
-                f"--{flag} is not ported yet: {UNPORTED[key]}")
     if args.resume and not args.checkpoint_dir:
         ap.error("--resume requires --checkpoint-dir")
     if args.supervise:
@@ -204,6 +230,19 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     if args.trace and not args.telemetry_dir:
         ap.error("--trace needs --telemetry-dir (lineage rows and the "
                  "flow-event trace land there)")
+    if (args.history or args.slo or args.profile) and not args.telemetry_dir:
+        ap.error("--history/--slo/--profile need --telemetry-dir (their "
+                 "timeseries-/slo-/profile- artifacts land there)")
+    if args.slo_target and not args.slo:
+        ap.error("--slo-target needs --slo")
+    if args.control and not args.telemetry_dir:
+        ap.error("--control needs --telemetry-dir (action rows, replay "
+                 "input rows and control-epoch.json land there)")
+    if args.ps_top and args.health_port is None:
+        if args.supervise:
+            ap.error("--ps-top with --supervise needs an explicit "
+                     "--health-port (the pinned port survives restarts)")
+        args.health_port = 0
     if args.trace and args.no_frame_check:
         ap.error("--trace needs frame checking (the trace ID rides the "
                  "frame header); drop --no-frame-check")
@@ -234,6 +273,10 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
         if args.snapshot_ring is not None:
             cfg["serving_kw"] = {"ring": args.snapshot_ring}
     _telemetry_cfg(args, cfg)
+    try:
+        _fleet_cfg(args, cfg)
+    except ValueError as e:
+        ap.error(str(e))
     if args.straggler_ms:
         cfg["slow_ms"] = {str(args.workers - 1): args.straggler_ms}
     if args.resilient:
@@ -253,11 +296,15 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
         cfg["max_staleness"] = args.max_staleness
         if args.resume:
             cfg["resume"] = True
-        params, metrics = Supervisor(
-            cfg, args.workers, port=args.port,
-            checkpoint_dir=args.checkpoint_dir,
-            checkpoint_every=args.checkpoint_every,
-            sync_barrier=args.sync_barrier, timeout=args.timeout).run()
+        top = _spawn_ps_top(args.health_port) if args.ps_top else None
+        try:
+            params, metrics = Supervisor(
+                cfg, args.workers, port=args.port,
+                checkpoint_dir=args.checkpoint_dir,
+                checkpoint_every=args.checkpoint_every,
+                sync_barrier=args.sync_barrier, timeout=args.timeout).run()
+        finally:
+            _stop_ps_top(top)
         if args.telemetry_dir:
             metrics.update(_export_telemetry(args.telemetry_dir))
         print(json.dumps(metrics, default=str), flush=True)
@@ -284,6 +331,15 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
         name = f"/psq_train_torch_{os.getpid()}"
         server = ShmPSServer(name, **kw)
     procs = []
+    top = None
+    if args.ps_top:
+        # bind the endpoint now (serve's own call returns this same port)
+        # so the dashboard attaches before the first push
+        bound = server.start_metrics_http(
+            args.metrics_port if args.metrics_port is not None
+            else args.health_port)
+        print(f"/health live on port {bound}", flush=True)
+        top = _spawn_ps_top(bound)
     device_trace_dir = device_t0_wall = None
     trace_cm = None
     if args.telemetry_dir and device == "cuda":
@@ -312,6 +368,7 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     finally:
         if trace_cm is not None:
             trace_cm.__exit__(None, None, None)
+        _stop_ps_top(top)
         # the /metrics + /health endpoint closes with the server
         server.close()
         join_workers(procs, timeout=5.0)
@@ -334,7 +391,9 @@ def _telemetry_cfg(args, cfg: dict) -> None:
                       + glob.glob(os.path.join(args.telemetry_dir,
                                                "trace.json"))
                       + glob.glob(os.path.join(args.telemetry_dir,
-                                               "postmortem-*.json"))):
+                                               "postmortem-*.json"))
+                      + glob.glob(os.path.join(args.telemetry_dir,
+                                               "profile-*.txt"))):
             os.remove(stale)
         cfg["telemetry_dir"] = args.telemetry_dir
         if args.metrics_port is None:
@@ -363,6 +422,59 @@ def _telemetry_cfg(args, cfg: dict) -> None:
         cfg["health_port"] = args.health_port
         cfg["health_dir"] = (args.telemetry_dir
                              or tempfile.mkdtemp(prefix="ps_health_"))
+
+
+def _fleet_cfg(args, cfg: dict) -> None:
+    """The fleet-plane and control flags as cfg keys
+    (``train_async.py:328-345``)."""
+    if args.history or args.slo:
+        cfg["timeseries"] = True
+    if args.slo:
+        cfg["slo"] = True
+        if args.slo_target:
+            targets = {}
+            for kv in args.slo_target:
+                k, _, v = kv.partition("=")
+                try:
+                    targets[k] = float(v)
+                except ValueError:
+                    raise ValueError(f"--slo-target {kv!r} is not "
+                                     "KEY=FLOAT") from None
+            cfg["slo_kw"] = {"targets": targets}
+    if args.profile:
+        cfg["profile"] = True
+    if args.control:
+        cfg["control"] = True
+        cfg["control_dir"] = args.telemetry_dir
+    if args.fleet_dir:
+        cfg["fleet_dir"] = args.fleet_dir
+        if cfg.get("metrics_port") is None:
+            cfg["metrics_port"] = 0  # registration needs a live endpoint
+
+
+def _spawn_ps_top(port) -> subprocess.Popen:
+    """The live dashboard against the local ``/health`` endpoint."""
+    from pathlib import Path
+
+    env = dict(os.environ)
+    root = str(Path(__file__).resolve().parents[1])
+    env["PYTHONPATH"] = os.pathsep.join(
+        [root] + [p for p in env.get("PYTHONPATH", "").split(os.pathsep)
+                  if p])
+    return subprocess.Popen([sys.executable, "-m",
+                             "pytorch_ps_mpi_tpu_torch.ps_top",
+                             str(int(port))], env=env)
+
+
+def _stop_ps_top(proc) -> None:
+    if proc is None or proc.poll() is not None:
+        return
+    proc.terminate()
+    try:
+        proc.wait(timeout=5)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait(timeout=5)
 
 
 def _export_telemetry(tdir: str, device_trace_dir=None,

@@ -155,8 +155,9 @@ class PSServerCounters(PSServerTelemetry):
     def _close_serving(self) -> None:
         """The read tier, the HTTP endpoint and the per-process
         observability plane die with the server (``dcn.py:741-751``,
-        ``tcp.py:655-668``): a restart never leaks a listener."""
-        self.finalize_observability()
+        ``tcp.py:655-668``): a restart never leaks a listener, and the
+        fleet card goes first."""
+        self.close_observability()
         self.close_metrics_http()
         if self.serving_core is not None:
             self.serving_core.close()

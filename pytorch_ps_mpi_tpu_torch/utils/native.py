@@ -141,7 +141,71 @@ def wirecodec_lib() -> ctypes.CDLL:
                                      _size, _size]),
         "wc_fold_dense_f32": (None, [_f32p, _f32p, _size]),
         "wc_fold_dense_bf16": (None, [_f32p, _u16p, _size]),
+        "wc_profile_stats": (None, [_u64p, _u64p, _u64p]),
+        "wc_abi_fold_span_bytes": (ctypes.c_uint32, []),
+        "wc_fold_spans_arm": (ctypes.c_int, [ctypes.c_uint32]),
+        "wc_fold_spans_drain": (ctypes.c_uint32, [
+            ctypes.POINTER(FoldSpan), ctypes.c_uint32, _u64p]),
     })
+
+
+class FoldSpan(ctypes.Structure):
+    """Mirror of ``native/wirecodec.cpp``'s ``FoldSpan`` (24 bytes,
+    packed): one ``(start_ns, end_ns, elems)`` interval a ``wc_fold_*``
+    call, captured by the armed span ring for the hop anatomy."""
+
+    _pack_ = 1
+    _fields_ = [
+        ("start_ns", ctypes.c_uint64),
+        ("end_ns", ctypes.c_uint64),
+        ("elems", ctypes.c_uint64),
+    ]
+
+
+assert ctypes.sizeof(FoldSpan) == 24
+
+
+def fold_profile_stats() -> Optional[dict]:
+    """The ``wc_fold_*`` cycle counters (calls, elements, wall ns), the
+    native half of the sampling profiler (``utils/native.py:210``). Reads
+    an already loaded library only: a process that folded nothing
+    reports None, not zeros."""
+    lib = _LIBS.get("wirecodec")
+    if lib is None:
+        return None
+    calls, elems, ns = ctypes.c_uint64(), ctypes.c_uint64(), ctypes.c_uint64()
+    lib.wc_profile_stats(ctypes.byref(calls), ctypes.byref(elems),
+                         ctypes.byref(ns))
+    return {"fold_calls": int(calls.value), "fold_elems": int(elems.value),
+            "fold_ns": int(ns.value)}
+
+
+def fold_spans_arm(capacity: int) -> bool:
+    """Arm (``capacity > 0``) or disarm (0) the native fold-span ring the
+    hop anatomy drains (``utils/native.py:231``); True when it is live.
+    ``PS_NO_NATIVE`` keeps the Python timing. Call from the fold-running
+    thread only."""
+    if fast_path_disabled():
+        return False
+    lib = wirecodec_lib()
+    if int(lib.wc_abi_fold_span_bytes()) != ctypes.sizeof(FoldSpan):
+        raise RuntimeError("native/wirecodec.cpp FoldSpan ABI drift")
+    return int(lib.wc_fold_spans_arm(int(capacity))) == 0
+
+
+def fold_spans_drain(max_spans: int = 4096) -> Optional[tuple]:
+    """``([(start_ns, end_ns, elems), ...], dropped)`` from the armed span
+    ring, oldest first (the drop counter resets a drain), or None when
+    the library is not loaded."""
+    lib = _LIBS.get("wirecodec")
+    if lib is None:
+        return None
+    buf = (FoldSpan * int(max_spans))()
+    dropped = ctypes.c_uint64()
+    n = int(lib.wc_fold_spans_drain(buf, int(max_spans),
+                                    ctypes.byref(dropped)))
+    return ([(int(buf[i].start_ns), int(buf[i].end_ns), int(buf[i].elems))
+             for i in range(n)], int(dropped.value))
 
 
 def psqueue_lib() -> ctypes.CDLL:
@@ -188,6 +252,24 @@ class BatchMeta(ctypes.Structure):
 assert ctypes.sizeof(BatchMeta) == 48
 
 
+class HopStamp(ctypes.Structure):
+    """Mirror of ``native/tcpps.cpp``'s ``HopStamp`` (32 bytes, packed):
+    one validate/ingest stamp a frame of the batched pop, drained by the
+    hop anatomy (``parallel/tcp.py:76``)."""
+
+    _pack_ = 1
+    _fields_ = [
+        ("t_ns", ctypes.c_uint64),
+        ("validate_ns", ctypes.c_uint64),
+        ("bytes", ctypes.c_uint64),
+        ("worker", ctypes.c_uint32),
+        ("status", ctypes.c_uint32),
+    ]
+
+
+assert ctypes.sizeof(HopStamp) == 32
+
+
 def tcpps_lib() -> ctypes.CDLL:
     """``native/tcpps.cpp`` (``parallel/tcp.py:96``), its PSF2 constants
     checked against ``resilience/frames.py`` at load."""
@@ -226,6 +308,11 @@ def tcpps_lib() -> ctypes.CDLL:
         "tps_abi_psf_header_bytes": (ctypes.c_uint32, []),
         "tps_abi_batch_meta_bytes": (ctypes.c_uint32, []),
         "tps_abi_frame_status_name": (ctypes.c_char_p, [ctypes.c_uint32]),
+        "tps_profile_stats": (None, [_u64p, _u64p, _u64p, _u64p]),
+        "tps_abi_hop_stamp_bytes": (ctypes.c_uint32, []),
+        "tps_hop_stamps_arm": (ctypes.c_int, [ctypes.c_uint32]),
+        "tps_hop_stamps_drain": (ctypes.c_uint32, [
+            ctypes.POINTER(HopStamp), ctypes.c_uint32, _u64p]),
     })
     verify_abi(lib)
     return lib

@@ -122,8 +122,8 @@ def test_resume_keeps_the_version_monotonic(tmp_path):
     assert m2["loss_initial"] == pytest.approx(m1["loss_final"], rel=1e-6)
 
 
-#: the telemetry keys this package has (the rest of the JAX package's
-#: observability and control keys name ROADMAP queue 1 item 3)
+#: the telemetry keys this package has, with the fleet observability
+#: plane's and the controller's beside them
 TELEMETRY_KEYS = ("telemetry_dir", "metrics_port")
 
 
@@ -131,16 +131,11 @@ TELEMETRY_KEYS = ("telemetry_dir", "metrics_port")
     ("telemetry_dir", "item 3"), ("metrics_port", "item 3"),
     ("topo_actions", "item 3"), ("control", "item 3")])
 def test_unported_options_name_their_item(key, item):
-    if key in TELEMETRY_KEYS:
-        # ported: accepted, and the fleet/control keys beside it still
-        # name the item
-        at.check_cfg({"model": "mlp", key: 1})
-        with pytest.raises(NotImplementedError, match=item):
-            at.check_cfg({"model": "mlp", key: 1, "fleet_dir": "d"})
-    else:
-        with pytest.raises(NotImplementedError, match=item):
-            at.check_cfg({"model": "mlp", key: 1})
-    with pytest.raises(NotImplementedError, match="item 4"):
+    # every key is ported: accepted alone and beside the fleet keys; the
+    # one model the fleet lacks, gpt, names its item
+    at.check_cfg({"model": "mlp", key: 1})
+    at.check_cfg({"model": "mlp", key: 1, "fleet_dir": "d"})
+    with pytest.raises(NotImplementedError, match=item):
         at.check_cfg({"model": "gpt"})
     # the scale-out, resilience, read-tier and telemetry keys are ported
     at.check_cfg({"model": "mlp", "fault_plan": [{}], "resilient": True,
@@ -149,13 +144,13 @@ def test_unported_options_name_their_item(key, item):
                   "health": True, "health_port": 0, "numerics": True,
                   "numerics_kw": {"policy": "skip"}, "lineage": True,
                   "trace": True, "anatomy": "auto", "freshness": True,
-                  "hop_anatomy": True})
-    with pytest.raises(NotImplementedError, match="sampling profiler"):
-        at.check_cfg({"model": "mlp", "profile": True})
+                  "hop_anatomy": True, "timeseries": True, "slo": True,
+                  "profile": True, "fleet": True, "control_kw": {},
+                  "control_dir": "d"})
 
 
 @pytest.mark.parametrize("key", ["metrics_port", "health_port"])
-def test_port_zero_counts_as_set(key):
+def test_port_zero_counts_as_set(key, tmp_path):
     # port 0 picks a free port in the JAX package (serving/core.py:109,186,
     # core.py:220-222): it arms the read tier, and a standalone core's
     # own /metrics + /health endpoint
@@ -179,5 +174,19 @@ def test_port_zero_counts_as_set(key):
         assert doc["armed"] is False and "serving" in doc
     finally:
         core.close()
-    with pytest.raises(NotImplementedError, match="queue 1 item 3"):
-        ServingCore(None, {"read_port": 0, "fleet_dir": "d"}, template={})
+    # a fleet_dir registers the standalone core's endpoint card, and the
+    # card leaves with the core
+    from pytorch_ps_mpi_tpu_torch.telemetry.fleet import list_endpoints
+
+    fdir = str(tmp_path / "fleet")
+    core = ServingCore(None, {"read_port": 0, "read_native": False,
+                              "device": "cpu", key: 0, "fleet_dir": fdir},
+                       template={"w": np.zeros(4)})
+    try:
+        cards = list_endpoints(fdir)
+        assert [c["name"] for c in cards] == ["read-tier"]
+        assert cards[0]["role"] == "read"
+        assert cards[0]["url"].endswith(f":{core.metrics_http_port}")
+    finally:
+        core.close()
+    assert list_endpoints(fdir) == []

@@ -1,7 +1,9 @@
 """The port imports neither JAX nor the JAX package, and neither do
 ``chip_smoke.py`` and the other chip scripts; checked in a fresh
-interpreter. Every text of the port that names a ROADMAP queue 1 item
-names the item whose heading covers it."""
+interpreter. The processes the port spawns (workers, tree leaders, read
+replicas, the ``ps_top`` dashboard) run the port's own modules. Every
+text of the port that names a ROADMAP queue 1 item names the item whose
+heading covers it."""
 
 from __future__ import annotations
 
@@ -62,7 +64,10 @@ def test_probe_imported_every_module_of_the_port(probe):
                  "telemetry.lineage", "telemetry.recorder",
                  "telemetry.http_server", "telemetry.numerics",
                  "telemetry.trace_export", "telemetry.anatomy",
-                 "telemetry.hop_anatomy", "utils.tracing"):
+                 "telemetry.hop_anatomy", "utils.tracing",
+                 "telemetry.timeseries", "telemetry.slo",
+                 "telemetry.profiler", "telemetry.fleet", "control",
+                 "control.controller", "control.topo", "ps_top"):
         assert f"pytorch_ps_mpi_tpu_torch.{name}" in probe["modules"], name
 
 
@@ -77,20 +82,10 @@ def test_chip_smoke_fails_without_the_repo(tmp_path):
 
 #: (file under the port, a word of the unported option, its queue 1 item)
 UNPORTED_TEXTS = [
-    ("ps.py", "param_specs", 4), ("ps.py", "batch_spec", 4),
-    ("models/bert.py", "ring", 4),
-    ("train.py", "gpt.py", 4), ("train.py", "moe.py", 4),
-    ("parallel/async_train.py", "timeseries", 3),
-    ("parallel/async_train.py", "slo", 3),
-    ("parallel/async_train.py", "profiler", 3),
-    ("parallel/async_train.py", "fleet", 3),
-    ("parallel/async_train.py", "topo_actions", 3),
-    ("parallel/async_train.py", "gpt.py", 4),
-    ("parallel/sharded.py", "control.topo", 3),
-    ("serving/core.py", "fleet", 3),
-    ("serve_readonly.py", "--fleet-dir", 3),
-    ("serve_readonly.py", "--control-dir", 3),
-    ("telemetry/__init__.py", "timeseries", 3),
+    ("ps.py", "param_specs", 3), ("ps.py", "batch_spec", 3),
+    ("models/bert.py", "ring", 3),
+    ("train.py", "gpt.py", 3), ("train.py", "moe.py", 3),
+    ("parallel/async_train.py", "gpt.py", 3),
 ]
 
 
@@ -114,3 +109,37 @@ def test_unported_texts_name_their_roadmap_item():
         want.setdefault(file, set()).add(item)
         assert word in items[item], (file, word, item)
     assert named == want
+
+
+def test_spawned_processes_run_the_port(monkeypatch):
+    """The controller's replica spawn, the ``--ps-top`` dashboard, a tree
+    leader and a worker start the port's modules, never the JAX
+    package's scripts."""
+    import subprocess as sp
+
+    from pytorch_ps_mpi_tpu_torch import train_async
+    from pytorch_ps_mpi_tpu_torch.control.topo import ReplicaScaler
+    from pytorch_ps_mpi_tpu_torch.parallel import async_train, tree
+
+    argvs = []
+
+    class _Popen:
+        def __init__(self, argv, **kw):
+            argvs.append(" ".join(argv))
+            self.pid, self.stdout = 0, None
+
+        def poll(self):
+            return 0
+
+    monkeypatch.setattr(sp, "Popen", _Popen)
+    ReplicaScaler("127.0.0.1", 1, dir="d", fleet_dir="f")._spawn_replica()
+    train_async._spawn_ps_top(1)
+    tree.spawn_leader(["127.0.0.1:1"], 0, [0], {})
+    async_train.spawn_worker("n", 0, {})
+    assert "-m pytorch_ps_mpi_tpu_torch.serve_readonly" in argvs[0]
+    assert "-m pytorch_ps_mpi_tpu_torch.ps_top" in argvs[1]
+    assert "from pytorch_ps_mpi_tpu_torch.parallel.tree import" in argvs[2]
+    assert "pytorch_ps_mpi_tpu_torch.parallel.async_train" in argvs[3]
+    for argv in argvs:
+        assert "examples/" not in argv and "tools/" not in argv
+        assert "pytorch_ps_mpi_tpu." not in argv

@@ -446,6 +446,7 @@ def test_shard_server_serves_its_slice_under_its_tenant(tmp_path):
 
 def test_serve_readonly_serves_a_checkpoint(tmp_path):
     from pytorch_ps_mpi_tpu_torch.optim import OPTIMIZERS
+    from pytorch_ps_mpi_tpu_torch.telemetry.fleet import list_endpoints
     from pytorch_ps_mpi_tpu_torch.serve_readonly import model_cfg
     from pytorch_ps_mpi_tpu_torch.utils.checkpoint import CheckpointManager
 
@@ -459,7 +460,8 @@ def test_serve_readonly_serves_a_checkpoint(tmp_path):
     proc = subprocess.Popen(
         [sys.executable, "-m", "pytorch_ps_mpi_tpu_torch.serve_readonly",
          "--checkpoint-dir", str(tmp_path), "--model", "mlp",
-         "--read-port", "0", "--duration", "60"],
+         "--read-port", "0", "--duration", "60", "--metrics-port", "0",
+         "--fleet-dir", str(tmp_path / "fleet")],
         cwd=ROOT, stdout=subprocess.PIPE, text=True,
         env={**os.environ, "PYTHONPATH": str(ROOT), "PS_PLATFORM": "cpu",
              **ONE_THREAD})
@@ -472,14 +474,15 @@ def test_serve_readonly_serves_a_checkpoint(tmp_path):
         r.close()
         assert ver == 9
         assert same_bits(dcn.flatten_params(tree), flat.numpy())
+        # --fleet-dir: the tier's card, on its own /metrics endpoint
+        cards = list_endpoints(str(tmp_path / "fleet"))
+        assert [(c["name"], c["role"]) for c in cards] == [("read-tier",
+                                                            "read")]
+        assert cards[0]["url"].endswith(f":{hello['metrics_port']}")
     finally:
         proc.send_signal(2)  # SIGINT: the final line, then exit 0
         out, _ = proc.communicate(timeout=LIMIT)
     assert proc.returncode == 0
     final = json.loads(out.strip().splitlines()[-1])["final_serving"]
     assert final["reads_total"] == 1
-    with pytest.raises(NotImplementedError, match="queue 1 item 3"):
-        from pytorch_ps_mpi_tpu_torch import serve_readonly
-
-        serve_readonly.main(["--checkpoint-dir", str(tmp_path),
-                             "--fleet-dir", str(tmp_path)])
+    assert list_endpoints(str(tmp_path / "fleet")) == []  # card removed

@@ -166,8 +166,8 @@ def test_assemble_tiles_the_vector_and_rejects_a_gap(tmp_path):
         np.testing.assert_array_equal(got[k], want[k])
     with pytest.raises(ValueError, match="cover"):
         sharded.assemble(paths[:2], tmpl)
-    with pytest.raises(NotImplementedError, match="queue 1 item 3"):
-        sharded.planned_shards(str(tmp_path), 2)
+    # no plan in the control directory: the cfg's count
+    assert sharded.planned_shards(str(tmp_path), 2) == 2
     assert sharded.planned_shards(None, 3) == 3
 
 

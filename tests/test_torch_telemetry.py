@@ -331,8 +331,8 @@ def test_step_and_trainer_spans_with_recorder():
 
 def test_train_async_telemetry_flags_map_to_cfg(tmp_path):
     """The CLI's telemetry flags become the fleet's cfg keys as in the JAX
-    package (``train_async.py:286-384``); the fleet-plane and control
-    flags still name ROADMAP queue 1 item 3."""
+    package (``train_async.py:286-384``), the fleet-plane and control
+    flags too (``train_async.py:328-345``)."""
     from pytorch_ps_mpi_tpu_torch import train_async
 
     tdir = str(tmp_path / "t")
@@ -353,7 +353,17 @@ def test_train_async_telemetry_flags_map_to_cfg(tmp_path):
     cfg = {"frame_check": True}
     train_async._telemetry_cfg(args, cfg)
     assert cfg == {"frame_check": True}
-    for flag in ("--history", "--slo", "--profile", "--control",
-                 "--ps-top"):
-        with pytest.raises(NotImplementedError, match="queue 1 item 3"):
+    args = train_async.parser().parse_args([
+        "--telemetry-dir", tdir, "--slo", "--slo-target",
+        "push_e2e_p95_ms=250", "--profile", "--control", "--fleet-dir",
+        str(tmp_path / "f")])
+    cfg = {}
+    train_async._fleet_cfg(args, cfg)
+    assert cfg == {"timeseries": True, "slo": True,
+                   "slo_kw": {"targets": {"push_e2e_p95_ms": 250.0}},
+                   "profile": True, "control": True, "control_dir": tdir,
+                   "fleet_dir": str(tmp_path / "f"), "metrics_port": 0}
+    # the fleet-plane flags need the directory their artifacts land in
+    for flag in ("--history", "--slo", "--profile", "--control"):
+        with pytest.raises(SystemExit):
             train_async.main([flag])
