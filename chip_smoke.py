@@ -167,6 +167,38 @@ Phases, one line each; the script exits non-zero if any fails:
                GB and (one more step under torch.profiler) its idle share;
                the CLI its seconds and ``Trainer.fit``'s mean step ms.
 
+7b. longcontext -- after ``training``, in a one-rank NCCL group of its
+               own (``run_longcontext``): L1 ``train_longcontext`` through
+               its ``main`` at BERT-base widths (GPT, hidden 768, 12
+               layers, 12 heads of 64, vocab 30522, FFN 1536, sequence
+               2048, batch 2, bf16 on the flash kernels, remat) for 3
+               steps with ring and with Ulysses attention: 2 forward and 2
+               backward flash launches a layer a step (remat reruns the
+               forward), 149 all-reduces a step, Ulysses 6 all-to-alls a
+               layer a step, asserted; median step ms, peak GB, finite
+               losses. L2 the ring schedule at 8192 tokens on one card
+               ([1, 8192, 12, 64] bf16 causal, 4 shards of 2048, each
+               shard's 4 blocks in ring order with their offsets and
+               ``return_lse=True``, folded by ``parallel.ring.ring_combine``):
+               16 forward and 32 backward block launches, the output and
+               the gradients of q, k and v against one flash call over the
+               whole sequence and against the plain version within 2**-6
+               of the largest magnitude; a block the mask covers whole,
+               folded first into fresh accumulators, weighs 0; the three
+               timed. L3 ``train --config gpt_lm`` and ``--config
+               switch_mlm`` (batch 8, 3 steps; 4 + 8 flash launches a
+               step, asserted), the first loss within 2e-3 and the first
+               batch's logits within 5e-2 (gpt_lm) and 0.35 (switch_mlm,
+               bf16 reroutes some tokens) relative L2 of the same port's
+               on the CPU in float32, and a control (attention rows
+               rolled on the CPU) beyond the logits bound.
+               L4 ``train_tp`` at BERT-base widths (hidden 768, 12 heads,
+               FFN 3072, sequence 512, batch 8) through
+               ``MPI_PS(param_specs=)`` in allgather and leader mode, the
+               collective calls asserted. Then the flash calls at gpt_lm's
+               head dim 32 timed. The kernel line gives the launches of L1
+               and L3 (``launches_longcontext``).
+
 8. async    -- last, after ``torch.cuda.empty_cache()``: the asynchronous
                parameter server (``parallel/async_train.py``), the server in
                this process and the workers fresh interpreters on the same
@@ -2594,6 +2626,417 @@ def run_training() -> None:
     torch.cuda.empty_cache()
     train_cli()
     phase("training", seconds=f"{time.perf_counter() - t0:.1f}")
+
+
+# -- phase 7b: model parallel and long context ------------------------------------
+
+LC_LAYERS = 12
+LC_STEPS = 3
+#: train_longcontext at BERT-base widths (examples/train_longcontext.py's
+#: flags): GPT, FFN 2 x hidden, bf16 on the flash kernels, remat on
+LC_ARGS = ["--seq", "2048", "--sp", "1", "--dp", "1", "--hidden", "768",
+           "--layers", str(LC_LAYERS), "--heads", "12", "--vocab", "30522",
+           "--batch", "2", "--steps", str(LC_STEPS)]
+#: the ring schedule at full width on one card: q, k, v [1, 8192, 12, 64]
+#: bf16, causal, cut into 4 shards of 2048
+RING_SEQ, RING_SHARDS, RING_HEADS, RING_HEAD_DIM = 8192, 4, 12, 64
+#: train_tp at BERT-base widths, one rank
+TP_ARGS = ["--dp", "1", "--sp", "1", "--tp", "1", "--hidden", "768",
+           "--heads", "12", "--ffn", "3072", "--seq", "512", "--batch", "8",
+           "--steps", "3"]
+#: the relative distance allowed between the train CLI's first loss on the
+#: card (bf16, flash) and the same port's on the CPU (float32, dense
+#: attention), the same weights and batch. Set from the card's readings
+#: (H100 80GB HBM3, 700 W: gpt_lm 1.06e-07, switch_mlm 4.10e-04); the
+#: control (attention rows rolled) moves switch_mlm's loss by 8.98e-03 but
+#: gpt_lm's by only 3.28e-04, its first loss sitting at log(vocab)
+#: whatever attention does, so the logits bounds below hold gpt_lm
+CLI_LOSS_RTOL = 2e-3
+#: the relative L2 distance allowed between the first batch's logits on
+#: the card and on the CPU, by config, each set between the card's reading
+#: and the control's (the same card: gpt_lm 9.231e-03 and 6.194e-01;
+#: switch_mlm 1.582e-01 and 1.001, bf16 sending some tokens to another
+#: top-1 expert, whose output differs whole); the control must land above
+CLI_LOGITS_RTOL = {"gpt_lm": 5e-2, "switch_mlm": 0.35}
+
+
+def _zero_counts() -> None:
+    from pytorch_ps_mpi_tpu_torch import comms
+
+    for k in kernel_counters().values():
+        k.launches = 0
+    comms.reset_calls()
+
+
+def _counts() -> tuple:
+    from pytorch_ps_mpi_tpu_torch import comms
+
+    return ({n: k.launches for n, k in kernel_counters().items()
+             if k.launches}, {n: c for n, c in comms.calls.items() if c})
+
+
+def longcontext_l1(attention: str, tally: dict) -> None:
+    """L1: ``train_longcontext`` through its ``main``, 3 steps. Each step
+    runs every layer's attention once forward, once more in the backward
+    (remat recomputes the layer) and its backward once: 2 forward and 2
+    backward flash launches a layer a step. One all-reduce a leaf and one
+    for the loss a step; Ulysses two all-to-alls each time a layer's
+    attention runs forward, and two in its backward."""
+    from pytorch_ps_mpi_tpu_torch import train_longcontext as tl
+
+    _zero_counts()
+    t0 = time.perf_counter()
+    summary = tl.main(LC_ARGS + ["--attention", attention])
+    seconds = time.perf_counter() - t0
+    launches, calls = _counts()
+    leaves = 2 + 12 * LC_LAYERS + 2
+    want = {"flash_fwd": 2 * LC_LAYERS * LC_STEPS,
+            "flash_bwd": 2 * LC_LAYERS * LC_STEPS}
+    want_calls = {"all_reduce": (leaves + 1) * LC_STEPS}
+    if attention == "ulysses":
+        want_calls["all_to_all"] = 6 * LC_LAYERS * LC_STEPS
+    if launches != want or calls != want_calls:
+        raise AssertionError(f"L1 {attention}: launches {launches} (want "
+                             f"{want}), calls {calls} (want {want_calls})")
+    if not summary["finite"]:
+        raise AssertionError(f"L1 {attention}: losses {summary['losses']}")
+    _tally(tally, launches)
+    phase("longcontext", run="L1", attention=attention,
+          model="GPT-768x12-h12-v30522-bf16-remat", seq=2048, batch=2,
+          steps=LC_STEPS, step_ms_median=f"{summary['step_ms_median']:.3f}",
+          peak_gb=f"{summary['peak_gb']:.2f}", finite=summary["finite"],
+          losses=json.dumps([round(x, 5) for x in summary["losses"]]),
+          launches=json.dumps(launches, sort_keys=True,
+                              separators=(",", ":")),
+          calls=json.dumps(calls, sort_keys=True, separators=(",", ":")),
+          seconds=f"{seconds:.1f}")
+
+
+def _ring_schedule(q, k, v):
+    """Each shard's 4 blocks in the ring's order (src = i, i-1, ...) with
+    their global offsets, folded by the port's ring combine: the whole
+    sequence's output, shard by shard."""
+    from pytorch_ps_mpi_tpu_torch.ops.attention import flash_attention
+    from pytorch_ps_mpi_tpu_torch.parallel.ring import ring_combine, ring_init
+
+    n, l = RING_SHARDS, RING_SEQ // RING_SHARDS
+    outs = []
+    for i in range(n):
+        qi = q[:, i * l:(i + 1) * l]
+        num, den, mx = ring_init(qi)
+        for step in range(n):
+            src = (i - step) % n
+            o, lse = flash_attention(qi, k[:, src * l:(src + 1) * l],
+                                     v[:, src * l:(src + 1) * l],
+                                     causal=True, q_offset=i * l,
+                                     k_offset=src * l, return_lse=True)
+            num, den, mx = ring_combine(num, den, mx, o.transpose(1, 2), lse)
+        outs.append((num / torch.clamp(den, min=1e-30)[..., None])
+                    .transpose(1, 2).to(q.dtype))
+    return torch.cat(outs, dim=1)
+
+
+def _masked_block_weighs_nothing(q, k, v) -> dict:
+    """Shard 0's q against shard 1's block (the causal mask covers it
+    whole), folded first into fresh accumulators, while ``mx`` is still at
+    its floor: only the combine's ``lse <= -1e29`` guard gives it weight 0
+    (``exp(lse - mx)`` alone is 1 there). Then the diagonal block folded
+    after it must equal that block's flash call alone."""
+    from pytorch_ps_mpi_tpu_torch.ops.attention import flash_attention
+    from pytorch_ps_mpi_tpu_torch.parallel.ring import ring_combine, ring_init
+
+    l = RING_SEQ // RING_SHARDS
+    qi = q[:, :l]
+    num, den, mx = ring_init(qi)
+    o, lse = flash_attention(qi, k[:, l:2 * l], v[:, l:2 * l], causal=True,
+                             q_offset=0, k_offset=l, return_lse=True)
+    num, den, mx = ring_combine(num, den, mx, o.transpose(1, 2), lse)
+    lse_max = float(lse.max())
+    weight = float(den.abs().max()) + float(num.abs().max())
+    if not (lse_max <= -1e29 and weight == 0.0):
+        raise AssertionError(f"L2 masked block: lse max {lse_max}, weight "
+                             f"{weight} (want <= -1e29 and 0)")
+    o_d, lse_d = flash_attention(qi, k[:, :l], v[:, :l], causal=True,
+                                 return_lse=True)
+    num, den, mx = ring_combine(num, den, mx, o_d.transpose(1, 2), lse_d)
+    got = (num / den[..., None]).transpose(1, 2).to(q.dtype)
+    err = _flash_err(got, o_d, torch.bfloat16, "L2 masked then diagonal",
+                     False)
+    return {"masked_lse_max": f"{lse_max:.4e}",
+            "masked_weight": f"{weight:.1f}",
+            "masked_then_diag_err": f"{err:.6f}"}
+
+
+def longcontext_l2() -> dict:
+    """L2: the ring schedule at 8192 tokens on one card, held against one
+    flash call over the whole sequence and against the plain version
+    (``attention_ref``, float32 scores), the output and the gradients of
+    q, k and v through the lse path; 16 forward block launches (12 of
+    them at least partly visible, 6 covered whole by the causal mask,
+    whose lse sits at the mask's floor; one of them folded first, where
+    only the combine's guard zeroes it). Timed: the schedule, the one
+    call and the plain version, forward and forward + backward."""
+    from pytorch_ps_mpi_tpu_torch.ops import attention as A
+
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    shape = (1, RING_SEQ, RING_HEADS, RING_HEAD_DIM)
+    q, k, v, g = (torch.randn(shape, generator=gen, device="cuda")
+                  .to(torch.bfloat16) for _ in range(4))
+
+    def grads(fn):
+        ins = [t.detach().requires_grad_() for t in (q, k, v)]
+        out = fn(*ins)
+        return (out.detach(), *torch.autograd.grad(out, ins, g))
+
+    _zero_counts()
+    ring = grads(_ring_schedule)
+    fwd, bwd = A.flash_fwd.launches, A.flash_bwd.launches
+    if (fwd, bwd) != (RING_SHARDS ** 2, 2 * RING_SHARDS ** 2):
+        raise AssertionError(f"L2: {fwd} forward and {bwd} backward block "
+                             f"launches, want 16 and 32")
+    whole = grads(lambda a, b, c: A.flash_attention(a, b, c, causal=True))
+    plain = grads(lambda a, b, c: A.attention_ref(
+        a, b, c, 0, 0, True, RING_HEAD_DIM ** -0.5)[0])
+    errs = {}
+    for name, r, w, p in zip(("o", "dq", "dk", "dv"), ring, whole, plain):
+        grad = name != "o"
+        errs[f"{name}_vs_flash"] = _flash_err(r, w, torch.bfloat16,
+                                              f"L2 ring {name} vs flash", grad)
+        errs[f"{name}_vs_plain"] = _flash_err(r, p, torch.bfloat16,
+                                              f"L2 ring {name} vs plain", grad)
+    del ring, whole, plain
+    torch.cuda.empty_cache()
+    masked = _masked_block_weighs_nothing(q, k, v)
+
+    def fwd_bwd(fn):
+        def run():
+            ins = [t.detach().requires_grad_() for t in (q, k, v)]
+            torch.autograd.grad(fn(*ins), ins, g)
+        return run
+
+    def one(a, b, c):
+        return A.flash_attention(a, b, c, causal=True)
+
+    def ref(a, b, c):
+        return A.attention_ref(a, b, c, 0, 0, True, RING_HEAD_DIM ** -0.5)[0]
+
+    times = dict(
+        ring_fwd_ms=cuda_ms(lambda: _ring_schedule(q, k, v), 3, 3),
+        one_call_fwd_ms=cuda_ms(lambda: one(q, k, v), 3, 3),
+        plain_fwd_ms=cuda_ms(lambda: ref(q, k, v), 1, 3),
+        ring_fwd_bwd_ms=cuda_ms(fwd_bwd(_ring_schedule), 2, 3),
+        one_call_fwd_bwd_ms=cuda_ms(fwd_bwd(one), 2, 3),
+        plain_fwd_bwd_ms=cuda_ms(fwd_bwd(ref), 1, 3))
+    # causal: half the q·k and p·v products of the square
+    flops = 4 * RING_HEADS * RING_SEQ * RING_SEQ * RING_HEAD_DIM / 2
+    phase("longcontext", run="L2", shape="[1,8192,12,64] bf16 causal",
+          shards=RING_SHARDS, block_launches_fwd=fwd, block_launches_bwd=bwd,
+          tolerance="2**-6 of the largest |value| (bf16)",
+          **{k: f"{v:.6f}" for k, v in errs.items()}, **masked,
+          **{k: f"{v:.4f}" for k, v in times.items()},
+          fwd_bound_ms=f"{flops / BF16_FLOPS * 1e3:.5f}",
+          bound_by="operations")
+    return times
+
+
+def _first_batch(config: str, device: torch.device, rolled: bool = False):
+    """``train.build``'s model and first batch for ``config`` on
+    ``device`` (the CLI's own builder: bf16 and the flash kernels on the
+    card, float32 and dense attention on the CPU): the tokens, the
+    float32 logits and the loss before any step. ``rolled``, the control:
+    every attention's output rows rolled one position along the
+    sequence (CPU only). Also each MoE layer's top-1 expert a token
+    (``[layers, tokens]``; None without MoE layers)."""
+    from pytorch_ps_mpi_tpu_torch import train
+    from pytorch_ps_mpi_tpu_torch.models import bert, moe
+
+    args = train.parser().parse_args(["--config", config, "--batch", "8"])
+    model, loss_fn, data, _ = train.build(args, device)
+    batch = next(data)
+    routes = []
+
+    def route(mod, inp, out):
+        x = inp[0].reshape(-1, inp[0].shape[-1]).float()
+        routes.append((x @ mod.wr.float()).argmax(-1).cpu())
+
+    hooks = [m.register_forward_hook(route) for m in model.modules()
+             if isinstance(m, moe.MoEFFN)]
+    dense = bert.dense_attention
+    if rolled:
+        bert.dense_attention = lambda *a: torch.roll(dense(*a), 1, dims=1)
+    try:
+        with torch.no_grad():
+            logits = model(batch["tokens"]).float()
+            loss = float(loss_fn(dict(model.named_parameters()), batch))
+    finally:
+        bert.dense_attention = dense
+        for h in hooks:
+            h.remove()
+    return (batch["tokens"].cpu(), logits.cpu(), loss,
+            torch.stack(routes[:len(hooks)]) if hooks else None)
+
+
+def longcontext_l3(config: str, tally: dict) -> None:
+    """L3: ``train --config gpt_lm|switch_mlm`` (4 layers, batch 8, seq
+    128; gpt_lm's head dim 32, switch_mlm's 32) on the card, 3 steps: one
+    forward and two backward flash launches a layer a step. Then, from
+    the CLI's own builder, the first batch's logits and loss on the card
+    against the same port on the CPU in float32, and a control (the CPU
+    model with its attention rows rolled) that must fail the logits
+    bound."""
+    from pytorch_ps_mpi_tpu_torch import train
+
+    _zero_counts()
+    t0 = time.perf_counter()
+    card = train.main(["--config", config, "--steps", str(LC_STEPS),
+                       "--batch", "8", "--log-every", "0"])
+    seconds = time.perf_counter() - t0
+    launches, calls = _counts()
+    want = {"flash_fwd": 4 * LC_STEPS, "flash_bwd": 8 * LC_STEPS}
+    if launches != want:
+        raise AssertionError(f"L3 {config}: launches {launches}, want {want}")
+    _tally(tally, launches)
+    cpu_dev = torch.device("cpu")
+    toks, cpu_logits, cpu_loss, cpu_routes = _first_batch(config, cpu_dev)
+    card_toks, card_logits, card_loss, card_routes = _first_batch(
+        config, torch.device("cuda", torch.cuda.current_device()))
+    _, ctl_logits, ctl_loss, _ = _first_batch(config, cpu_dev, rolled=True)
+    if not torch.equal(toks, card_toks):
+        raise AssertionError(f"L3 {config}: the card's batch is not the CPU's")
+
+    def rel(a, b):
+        return float((a - b).norm() / b.norm())
+
+    loss_rel = abs(card["first_loss"] - cpu_loss) / abs(cpu_loss)
+    logits_rel = rel(card_logits, cpu_logits)
+    ctl_logits_rel = rel(ctl_logits, cpu_logits)
+    ctl_loss_rel = abs(ctl_loss - cpu_loss) / abs(cpu_loss)
+    bound = CLI_LOGITS_RTOL[config]
+    routed = {}
+    if cpu_routes is not None:  # top-1 expert alike at every MoE layer
+        alike = (cpu_routes == card_routes).all(0).float().mean()
+        routed["tokens_routed_alike"] = f"{float(alike):.4f}"
+    phase("longcontext", run="L3", config=config, steps=LC_STEPS,
+          first_loss_card=card["first_loss"], first_loss_cpu_f32=cpu_loss,
+          loss_rel_diff=f"{loss_rel:.2e}", loss_tolerance=CLI_LOSS_RTOL,
+          logits_rel_l2=f"{logits_rel:.3e}",
+          logits_tolerance=bound, **routed,
+          control_rolled_rows_logits_rel_l2=f"{ctl_logits_rel:.3e}",
+          control_rolled_rows_loss_rel_diff=f"{ctl_loss_rel:.2e}",
+          card_forward_loss=card_loss, final_loss=card["final_loss"],
+          step_ms=f"{card['step_time'] * 1e3:.3f}",
+          launches=json.dumps(launches, sort_keys=True,
+                              separators=(",", ":")),
+          calls=json.dumps(calls, sort_keys=True, separators=(",", ":")),
+          seconds=f"{seconds:.1f}")
+    if not (math.isfinite(card["final_loss"]) and loss_rel <= CLI_LOSS_RTOL
+            and logits_rel <= bound):
+        raise AssertionError(f"L3 {config}: first loss {card['first_loss']} "
+                             f"on the card, {cpu_loss} on the CPU; logits "
+                             f"{logits_rel:.3e} apart")
+    if ctl_logits_rel <= bound:
+        raise AssertionError(f"L3 {config}: the control's logits are only "
+                             f"{ctl_logits_rel:.3e} apart: the bound cannot "
+                             "see wrong attention rows")
+
+
+def longcontext_l4(mode: str) -> None:
+    """L4: ``train_tp`` at BERT-base widths on one rank, through
+    ``MPI_PS(param_specs=...)``, 3 steps. A step's collectives: allgather,
+    one all-reduce a leaf (10), the loss's, the two row-parallel sums and
+    the two column-parallel inputs' gradient sums; leader, a reduce-scatter
+    and an all-gather a leaf and the same five all-reduces."""
+    from pytorch_ps_mpi_tpu_torch import train_tp
+
+    _zero_counts()
+    summary = train_tp.main(TP_ARGS + ["--mode", mode])
+    launches, calls = _counts()
+    steps, leaves = 3, 10
+    want = ({"all_reduce": steps * (leaves + 5)} if mode == "allgather" else
+            {"all_reduce": steps * 5, "reduce_scatter": steps * leaves,
+             "all_gather": steps * leaves})
+    if calls != want or launches:
+        raise AssertionError(f"L4 {mode}: calls {calls} (want {want}), "
+                             f"kernel launches {launches}")
+    if not summary["finite"]:
+        raise AssertionError(f"L4 {mode}: losses {summary['losses']}")
+    phase("longcontext", run="L4", mode=mode, model="TP block 768/12/3072",
+          seq=512, batch=8, steps=steps,
+          step_ms_median=f"{summary['step_ms_median']:.3f}",
+          losses=json.dumps([round(x, 5) for x in summary["losses"]]),
+          sharded_over=repr(summary["tp_leaves_sharded_over"]),
+          calls=json.dumps(calls, sort_keys=True, separators=(",", ":")))
+
+
+def flash_d32() -> dict:
+    """The flash forward and backward at gpt_lm's attention, [8·8, 128,
+    32] bf16 causal, 4 calls (its layers): times, bounds and SDPA's."""
+    from pytorch_ps_mpi_tpu_torch.ops import attention as A
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    b, h, l, d = 8, 8, 128, 32
+    scale = d ** -0.5
+    sets = [_flash_inputs(torch.bfloat16, gen, b=b, l=l, h=h, d=d)
+            for _ in range(4)]
+    attn = 4 * b * h * l * l * d / 2
+    fwd = timed(lambda q, k, v: A.flash_fwd(q, k, v, 0, 0, True, scale),
+                lambda q, k, v: A.flash_fwd_ref(q, k, v, 0, 0, True, scale),
+                [(q, k, v) for q, k, v, _, _ in sets],
+                lambda q, k, v: 4 * q.numel() * 2 + 4 * b * h * l,
+                library=lambda q, k, v: torch.nn.functional
+                .scaled_dot_product_attention(
+                    q.view(b, h, l, d), k.view(b, h, l, d),
+                    v.view(b, h, l, d), is_causal=True),
+                flops=lambda *a: attn, reps=10, rounds=3)
+    bwd_args = []
+    for q, k, v, g, _ in sets:
+        o, lse = A.flash_fwd(q, k, v, 0, 0, True, scale)
+        bwd_args.append((q, k, v, o, lse, g, None))
+    bwd = timed(lambda *a: A.flash_bwd(*a, 0, 0, True, scale),
+                lambda *a: A.flash_bwd_ref(*a, 0, 0, True, scale),
+                bwd_args, lambda q, *a: 8 * q.numel() * 2 + 2 * 4 * b * h * l,
+                flops=lambda *a: 2.5 * attn, reps=10, rounds=3)
+    for name, r in (("flash_fwd", fwd), ("flash_bwd", bwd)):
+        phase("longcontext", kernel=name, shape=f"[{b * h},{l},{d}] bf16 "
+              "causal x4", ms=f"{r['ms']:.4f}",
+              device_ms=f"{r['device_ms']:.4f}",
+              plain_ms=f"{r['plain_ms']:.4f}", bound_ms=f"{r['bound_ms']:.5f}",
+              bound_by=r["bound_by"],
+              library_ms=("null" if r["library_ms"] is None
+                          else f"{r['library_ms']:.4f}"))
+    return {"flash_fwd": fwd, "flash_bwd": bwd}
+
+
+def run_longcontext() -> dict:
+    """Phase 7b (``longcontext``), after ``training``, in a one-rank NCCL
+    group of its own: L1 (ring and Ulysses), L2, L3 (gpt_lm, switch_mlm),
+    L4 (allgather, leader) and the flash kernels at head dim 32. Returns
+    the launches of the entry points' runs (L1, L3) by kernel."""
+    from pytorch_ps_mpi_tpu_torch import mesh
+
+    t0 = time.perf_counter()
+    tally: dict = {}
+    mesh.initialize_distributed(f"tcp://localhost:{free_port()}",
+                                world_size=1, rank=0, backend="nccl")
+    try:
+        for attention in ("ring", "ulysses"):
+            longcontext_l1(attention, tally)
+            torch.cuda.empty_cache()
+        longcontext_l2()
+        torch.cuda.empty_cache()
+        for config in ("gpt_lm", "switch_mlm"):
+            longcontext_l3(config, tally)
+            torch.cuda.empty_cache()
+        for mode in ("allgather", "leader"):
+            longcontext_l4(mode)
+            torch.cuda.empty_cache()
+        flash_d32()
+    finally:
+        torch.distributed.destroy_process_group()
+    phase("longcontext", launches=json.dumps(tally, sort_keys=True,
+                                             separators=(",", ":")),
+          seconds=f"{time.perf_counter() - t0:.1f}")
+    return tally
 
 
 
@@ -5891,6 +6334,8 @@ def main() -> int:
     finally:
         torch.distributed.destroy_process_group()
     torch.cuda.empty_cache()
+    longcontext = run_longcontext()
+    torch.cuda.empty_cache()
     a1, a2 = run_async(card)
     torch.cuda.empty_cache()
     serving = run_serving(card, topk_launches)
@@ -5915,7 +6360,8 @@ def main() -> int:
          "launches_serving": serving.get(name, 0),
          "launches_scale_out": scale_out.get(name, 0),
          "launches_telemetry": telemetry.get(name, 0),
-         "launches_control": control.get(name, 0)}
+         "launches_control": control.get(name, 0),
+         "launches_longcontext": longcontext.get(name, 0)}
         for name, r in results.items()]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -260,7 +260,9 @@ def dtype_name(dtype) -> str:
 def host_dtype(dtype) -> np.dtype:
     """The numpy dtype that holds ``dtype``'s bytes on the host."""
     name = dtype_name(dtype)
-    return _HOST_DTYPES.get(name, np.dtype(name))
+    # not .get(name, np.dtype(name)): numpy knows "bfloat16" only where
+    # ml_dtypes (JAX) registered it, and the default is built eagerly
+    return _HOST_DTYPES[name] if name in _HOST_DTYPES else np.dtype(name)
 
 
 def torch_dtype(dtype) -> torch.dtype:

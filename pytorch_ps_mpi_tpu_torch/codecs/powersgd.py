@@ -96,22 +96,23 @@ class PowerSGDCodec(Codec):
         return {"P": P, "Q": Q}, {"Q": Q, "memory": corrected - decoded}
 
     def fused_allreduce(self, grad, state, comm_dtype: Optional[torch.dtype]
-                        = None):
+                        = None, group=None):
         """``(summed, new_state)``: the rank-r approximation of the sum of
         the ranks' gradients, by two all-reduces of the factors
         (``powersgd.py:106-139``). ``comm_dtype`` narrows the all-reduce
-        of an uncompressed leaf; the factors keep their dtype."""
+        of an uncompressed leaf; the factors keep their dtype. ``group``:
+        the ``mesh.Group`` the sum spans (default: every rank)."""
         if not self._compresses(grad.shape):
             if comm_dtype is not None:
-                return comms.allreduce_sum(grad.to(comm_dtype)).to(
+                return comms.allreduce_sum(grad.to(comm_dtype), group).to(
                     grad.dtype), state
-            return comms.allreduce_sum(grad), state
+            return comms.allreduce_sum(grad, group), state
         corrected = grad + state["memory"]
         M = corrected.reshape(_matrix_shape(grad.shape))
         # Q is the same on every rank, so this is (Σ M_w)·Q
-        P, _ = torch.linalg.qr(comms.allreduce_sum(M @ state["Q"]))
+        P, _ = torch.linalg.qr(comms.allreduce_sum(M @ state["Q"], group))
         Qw = M.T @ P
-        Q = comms.allreduce_sum(Qw)
+        Q = comms.allreduce_sum(Qw, group)
         summed = (P @ Q.T).reshape(grad.shape)
         # this rank's share of the decode is P̂·Q_wᵀ; the shares sum to it
         return summed, {"Q": Q,

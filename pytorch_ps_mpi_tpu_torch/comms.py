@@ -26,6 +26,24 @@ step:
 With no process group each is the identity (``all_gather`` an
 ``unsqueeze(0)``), matching the JAX package on a one-device mesh.
 
+The model-parallel layers take the same collectives over one axis (or
+set of axes) of a named mesh: ``group=`` a ``mesh.Group``
+(``Mesh.group(axes)``), whose ranks sum, gather or scatter together; the
+default ``None`` is the whole world. A group of one rank within a larger
+world is the identity and counts nothing. Beside them, the collectives
+that autograd differentiates, each a ``torch.autograd.Function`` whose
+backward is the JAX transpose (``comms.py:158-213``):
+
+- :func:`psum_fwd_identity_bwd` and :func:`identity_fwd_psum_bwd`,
+  Megatron's conjugate pair (a sum in one direction, the identity in the
+  other);
+- :func:`ring_permute` (``lax.ppermute`` around the ring), whose
+  backward is the opposite shift; its send and receive are posted
+  together (``batch_isend_irecv``), so a ring of them cannot deadlock;
+- :func:`all_to_all` (``lax.all_to_all`` with ``split_axis=
+  concat_axis=0``), whose backward is the inverse exchange, the same
+  all-to-all.
+
 :data:`calls` counts the collective calls made, by kind, as the kernel
 wrappers keep ``.launches``: the counterpart of the JAX package's
 ``bucketing.count_collectives``. Identity calls without a group count
@@ -45,7 +63,8 @@ Tree = Any
 
 #: collective calls made since the last :func:`reset_calls`, by kind
 calls: Dict[str, int] = {"all_reduce": 0, "all_gather": 0,
-                         "reduce_scatter": 0, "broadcast": 0, "gather": 0}
+                         "reduce_scatter": 0, "broadcast": 0, "gather": 0,
+                         "all_to_all": 0, "ring_permute": 0}
 
 
 def reset_calls() -> None:
@@ -53,64 +72,81 @@ def reset_calls() -> None:
         calls[kind] = 0
 
 
-def allreduce_sum(x: torch.Tensor) -> torch.Tensor:
+def _skip(group) -> bool:
+    """True where a collective over ``group`` is the identity: no process
+    group, or a group of one rank within a larger world."""
+    return not dist.is_initialized() or (
+        group is not None and group.size == 1 and world_size() > 1)
+
+
+def _pg(group):
+    return None if group is None else group.pg
+
+
+def _size(group) -> int:
+    return world_size() if group is None else group.size
+
+
+def allreduce_sum(x: torch.Tensor, group=None) -> torch.Tensor:
     """Sum ``x`` across ranks into a new tensor (reference
     ``ps.py:161,176``: allgather + host ``sum(grads)`` as one collective)."""
-    if not dist.is_initialized():
+    if _skip(group):
         return x
-    out = x.clone()
-    dist.all_reduce(out)
+    # contiguous: NCCL takes no strided tensor (a tied or einsum gradient)
+    out = x.clone(memory_format=torch.contiguous_format)
+    dist.all_reduce(out, group=_pg(group))
     calls["all_reduce"] += 1
     return out
 
 
 def allreduce_sum_buckets(buckets: Sequence[torch.Tensor],
-                          wire_dtype: Optional[torch.dtype] = None
-                          ) -> List[torch.Tensor]:
+                          wire_dtype: Optional[torch.dtype] = None,
+                          group=None) -> List[torch.Tensor]:
     """One sum across ranks a flat bucket (``comms.py:62``). ``wire_dtype``
     narrows each bucket on the wire and casts back, unconditionally, so
     the numerics equal the per-leaf path's bit for bit."""
     if wire_dtype is None:
-        return [allreduce_sum(b) for b in buckets]
-    return [allreduce_sum(b.to(wire_dtype)).to(b.dtype) for b in buckets]
+        return [allreduce_sum(b, group) for b in buckets]
+    return [allreduce_sum(b.to(wire_dtype), group).to(b.dtype)
+            for b in buckets]
 
 
-def all_gather(x: torch.Tensor) -> torch.Tensor:
+def all_gather(x: torch.Tensor, group=None) -> torch.Tensor:
     """Every rank's ``x`` stacked on a new leading ``[world]`` axis, in
     rank order."""
-    if not dist.is_initialized():
+    if _skip(group):
         return x.unsqueeze(0)
     x = x.contiguous()
-    out = torch.empty((world_size(),) + tuple(x.shape), dtype=x.dtype,
+    out = torch.empty((_size(group),) + tuple(x.shape), dtype=x.dtype,
                       device=x.device)
-    dist.all_gather(list(out.unbind(0)), x)
+    dist.all_gather(list(out.unbind(0)), x, group=_pg(group))
     calls["all_gather"] += 1
     return out
 
 
-def all_gather_tiled(x: torch.Tensor) -> torch.Tensor:
+def all_gather_tiled(x: torch.Tensor, group=None) -> torch.Tensor:
     """Every rank's 1-D ``x`` concatenated in rank order, ``[world * n]``
     (``lax.all_gather(..., tiled=True)``)."""
-    if not dist.is_initialized():
+    if _skip(group):
         return x
     x = x.contiguous()
-    out = torch.empty((world_size() * x.numel(),), dtype=x.dtype,
+    out = torch.empty((_size(group) * x.numel(),), dtype=x.dtype,
                       device=x.device)
-    dist.all_gather_into_tensor(out, x)
+    dist.all_gather_into_tensor(out, x, group=_pg(group))
     calls["all_gather"] += 1
     return out
 
 
-def reduce_scatter_tiled(x: torch.Tensor) -> torch.Tensor:
+def reduce_scatter_tiled(x: torch.Tensor, group=None) -> torch.Tensor:
     """The sum across ranks of 1-D ``x`` (``[world * ss]``), of which this
     rank keeps rows ``[rank * ss, (rank + 1) * ss)``
     (``lax.psum_scatter(..., tiled=True)``)."""
-    if not dist.is_initialized():
+    if _skip(group):
         return x
     x = x.contiguous()
-    out = torch.empty((x.numel() // world_size(),), dtype=x.dtype,
+    out = torch.empty((x.numel() // _size(group),), dtype=x.dtype,
                       device=x.device)
-    dist.reduce_scatter_tensor(out, x)
+    dist.reduce_scatter_tensor(out, x, group=_pg(group))
     calls["reduce_scatter"] += 1
     return out
 
@@ -216,18 +252,128 @@ def tree_map(fn, tree: Tree) -> Tree:
     return fn(tree)
 
 
-def allreduce_sum_tree(tree: Tree) -> Tree:
-    return tree_map(allreduce_sum, tree)
+def allreduce_sum_tree(tree: Tree, group=None) -> Tree:
+    return tree_map(lambda t: allreduce_sum(t, group), tree)
 
 
-def all_gather_tree(tree: Tree) -> Tree:
-    return tree_map(all_gather, tree)
+def all_gather_tree(tree: Tree, group=None) -> Tree:
+    return tree_map(lambda t: all_gather(t, group), tree)
 
 
 def broadcast_from_leader_tree(tree: Tree) -> Tree:
     """:func:`broadcast_from_leader` of every tensor of ``tree``: the
     parameter read-back of a broadcast-topology PS (``comms.py:111``)."""
     return tree_map(broadcast_from_leader, tree)
+
+
+# -- collectives that autograd differentiates (model-parallel regions) -----------
+
+class _PsumFwdIdentityBwd(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        return allreduce_sum(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def psum_fwd_identity_bwd(x: torch.Tensor, group=None) -> torch.Tensor:
+    """Forward: the sum of ``x`` over ``group``; backward: the identity
+    (``comms.py:158``). At a model-parallel region's output reduction (a
+    row-parallel product, the pipeline's loss replication): the output
+    is replicated over the group, so its cotangent is already each
+    shard's own."""
+    return _PsumFwdIdentityBwd.apply(x, group)
+
+
+class _IdentityFwdPsumBwd(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return allreduce_sum(g.contiguous(), ctx.group), None
+
+
+def identity_fwd_psum_bwd(x: torch.Tensor, group=None) -> torch.Tensor:
+    """Forward: the identity; backward: the sum of the cotangent over
+    ``group`` (``comms.py:181``). At a model-parallel region's input, a
+    replicated activation every shard consumes: its gradient is the sum
+    of the shards' contributions."""
+    return _IdentityFwdPsumBwd.apply(x, group)
+
+
+def _permute(x: torch.Tensor, group, shift: int) -> torch.Tensor:
+    n = group.size
+    if n == 1 or _skip(group):
+        return x
+    x = x.contiguous()
+    out = torch.empty_like(x)
+    i = group.index
+    ops = [dist.P2POp(dist.isend, x, group.ranks[(i + shift) % n],
+                      group.pg),
+           dist.P2POp(dist.irecv, out, group.ranks[(i - shift) % n],
+                      group.pg)]
+    for req in dist.batch_isend_irecv(ops):
+        req.wait()
+    calls["ring_permute"] += 1
+    return out
+
+
+class _RingPermute(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, shift):
+        ctx.group, ctx.shift = group, shift
+        return _permute(x, group, shift)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _permute(g, ctx.group, -ctx.shift), None, None
+
+
+def ring_permute(x: torch.Tensor, group, shift: int = 1) -> torch.Tensor:
+    """Send ``x`` to the rank ``shift`` places on around ``group``'s ring
+    and receive the one ``shift`` places back (``comms.py:202``,
+    ``lax.ppermute`` with ``[(i, (i + shift) % n)]``). The send and the
+    receive are posted together. Differentiable: the backward shifts the
+    cotangent the other way. A ring of one rank is the identity."""
+    return _RingPermute.apply(x, group, shift)
+
+
+def _all_to_all(x: torch.Tensor, group) -> torch.Tensor:
+    if _skip(group):
+        return x
+    n = _size(group)
+    if x.shape[0] != n:
+        raise ValueError(f"all_to_all: leading dim {x.shape[0]} must be the "
+                         f"group's size {n}")
+    x = x.contiguous()
+    out = torch.empty_like(x)
+    dist.all_to_all_single(out, x, group=_pg(group))
+    calls["all_to_all"] += 1
+    return out
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _all_to_all(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_to_all(g, ctx.group), None
+
+
+def all_to_all(x: torch.Tensor, group=None) -> torch.Tensor:
+    """``x [n, ...]``: row ``j`` goes to the group's rank ``j``, and row
+    ``i`` of the result came from rank ``i`` (``lax.all_to_all(x, axis,
+    split_axis=0, concat_axis=0)``). Differentiable: the backward is the
+    same exchange of the cotangent, its inverse."""
+    return _AllToAll.apply(x, group)
 
 
 __all__ = [
@@ -237,4 +383,6 @@ __all__ = [
     "all_gather_with_grad", "allreduce_mean_tree",
     "gather_to_leader",
     "broadcast_from_leader", "broadcast_from_leader_tree", "tree_map",
+    "psum_fwd_identity_bwd", "identity_fwd_psum_bwd", "ring_permute",
+    "all_to_all",
 ]

@@ -234,8 +234,17 @@ def init_adafactor_state(params: Params) -> AdafactorState:
 
 @torch.no_grad()
 def adafactor_update(params: Params, grads: Params, state: AdafactorState,
-                     h: AdafactorHyper) -> Tuple[Params, AdafactorState]:
-    """One Adafactor step on the aggregated gradient, in place."""
+                     h: AdafactorHyper, scalar_mean=None
+                     ) -> Tuple[Params, AdafactorState]:
+    """One Adafactor step on the aggregated gradient, in place.
+
+    ``scalar_mean`` turns the two per-leaf scalar means (the update's
+    clip RMS and the parameter scale) into means over a leaf's shards
+    under model parallelism (``optim.py:275``): the mean over the model
+    axes of the shards' means, which for shards of equal size is the
+    global mean (and a replicated leaf's own). The factored row and
+    column means never span shards (:func:`adafactor_check_sharding`)."""
+    mean_sq = scalar_mean if scalar_mean is not None else (lambda x: x)
     step = state.step + 1
     t = _f32(step)
     beta2t = 1.0 - t ** (-h.decay_rate)
@@ -258,18 +267,76 @@ def adafactor_update(params: Params, grads: Params, state: AdafactorState,
         else:
             vf.copy_(beta2t * vf + (1.0 - beta2t) * g2)
             u = g * vf ** -0.5
-        rms_u = torch.sqrt(torch.mean(u * u))
+        rms_u = torch.sqrt(mean_sq(torch.mean(u * u)))
         u = u / torch.clamp(rms_u / h.clip_threshold, min=1.0)
         scale = lr
         if h.multiply_by_parameter_scale:
             scale = scale * torch.clamp(
-                torch.sqrt(torch.mean(p.to(torch.float32) ** 2)), min=h.eps2)
+                torch.sqrt(mean_sq(torch.mean(p.to(torch.float32) ** 2))),
+                min=h.eps2)
         decay = h.weight_decay * p if h.weight_decay else None
         p.sub_(scale * u)
         if decay is not None:
             p.sub_(decay)
     return params, AdafactorState(step, state.v_row, state.v_col,
                                   state.v_full)
+
+
+def _shape_of(p) -> Tuple[int, ...]:
+    return tuple(p) if isinstance(p, (tuple, list)) else tuple(p.shape)
+
+
+def adafactor_check_sharding(params, param_specs) -> None:
+    """Reject a leaf whose global factored dims are sharded
+    (``optim.py:338``): its row and column means would span ranks.
+    ``params``: ``name -> `` a tensor or shape, global; ``param_specs``:
+    ``name -> spec`` (missing: replicated). Any other dim may be
+    sharded."""
+    for k, p in params.items():
+        shape = _shape_of(p)
+        dims = _factored_dims(shape)
+        if dims is None:
+            continue  # v_full mirrors the leaf: elementwise, any sharding
+        sp = param_specs.get(k)
+        entries = tuple(sp) if sp is not None else ()
+        sharded = {i for i, e in enumerate(entries) if e is not None}
+        if sharded & set(dims):
+            raise NotImplementedError(
+                "optim='adafactor': leaf with global shape "
+                f"{shape} factors over dims {dims}, but spec {sp} "
+                "shards one of them — the row/col second-moment means "
+                "would span devices. Shard a non-factored axis (e.g. a "
+                "leading stack axis) or use optim='adam'/'sgd'")
+
+
+def _delete_spec_dim(sp, ndim: int, d: int):
+    from pytorch_ps_mpi_tpu_torch.mesh import P
+
+    entries = ((tuple(sp) if sp is not None else ()) + (None,) * ndim)[:ndim]
+    return P(*(entries[:d] + entries[d + 1:]))
+
+
+def adafactor_state_specs(params, param_specs) -> AdafactorState:
+    """The spec of each :class:`AdafactorState` leaf under model-parallel
+    ``param_specs`` (``optim.py:369``): ``v_row``/``v_col`` take the
+    leaf's spec without the factored dim they drop (unsharded, by
+    :func:`adafactor_check_sharding`); ``v_full`` mirrors an unfactored
+    leaf's spec; sentinels and the step are replicated. ``params``:
+    ``name -> `` a tensor or global shape."""
+    from pytorch_ps_mpi_tpu_torch.mesh import P
+
+    v_row, v_col, v_full = {}, {}, {}
+    for k, p in params.items():
+        shape, sp = _shape_of(p), param_specs.get(k)
+        dims = _factored_dims(shape)
+        if dims is None:
+            v_row[k], v_col[k] = P(), P()
+            v_full[k] = sp if sp is not None else P()
+        else:
+            v_row[k] = _delete_spec_dim(sp, len(shape), dims[1])
+            v_col[k] = _delete_spec_dim(sp, len(shape), dims[0])
+            v_full[k] = P()
+    return AdafactorState(P(), v_row, v_col, v_full)
 
 
 OPTIMIZERS = {

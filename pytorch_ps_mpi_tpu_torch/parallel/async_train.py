@@ -78,10 +78,6 @@ from pytorch_ps_mpi_tpu_torch.ps import _inverse
 
 Tree = Any
 
-_GPT = ("model 'gpt' (models/gpt.py) is not ported yet: "
-        "ROADMAP queue 1 item 3")
-
-
 #: seconds between two calls of ``serve``'s ``on_tick``
 TICK_S = 0.2
 
@@ -124,16 +120,19 @@ def _arm_lineage(cfg: Dict[str, Any]) -> Dict[str, Any]:
 
 
 def check_cfg(cfg: Dict[str, Any]) -> None:
-    """Raise ``NotImplementedError`` for a model the port lacks."""
-    if cfg.get("model") == "gpt":
-        raise NotImplementedError(_GPT)
+    """Raise ``ValueError`` for a model the fleet does not know."""
+    if cfg.get("model") not in ("mlp", "resnet18", "resnet50", "gpt"):
+        raise ValueError(f"unknown model {cfg.get('model')!r}")
 
 
 class Problem:
     """A model, its data and its loss, rebuilt alike in every process
     from ``cfg`` (``async_train.py:101``): ``mlp`` (a regression on a
     fixed random linear teacher), ``resnet18`` and ``resnet50``
-    (``small_inputs``; images with a learnable class signal). The wire
+    (``small_inputs``; images with a learnable class signal), and ``gpt``
+    (``gpt_tiny`` at fleet-test size, every ``model_kw`` knob forwarded:
+    a causal LM on a bigram Markov chain whose table comes from
+    ``cfg["seed"]``, ``cfg["seq_len"]`` tokens, 32 by default). The wire
     template is the JAX parameter tree (:attr:`template`), its leaves the
     parameters in the JAX package's order and layout."""
 
@@ -154,6 +153,24 @@ class Problem:
             model = models.MLP(features=tuple(kw.get("features", (32, 8))),
                                in_features=math.prod(self.in_shape),
                                seed=self.seed, device=self.device)
+        elif name == "gpt":
+            from pytorch_ps_mpi_tpu_torch.data import markov_table
+            from pytorch_ps_mpi_tpu_torch.models.gpt import GPTLM, gpt_tiny
+
+            if isinstance(kw.get("dtype"), str):  # a cfg crosses as JSON
+                kw["dtype"] = getattr(torch, kw["dtype"])
+            model = GPTLM(gpt_tiny(**{
+                "vocab_size": 256, "hidden_size": 64, "num_layers": 2,
+                "num_heads": 4, "intermediate_size": 128,
+                "max_position": 64, **kw}), seed=self.seed,
+                device=self.device)
+            self.seq = int(cfg.get("seq_len", 32))
+            if self.seq > model.cfg.max_position:
+                raise ValueError(
+                    f"seq_len={self.seq} exceeds the model's max_position="
+                    f"{model.cfg.max_position}: positions past it would be "
+                    "silently clamped to one embedding")
+            self._cum = markov_table(model.cfg.vocab_size, self.seed)
         elif name in ("resnet18", "resnet50"):
             self.n_out = int(kw.get("num_classes", 10))
             ctor = models.ResNet18 if name == "resnet18" else models.ResNet50
@@ -171,7 +188,9 @@ class Problem:
         self.perms = [getattr(p, "codec_view", None) for p in self.params]
         self.template = params_to_jax(model)
         rng = np.random.RandomState(self.seed)
-        if name == "mlp":
+        if name == "gpt":
+            pass
+        elif name == "mlp":
             d_in = math.prod(self.in_shape)
             self._teacher = torch.from_numpy(
                 (rng.randn(d_in, self.n_out) / math.sqrt(d_in))
@@ -185,6 +204,11 @@ class Problem:
         sequence that cannot collide across (worker, step)."""
         ss = np.random.SeedSequence([self.seed, worker, step])
         rng = np.random.RandomState(ss.generate_state(1)[0])
+        if self.kind == "gpt":
+            from pytorch_ps_mpi_tpu_torch.data import sample_markov
+
+            return torch.from_numpy(sample_markov(
+                self._cum, self.batch, self.seq, rng)).to(self.device)
         x = rng.randn(self.batch, *self.in_shape).astype(np.float32)
         if self.kind == "mlp":
             xt = torch.from_numpy(x).to(self.device)
@@ -195,6 +219,10 @@ class Problem:
                 torch.from_numpy(labels.astype(np.int64)).to(self.device))
 
     def loss(self, batch) -> torch.Tensor:
+        if self.kind == "gpt":
+            from pytorch_ps_mpi_tpu_torch.models.gpt import causal_lm_loss
+
+            return causal_lm_loss(self.model(batch), batch)
         x, y = batch
         out = self.model(x)
         if self.kind == "mlp":

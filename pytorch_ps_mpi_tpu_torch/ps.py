@@ -61,13 +61,25 @@ one float32 vector a step); ``step(profile=True)`` traces the step with
 (``utils.tracing.profiled_device_split``). With a flight recorder
 installed (``telemetry.configure``) every step is a span there.
 
-The options the JAX constructor also accepts and the port does not have
-yet (``param_specs``, ``mesh``, ``axis_name``, ``batch_spec``) raise
-``NotImplementedError`` naming the ROADMAP item that brings them.
+Model-parallel composition (JAX ``ps.py:699-968``): ``mesh=`` a named
+``mesh.Mesh``, ``axis_name=`` the axis (or tuple of axes) gradients
+aggregate over, ``param_specs=`` a ``name -> mesh.P`` spec of each leaf.
+Every rank holds its own shard of each leaf (``Mesh.shard``); a leaf
+aggregates over the aggregation axes its spec does not shard (an expert
+stack sharded over an aggregation axis sums over the others only), each
+through its ``mesh.Group``. Under ``param_specs`` or tuple axes the loss
+is the local loss with a static global normalizer, so the reported loss
+is its sum over the aggregation axes; a model-sharded leaf's clip norm
+spans its shards; leader mode shards each rank's shard of every leaf
+over the aggregation axes, so the state is sharded jointly over the
+data and model axes (``leader_state_spec``, ``ps.py:205``).
+``batch_spec=`` makes ``batch`` the global batch, of which each rank
+takes its block.
 """
 
 from __future__ import annotations
 
+import functools
 import time
 from typing import (Any, Callable, Dict, List, NamedTuple, Optional, Tuple,
                     Union)
@@ -76,14 +88,17 @@ import numpy as np
 import torch
 from torch import nn
 
-from pytorch_ps_mpi_tpu_torch import comms, mesh
+from pytorch_ps_mpi_tpu_torch import comms
+from pytorch_ps_mpi_tpu_torch import mesh as meshlib
 from pytorch_ps_mpi_tpu_torch.bucketing import (BucketPlan,
                                                 flatten_into_buckets,
                                                 plan_buckets,
                                                 unflatten_from_buckets)
 from pytorch_ps_mpi_tpu_torch.codecs import (Codec, ErrorFeedback,
                                              IdentityCodec)
-from pytorch_ps_mpi_tpu_torch.optim import OPTIMIZERS
+from pytorch_ps_mpi_tpu_torch.optim import (OPTIMIZERS,
+                                            adafactor_check_sharding,
+                                            adafactor_update)
 from pytorch_ps_mpi_tpu_torch.telemetry.numerics import flat_f32, leaf_sums
 from pytorch_ps_mpi_tpu_torch.telemetry.recorder import get_recorder
 from pytorch_ps_mpi_tpu_torch.utils.metrics import schema_dict
@@ -92,17 +107,6 @@ Params = Dict[str, torch.Tensor]
 #: ``name -> tensor``, or ``bucket index -> tensor`` with a bucket plan
 Leaves = Dict[Any, torch.Tensor]
 
-#: constructor option -> (its default, where its port is planned)
-_UNPORTED = {
-    "param_specs": (None, "ROADMAP queue 1 item 3 (model-parallel "
-                          "composition)"),
-    "mesh": (None, "ROADMAP queue 1 item 3 (the process group stands for "
-                   "the mesh until then)"),
-    "axis_name": ("data", "ROADMAP queue 1 item 3 (tuple aggregation "
-                          "axes)"),
-    "batch_spec": (None, "ROADMAP queue 1 item 3 (model-parallel batch "
-                         "layouts)"),
-}
 _PROFILE_INSTRUMENT = (
     "profile=True and instrument=True are mutually exclusive: instrument "
     "runs a staged pipeline (host walls per stage) while profile traces "
@@ -110,30 +114,36 @@ _PROFILE_INSTRUMENT = (
     "use profile")
 
 
-def _unported(what: str, where: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet: {where}")
-
-
 def clip_by_global_norm(grads: Leaves, clip_norm: float,
-                        across_ranks: bool = False) -> Leaves:
+                        across_ranks: bool = False, group=None,
+                        leaf_groups: Optional[Dict[Any, Any]] = None
+                        ) -> Leaves:
     """Scale ``grads`` so their global L2 norm is at most ``clip_norm``
     (torch ``clip_grad_norm_`` semantics on the aggregated gradient,
     reference ``pytorch_ps_mpi_tpu/ps.py:267``). ``across_ranks``: the
     tensors are this rank's shards of the gradient (leader mode), so the
-    sum of squares is summed across ranks first and every rank clips
-    alike."""
-    scale = _clip_scale(grads.values(), clip_norm, across_ranks)
+    sum of squares is summed across ``group``'s ranks (default: all)
+    first and every rank clips alike. ``leaf_groups``: ``key ->
+    mesh.Group`` of a model-sharded leaf's shards, over which its sum of
+    squares is summed first (``leaf_extra_axes``, ``ps.py:277``)."""
+    scale = _clip_scale(grads, clip_norm, across_ranks, group, leaf_groups)
     return {k: g * scale.to(g.dtype) for k, g in grads.items()}
 
 
-def _clip_scale(tensors, clip_norm: float,
-                across_ranks: bool = False) -> torch.Tensor:
+def _clip_scale(tensors: Leaves, clip_norm: float,
+                across_ranks: bool = False, group=None,
+                leaf_groups: Optional[Dict[Any, Any]] = None
+                ) -> torch.Tensor:
     """The factor :func:`clip_by_global_norm` scales by: ``clip_norm``
     over the L2 norm of ``tensors``, at most 1."""
-    sumsq = sum(torch.sum(torch.square(g.to(torch.float32)))
-                for g in tensors)
+    sumsq = 0.0
+    for k, g in tensors.items():
+        s = torch.sum(torch.square(g.to(torch.float32)))
+        if leaf_groups and leaf_groups.get(k) is not None:
+            s = comms.allreduce_sum(s, leaf_groups[k])
+        sumsq = sumsq + s
     if across_ranks:
-        sumsq = comms.allreduce_sum(sumsq)
+        sumsq = comms.allreduce_sum(sumsq, group)
     return torch.clamp(clip_norm / torch.clamp(torch.sqrt(sumsq), min=1e-12),
                        max=1.0)
 
@@ -191,29 +201,36 @@ def _psum_wire(code: Codec, comm_dtype: Optional[torch.dtype]
 def aggregate(code: Codec, grads: Params, codec_state: Dict[str, Any],
               gen: Optional[torch.Generator] = None,
               views: Optional[Dict[str, Tuple[int, ...]]] = None,
-              comm_dtype: Optional[torch.dtype] = None):
+              comm_dtype: Optional[torch.dtype] = None,
+              groups: Optional[Dict[str, Any]] = None):
     """The sum across ranks of every leaf, a leaf at a time (reference
     ``ps.py:438``): ``(summed, new_codec_state)``. psum codecs all-reduce
     the leaf, narrowed to ``comm_dtype`` or the codec's ``wire_dtype``; a
     codec whose aggregation is a collective protocol runs it (PowerSGD's
     two all-reduces, ``ps.py:568-598``); any other encodes the leaf (a
     codec that draws random numbers takes them from ``gen`` in leaf
-    order), all-gathers its payload and decode-sums it."""
+    order), all-gathers its payload and decode-sums it. ``groups``:
+    ``name -> mesh.Group`` each leaf sums over (``leaf_axes``,
+    ``ps.py:446``); default every rank."""
     summed, new_state = {}, dict(codec_state)
+    groups = groups or {}
     if code.supports_psum:
         wire = _psum_wire(code, comm_dtype)
         for k, g in grads.items():
-            summed[k] = (comms.allreduce_sum(g.to(wire)).to(g.dtype)
-                         if wire is not None else comms.allreduce_sum(g))
+            grp = groups.get(k)
+            summed[k] = (comms.allreduce_sum(g.to(wire), grp).to(g.dtype)
+                         if wire is not None else comms.allreduce_sum(g, grp))
         return summed, new_state
     for k, g in grads.items():
         v = _view(views, k, g)
+        grp = groups.get(k)
         if code.supports_fused_allreduce:
             s, new_state[k] = code.fused_allreduce(v, codec_state[k],
-                                                   comm_dtype=comm_dtype)
+                                                   comm_dtype=comm_dtype,
+                                                   group=grp)
         else:
             payload, new_state[k] = code.encode(v, codec_state[k], gen)
-            s = decode_sum_payloads(code, comms.all_gather_tree(payload),
+            s = decode_sum_payloads(code, comms.all_gather_tree(payload, grp),
                                     tuple(v.shape), v.dtype)
         summed[k] = _unview(views, k, s)
     return summed, new_state
@@ -228,7 +245,7 @@ def _encode_buckets(code: Codec, buckets, gen: Optional[torch.Generator]):
 
 def bucketed_aggregate(code: Codec, grads: Params, plan: BucketPlan,
                        comm_dtype: Optional[torch.dtype] = None,
-                       gen: Optional[torch.Generator] = None
+                       gen: Optional[torch.Generator] = None, group=None
                        ) -> List[torch.Tensor]:
     """Flat-bucket form of the aggregate (``ps.py:524``): one collective a
     bucket instead of one a leaf. Returns the summed buckets, which the
@@ -244,8 +261,8 @@ def bucketed_aggregate(code: Codec, grads: Params, plan: BucketPlan,
     buckets = flatten_into_buckets(plan, grads)
     if code.supports_psum:
         return comms.allreduce_sum_buckets(buckets,
-                                           _psum_wire(code, comm_dtype))
-    return [decode_sum_payloads(code, comms.all_gather_tree(payload),
+                                           _psum_wire(code, comm_dtype), group)
+    return [decode_sum_payloads(code, comms.all_gather_tree(payload, group),
                                 tuple(b.shape), b.dtype)
             for b, payload in zip(buckets, _encode_buckets(code, buckets, gen))]
 
@@ -289,16 +306,16 @@ def leader_init_state(params: Leaves, init_state: Callable, world: int,
 
 def leader_scatter_shards(grads: Leaves, world: int,
                           comm_dtype: Optional[torch.dtype] = None,
-                          average: bool = False) -> Leaves:
+                          average: bool = False, group=None) -> Leaves:
     """A reduce-scatter a leaf of the local gradients (``ps.py:239``): each
-    rank receives only its shard's sum across ranks, ``[1, shard_len]``,
-    narrowed to ``comm_dtype`` on the wire."""
+    rank receives only its shard's sum across ranks (``group``'s, default
+    all), ``[1, shard_len]``, narrowed to ``comm_dtype`` on the wire."""
     out = {}
     for k, g in grads.items():
         rows = _to_shards(g, world).reshape(-1)
         if comm_dtype is not None:
             rows = rows.to(comm_dtype)
-        sh = comms.reduce_scatter_tiled(rows).to(g.dtype).view(1, -1)
+        sh = comms.reduce_scatter_tiled(rows, group).to(g.dtype).view(1, -1)
         out[k] = sh / world if average else sh
     return out
 
@@ -312,18 +329,19 @@ def leader_slice_shards(summed: Leaves, world: int, rank: int) -> Leaves:
 
 def leader_shard_update(targets: Leaves, opt_state: LeaderState,
                         grad_shards: Leaves, update_fn: Callable,
-                        hyper) -> Tuple[Leaves, LeaderState]:
+                        hyper, group=None) -> Tuple[Leaves, LeaderState]:
     """The shard-local optimizer step, in place on this rank's rows, then
-    a tiled all-gather a leaf back to whole tensors (``ps.py:297``).
-    ``targets``: ``key -> tensor`` whose shapes the gathered values take
-    (meta tensors do). Returns the gathered values and the new state."""
+    a tiled all-gather a leaf (over ``group``, default all) back to whole
+    tensors (``ps.py:297``). ``targets``: ``key -> tensor`` whose shapes
+    the gathered values take (meta tensors do). Returns the gathered
+    values and the new state."""
     shards, inner = update_fn(opt_state.param_shards, grad_shards,
                               opt_state.inner, hyper)
     gathered = {}
     for k, sh in shards.items():
         t = targets[k]
-        gathered[k] = comms.all_gather_tiled(sh.reshape(-1))[:t.numel()] \
-            .view(t.shape)
+        gathered[k] = comms.all_gather_tiled(sh.reshape(-1), group)[
+            :t.numel()].view(t.shape)
     return gathered, LeaderState(shards, inner)
 
 
@@ -354,6 +372,13 @@ class Pipeline(NamedTuple):
     clip_norm: float = 0.0
     plan: Optional[BucketPlan] = None
     views: Optional[Dict[str, Tuple[int, ...]]] = None
+    #: the mesh's aggregation ``mesh.Group`` (None: every rank)
+    group: Any = None
+    #: ``name -> mesh.Group`` each leaf sums over (None: every rank)
+    leaf_groups: Optional[Dict[str, Any]] = None
+    #: ``name -> mesh.Group`` of a model-sharded leaf's shards (its clip
+    #: norm spans them)
+    clip_groups: Optional[Dict[str, Any]] = None
 
 
 def _units_of(p: Pipeline, tree: Params) -> Leaves:
@@ -400,7 +425,7 @@ def _leader_step(p: Pipeline, params: Params, opt_state: LeaderState,
                if p.plan is not None else params)
     gathered, opt_state = leader_shard_update(targets, opt_state,
                                               grad_shards, p.update_fn,
-                                              p.hyper)
+                                              p.hyper, p.group)
     return _leaves_of(p, gathered), opt_state
 
 
@@ -411,16 +436,25 @@ def update_summed(p: Pipeline, params: Params, summed: Leaves, opt_state):
     parameters (new tensors); allgather mode updates ``params`` in
     place."""
     if p.average:
-        summed = {k: s / p.size for k, s in summed.items()}
+        summed = {k: s / _leaf_size(p, k) for k, s in summed.items()}
     if p.clip_norm:
         # the norm over the leaves (views of the buckets), so that a
         # bucketed step clips exactly as the per-leaf one does
-        scale = _clip_scale(_leaves_of(p, summed).values(), p.clip_norm)
+        scale = _clip_scale(_leaves_of(p, summed), p.clip_norm,
+                            leaf_groups=p.clip_groups)
         summed = {k: s * scale.to(s.dtype) for k, s in summed.items()}
     if p.mode == "leader":
         return _leader_step(p, params, opt_state,
                             leader_slice_shards(summed, p.size, p.rank))
     return p.update_fn(params, _leaves_of(p, summed), opt_state, p.hyper)
+
+
+def _leaf_size(p: Pipeline, key) -> int:
+    """The ranks leaf ``key`` is summed over (``leaf_sizes``,
+    ``ps.py:447``)."""
+    if p.leaf_groups and key in p.leaf_groups:
+        return p.leaf_groups[key].size
+    return p.size
 
 
 def aggregate_update(p: Pipeline, params: Params, grads: Params, opt_state,
@@ -438,12 +472,15 @@ def aggregate_update(p: Pipeline, params: Params, grads: Params, opt_state,
             # payloads would
             units, codec_state = _own_decoded(p, units, codec_state, gen)
             wire = p.comm_dtype
-        shards = leader_scatter_shards(units, p.size, wire, p.average)
+        shards = leader_scatter_shards(units, p.size, wire, p.average,
+                                       p.group)
         if p.clip_norm:
             # shards partition the aggregated gradient (padding is zeros),
-            # so the sum of the ranks' shard norms is the global norm
+            # so the sum of the ranks' shard norms is the global norm (a
+            # model-sharded leaf's summed over its shards too)
             shards = clip_by_global_norm(shards, p.clip_norm,
-                                         across_ranks=True)
+                                         across_ranks=True, group=p.group,
+                                         leaf_groups=p.clip_groups)
         params, opt_state = _leader_step(p, params, opt_state, shards)
         return params, opt_state, codec_state
     # allgather mode, or a leader lowering where every rank holds the
@@ -451,10 +488,11 @@ def aggregate_update(p: Pipeline, params: Params, grads: Params, opt_state,
     if p.plan is not None:
         summed = dict(enumerate(bucketed_aggregate(
             p.code, {k: _view(p.views, k, g) for k, g in grads.items()},
-            p.plan, p.comm_dtype, gen)))
+            p.plan, p.comm_dtype, gen, p.group)))
     else:
         summed, codec_state = aggregate(p.code, grads, codec_state, gen,
-                                        p.views, p.comm_dtype)
+                                        p.views, p.comm_dtype,
+                                        p.leaf_groups)
     params, opt_state = update_summed(p, params, summed, opt_state)
     return params, opt_state, codec_state
 
@@ -516,6 +554,22 @@ class MPI_PS:
       donate_buffers: accepted for the JAX signature and a no-op: the
         update already runs in place on the parameters and the optimizer
         state (JAX donates them to its jitted step).
+      mesh: a named ``mesh.Mesh``; default: every rank on the one axis
+        ``axis_name`` (a tuple ``axis_name`` makes a mesh of its axes,
+        every rank on the first).
+      axis_name: the mesh axis, or tuple of axes, gradients aggregate
+        over; under a tuple the loss is reduced with ``psum``.
+      param_specs: ``name -> mesh.P``, each leaf's sharding over the mesh
+        (missing names are replicated); ``params`` are then this rank's
+        shards. A leaf aggregates over the aggregation axes its spec does
+        not name; a model-sharded leaf's clip norm spans its shards;
+        leader mode needs every leaf to aggregate over all the
+        aggregation axes; Adafactor's factored dims must be unsharded
+        (``optim.adafactor_check_sharding``). Not with ``bucket_mb``,
+        ``numerics`` or ``instrument``.
+      batch_spec: ``batch`` is the global batch and each rank takes its
+        block under this spec (``mesh.P``, e.g. ``P("data", "seq")``);
+        default: ``batch`` is this rank's own.
       **hyper: the optimizer's hyperparameters (``lr``, ``momentum``, ...).
     """
 
@@ -534,14 +588,14 @@ class MPI_PS:
         loss_reduction: Optional[str] = None,
         instrument: bool = False,
         numerics: bool = False,
-        device: mesh.Device = "cuda",
+        device: meshlib.Device = "cuda",
         donate_buffers: bool = False,
+        mesh: Optional[meshlib.Mesh] = None,
+        axis_name=meshlib.DATA_AXIS,
+        param_specs: Optional[Dict[str, Any]] = None,
+        batch_spec=None,
         **hyper,
     ):
-        for opt, (default, where) in _UNPORTED.items():
-            if opt in hyper:
-                if hyper.pop(opt) != default:
-                    raise _unported(f"MPI_PS({opt}=...)", where)
         if mode not in ("allgather", "leader"):
             raise ValueError("mode must be 'allgather' or 'leader'")
         if optim not in OPTIMIZERS:
@@ -559,7 +613,7 @@ class MPI_PS:
             raise ValueError(
                 f"loss_reduction must be 'pmean', 'psum', or None, got "
                 f"{loss_reduction!r}")
-        self.device = mesh.resolve_device(device)
+        self.device = meshlib.resolve_device(device)
         self.code = code if code is not None else IdentityCodec()
         if isinstance(params, nn.Module):
             params = dict(params.named_parameters())
@@ -585,11 +639,27 @@ class MPI_PS:
         self.profile_split: Optional[Dict[str, Any]] = None
         self._nvec: Optional[torch.Tensor] = None
         self._bucket_of_leaf: Optional[torch.Tensor] = None
-        self._loss_reduction = loss_reduction or "pmean"
-        self.rank = mesh.rank()
-        self.size = mesh.world_size()
+        self._setup_mesh(mesh, axis_name, param_specs, batch_spec, mode,
+                         optim, loss_reduction, instrument)
         self.bucket_mb = float(bucket_mb)
         self._bucket_plan: Optional[BucketPlan] = None
+        if self.bucket_mb > 0 and (self._model_parallel
+                                   or not self._uniform_agg):
+            raise NotImplementedError(
+                "bucket_mb > 0 requires pure-DP layouts: model-sharded "
+                "or expert-parallel leaves aggregate over per-leaf axis "
+                "sets that one flat bucket cannot represent. Drop "
+                "param_specs or set bucket_mb=0")
+        if self.numerics and self._model_parallel:
+            raise NotImplementedError(
+                "numerics=True requires pure-DP layouts: model-sharded "
+                "leaves would need per-leaf reduction axis sets for the "
+                "global norms. Drop param_specs or set numerics=False")
+        if self._model_parallel and instrument:
+            raise NotImplementedError(
+                "instrument=True (the staged host-timed pipeline) is not "
+                "supported with param_specs — use profile=True on the "
+                "fused step for the trace-derived comm/compute split")
         if (self.bucket_mb > 0 and self.code.bucketable
                 and not self.code.supports_fused_allreduce):
             if _has_tensors(self.code.init_state((1,), torch.float32,
@@ -620,11 +690,108 @@ class MPI_PS:
         self._gen = None
         if self.code.needs_rng:
             self._gen = torch.Generator(device=self.device)
-            self._gen.manual_seed(seed * 1_000_003 + self.rank)
+            self._gen.manual_seed(seed * 1_000_003 + meshlib.rank())
         #: the model's mutable state (BatchNorm's running statistics) after
         #: the last ``step(aux_state=...)``, averaged over ranks
         self.aux_state: Any = None
         self._step_count = 0
+
+    # -- the mesh (model-parallel composition) ------------------------------
+    def _setup_mesh(self, mesh, axis_name, param_specs, batch_spec,
+                    mode: str, optim: str, loss_reduction, instrument
+                    ) -> None:
+        """The aggregation groups, per leaf, and the JAX constructor's
+        checks of a model-parallel layout (``ps.py:752-874``)."""
+        self.axis_name = axis_name
+        self._agg_axes = ((axis_name,) if isinstance(axis_name, str)
+                          else tuple(axis_name))
+        if mesh is None and (not isinstance(axis_name, str)
+                             or param_specs is not None
+                             or batch_spec is not None):
+            mesh = meshlib.make_mesh(axis_names=self._agg_axes)
+        self.mesh = mesh
+        specs = dict(param_specs or {})
+        unknown = sorted(set(specs) - set(self.params))
+        if unknown:
+            raise ValueError(f"param_specs names {unknown}, which are not "
+                             "parameters")
+        self.param_specs = {k: specs.get(k, meshlib.P())
+                            for k in self.params}
+        shard_axes = {k: meshlib.spec_axes(sp)
+                      for k, sp in self.param_specs.items()}
+        self._model_parallel = any(shard_axes.values())
+        # a leaf sharded over an aggregation axis (an expert stack) sums
+        # over the other aggregation axes only
+        leaf_axes = {k: tuple(a for a in self._agg_axes if a not in ax)
+                     for k, ax in shard_axes.items()}
+        self._uniform_agg = all(a == self._agg_axes
+                                for a in leaf_axes.values())
+        self.batch_spec = batch_spec
+        if loss_reduction is None:
+            loss_reduction = ("psum" if self._model_parallel
+                              or not isinstance(axis_name, str) else "pmean")
+        self._loss_reduction = loss_reduction
+        self._group = self._leaf_groups = self._clip_groups = None
+        if mesh is None:
+            self.rank, self.size = meshlib.rank(), meshlib.world_size()
+        else:
+            self._group = mesh.group(self._agg_axes)
+            self.rank, self.size = self._group.index, self._group.size
+            self._leaf_groups = {k: mesh.group(a)
+                                 for k, a in leaf_axes.items()}
+            if self._model_parallel:
+                self._clip_groups = {k: mesh.group(a)
+                                     for k, a in shard_axes.items() if a}
+        if mode == "leader" and not self._uniform_agg:
+            raise ValueError(
+                "leader (ZeRO-1) mode requires every leaf to aggregate "
+                "over the full data axes — param_specs must not shard "
+                "over the aggregation axes; use mode='allgather' for "
+                "expert-parallel layouts")
+        if optim == "adafactor" and self._model_parallel:
+            if not self._uniform_agg:
+                raise NotImplementedError(
+                    "optim='adafactor' with expert-parallel layouts "
+                    "(leaves sharded over a data axis) is unsupported: "
+                    "the per-leaf scalar reductions would need per-leaf "
+                    "axis sets. Use optim='adam'/'sgd' for EP")
+            adafactor_check_sharding(self._global_shapes(),
+                                     self.param_specs)
+            model = mesh.group(tuple(a for a in mesh.axis_names
+                                     if a not in self._agg_axes))
+
+            def scalar_mean(x):
+                return comms.allreduce_sum(x, model) / model.size
+
+            self._update_fn = functools.partial(adafactor_update,
+                                                scalar_mean=scalar_mean)
+        if self._model_parallel and mode == "leader":
+            for k, sp in self.param_specs.items():
+                sharded = [i for i, e in enumerate(tuple(sp))
+                           if e is not None]
+                if sharded and sharded != [0]:
+                    raise ValueError(
+                        "leader mode requires model-sharded leaves to use "
+                        "the leading-shard-axis convention (spec P(axis) on "
+                        f"dim 0 only); got {sp} for shape "
+                        f"{self._global_shapes()[k]}")
+
+    def _global_shapes(self) -> Dict[str, Tuple[int, ...]]:
+        """Each leaf's global shape (its shard's, times its spec's axis
+        sizes)."""
+        if self.mesh is None:
+            return {k: tuple(p.shape) for k, p in self.params.items()}
+        return {k: self.mesh.global_shape(p.shape, self.param_specs[k])
+                for k, p in self.params.items()}
+
+    def _local_batch(self, batch, lead: int = 0):
+        """This rank's block of a global ``batch`` under ``batch_spec``
+        (after ``lead`` leading step or microbatch axes); ``batch`` as it
+        is without a ``batch_spec``."""
+        if self.batch_spec is None or batch is None:
+            return batch
+        spec = meshlib.P(*((None,) * lead + tuple(self.batch_spec)))
+        return comms.tree_map(lambda t: self.mesh.shard(t, spec), batch)
 
     # -- accounting ---------------------------------------------------------
     def _wire_bytes(self, dtype: Optional[torch.dtype]) -> float:
@@ -712,7 +879,8 @@ class MPI_PS:
             self.code, self._update_fn, self.hyper, self.mode,
             self._metrics["wire_lowering"] if self.mode == "leader" else "",
             self.average, self.size, self.rank, self.comm_dtype,
-            self.clip_norm, self._bucket_plan, self._views)
+            self.clip_norm, self._bucket_plan, self._views, self._group,
+            self._leaf_groups, self._clip_groups)
 
     @torch.no_grad()
     def _set_params(self, params: Params) -> None:
@@ -777,7 +945,7 @@ class MPI_PS:
             ranked = torch.cat([ranked, torch.zeros(
                 plan.num_buckets, device=g.device).index_add_(
                     0, self._bucket_of_leaf, leaves)])
-        ranked = comms.allreduce_sum(ranked)
+        ranked = comms.allreduce_sum(ranked, self._group)
         new = flat_f32(self.params.values())
         upd = torch.stack([torch.sum(torch.square(new - old)),
                            torch.sum(torch.square(old))])
@@ -853,7 +1021,7 @@ class MPI_PS:
                      if isinstance(v, (int, float, str))})
 
     def _reduce_loss(self, loss: torch.Tensor) -> torch.Tensor:
-        total = comms.allreduce_sum(loss)
+        total = comms.allreduce_sum(loss, self._group)
         return total / self.size if self._loss_reduction == "pmean" else total
 
     def _local_grad(self, name: str, g: torch.Tensor) -> torch.Tensor:
@@ -972,15 +1140,16 @@ class MPI_PS:
             if self._bucket_plan is not None:
                 summed = dict(enumerate(bucketed_aggregate(
                     code, {k: self._view(k, g) for k, g in local.items()},
-                    self._bucket_plan, self.comm_dtype)))
+                    self._bucket_plan, self.comm_dtype, group=self._group)))
             else:
                 summed = aggregate(code, local, self.codec_state,
-                                   comm_dtype=self.comm_dtype)[0]
+                                   comm_dtype=self.comm_dtype,
+                                   groups=self._leaf_groups)[0]
             self._sync()
             data["comm_wait"] = timer() - t0             # reference :162
         else:
             t0 = timer()
-            gathered = {k: comms.all_gather_tree(pl)
+            gathered = {k: comms.all_gather_tree(pl, self._group)
                         for k, pl in payloads.items()}
             data["isend_time"] = timer() - t0            # dispatch, :148
             self._sync()
@@ -1037,6 +1206,7 @@ class MPI_PS:
         if profile and self.instrument:
             raise ValueError(_PROFILE_INSTRUMENT)
         self._check_step_args(grads, loss_fn, batch, aux_state)
+        batch = self._local_batch(batch)
         t0 = time.perf_counter()
         data = schema_dict(**self._metrics)
         local = None
@@ -1086,6 +1256,7 @@ class MPI_PS:
         ``profile=True`` traces the fused step as :meth:`step` does."""
         if profile and self.instrument:
             raise ValueError(_PROFILE_INSTRUMENT)
+        microbatches = self._local_batch(microbatches, lead=1)
         accum_steps = _leading(microbatches)
         t0 = time.perf_counter()
         data = schema_dict(**self._metrics)
@@ -1121,6 +1292,7 @@ class MPI_PS:
         ``unroll`` is the JAX ``lax.scan``'s and a no-op here: a Python
         loop has nothing to unroll. Returns ``(losses, {"step_time",
         "steps_per_sec", "n_steps"})``."""
+        batches = self._local_batch(batches, lead=1)
         n_steps = _leading(batches)
         t0 = time.perf_counter()
         losses = []

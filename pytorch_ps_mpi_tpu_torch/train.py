@@ -12,9 +12,12 @@ It runs on the card, or on the CPU when ``PS_PLATFORM=cpu`` (the
 launcher's ``--platform cpu``). Every rank draws its own batches
 (``--batch`` is the batch of one rank, seeded by the rank) and starts
 from the same weights (seed 0). The data is synthetic; ``bert_mlm`` is
-``BertConfig.base()`` at sequence length 128, on the card in bfloat16
-with the flash attention kernels. The last line printed is a JSON object
-of ``Trainer.fit``'s metrics. ``--telemetry-dir D`` installs the flight
+``BertConfig.base()`` at sequence length 128, ``gpt_lm`` a 4-layer GPT
+(vocab 8192, hidden 256, 8 heads, FFN 1024) on a bigram Markov chain and
+``switch_mlm`` a 4-layer Switch MoE MLM (8 experts, dense routing), each
+on the card in bfloat16 with the flash attention kernels. The last line
+printed is a JSON object of ``Trainer.fit``'s metrics. The flags are ``examples/train.py``'s;
+``--accum-steps`` and ``--norm`` are the port's own. ``--telemetry-dir D`` installs the flight
 recorder and dumps ``train.jsonl`` (every step a span) into D at the
 end; the JAX package's ``tools/telemetry_report.py`` summarizes it.
 """
@@ -33,11 +36,15 @@ from torch.func import functional_call
 from pytorch_ps_mpi_tpu_torch import MPI_PS, mesh
 from pytorch_ps_mpi_tpu_torch.codecs import get_codec
 from pytorch_ps_mpi_tpu_torch.data import (cross_entropy_loss, prefetch,
-                                           synthetic_images, synthetic_mlm)
+                                           synthetic_images, synthetic_lm,
+                                           synthetic_mlm)
 from pytorch_ps_mpi_tpu_torch.models import (MLP, BertConfig, BertMLM,
                                              ResNet18, ResNet50, mlm_loss)
 from pytorch_ps_mpi_tpu_torch.models.resnet import (apply_with_stats,
                                                     batch_stats_of)
+from pytorch_ps_mpi_tpu_torch.models.gpt import (GPTLM, causal_lm_loss,
+                                                 gpt_config)
+from pytorch_ps_mpi_tpu_torch.models.moe import SwitchConfig, SwitchMLM
 from pytorch_ps_mpi_tpu_torch.optim import step_decay, warmup_cosine
 from pytorch_ps_mpi_tpu_torch.trainer import Trainer
 from pytorch_ps_mpi_tpu_torch.utils.interop import jax_leaf_order
@@ -48,13 +55,12 @@ SEQ_LEN = 128
 CONFIGS = ["mlp_mnist", "resnet18_cifar10", "resnet50_imagenet", "bert_mlm",
            "switch_mlm", "gpt_lm"]
 
-#: configurations of the JAX package whose models the port lacks
-UNPORTED = {
-    "switch_mlm": "the Switch MoE model (models/moe.py) is not ported yet: "
-                  "ROADMAP queue 1 item 3",
-    "gpt_lm": "the GPT model (models/gpt.py) is not ported yet: ROADMAP "
-              "queue 1 item 3",
-}
+def _on_card(device: torch.device) -> dict:
+    """The transformer configs' compute on the card: bfloat16 with the
+    flash kernels; float32 and the dense path on the CPU."""
+    if device.type == "cuda":
+        return dict(dtype=torch.bfloat16, attention="flash")
+    return {}
 
 
 def build(args, device: torch.device
@@ -62,9 +68,36 @@ def build(args, device: torch.device
     """``(model, loss_fn, batches, aux_state)``: ``aux_state`` is the
     running statistics of a BatchNorm model (``loss_fn`` then takes and
     returns them), else ``None``."""
-    if args.config in UNPORTED:
-        raise NotImplementedError(UNPORTED[args.config])
     data_seed = SEED + mesh.rank()
+    if args.config == "gpt_lm":
+        # examples/train.py:66-79
+        cfg = gpt_config(vocab_size=8192, hidden_size=256, num_layers=4,
+                         num_heads=8, intermediate_size=1024,
+                         max_position=256, remat=args.remat,
+                         scan_layers=args.scan_layers, **_on_card(device))
+        model = GPTLM(cfg, seed=SEED, device=device)
+        data = synthetic_lm(args.batch, SEQ_LEN, cfg.vocab_size,
+                            seed=data_seed, device=device)
+
+        def loss_fn(p, b):
+            logits = functional_call(model, p, (b["tokens"],))
+            return causal_lm_loss(logits, b["tokens"])
+
+        return model, loss_fn, data, None
+    if args.config == "switch_mlm":
+        # examples/train.py:53-65: dense routing (no expert axis)
+        scfg = SwitchConfig(vocab_size=8192, hidden_size=256, num_layers=4,
+                            num_heads=8, intermediate_size=512, n_experts=8,
+                            max_position=128, **_on_card(device))
+        model = SwitchMLM(scfg, seed=SEED, device=device)
+        data = synthetic_mlm(args.batch, SEQ_LEN, scfg.vocab_size,
+                             seed=data_seed, device=device)
+
+        def loss_fn(p, b):
+            logits = functional_call(model, p, (b["tokens"],))
+            return mlm_loss(logits, b["targets"], b["mask"])
+
+        return model, loss_fn, data, None
     if args.config == "bert_mlm":
         cfg = dataclasses.replace(BertConfig.base(), remat=args.remat,
                                   scan_layers=args.scan_layers)
@@ -162,6 +195,9 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--bucket-mb", type=float, default=0.0)
     ap.add_argument("--bf16-comm", action="store_true",
                     help="bfloat16 gradient all-reduces")
+    ap.add_argument("--donate", action="store_true",
+                    help="MPI_PS(donate_buffers=True); the update already "
+                         "runs in place on the parameters and state")
     ap.add_argument("--remat", action="store_true")
     ap.add_argument("--scan-layers", action="store_true")
     ap.add_argument("--scan-chunk", type=int, default=1,
@@ -221,7 +257,7 @@ def main(argv=None) -> Dict[str, float]:
                  mode=args.mode, average=True, instrument=args.instrument,
                  comm_dtype=torch.bfloat16 if args.bf16_comm else None,
                  clip_norm=args.clip_norm, bucket_mb=args.bucket_mb,
-                 device=device, **hyper)
+                 donate_buffers=args.donate, device=device, **hyper)
     print(f"config={args.config} device={device} world={opt.size} "
           f"codec={args.codec or 'identity'} norm={args.norm}", flush=True)
     trainer = Trainer(opt, loss_fn, checkpoint_dir=args.checkpoint_dir,

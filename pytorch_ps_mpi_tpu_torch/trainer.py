@@ -150,10 +150,10 @@ class Trainer:
     def fit(self, batches: Iterator[Tree], num_steps: int,
             log_every: int = 0) -> Dict[str, float]:
         """Train for ``num_steps`` steps; returns the mean of the step
-        metrics with ``final_loss``, ``wall_time`` and
-        ``steps_per_sec_overall``."""
+        metrics with ``final_loss``, ``first_loss`` (the first call's loss
+        of this fit), ``wall_time`` and ``steps_per_sec_overall``."""
         t0 = time.perf_counter()
-        last_loss = None
+        last_loss = first_loss = None
         done = 0
         while done < num_steps:
             rec = get_recorder()  # one attribute read a step when off
@@ -176,6 +176,8 @@ class Trainer:
                                            aux_state=self._aux())
                 last_loss, n = float(loss), 1
             self.metrics.add(data)
+            if first_loss is None:
+                first_loss = (float(losses[0]) if n > 1 else last_loss)
             done += n
             self.step_count += n
             if rec is not None:
@@ -201,6 +203,7 @@ class Trainer:
             self.save()
         out = self.metrics.mean()
         out["final_loss"] = last_loss
+        out["first_loss"] = first_loss
         out["wall_time"] = time.perf_counter() - t0
         out["steps_per_sec_overall"] = num_steps / out["wall_time"]
         return out

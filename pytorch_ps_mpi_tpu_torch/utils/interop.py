@@ -28,7 +28,19 @@ keeps flax's names and layouts (``tok_emb/embedding``,
 ``layer_{i}/SelfAttention_0/{qkv,out}/{kernel,bias}``,
 ``layer_{i}/LayerNorm_{0,1}/{scale,bias}``,
 ``layer_{i}/Dense_{0,1}/{kernel,bias}``, ``LayerNorm_0``, ``mlm_head``),
-so its leaves cross unchanged.
+so its leaves cross unchanged; so do ``GPTLM``'s (``tok_emb``,
+``pos_emb``, the layers, ``LayerNorm_0``; its head is the tied
+embedding) and ``SwitchMLM``'s (``layer_{i}/MoEFFN_0/{wr,w1,w2}``, the
+experts stacked ``[E, ...]``). Under ``scan_layers`` the layers are
+flax's ``layers/EncoderLayer_0/...``, each leaf stacked ``[L, ...]``,
+and the port's names are the same path joined by dots.
+
+Model-parallel shards: a rank's shard of a leaf is its block of the JAX
+global array under the leaf's spec (``mesh.Mesh.shard``).
+:func:`params_from_jax` cuts a ``SwitchMLM``'s expert stacks so (or any
+leaves, given ``param_specs``), and :func:`shards_from_jax` cuts a plain
+parameter tree (the TP, PP and EP layers' ``[tp, ...]``, ``[pipe, ...]``
+and ``[E, ...]`` stacks) into this rank's ``name -> tensor`` dict.
 
 Leaf order: ``jax.tree.flatten`` visits dict keys in sorted order, so
 the JAX package's leaf order is the sort of the flax paths (note that
@@ -55,7 +67,9 @@ import torch
 from torch import nn
 
 from pytorch_ps_mpi_tpu_torch.models.bert import BertMLM
+from pytorch_ps_mpi_tpu_torch.models.gpt import GPTLM
 from pytorch_ps_mpi_tpu_torch.models.mlp import MLP
+from pytorch_ps_mpi_tpu_torch.models.moe import SwitchMLM, moe_param_spec
 from pytorch_ps_mpi_tpu_torch.models.resnet import BottleneckBlock, ResNet
 
 Path = Tuple[str, ...]
@@ -101,7 +115,7 @@ def flax_path(model: nn.Module, name: str) -> Path:
     if isinstance(model, MLP):
         _, i, leaf = name.split(".")
         return (f"Dense_{i}", "kernel" if leaf == "weight" else "bias")
-    if isinstance(model, BertMLM):
+    if isinstance(model, (BertMLM, GPTLM, SwitchMLM)):
         return tuple(name.split("."))
     raise TypeError(f"no flax name map for {type(model).__name__}")
 
@@ -113,7 +127,7 @@ def jax_leaf_order(model: nn.Module) -> List[str]:
 
 
 def _flax_layout_kept(model: nn.Module) -> bool:
-    return isinstance(model, BertMLM)
+    return isinstance(model, (BertMLM, GPTLM, SwitchMLM))
 
 
 def torch_layout(path: Path, a: np.ndarray) -> np.ndarray:
@@ -167,12 +181,22 @@ def codec_state_from_jax(jax_state, model: nn.Module, code,
 
 
 @torch.no_grad()
-def params_from_jax(flax_params, model: nn.Module) -> Dict[str, torch.Tensor]:
+def params_from_jax(flax_params, model: nn.Module, param_specs=None,
+                    mesh=None) -> Dict[str, torch.Tensor]:
     """Copy a flax parameter tree (numpy leaves; the variables dict with
     a ``"params"`` key or the inner dict) into ``model``'s parameters.
-    Returns the model's ``name -> parameter`` dict in JAX leaf order."""
+    Returns the model's ``name -> parameter`` dict in JAX leaf order.
+    ``param_specs`` (``name -> mesh.P``): the model holds this rank's
+    shards, each cut from the global leaf under its spec on ``mesh`` (by
+    default the model's own); a ``SwitchMLM`` with an expert axis takes
+    ``moe_param_spec`` by default."""
     tree = flax_params.get("params", flax_params)
     named = dict(model.named_parameters())
+    if param_specs is None and isinstance(model, SwitchMLM) \
+            and model.cfg.expert_axis is not None:
+        param_specs = moe_param_spec(named, model.cfg.expert_axis)
+    if mesh is None:
+        mesh = getattr(model, "mesh", None)
     out = {}
     for name in jax_leaf_order(model):
         path = flax_path(model, name)
@@ -182,6 +206,8 @@ def params_from_jax(flax_params, model: nn.Module) -> Dict[str, torch.Tensor]:
         src = np.asarray(node)
         if not _flax_layout_kept(model):
             src = torch_layout(path, src)
+        if param_specs and param_specs.get(name):
+            src = mesh.shard(src, param_specs[name])
         src = np.array(src, order="C")
         p = named[name]
         if tuple(src.shape) != tuple(p.shape):
@@ -189,6 +215,36 @@ def params_from_jax(flax_params, model: nn.Module) -> Dict[str, torch.Tensor]:
                              f"{src.shape}, the port {tuple(p.shape)}")
         p.copy_(torch.from_numpy(src))
         out[name] = p
+    return out
+
+
+def flat_from_jax(tree, prefix: str = "") -> Dict[str, np.ndarray]:
+    """A nested dict of arrays (a JAX parameter tree) as ``"a.b" ->
+    array``, in JAX leaf order (sorted keys at every level)."""
+    out: Dict[str, np.ndarray] = {}
+    for k in sorted(tree):
+        v = tree[k]
+        if isinstance(v, dict):
+            out.update(flat_from_jax(v, f"{prefix}{k}."))
+        else:
+            out[f"{prefix}{k}"] = np.asarray(v)
+    return out
+
+
+def shards_from_jax(tree, param_specs=None, mesh=None,
+                    device="cpu") -> Dict[str, torch.Tensor]:
+    """This rank's shard of every leaf of a JAX parameter tree (a nested
+    dict of arrays, or ``name -> array``) as float tensors on ``device``,
+    ``name -> tensor`` in JAX leaf order: its block under
+    ``param_specs[name]`` (``name -> mesh.P``, flat dotted names; missing:
+    the whole leaf) on ``mesh``."""
+    flat = flat_from_jax(tree)
+    specs = param_specs or {}
+    out = {}
+    for k, a in flat.items():
+        if specs.get(k):
+            a = mesh.shard(a, specs[k])
+        out[k] = torch.from_numpy(np.array(a, order="C")).to(device)
     return out
 
 

@@ -132,11 +132,12 @@ TELEMETRY_KEYS = ("telemetry_dir", "metrics_port")
     ("topo_actions", "item 3"), ("control", "item 3")])
 def test_unported_options_name_their_item(key, item):
     # every key is ported: accepted alone and beside the fleet keys; the
-    # one model the fleet lacks, gpt, names its item
+    # model gpt is ported too, and a model the fleet does not know raises
     at.check_cfg({"model": "mlp", key: 1})
     at.check_cfg({"model": "mlp", key: 1, "fleet_dir": "d"})
-    with pytest.raises(NotImplementedError, match=item):
-        at.check_cfg({"model": "gpt"})
+    at.check_cfg({"model": "gpt", key: 1})
+    with pytest.raises(ValueError, match="unknown model"):
+        at.check_cfg({"model": "transformer-xl"})
     # the scale-out, resilience, read-tier and telemetry keys are ported
     at.check_cfg({"model": "mlp", "fault_plan": [{}], "resilient": True,
                   "tree": True, "tree_members": [4], "supervise": True,

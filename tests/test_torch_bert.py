@@ -136,12 +136,16 @@ def test_flash_and_dense_attention_agree_and_modes_raise():
         torch.testing.assert_close(flash_attention(q, k, v, causal=causal),
                                    dense_attention(q, k, v, causal),
                                    rtol=2e-5, atol=2e-5)
-    for mode in ("ring", "ulysses"):
-        model = tm.BertMLM(tm.BertConfig.tiny(attention=mode), device="cpu")
-        with pytest.raises(NotImplementedError, match="queue 1 item 3"):
-            model(torch.zeros(1, 32, dtype=torch.int64))
-    with pytest.raises(NotImplementedError, match="queue 1 item 3"):
-        tm.BertMLM(tm.BertConfig.tiny(scan_layers=True), device="cpu")
+    # ported: ring and Ulysses at one rank, and scan_layers, compute the
+    # full model's function (the multi-rank forms: test_torch_ring.py,
+    # test_torch_ulysses.py)
+    tokens = torch.from_numpy(rng.randint(0, 1024, (1, 32)))
+    want = tm.BertMLM(tm.BertConfig.tiny(), device="cpu")(tokens)
+    for kw in (dict(attention="ring"), dict(attention="ulysses"),
+               dict(scan_layers=True)):
+        model = tm.BertMLM(tm.BertConfig.tiny(**kw), device="cpu")
+        torch.testing.assert_close(model(tokens), want, rtol=1e-5,
+                                   atol=1e-5)
     model = tm.BertMLM(tm.BertConfig.tiny(attention="flash",
                                           dtype=torch.bfloat16), device="cpu")
     with pytest.raises(ValueError, match="cannot tile"):

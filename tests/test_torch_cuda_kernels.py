@@ -22,7 +22,8 @@ to run, bit for bit. The int8 and sign codecs on ResNet-18's buckets at
 ``bucket_mb=16`` (payloads, decode-sums and two bucketed steps of either
 mode) against their plain versions on the CPU; TernGrad's pack and
 unpack-sum also at BERT-base's bucket sizes, and a bucketed TernGrad
-step on the card against the CPU.
+step on the card against the CPU. Ring and Ulysses attention, and the
+GPT over them, raise on a shard the flash kernels cannot tile.
 """
 
 from __future__ import annotations
@@ -843,3 +844,24 @@ def test_flash_dtype_takes_its_kernels(cuda, dtype, kernels, not_in):
     for kern in kernels:
         assert any(kern in n for n in flash), (kern, flash)
     assert not any(not_in in n for n in flash), flash
+
+
+def test_card_shards_the_kernels_cannot_tile_raise(cuda):
+    """On CUDA tensors the ring and Ulysses paths, and the models over
+    them, demand the flash kernels: a shard they cannot tile raises
+    instead of taking the dense path."""
+    from pytorch_ps_mpi_tpu_torch.models.gpt import GPTLM, gpt_tiny
+    from pytorch_ps_mpi_tpu_torch.parallel.ring import ring_attention
+    from pytorch_ps_mpi_tpu_torch.parallel.ulysses import ulysses_attention
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    q, k, v = (torch.randn(1, 100, 2, 16, generator=gen, device="cuda")
+               .to(torch.bfloat16) for _ in range(3))
+    for fn in (ring_attention, ulysses_attention):
+        with pytest.raises(ValueError, match="cannot tile"):
+            fn(q, k, v, "seq", causal=True)
+    for attention in ("ring", "ulysses"):
+        model = GPTLM(gpt_tiny(attention=attention, dtype=torch.bfloat16),
+                      device="cuda")
+        with pytest.raises(ValueError, match="cannot tile"):
+            model(torch.zeros(1, 100, dtype=torch.long, device="cuda"))

@@ -273,7 +273,8 @@ PAYLOAD_TENSORS = 2
 
 def _expected_calls(lowering, units):
     calls = {"all_reduce": 0, "all_gather": 0, "reduce_scatter": 0,
-             "broadcast": 0, "gather": 0}
+             "broadcast": 0, "gather": 0, "all_to_all": 0,
+             "ring_permute": 0}
     if lowering == "psum":
         calls["all_reduce"] = units
     elif lowering == "allgather":
@@ -384,4 +385,5 @@ def test_leader_and_bucketed_steps_over_gloo(tmp_path, world):
         assert prims["tree"] == [[20.0] * 3, [30.0] * 3]
         assert prims["calls"] == {"all_reduce": 0, "all_gather": 0,
                                   "reduce_scatter": 0, "broadcast": 3,
-                                  "gather": 1}
+                                  "gather": 1, "all_to_all": 0,
+                                  "ring_permute": 0}

@@ -253,8 +253,12 @@ def test_unported_options_raise(kw):
             model, stacked_grads(variables, 1, 0)))
         assert data["grad_norm"] > 0 and data["nonfinite_total"] == 0.0
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        SGD(model, device="cpu", **kw)
+    # ported: the mesh options are accepted and a step runs on the one
+    # rank (the world-2 and world-4 forms are test_torch_model_parallel_ps)
+    opt = SGD(model, device="cpu", lr=0.1, **kw)
+    before = {k: p.detach().clone() for k, p in opt.params.items()}
+    opt.step(grads=torch_grads(model, stacked_grads(variables, 1, 0)))
+    assert any(not torch.equal(before[k], p) for k, p in opt.params.items())
 
 
 @pytest.mark.parametrize("call", ["profile", "aux_state", "step_accumulate",

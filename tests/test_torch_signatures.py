@@ -1,9 +1,10 @@
 """Every public signature of the JAX package's training entry points binds
 to the port's counterpart (ROADMAP queue 3 item 14): ``MPI_PS``,
 ``step``, ``run_steps``, ``step_accumulate``, ``Trainer`` and
-``CheckpointManager``. A JAX argument binds to a port parameter of its
-own name, or, for ``MPI_PS``, lands in ``**hyper`` only where the port
-names the item that brings it (``ps._UNPORTED``). The JAX defaults then
+``CheckpointManager``, and of the model-parallel and long-context layers
+(``ring_attention``, ``ulysses_attention``, ``GPTLM``, ``SwitchMLM``, the
+``tp_*``, ``pipeline_*`` and ``moe_*`` functions). A JAX argument binds
+to a port parameter of its own name. The JAX defaults then
 run: ``donate_buffers`` and ``run_steps(unroll=)`` are no-ops,
 ``CheckpointManager(d, True)`` keeps three steps and ``compress=True``
 round-trips through the native codec, and ``step_memory_analysis``
@@ -60,10 +61,8 @@ def test_jax_signature_binds_to_the_port(name, jfn, tfn):
     tparams = inspect.signature(tfn).parameters
     jnames = list(inspect.signature(jfn).parameters)[1:]
     for jname in jnames:
-        if jname in tparams:
-            continue
-        # absorbed by **hyper: only an option the port names as unported
-        assert name == "MPI_PS" and jname in tps._UNPORTED, jname
+        # every option is the port's own parameter, none lands in **hyper
+        assert jname in tparams, jname
     # positional arguments land on the same names
     tpos = [n for n, p in list(tparams.items())[1:]
             if p.kind is p.POSITIONAL_OR_KEYWORD]
@@ -71,6 +70,68 @@ def test_jax_signature_binds_to_the_port(name, jfn, tfn):
             if p.kind is p.POSITIONAL_OR_KEYWORD]
     assert tpos[:len(jpos)] == jpos
     assert bound.arguments
+
+
+def _layer_pairs():
+    from pytorch_ps_mpi_tpu.models import GPTLM as JGPTLM
+    from pytorch_ps_mpi_tpu.models.moe import SwitchMLM as JSwitchMLM
+    from pytorch_ps_mpi_tpu.parallel import ep as jep
+    from pytorch_ps_mpi_tpu.parallel import pp as jpp
+    from pytorch_ps_mpi_tpu.parallel import ring as jring
+    from pytorch_ps_mpi_tpu.parallel import tp as jtp
+    from pytorch_ps_mpi_tpu.parallel import ulysses as jul
+    from pytorch_ps_mpi_tpu_torch.models.gpt import GPTLM
+    from pytorch_ps_mpi_tpu_torch.models.moe import SwitchMLM
+    from pytorch_ps_mpi_tpu_torch.parallel import ep, pp, ring, tp, ulysses
+
+    pairs = [("ring_attention", jring.ring_attention, ring.ring_attention),
+             ("ulysses_attention", jul.ulysses_attention,
+              ulysses.ulysses_attention),
+             ("GPTLM", JGPTLM, GPTLM), ("GPTLM.__call__", JGPTLM.__call__,
+                                         GPTLM.forward),
+             ("SwitchMLM", JSwitchMLM, SwitchMLM),
+             ("SwitchMLM.__call__", JSwitchMLM.__call__, SwitchMLM.forward)]
+    for mod, jmod, names in (
+            (tp, jtp, ("column_parallel", "row_parallel", "tp_mlp",
+                       "tp_self_attention", "init_tp_mlp",
+                       "init_tp_attention", "tp_param_spec",
+                       "dense_equivalent_mlp", "dense_equivalent_attention")),
+            (pp, jpp, ("pipeline_apply", "pipeline_loss", "init_stage_stack",
+                       "stage_spec")),
+            (ep, jep, ("moe_apply", "load_balance_loss", "moe_dense_oracle",
+                       "init_moe", "moe_spec"))):
+        pairs += [(n, getattr(jmod, n), getattr(mod, n)) for n in names]
+    return pairs
+
+
+#: flax's own constructor fields, not the model's
+_FLAX_FIELDS = ("parent", "name")
+
+
+@pytest.mark.parametrize("name,jfn,tfn", _layer_pairs(),
+                         ids=[p[0] for p in _layer_pairs()])
+def test_jax_layer_signature_binds_to_the_port(name, jfn, tfn):
+    jsig, tsig = inspect.signature(jfn), inspect.signature(tfn)
+    jparams = [p for p in jsig.parameters.values()
+               if p.name not in _FLAX_FIELDS + ("self",)]
+    tparams = {n: p for n, p in tsig.parameters.items() if n != "self"}
+    pos = [_MISSING for p in jparams if p.kind is p.POSITIONAL_OR_KEYWORD]
+    kw = {p.name: (_MISSING if p.default is p.empty else p.default)
+          for p in jparams if p.kind is p.KEYWORD_ONLY}
+    args = ([None] if "self" in tsig.parameters else []) + pos
+    tsig.bind(*args, **kw)
+    for p in jparams:
+        assert p.name in tparams, p.name
+        q = tparams[p.name]
+        # the same kind, and the JAX default where the JAX one has one
+        assert q.kind is p.kind, p.name
+        if p.default is not p.empty and isinstance(p.default,
+                                                   (int, float, str, bool)):
+            assert q.default == p.default, p.name
+    jpos = [p.name for p in jparams if p.kind is p.POSITIONAL_OR_KEYWORD]
+    tpos = [n for n, q in tparams.items()
+            if q.kind is q.POSITIONAL_OR_KEYWORD]
+    assert tpos[:len(jpos)] == jpos
 
 
 def _mlp():
