@@ -45,12 +45,26 @@ Phases, one line each; the script exits non-zero if any fails:
                  bit-exact; heavy |x| ties, NaN, ±Inf, ±0.0, all ties, all
                  zeros, k = 1, k = n − 1, more NaNs than k, odd n from a
                  misaligned view, run-to-run identity);
-               - TernGrad's pack at BERT-base's 63 sublane-layout leaves and
-                 15 such buckets as the codec calls it (the two
-                 23,440,896-element units in chunks of 2**20), and its
-                 unpack-sum there at world 1 and 8
-                 (bytes and floats bit-exact; ±0.0, NaN, ±Inf, |x| == s,
-                 u24 == p24, the top random bit);
+               - TernGrad at BERT-base's 63 sublane-layout leaves and 15
+                 such buckets as the codec calls it: the one-launch encode
+                 (scale and pack) at every whole unit's size, the chunked
+                 route (one scale launch, then a given-scale pack a chunk
+                 of 2**20 into its slice; the two 23,440,896-element
+                 units) and the encode there whole, in float32 and bf16,
+                 the given-scale pack at the chunks' sizes, and the
+                 unpack-sum at every unit at world 1 and 8 (bytes, scales
+                 and floats bit-exact; ±0.0, |x| == s, u24 == p24, the top
+                 random bit, a NaN or ±Inf element, max|x| < 1e-12, NaN
+                 and Inf given scales); the codec's sublane encode of the
+                 63 leaves and the 15 buckets against the parent's route
+                 (a float32 copy, abs, amax, clamp, a pack a chunk, a cat)
+                 on the same bits: payloads byte for byte, each route's
+                 device rows (the new one's asserted: its TernGrad
+                 launches alone), and both timed in turns (parent, new,
+                 new, parent); each kernel timed per leaf and bucketed in
+                 bf16, the encode also as two launches, the encode's
+                 device µs a leaf size against its bound, and the
+                 wrappers' host µs a call;
                - the flash forward and backward at [b=4, l=512, h=12, d=64]
                  in bf16 (tensor cores) and float32 (CUDA cores),
                  non-causal, causal, with a k offset that leaves rows
@@ -153,7 +167,8 @@ Phases, one line each; the script exits non-zero if any fails:
                for bit (two rounds, the second in the other order, both
                wall times printed). BERT-base Adam(terngrad(use_pallas=True)) through
                ``step_accumulate`` over 2 microbatches of 4 x 512 (24 + 48
-               flash launches and 107 + 63 TernGrad launches a step; 300
+               flash launches; TernGrad's 61 encodes, 2 scales, 46 chunk
+               packs and 63 unpack-sums a step; 300
                all-gathers + 1), then the same with ``instrument=True``
                (every stage timed, the stages within ``step_time``, the
                parameters the fused run's bit for bit). ResNet-18 SGD(int8):
@@ -329,8 +344,9 @@ Phases, one line each; the script exits non-zero if any fails:
                ``sign_unpack_sum_kernel``, ``flash_fwd_tc``,
                ``flash_bwd_dq_tc``, ``flash_bwd_dkv_tc``, ``tern_pack``
                and ``tern_unpack_sum``, and each profiled step's
-               launches are a step's (20 + 20 sign; 12 + 24 flash, 107
-               packs and 63 unpack-sums) times its takes; then one BERT
+               launches are a step's (20 + 20 sign; 12 + 24 flash, 61
+               encodes, 2 scales, 46 chunk packs and 63 unpack-sums)
+               times its takes; then one BERT
                step under
                ``utils.tracing.trace`` with the flight recorder on, merged
                by ``trace_export`` and read back. N3:
@@ -1094,13 +1110,14 @@ def check_topk_kernels(leaves: list, also: list = ()):
     return T.LAUNCHES, results
 
 
-# -- TernGrad pack / unpack-sum ---------------------------------------------------
+# -- TernGrad encode / pack / unpack-sum ------------------------------------------
 
 def tern_units(sizes) -> list:
     """Per sublane-layout unit (leaf or bucket) of these element counts,
-    the element counts of its ``tern_pack`` calls as
-    ``TernGradCodec(use_pallas=True)`` makes them: the whole unit, or its
-    chunks at or above the scan threshold."""
+    the element counts of its packs as ``TernGradCodec(use_pallas=True)``
+    makes them: ``[n]`` for a unit below the scan threshold (one
+    ``tern_encode``), its chunks at or above it (one ``tern_scale``, then
+    one ``tern_pack`` a chunk)."""
     from pytorch_ps_mpi_tpu_torch.codecs import get_codec
 
     code = get_codec("terngrad", use_pallas=True)
@@ -1116,15 +1133,35 @@ def tern_units(sizes) -> list:
     return units
 
 
+def tern_launches(units) -> dict:
+    """TernGrad's kernel launches a step over sublane-layout ``units``
+    (:func:`tern_units`; a chunked unit has 4 chunks or more): an encode a
+    whole unit, a scale and a pack a chunk for a chunked one, and an
+    unpack-sum a unit."""
+    chunked = [u for u in units if len(u) > 1]
+    return {"tern_encode": len(units) - len(chunked),
+            "tern_scale": len(chunked),
+            "tern_pack": sum(len(u) for u in chunked),
+            "tern_unpack": len(units)}
+
+
+#: TernGrad's launches a per-leaf BERT-base step: 61 leaves whole, the two
+#: 23,440,896-element leaves as a scale and 23 chunk packs each, and an
+#: unpack-sum each of the 63 sublane-layout leaves
+TERN_LEAF = {"tern_encode": 61, "tern_scale": 2, "tern_pack": 2 * 23,
+             "tern_unpack": 63}
+
+
 def tern_calls(model) -> list:
-    """:func:`tern_units` of ``model``'s leaves: BERT-base's 107
-    ``tern_pack`` calls a per-leaf step."""
+    """:func:`tern_units` of ``model``'s leaves: BERT-base's 63
+    sublane-layout leaves, 61 whole and 2 in 23 chunks each
+    (:data:`TERN_LEAF`)."""
     leaves = tern_units(p.numel() for p in model.parameters())
-    calls = [c for leaf in leaves for c in leaf]
-    if len(leaves) != 63 or len(calls) != 107 or sum(calls) != 132_246_528:
-        raise AssertionError(f"expected 107 tern_pack calls over 63 leaves "
-                             f"(132,246,528 elements), got {len(calls)} over "
-                             f"{len(leaves)}")
+    got = tern_launches(leaves)
+    if got != TERN_LEAF or sum(map(sum, leaves)) != 132_246_528:
+        raise AssertionError(f"expected {TERN_LEAF} over 132,246,528 "
+                             f"elements, got {got} over "
+                             f"{sum(map(sum, leaves))}")
     return leaves
 
 
@@ -1143,31 +1180,176 @@ def _tern_planted(n: int, gen):
     return x, bits, torch.tensor(4.0, device="cuda")
 
 
+#: the encode's cases: ``planted`` the finite planted cases of
+#: :func:`_tern_planted` (max|x| == 4 exactly), ``nan`` a NaN element (the
+#: scale NaN, every digit 1), ``inf`` ±Inf (the scale Inf, every digit 1),
+#: ``tiny`` max|x| < 1e-12 (the scale clamps)
+TERN_CASES = ("plain", "planted", "nan", "inf", "tiny")
+
+
+def _tern_case(n: int, dtype, case: str, gen):
+    x, bits, _ = _tern_planted(n, gen)
+    if case == "planted":
+        x[1:4] = torch.tensor([0.25, 3.0, -3.0])
+    else:
+        x[:8] = 0.5 * torch.randn(8, generator=gen, device="cuda")
+        if case == "nan":
+            x[n // 3] = float("nan")
+        elif case == "inf":
+            x[1], x[n - 1] = float("inf"), -float("inf")
+        elif case == "tiny":
+            x = x * 1e-30
+    return x.to(dtype), bits
+
+
+def _same_scale(got: torch.Tensor, want: torch.Tensor) -> bool:
+    return torch.equal(got.reshape(()).view(torch.int32),
+                       want.reshape(()).view(torch.int32))
+
+
+def _check_encode(what: str, packed, scale, x, bits, case: str) -> None:
+    from pytorch_ps_mpi_tpu_torch.ops import tern as TG
+
+    want_packed, want_scale = TG.tern_encode_ref(x, bits)
+    if not (torch.equal(packed, want_packed)
+            and _same_scale(scale, want_scale)):
+        raise AssertionError(f"{what} differs from the plain encode")
+    if case == "planted" and (float(scale) != 4.0 or TG.tern_digits(
+            packed[:128])[4:8].tolist() != [-1, 0, 1, 0]):
+        raise AssertionError(f"{what}: planted digits wrong")
+    if case in ("nan", "inf") and (bool(torch.isfinite(scale))
+                                   or not bool((packed == 0x55).all())):
+        raise AssertionError(f"{what}: a {case} scale kept an element")
+    if case == "tiny" and float(scale) != float(torch.tensor(1e-12)):
+        raise AssertionError(f"{what}: the scale did not clamp")
+
+
+def _parent_encode(x, bits: list, block: int) -> dict:
+    """The sublane encode as the port made it before the one-launch
+    encode: a float32 copy, ``abs().amax()`` and a clamp (a running
+    ``maximum`` over the chunks of a chunked leaf), a given-scale pack a
+    chunk and a ``cat`` of the chunks' packs."""
+    from pytorch_ps_mpi_tpu_torch.ops import tern as TG
+
+    g = x.to(torch.float32)
+    if len(bits) == 1:
+        scale = torch.clamp(g.abs().amax(), min=1e-12)
+        return {"packed": TG.tern_pack(g, bits[0], scale), "scale": scale}
+    chunks = torch.split(g, block)
+    scale = torch.full((), 1e-12, device=g.device)
+    for c in chunks:
+        scale = torch.maximum(scale, c.abs().amax())
+    return {"packed": torch.cat([TG.tern_pack(c, b, scale)
+                                 for c, b in zip(chunks, bits)]),
+            "scale": scale}
+
+
+def check_tern_encode_route(leaves: list, buckets: list, gen) -> None:
+    """The codec's sublane encode of BERT-base's 63 leaves and 15 buckets
+    (bf16, the main path's type) against the parent's route on the same
+    bits: payloads equal byte for byte, the device rows each route makes
+    (the new route's asserted: the TernGrad launches alone), and the two
+    routes' times, wall (CUDA events) and device (profiler), in turns,
+    parent, new, new, parent."""
+    from pytorch_ps_mpi_tpu_torch.codecs import get_codec
+
+    code = get_codec("terngrad", use_pallas=True)
+    for what, units in (("leaves", leaves), ("buckets", buckets)):
+        data = []
+        for unit in units:
+            x = (1e-3 * torch.randn(sum(unit), generator=gen, device="cuda")
+                 ).to(torch.bfloat16)
+            data.append((x, [torch.randint(-2**31, 2**31, (c,), generator=gen,
+                                           device="cuda", dtype=torch.int32)
+                             for c in unit]))
+
+        def new():
+            return [code.ternarize(x, lambda i, size, b=b: b[i or 0])
+                    for x, b in data]
+
+        def parent():
+            return [_parent_encode(x, b, code.scan_block) for x, b in data]
+
+        for got, want in zip(new(), parent()):
+            if not (torch.equal(got["packed"], want["packed"])
+                    and _same_scale(got["scale"], want["scale"])):
+                raise AssertionError(f"the encode of the {what} differs "
+                                     f"from the parent's route")
+        rows = {"new": device_launches(new), "parent": device_launches(parent)}
+        want = tern_launches(units)
+        want = sum(v for k, v in want.items() if k != "tern_unpack")
+        if rows["new"] != want:
+            raise AssertionError(f"the encode of the {what}: {rows['new']} "
+                                 f"device rows, expected {want} TernGrad "
+                                 f"launches and nothing else")
+        packs = sum(len(u) for u in units)  # the parent's TernGrad launches
+        ms = {"parent": [], "new": []}
+        dev = {"parent": [], "new": []}
+        for route in ("parent", "new", "new", "parent"):
+            fn = parent if route == "parent" else new
+            ms[route].append(cuda_ms(fn, reps=5, rounds=3))
+            dev[route].append(device_ms(fn))
+        phase("kernels", kernel="tern_encode", design="sublane encode A/B",
+              units=f"{len(units)} {what}", dtype="bf16",
+              turns="parent,new,new,parent",
+              parent_ms=json.dumps([round(v, 4) for v in ms["parent"]]),
+              new_ms=json.dumps([round(v, 4) for v in ms["new"]]),
+              parent_device_ms=json.dumps([round(v, 4)
+                                           for v in dev["parent"]]),
+              new_device_ms=json.dumps([round(v, 4) for v in dev["new"]]),
+              parent_device_rows=rows["parent"], new_device_rows=rows["new"],
+              parent_pytorch_launches=rows["parent"] - packs,
+              new_pytorch_launches=0,
+              payloads="equal byte for byte")
+        del data
+
+
 def check_tern_kernels(model) -> dict:
-    """``tern_pack`` at BERT-base's 107 calls a per-leaf step and the 59 of
-    a step at ``BUCKET_MB``, and the unpack-sum at its 63 sublane-layout
-    leaves and 15 such buckets (world 1 and 8): bit-exact against the
-    plain versions, planted cases, and timing (over the leaves)."""
+    """TernGrad's kernels at BERT-base's units, per leaf (63) and at
+    ``BUCKET_MB`` (15): the encode at every whole unit's size and the
+    chunked route (scale, then a pack a chunk into its slice) at the
+    chunked ones, in float32 and bf16 with the planted cases, and the
+    given-scale pack and the unpack-sum (world 1 and 8) there, all
+    bit-exact against the plain versions; the encode route against the
+    parent's; then timing at a step's calls (bf16), per leaf and
+    bucketed."""
+    from pytorch_ps_mpi_tpu_torch.codecs import get_codec
     from pytorch_ps_mpi_tpu_torch.ops import tern as TG
 
     leaves = tern_calls(model)
-    calls = [c for leaf in leaves for c in leaf]
     buckets = tern_units(bucket_sizes(model))
-    got = {"tern_pack": sum(len(b) for b in buckets),
-           "tern_unpack": len(buckets)}
-    if got != PLAN_LAUNCHES["terngrad"]:
-        raise AssertionError(f"terngrad buckets give {got}")
-    pack_sizes = sorted({c for unit in leaves + buckets for c in unit})
-    unit_sizes = sorted({sum(unit) for unit in leaves + buckets})
+    if tern_launches(buckets) != PLAN_LAUNCHES["terngrad"]:
+        raise AssertionError(f"terngrad buckets give "
+                             f"{tern_launches(buckets)}")
+    code = get_codec("terngrad", use_pallas=True)
+    block = code.scan_block
+    units = leaves + buckets
+    whole = sorted({u[0] for u in units if len(u) == 1})
+    chunked = sorted({sum(u) for u in units if len(u) > 1})
+    pack_sizes = sorted({c for u in units if len(u) > 1 for c in u})
     gen = torch.Generator(device="cuda").manual_seed(6)
-    for n in pack_sizes:
-        x = torch.randn(n, generator=gen, device="cuda")
-        bits = torch.randint(-2**31, 2**31, (n,), generator=gen,
-                             device="cuda", dtype=torch.int32)
-        s = x.abs().amax()
-        if not torch.equal(TG.tern_pack(x, bits, s),
-                           TG.tern_pack_ref(x, bits, s)):
-            raise AssertionError(f"tern_pack differs at n={n}")
+    cases = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        for n in whole + chunked:
+            for case in TERN_CASES:
+                x, bits = _tern_case(n, dtype, case, gen)
+                packed, scale = TG.tern_encode(x, bits)
+                _check_encode(f"tern_encode n={n} {dtype} {case}", packed,
+                              scale, x, bits, case)
+                if n in chunked:  # the codec's: a scale, a pack a chunk
+                    p = code.ternarize(x, lambda i, size: bits[
+                        i * block:i * block + size])
+                    _check_encode(f"chunked route n={n} {dtype} {case}",
+                                  p["packed"], p["scale"], x, bits, case)
+                    if not _same_scale(scale, TG.tern_scale_ref(x)):
+                        raise AssertionError(f"tern_scale differs at n={n}")
+                cases += 1
+        for n in pack_sizes:
+            x, bits = _tern_case(n, dtype, "plain", gen)
+            s = x.float().abs().amax()
+            if not torch.equal(TG.tern_pack(x, bits, s),
+                               TG.tern_pack_ref(x, bits, s)):
+                raise AssertionError(f"tern_pack differs at n={n}, {dtype}")
     for n in (512, 372_224):
         x, bits, s = _tern_planted(n, gen)
         packed = TG.tern_pack(x, bits, s)
@@ -1181,6 +1363,7 @@ def check_tern_kernels(model) -> dict:
             if not torch.equal(TG.tern_pack(x, bits, s),
                                TG.tern_pack_ref(x, bits, s)):
                 raise AssertionError(f"tern_pack differs at scale {scale}")
+    unit_sizes = sorted({sum(u) for u in units})
     for m in [n // 4 for n in unit_sizes]:
         for world in (1, 8):
             packed = torch.randint(0, 256, (world, m), generator=gen,
@@ -1191,47 +1374,143 @@ def check_tern_kernels(model) -> dict:
             if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
                 raise AssertionError(f"tern_unpack_sum differs at m={m}, "
                                      f"world {world}")
-    phase("kernels", check="terngrad bit-exact", pack_sizes=len(pack_sizes),
-          unpack_sizes=len(unit_sizes), unpack_worlds="1,8",
+    phase("kernels", check="terngrad bit-exact",
+          encode_sizes=len(whole + chunked), chunked_route=len(chunked),
+          pack_sizes=len(pack_sizes), unpack_sizes=len(unit_sizes),
+          unpack_worlds="1,8", dtypes="f32,bf16", encode_cases=cases,
           units="leaves and buckets",
-          planted="±0.0, NaN, ±Inf, |x|==s, u24==p24, top bit; NaN/Inf scale")
+          planted="±0.0, |x|==s, u24==p24, top bit; NaN, ±Inf, max|x|<1e-12 "
+                  "(encode); NaN/Inf given scale (pack)")
+    check_tern_encode_route(leaves, buckets, gen)
+    return tern_timings(leaves, buckets, gen)
 
-    pack_args = []
-    for n in calls:
-        x = 1e-3 * torch.randn(n, generator=gen, device="cuda")
-        pack_args.append((x, torch.randint(-2**31, 2**31, (n,), generator=gen,
-                                           device="cuda", dtype=torch.int32),
-                          x.abs().amax()))
+
+def tern_timings(leaves: list, buckets: list, gen) -> dict:
+    """Each TernGrad kernel over a step's calls at BERT-base's units in
+    bf16 (the main path's gradients), per leaf, then bucketed; the encode
+    also as two launches (scale, then pack); each wrapper's host µs a
+    call; the encode's device µs a leaf size against its bound."""
+    from pytorch_ps_mpi_tpu_torch.ops import tern as TG
+
+    def encode_args(units):
+        out = []
+        for u in units:
+            if len(u) == 1:
+                x = (1e-3 * torch.randn(u[0], generator=gen, device="cuda")
+                     ).to(torch.bfloat16)
+                out.append((x, torch.randint(-2**31, 2**31, (u[0],),
+                                             generator=gen, device="cuda",
+                                             dtype=torch.int32)))
+        return out
+
+    def encode_bytes(x, b):  # x in its type, the bits, the packed, the scale
+        return x.numel() * (x.element_size() + 4) + x.numel() // 4 + 4
+
     results = {}
-    r = timed(TG.tern_pack, TG.tern_pack_ref, pack_args,
-              lambda x, b, s: 8 * x.numel() + x.numel() // 4 + 4,
-              reps=10, rounds=3)
-    results["tern_pack"] = dict(r, max_abs_err=0.0)
-    report("tern_pack", results["tern_pack"], calls=len(calls))
+    lines = {}
+    for what, units in (("leaves", leaves), ("buckets", buckets)):
+        args = encode_args(units)
+        r = timed(TG.tern_encode, TG.tern_encode_ref, args, encode_bytes,
+                  reps=10, rounds=3)
 
-    unpack_args = [(TG.tern_pack(x, b, s).reshape(1, -1), s.reshape(1))
-                   for x, b, s in pack_args]
+        def two_launches(x, b):
+            return TG.tern_pack(x, b, TG.tern_scale(x))
+
+        two = {"ms": sum(cuda_ms(lambda: two_launches(*a), 10, 3)
+                         for a in args),
+               "device_ms": device_ms(lambda: [two_launches(*a)
+                                               for a in args])}
+        lines[what] = (r, len(args), two)
+        if what == "leaves":
+            results["tern_encode"] = dict(r, max_abs_err=0.0)
+            by_size = {x.numel(): (x, b) for x, b in args}
+            sizes = sorted(by_size)
+            rows = _profiled(lambda: [TG.tern_encode(*by_size[n])
+                                      for n in sizes])
+            if len(rows) != len(sizes):
+                raise AssertionError(f"tern_encode: {len(rows)} device rows "
+                                     f"for {len(sizes)} calls")
+            bound = {n: encode_bytes(*by_size[n]) / HBM_BYTES_PER_S * 1e6
+                     for n in sizes}
+            n = sizes[-1]
+            cold = device_ms(lambda: TG.tern_encode(*by_size[n]), cold=True)
+            phase("kernels", kernel="tern_encode", dtype="bf16",
+                  design="one launch a call, one block <= 4096, else a "
+                         "cooperative grid",
+                  device_us=json.dumps({m: round(e.self_device_time_total, 3)
+                                        for m, e in zip(sizes, rows)},
+                                       separators=(",", ":")),
+                  bound_us=json.dumps({m: round(bound[m], 3) for m in sizes},
+                                      separators=(",", ":")),
+                  share_of_bound=json.dumps(
+                      {m: round(bound[m] / e.self_device_time_total, 3)
+                       for m, e in zip(sizes, rows)}, separators=(",", ":")),
+                  largest_leaf=n, cold_device_ms=f"{cold:.4f}",
+                  cold_share_of_bound=f"{bound[n] / 1e3 / cold:.3f}")
+            small = by_size[sizes[0]]
+            pack_small = (*small, TG.tern_encode(*small)[1])
+            unpack_small = (TG.tern_encode(*small)[0].reshape(1, -1),
+                            pack_small[2].reshape(1))
+            phase("kernels", host="TernGrad wrappers, us a call",
+                  n=sizes[0], dtype="bf16",
+                  tern_encode=f"{host_us(lambda: TG.tern_encode(*small), 5000):.3f}",
+                  tern_pack=f"{host_us(lambda: TG.tern_pack(*pack_small), 5000):.3f}",
+                  tern_unpack_sum=f"{host_us(lambda: TG.tern_unpack_sum(*unpack_small), 5000):.3f}")
+        del args
+    # the chunked units are the same two 23,440,896-element leaves per
+    # leaf and bucketed: their scales and chunk packs
+    chunked = [u for u in leaves if len(u) > 1]
+    xs = [(1e-3 * torch.randn(sum(u), generator=gen, device="cuda")
+           ).to(torch.bfloat16) for u in chunked]
+    r = timed(TG.tern_scale, TG.tern_scale_ref, [(x,) for x in xs],
+              lambda x: x.numel() * x.element_size() + 4, reps=10, rounds=3)
+    results["tern_scale"] = dict(r, max_abs_err=0.0)
+    report("tern_scale", results["tern_scale"], calls=len(xs), dtype="bf16",
+           units="leaves and buckets")
+    pack_args = []
+    for x, u in zip(xs, chunked):
+        s = TG.tern_scale(x)
+        for c in torch.split(x, u[0]):
+            pack_args.append((c, torch.randint(-2**31, 2**31, (c.numel(),),
+                                               generator=gen, device="cuda",
+                                               dtype=torch.int32), s))
+    del xs
+    r = timed(TG.tern_pack, TG.tern_pack_ref, pack_args,
+              lambda x, b, s: encode_bytes(x, b), reps=10, rounds=3)
+    results["tern_pack"] = dict(r, max_abs_err=0.0)
+    report("tern_pack", results["tern_pack"], calls=len(pack_args),
+           dtype="bf16", units="leaves and buckets")
     del pack_args
-    # one step's unpack-sums are per leaf: the chunks of a leaf concatenate
-    leaf_args, i = [], 0
-    for leaf in leaves:
-        k = len(leaf)
-        leaf_args.append((torch.cat([a[0] for a in unpack_args[i:i + k]], 1),
-                          unpack_args[i][1]))
-        i += k
-    del unpack_args
-    r = timed(TG.tern_unpack_sum, TG.tern_unpack_sum_ref, leaf_args,
-              lambda q, s: q.numel() + 16 * q.shape[1] + 4,
-              reps=10, rounds=3)
-    results["tern_unpack"] = dict(r, max_abs_err=0.0)
-    report("tern_unpack", results["tern_unpack"], leaves=len(leaf_args),
-           world=1)
-    stacks = [(torch.cat([q] * 8), torch.cat([s] * 8)) for q, s in leaf_args]
-    r = timed(TG.tern_unpack_sum, TG.tern_unpack_sum_ref, stacks,
-              lambda q, s: q.numel() + 16 * q.shape[1] + 4 * 8,
-              reps=3, rounds=3)
-    report("tern_unpack_sum", dict(r, max_abs_err=0.0),
-           leaves=len(leaf_args), world=8)
+    for what, (r, calls, two) in lines.items():
+        report("tern_encode", dict(r, max_abs_err=0.0), calls=calls,
+               dtype="bf16", units=what, two_launch_ms=f"{two['ms']:.4f}",
+               two_launch_device_ms=f"{two['device_ms']:.4f}")
+
+    for what, units in (("leaves", leaves), ("buckets", buckets)):
+        unpack_args = []
+        for u in units:
+            m = sum(u) // 4
+            unpack_args.append((torch.randint(0, 256, (1, m), generator=gen,
+                                              device="cuda",
+                                              dtype=torch.uint8),
+                                torch.rand(1, generator=gen, device="cuda")))
+        r = timed(TG.tern_unpack_sum, TG.tern_unpack_sum_ref, unpack_args,
+                  lambda q, s: q.numel() + 16 * q.shape[1] + 4,
+                  reps=10, rounds=3)
+        if what == "leaves":
+            results["tern_unpack"] = dict(r, max_abs_err=0.0)
+        report("tern_unpack", dict(r, max_abs_err=0.0), units=what,
+               calls=len(unpack_args), world=1)
+        if what == "leaves":
+            stacks = [(torch.cat([q] * 8), torch.cat([s] * 8))
+                      for q, s in unpack_args]
+            r = timed(TG.tern_unpack_sum, TG.tern_unpack_sum_ref, stacks,
+                      lambda q, s: q.numel() + 16 * q.shape[1] + 4 * 8,
+                      reps=3, rounds=3)
+            report("tern_unpack_sum", dict(r, max_abs_err=0.0),
+                   units=what, calls=len(stacks), world=8)
+            del stacks
+        del unpack_args
     return results
 
 
@@ -1972,6 +2251,7 @@ def kernel_counters() -> dict:
             "unpack_signs_sum": S.unpack_signs_sum,
             "quantize_int8": Q.quantize_int8,
             "dequantize_int8": Q.dequant_sum, "exact_topk": T.exact_topk,
+            "tern_encode": TG.tern_encode, "tern_scale": TG.tern_scale,
             "tern_pack": TG.tern_pack, "tern_unpack": TG.tern_unpack_sum,
             "flash_fwd": A.flash_fwd, "flash_bwd": A.flash_bwd}
 
@@ -1979,13 +2259,14 @@ def kernel_counters() -> dict:
 #: bucket_mb of the bucketed and leader runs, and the kernel launches a
 #: step that the JAX package's plan_buckets gives on these models' leaves
 #: in its leaf order (ResNet-18: 4 buckets, 2 of n % 1024 == 0; BERT-base:
-#: 28 buckets, 15 of n % 512 == 0, two of them 23,440,896 elements packed
-#: in 23 chunks each)
+#: 28 buckets, 15 of n % 512 == 0: 13 encoded whole, and two of
+#: 23,440,896 elements as a scale launch and 23 chunk packs each)
 BUCKET_MB = 16.0
 PLAN_LAUNCHES = {
     "sign": {"encode_signs": 2, "unpack_signs_sum": 2},
     "int8": {"quantize_int8": 4, "dequantize_int8": 4},
-    "terngrad": {"tern_pack": 13 + 2 * 23, "tern_unpack": 15},
+    "terngrad": {"tern_encode": 13, "tern_scale": 2, "tern_pack": 2 * 23,
+                 "tern_unpack": 15},
 }
 
 
@@ -2014,8 +2295,8 @@ def ordered_params(model) -> dict:
 def plan_launches(opt, code_name: str) -> dict:
     """Kernel launches a step of a bucketed codec, derived from the
     optimizer's own bucket plan: sign's kernels take a bucket of n % 1024
-    == 0, int8's every bucket, TernGrad's pack a sublane-layout bucket
-    whole or chunk by chunk and its unpack-sum each such bucket."""
+    == 0, int8's every bucket, TernGrad's each sublane-layout bucket
+    (:func:`tern_launches`)."""
     sizes = [b.size for b in opt._bucket_plan.buckets]
     code = opt.code
     if code_name == "sign":
@@ -2024,9 +2305,7 @@ def plan_launches(opt, code_name: str) -> dict:
     if code_name == "int8":
         return {"quantize_int8": len(sizes), "dequantize_int8": len(sizes)}
     if code_name == "terngrad":
-        units = tern_units(sizes)
-        return {"tern_pack": sum(len(u) for u in units),
-                "tern_unpack": len(units)}
+        return tern_launches(tern_units(sizes))
     return {}
 
 
@@ -2415,8 +2694,7 @@ def train_bert_accumulate() -> None:
     micro = [stack_batches([next(stream), next(stream)])
              for _ in range(EQ_STEPS)]
     # the flash kernels each microbatch (12 layers), TernGrad's once a step
-    per_step = {"flash_fwd": 12 * 2, "flash_bwd": 24 * 2,
-                "tern_pack": 61 + 2 * 23, "tern_unpack": 63}
+    per_step = {"flash_fwd": 12 * 2, "flash_bwd": 24 * 2, **TERN_LEAF}
     calls_per_step = {"all_gather": 300, "all_reduce": 1}
     stages = ("grad_time", "code_wait", "isend_time", "comm_wait",
               "decode_time", "optim_step_time")
@@ -4871,11 +5149,10 @@ N4_NAN = {"worker": 1, "at_step": 2}  # worker 1's third push
 N4_MAX_STALENESS = ASYNC_WORKERS * N4_PUSHES
 #: the kernel launches of one take of N2's profiled steps: ResNet-18 sign
 #: per leaf; BERT-base 12 flash layers (dq and dkv each count a backward
-#: launch), TernGrad's 107 packs over 63 leaves and 63 unpack-sums
+#: launch) and TernGrad's per-leaf launches (:data:`TERN_LEAF`)
 N2_LAUNCHES = {
     "sign": {"encode_signs": 20, "unpack_signs_sum": 20},
-    "terngrad": {"flash_fwd": 12, "flash_bwd": 24, "tern_pack": 61 + 2 * 23,
-                 "tern_unpack": 63},
+    "terngrad": {"flash_fwd": 12, "flash_bwd": 24, **TERN_LEAF},
 }
 #: the hand kernels a profiled step's ``top_ops`` must name
 N2_KERNELS = {
@@ -6184,6 +6461,11 @@ SOURCES = {
     "dequantize_int8": ("quant.cu",
                         "pytorch_ps_mpi_tpu/ops/quant_pallas.py:118"),
     "exact_topk": ("topk.cu", "pytorch_ps_mpi_tpu/ops/topk_pallas.py:67"),
+    # with the codec's jnp.maximum(jnp.max(jnp.abs(g)), 1e-12) (codecs/
+    # terngrad.py:187), in one launch
+    "tern_encode": ("tern.cu", "pytorch_ps_mpi_tpu/ops/tern_pallas.py:61"),
+    # the chunked encode's absmax scan (XLA's, not a Pallas kernel)
+    "tern_scale": ("tern.cu", "pytorch_ps_mpi_tpu/codecs/terngrad.py:149"),
     "tern_pack": ("tern.cu", "pytorch_ps_mpi_tpu/ops/tern_pallas.py:61"),
     "tern_unpack": ("tern.cu", "pytorch_ps_mpi_tpu/ops/tern_pallas.py:97"),
     # bf16, the main path's type (float32: attention.cu, the CUDA cores)
@@ -6246,7 +6528,7 @@ def main() -> int:
     bert = bert_base()
     results.update(check_tern_kernels(bert))
     results.update(check_flash_kernels())
-    check_bert_reference(bert, {"tern_pack": 107, "tern_unpack": 63})
+    check_bert_reference(bert, TERN_LEAF)
     check_bert_reference(bert, PLAN_LAUNCHES["terngrad"],
                          bucket_mb=BUCKET_MB)
     check_bert_flash(bert)
@@ -6287,11 +6569,11 @@ def main() -> int:
          {"all_gather": 8 + 4}, leader),
     ]
     # BERT-base: 12 flash forward and 12 + 12 backward launches a loss
-    # step, none in the grads-only step; TernGrad packs 61 leaves whole and
-    # the two 23,440,896-element leaves in 23 chunks each, and unpack-sums
-    # its 63 sublane-layout leaves, in every step
+    # step, none in the grads-only step; TernGrad encodes 61 leaves whole
+    # and the two 23,440,896-element leaves as a scale and 23 chunk packs
+    # each, and unpack-sums its 63 sublane-layout leaves, in every step
     flash = {"flash_fwd": 12, "flash_bwd": 24}
-    tern = {"tern_pack": 61 + 2 * 23, "tern_unpack": 63}
+    tern = TERN_LEAF
     bert_runs = [("identity", flash, {}, {"all_reduce": 150}, {}),
                  ("terngrad", {**flash, **tern}, tern, {"all_gather": 300},
                   {}),

@@ -15,10 +15,17 @@ codec's two layouts, chosen per leaf by :meth:`TernGradCodec._pallas_ok`:
   uniforms (``keep = u < |g|/s``).
 
 Leaves of at least ``scan_threshold`` elements encode chunk by chunk
-(``terngrad.py:127-186``): the absmax and the pack run ``scan_block``
-elements at a time, so no n-sized float temporary exists, and each
-chunk gets its own random numbers. The per-chunk packs concatenate into
-the whole-tensor layout.
+(``terngrad.py:127-186``): the pack runs ``scan_block`` elements at a
+time, so no n-sized float temporary exists, and each chunk gets its own
+random numbers. The chunks' packs together are the whole-tensor layout.
+
+A sublane-layout leaf in ``nonfinite="propagate"`` (the default) of
+float32 or bf16 is read by the kernels in its own type, with no cast:
+below ``scan_threshold`` one ``tern_encode`` launch computes the scale
+and packs; above it, one ``tern_scale`` launch over the leaf, then one
+``tern_pack`` a chunk, each writing its slice of the leaf's payload.
+Other types and the ``"zero"``/``"raise"`` modes cast to float32 and
+guard first, then take the same kernels.
 
 ``encode`` draws its random numbers from the step's ``torch.Generator``
 and hands them to :meth:`TernGradCodec.ternarize`, a pure function of
@@ -90,7 +97,7 @@ class TernGradCodec(Codec):
         ``scan_threshold`` elements (default ``4 * scan_block``) encode
         ``scan_block`` elements at a time. ``use_pallas=True`` puts
         leaves whose size divides by 512 in the sublane layout, packed by
-        the ``tern_pack`` kernel (the name is the JAX codec's)."""
+        the kernels of ``ops/tern.py`` (the name is the JAX codec's)."""
         self.nonfinite = check_nonfinite_mode(nonfinite)
         if scan_block <= 0 or scan_block % 4:
             raise ValueError("scan_block must be a positive multiple of 4")
@@ -123,27 +130,42 @@ class TernGradCodec(Codec):
 
         return self.ternarize(grad, noise), state
 
-    def _pack(self, g, scale, rand, sublane: bool):
-        if sublane:
-            return tern_ops.tern_pack(g, rand, scale)
-        return _pack_flat(g, scale, rand)
-
     def ternarize(self, grad: torch.Tensor, noise: Noise):
         """The payload of ``grad`` for the random numbers ``noise`` gives
         (see :data:`Noise`)."""
-        g = guard_nonfinite(grad.reshape(-1).to(torch.float32), self.nonfinite,
-                            "TernGradCodec")
+        g = grad.reshape(-1)
         n = g.numel()
         sublane = self._pallas_ok(n)
+        if not (sublane and self.nonfinite == "propagate"
+                and g.dtype in tern_ops.DTYPES):
+            g = guard_nonfinite(g.to(torch.float32), self.nonfinite,
+                                "TernGradCodec")
+        if not sublane:
+            return self._ternarize_flat(g, noise)
+        if not g.is_contiguous():  # a strided 1-D view: the kernels raise
+            g = g.contiguous()
+        if n < self.scan_threshold:
+            packed, scale = tern_ops.tern_encode(g, noise(None, n))
+            return {"packed": packed, "scale": scale}
+        scale = tern_ops.tern_scale(g)
+        packed = torch.empty(n // 4, dtype=torch.uint8, device=g.device)
+        for i, start in enumerate(range(0, n, self.scan_block)):
+            stop = min(start + self.scan_block, n)
+            tern_ops.tern_pack(g[start:stop], noise(i, stop - start), scale,
+                               out=packed[start // 4:stop // 4])
+        return {"packed": packed, "scale": scale}
+
+    def _ternarize_flat(self, g: torch.Tensor, noise: Noise):
+        n = g.numel()
         if n < self.scan_threshold:
             scale = torch.clamp(g.abs().amax(), min=1e-12)  # NaN propagates
-            packed = self._pack(g, scale, noise(None, n), sublane)
-            return {"packed": packed, "scale": scale}
+            return {"packed": _pack_flat(g, scale, noise(None, n)),
+                    "scale": scale}
         chunks = torch.split(g, self.scan_block)
         scale = torch.full((), 1e-12, device=g.device)
         for c in chunks:
             scale = torch.maximum(scale, c.abs().amax())
-        packed = torch.cat([self._pack(c, scale, noise(i, c.numel()), sublane)
+        packed = torch.cat([_pack_flat(c, scale, noise(i, c.numel()))
                             for i, c in enumerate(chunks)])
         return {"packed": packed, "scale": scale}
 

@@ -287,6 +287,8 @@ def kernel_launches() -> Dict[str, int]:
             "unpack_signs_sum": sign.unpack_signs_sum.launches,
             "quantize_int8": quant.quantize_int8.launches,
             "dequant_sum": quant.dequant_sum.launches,
+            "tern_encode": tern.tern_encode.launches,
+            "tern_scale": tern.tern_scale.launches,
             "tern_pack": tern.tern_pack.launches,
             "tern_unpack_sum": tern.tern_unpack_sum.launches,
             "exact_topk": topk.exact_topk.launches}

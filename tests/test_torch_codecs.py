@@ -345,6 +345,33 @@ def test_terngrad_payload_matches_jax(case):
     assert (n >= code.scan_threshold) == case.startswith("chunked")
 
 
+@pytest.mark.parametrize("case", ["plain", "nan"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("n", [4096, 10240, 11264])
+def test_terngrad_sublane_payload_matches_jax_in_the_gradient_dtype(
+        n, dtype, case):
+    # a whole leaf (one encode launch on the card) and chunked ones at
+    # scan_block 2048, threshold 8192 (a scale launch, then a pack a chunk
+    # into its slice; 11,264 has a tail of 1,024): the JAX codec casts to
+    # float32 first, the port reads the gradient in its own type
+    kw = dict(use_pallas=True, scan_block=2048, scan_threshold=8192)
+    x = _grads(n, 1)[0]
+    x[3] = -0.0
+    if case == "nan":
+        x[n - 7] = np.nan
+    jx = jnp.asarray(x).astype(dtype)
+    code, jc = get_codec("terngrad", **kw), jax_codec("terngrad", **kw)
+    assert code._pallas_ok(n) and (n >= code.scan_threshold) == (n > 4096)
+    key = jax.random.key(n)
+    jp, _ = jc.encode(jx, rng=key)
+    tx = torch.from_numpy(np.array(jx.astype(jnp.float32))).to(
+        getattr(torch, dtype))
+    p = code.ternarize(tx, _jax_noise(key, True))
+    _assert_payload_equal(p, jp)
+    if case == "nan":
+        assert bool(torch.isnan(p["scale"])) and (p["packed"] == 0x55).all()
+
+
 @pytest.mark.parametrize("mode", ["propagate", "zero", "raise"])
 @pytest.mark.parametrize("n", [1000, 36864])
 def test_terngrad_nonfinite_modes_match_jax(n, mode):

@@ -20,9 +20,14 @@ dim) to 2**-6 of each output's largest magnitude; a ragged tile reads
 nothing of the next head, and o, lse, dq, dk, dv are the same from run
 to run, bit for bit. The int8 and sign codecs on ResNet-18's buckets at
 ``bucket_mb=16`` (payloads, decode-sums and two bucketed steps of either
-mode) against their plain versions on the CPU; TernGrad's pack and
-unpack-sum also at BERT-base's bucket sizes, and a bucketed TernGrad
-step on the card against the CPU. Ring and Ulysses attention, and the
+mode) against their plain versions on the CPU. TernGrad: the one-launch
+encode and the scale-only launch from float32 and bf16 (one block, one
+row past the tile, past the co-resident grid; NaN, ±Inf and
+max|x| < 1e-12 planted), the codec's chunked route against the whole-leaf
+plain encode, views off alignment and the unpack-sum at worlds 1, 4 and
+8, bytes and scales bit for bit; the pack and unpack-sum also at
+BERT-base's bucket sizes, and a bucketed TernGrad step on the card
+against the CPU. Ring and Ulysses attention, and the
 GPT over them, raise on a shard the flash kernels cannot tile.
 """
 
@@ -635,15 +640,162 @@ def test_tern_pack_matches_plain_version(cuda, n, planted):
             [0, 0, 1, -1, -1, 0, 1, 0]
 
 
+# one block (3,072: BERT-base's FFN bias), the tile, one row past it (the
+# cooperative grid), BERT-base's whole leaves and a chunked leaf whole
+# (23,440,896: tiles past the co-resident grid, read twice)
+TERN_ENCODE_SIZES = [3072, 4096, 4608, 589_824, 2_359_296, 23_440_896]
+
+
+def _tern_encode_input(n: int, dtype, case: str, device):
+    """x (``dtype``), bits for the encode: ``planted`` holds |x| == s = 4,
+    u24 == p24 (drops), u24 == p24 − 1 (keeps), the top random bit and
+    -0.0; ``nan`` a NaN element, ``inf`` ±Inf, ``tiny`` max|x| < 1e-12
+    (the scale clamps)."""
+    gen = torch.Generator(device="cuda").manual_seed(n + len(case))
+    x = 0.5 * torch.randn(n, generator=gen, device=device)
+    bits = torch.randint(-2**31, 2**31, (n,), generator=gen, device=device,
+                         dtype=torch.int32)
+    if case == "planted":
+        x[:8] = torch.tensor([-0.0, 0.25, 3.0, -3.0, -4.0, 0.5, 0.5, 1.0])
+        bits[4:8] = torch.tensor([-1, (2097152 << 8) | 0xFF,
+                                  ((2097152 - 1) << 8) | 0xFF, -2**31],
+                                 dtype=torch.int32)
+    elif case == "nan":
+        x[n // 3] = float("nan")
+    elif case == "inf":
+        x[1], x[n - 1] = float("inf"), -float("inf")
+    elif case == "tiny":
+        x = x * 1e-30
+    return x.to(dtype), bits
+
+
+def _scale_bits(scale: torch.Tensor) -> int:
+    return int(scale.reshape(1).view(torch.int32))
+
+
+def _same_scale(got: torch.Tensor, want: torch.Tensor) -> bool:
+    return _scale_bits(got) == _scale_bits(want)
+
+
+@pytest.mark.parametrize("case", ["plain", "planted", "nan", "inf", "tiny"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n", TERN_ENCODE_SIZES)
+def test_tern_encode_matches_plain_version(cuda, n, dtype, case):
+    x, bits = _tern_encode_input(n, dtype, case, cuda)
+    before = TG.tern_encode.launches
+    packed, scale = TG.tern_encode(x, bits)
+    assert TG.tern_encode.launches == before + 1
+    want_packed, want_scale = TG.tern_encode_ref(x, bits)
+    assert packed.dtype == torch.uint8 and packed.shape == (n // 4,)
+    assert scale.dtype == torch.float32 and scale.shape == ()
+    assert torch.equal(packed, want_packed)
+    assert _scale_bits(scale) == _scale_bits(want_scale)
+    if case == "planted":
+        assert float(scale) == 4.0
+        assert TG.tern_digits(packed[:128])[4:8].tolist() == [-1, 0, 1, 0]
+    elif case in ("nan", "inf"):
+        # a NaN or Inf scale: no element keeps, every digit is 1
+        assert not torch.isfinite(scale)
+        assert bool((packed == 0x55).all())
+    elif case == "tiny":
+        assert float(scale) == float(torch.tensor(1e-12))
+
+
+@pytest.mark.parametrize("case", ["plain", "nan", "inf", "tiny"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n", [512, 4608, 23_440_896])
+def test_tern_scale_matches_plain_version(cuda, n, dtype, case):
+    x, _ = _tern_encode_input(n, dtype, case, cuda)
+    before = TG.tern_scale.launches
+    scale = TG.tern_scale(x)
+    assert TG.tern_scale.launches == before + 1
+    assert _scale_bits(scale) == _scale_bits(TG.tern_scale_ref(x))
+    assert _same_scale(scale, TG.tern_encode_ref(x, torch.zeros(
+        n, dtype=torch.int32, device=cuda))[1])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,block", [(23_440_896, 1 << 20), (11264, 2048)])
+def test_tern_chunked_route_matches_the_whole_leaf(cuda, n, block, dtype):
+    # the codec's chunked route: a scale-only launch, then one given-scale
+    # pack a chunk into its slice of the payload; the whole-leaf plain
+    # encode's bytes and scale
+    code = get_codec("terngrad", use_pallas=True, scan_block=block)
+    assert n >= code.scan_threshold
+    x, bits = _tern_encode_input(n, dtype, "planted", cuda)
+    before = (TG.tern_scale.launches, TG.tern_pack.launches)
+    p = code.ternarize(x, lambda i, size: bits[i * block:i * block + size])
+    assert (TG.tern_scale.launches, TG.tern_pack.launches) == \
+        (before[0] + 1, before[1] + -(-n // block))
+    want_packed, want_scale = TG.tern_encode_ref(x, bits)
+    assert torch.equal(p["packed"], want_packed)
+    assert _same_scale(p["scale"], want_scale)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_tern_kernels_take_unaligned_views(cuda, dtype):
+    # views one element into their buffers: scalar loads and byte stores
+    n = 4608
+    x, bits = _tern_encode_input(n, dtype, "planted", cuda)
+    xb = torch.zeros(n + 1, dtype=dtype, device=cuda)
+    bb = torch.zeros(n + 1, dtype=torch.int32, device=cuda)
+    xb[1:].copy_(x)
+    bb[1:].copy_(bits)
+    want_packed, want_scale = TG.tern_encode_ref(x, bits)
+    packed, scale = TG.tern_encode(xb[1:], bb[1:])
+    assert torch.equal(packed, want_packed) and _same_scale(scale, want_scale)
+    assert _same_scale(TG.tern_scale(xb[1:]), want_scale)
+    out = torch.zeros(n // 4 + 1, dtype=torch.uint8, device=cuda)
+    TG.tern_pack(xb[1:], bb[1:], want_scale, out=out[1:])
+    assert torch.equal(out[1:], want_packed)
+    stack = torch.zeros(1 + 2 * (n // 4), dtype=torch.uint8, device=cuda)
+    stack[1:].copy_(torch.cat([want_packed, want_packed]))
+    scales = torch.stack([want_scale, want_scale])
+    got = TG.tern_unpack_sum(stack[1:].reshape(2, -1), scales)
+    assert torch.equal(got.view(torch.int32), TG.tern_unpack_sum_ref(
+        stack[1:].reshape(2, -1), scales).view(torch.int32))
+
+
+@pytest.mark.parametrize("bad", ["strided", "float16", "bits_strided",
+                                 "scale_f64", "out_size", "unpack_strided"])
+def test_tern_wrappers_raise_on_what_the_kernels_do_not_take(cuda, bad):
+    x = torch.randn(2 * 1024, device=cuda)
+    bits = torch.zeros(1024, dtype=torch.int32, device=cuda)
+    scale = torch.tensor(1.0, device=cuda)
+    counts = (TG.tern_encode.launches, TG.tern_pack.launches,
+              TG.tern_unpack_sum.launches)
+    with pytest.raises(ValueError):
+        if bad == "strided":
+            TG.tern_encode(x[::2], bits)
+        elif bad == "float16":
+            TG.tern_encode(x[:1024].half(), bits)
+        elif bad == "bits_strided":
+            TG.tern_pack(x[:1024], torch.zeros(2048, dtype=torch.int32,
+                                               device=cuda)[::2], scale)
+        elif bad == "scale_f64":
+            TG.tern_pack(x[:1024], bits, scale.double())
+        elif bad == "out_size":
+            TG.tern_pack(x[:1024], bits, scale,
+                         out=torch.empty(255, dtype=torch.uint8, device=cuda))
+        else:
+            TG.tern_unpack_sum(torch.zeros(256, 2, dtype=torch.uint8,
+                                           device=cuda).t(),
+                               torch.ones(2, device=cuda))
+    assert (TG.tern_encode.launches, TG.tern_pack.launches,
+            TG.tern_unpack_sum.launches) == counts
+
+
 # 738,816: a BERT-base bucket's packed row at bucket_mb=16
-@pytest.mark.parametrize("world", [1, 8])
+@pytest.mark.parametrize("world", [1, 4, 8])
 @pytest.mark.parametrize("m", [128, 384, 589_824, 738_816])
 def test_tern_unpack_sum_matches_plain_fold(cuda, m, world):
     gen = torch.Generator(device="cuda").manual_seed(m + world)
     packed = torch.randint(0, 256, (world, m), generator=gen, device=cuda,
                            dtype=torch.uint8)
     scales = torch.rand(world, generator=gen, device=cuda)
+    before = TG.tern_unpack_sum.launches
     got = TG.tern_unpack_sum(packed, scales)
+    assert TG.tern_unpack_sum.launches == before + 1
     want = TG.tern_unpack_sum_ref(packed, scales)
     assert torch.equal(got.view(torch.int32), want.view(torch.int32))
     if world == 1:
@@ -700,11 +852,14 @@ def test_bucketed_terngrad_step_on_the_card_matches_the_cpu(cuda):
     # packed in 7 chunks (emb) and a sublane bucket of two leaves (w, v)
     shapes = {"b": (96,), "odd": (1000,), "emb": (50, 512), "w": (64, 96),
               "v": (8, 64)}
-    before = (TG.tern_pack.launches, TG.tern_unpack_sum.launches)
+    counters = (TG.tern_encode, TG.tern_scale, TG.tern_pack,
+                TG.tern_unpack_sum)
+    before = [k.launches for k in counters]
     cpu, gpu, opt = _terngrad_steps(cuda, shapes, bucket_mb=0.05)
     assert [b.size for b in opt._bucket_plan.buckets] == [1096, 25600, 6656]
-    assert (TG.tern_pack.launches - before[0],
-            TG.tern_unpack_sum.launches - before[1]) == (2 * 8, 2 * 2)
+    # a step: 6,656 in one encode; 25,600 a scale and 7 chunk packs
+    assert [k.launches - b for k, b in zip(counters, before)] == \
+        [2 * 1, 2 * 1, 2 * 7, 2 * 2]
     for k in shapes:
         torch.testing.assert_close(gpu[k].cpu(), cpu[k], rtol=1e-6, atol=1e-7)
 

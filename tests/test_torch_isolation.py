@@ -20,7 +20,7 @@ ROOT = Path(__file__).resolve().parent.parent
 _PROBE = """
 import importlib, json, pkgutil, sys
 import pytorch_ps_mpi_tpu_torch as pkg
-import chip_smoke, chip_dequant_widths, chip_main_path_ab
+import chip_smoke, chip_dequant_widths, chip_main_path_ab, chip_tern_ab
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
 for name in names:
     importlib.import_module(name)

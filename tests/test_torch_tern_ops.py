@@ -2,6 +2,10 @@
 JAX package's Pallas kernels (``ops/tern_pallas.py``, interpret mode on
 the CPU), fed the same uint32 random bits: packed bytes and unpacked
 floats are bit-exact, at sizes 512 to 2**16 and on planted cases. The
+one-launch encode's and the scale-only entry's plain versions, from
+float32 and bf16, give the JAX codec's scale ``jnp.maximum(jnp.max(
+jnp.abs(g)), 1e-12)`` bit for bit (NaN, ±Inf and max|x| < 1e-12
+included) and its Pallas pack with that scale. The
 unpack-sum of several ranks equals the rank-ordered fold bit for bit and
 the JAX codec's ``einsum("wn,w->n")`` to rtol 1e-6 (XLA's dot sums in its
 own order). The CUDA kernels are held to these plain versions in
@@ -113,28 +117,105 @@ def test_unpack_sum_is_the_rank_ordered_fold(world):
     np.testing.assert_allclose(got, einsum, rtol=1e-6, atol=0)
 
 
+def _encode_case(n: int, case: str) -> np.ndarray:
+    x = np.random.RandomState(n + 3).randn(n).astype(np.float32)
+    if case == "nan":
+        x[n // 3] = np.nan
+    elif case == "inf":
+        x[1], x[-1] = np.inf, -np.inf
+    elif case == "tiny":  # max|x| < 1e-12: the scale clamps
+        x *= np.float32(1e-30)
+    x[0] = -0.0
+    return x
+
+
+def _bits32(a: np.ndarray) -> np.ndarray:
+    return np.asarray(a, np.float32).reshape(-1).view(np.int32)
+
+
+@pytest.mark.parametrize("case", ["plain", "nan", "inf", "tiny"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("n", SIZES)
+def test_encode_matches_the_jax_scale_and_pallas_pack(n, dtype, case):
+    # the JAX codec casts to float32 first (codecs/terngrad.py:116); the
+    # port reads the gradient in its own type
+    jx = jnp.asarray(_encode_case(n, case)).astype(dtype)
+    g = jx.astype(jnp.float32)
+    bits = _bits(n, n + 2)
+    want_scale = jnp.maximum(jnp.max(jnp.abs(g)), 1e-12)
+    want = np.asarray(tern_pallas.tern_pack(g, jnp.asarray(bits), want_scale))
+    tx = torch.from_numpy(np.array(g)).to(getattr(torch, dtype))
+    tbits = torch.from_numpy(bits.view(np.int32))
+    packed, scale = T.tern_encode(tx, tbits)
+    assert packed.dtype == torch.uint8 and packed.shape == (n // 4,)
+    assert scale.dtype == torch.float32 and scale.shape == ()
+    np.testing.assert_array_equal(packed.numpy(), want)
+    np.testing.assert_array_equal(_bits32(scale.numpy()), _bits32(want_scale))
+    np.testing.assert_array_equal(_bits32(T.tern_scale(tx).numpy()),
+                                  _bits32(want_scale))
+    np.testing.assert_array_equal(T.tern_pack(tx, tbits, scale).numpy(), want)
+    if case in ("nan", "inf"):
+        assert (T.tern_digits(packed) == 0).all()
+
+
+def test_scale_ref_takes_the_max_chunk_by_chunk():
+    # past 2**20 elements the plain scale is a running max over chunks,
+    # as the JAX codec's chunked encode takes it
+    x = np.random.RandomState(0).randn(3 << 19).astype(np.float32)
+    x[(1 << 20) + 5] = 9.5
+    want = jnp.maximum(jnp.max(jnp.abs(jnp.asarray(x))), 1e-12)
+    got = T.tern_scale_ref(torch.from_numpy(x))
+    np.testing.assert_array_equal(_bits32(got.numpy()), _bits32(want))
+
+
 def test_wrappers_take_the_plain_version_on_the_cpu():
-    before = (T.tern_pack.launches, T.tern_unpack_sum.launches)
+    counters = (T.tern_encode, T.tern_scale, T.tern_pack, T.tern_unpack_sum)
+    before = [k.launches for k in counters]
     x, bits, scale = _case(512, "plain")
-    packed = T.tern_pack(torch.from_numpy(x),
-                         torch.from_numpy(bits.view(np.int32)),
-                         torch.tensor(scale))
+    tx, tbits = torch.from_numpy(x), torch.from_numpy(bits.view(np.int32))
+    packed = T.tern_pack(tx, tbits, torch.tensor(scale))
     T.tern_unpack(packed, torch.tensor(scale))
-    assert (T.tern_pack.launches, T.tern_unpack_sum.launches) == before
+    T.tern_encode(tx, tbits)
+    T.tern_scale(tx)
+    out = torch.zeros(128, dtype=torch.uint8)
+    assert T.tern_pack(tx, tbits, torch.tensor(scale), out=out) is out
+    assert torch.equal(out, packed)
+    assert [k.launches for k in counters] == before
 
 
-@pytest.mark.parametrize("bad", ["size", "bits_dtype", "bits_len", "scales"])
+@pytest.mark.parametrize("bad", ["size", "bits_dtype", "bits_len", "scales",
+                                 "float16", "two_d", "scale_dtype",
+                                 "scale_len", "out_len", "out_dtype",
+                                 "scale_size", "unpack_m"])
 def test_wrappers_reject_bad_inputs(bad):
     x = torch.zeros(1024)
     bits = torch.zeros(1024, dtype=torch.int32)
+    one = torch.tensor(1.0)
     with pytest.raises(ValueError):
         if bad == "size":
             T.tern_pack(torch.zeros(1000), torch.zeros(1000, dtype=torch.int32),
-                        torch.tensor(1.0))
+                        one)
         elif bad == "bits_dtype":
-            T.tern_pack(x, bits.to(torch.int64), torch.tensor(1.0))
+            T.tern_pack(x, bits.to(torch.int64), one)
         elif bad == "bits_len":
-            T.tern_pack(x, bits[:512], torch.tensor(1.0))
-        else:
+            T.tern_pack(x, bits[:512], one)
+        elif bad == "scales":
             T.tern_unpack_sum(torch.zeros(2, 256, dtype=torch.uint8),
                               torch.ones(3))
+        elif bad == "float16":
+            T.tern_encode(x.half(), bits)
+        elif bad == "two_d":
+            T.tern_encode(x.reshape(2, 512), bits)
+        elif bad == "scale_dtype":
+            T.tern_pack(x, bits, one.double())
+        elif bad == "scale_len":
+            T.tern_pack(x, bits, torch.ones(2))
+        elif bad == "out_len":
+            T.tern_pack(x, bits, one, out=torch.zeros(255, dtype=torch.uint8))
+        elif bad == "out_dtype":
+            T.tern_pack(x, bits, one, out=torch.zeros(256, dtype=torch.int8))
+        elif bad == "scale_size":
+            T.tern_scale(torch.zeros(1000))
+        else:
+            T.tern_unpack_sum(torch.zeros(1, 100, dtype=torch.uint8),
+                              torch.ones(1))
