@@ -1,0 +1,10 @@
+"""Runtime calls that put a row on the device (kernel launches, memsets,
+copies) starting inside the program's ``ps.aggregate`` ranges (every
+encode, the exchange and the decode-sum), a profiled step, on any thread
+(``harness/spans.py``)."""
+
+from portbench.harness import spans
+
+
+def read(ctx):
+    return spans.launch_calls(ctx.trace, "codec")

@@ -61,6 +61,16 @@ one float32 vector a step); ``step(profile=True)`` traces the step with
 (``utils.tracing.profiled_device_split``). With a flight recorder
 installed (``telemetry.configure``) every step is a span there.
 
+A step's stages are spans (``utils.tracing.annotate``, the names of
+``utils.tracing.STEP_SPANS``): ``ps.step`` the whole call, ``ps.grad``
+the forward and backward, ``ps.aggregate`` every encode, the exchange
+and the decode-sum, ``ps.update`` the update and the new parameters
+taken, ``ps.numerics`` the statistics, ``ps.wait`` the host waiting for
+the card at the end. Under the profiler they are ``record_function``
+ranges on the clock of the device rows; with a recorder installed the
+stages are its spans too, with the step's number. With neither they
+cost two checks each, and no sync is added.
+
 Model-parallel composition (JAX ``ps.py:699-968``): ``mesh=`` a named
 ``mesh.Mesh``, ``axis_name=`` the axis (or tuple of axes) gradients
 aggregate over, ``param_specs=`` a ``name -> mesh.P`` spec of each leaf.
@@ -102,6 +112,7 @@ from pytorch_ps_mpi_tpu_torch.optim import (OPTIMIZERS,
 from pytorch_ps_mpi_tpu_torch.telemetry.numerics import flat_f32, leaf_sums
 from pytorch_ps_mpi_tpu_torch.telemetry.recorder import get_recorder
 from pytorch_ps_mpi_tpu_torch.utils.metrics import schema_dict
+from pytorch_ps_mpi_tpu_torch.utils.tracing import annotate
 
 Params = Dict[str, torch.Tensor]
 #: ``name -> tensor``, or ``bucket index -> tensor`` with a bucket plan
@@ -459,41 +470,57 @@ def _leaf_size(p: Pipeline, key) -> int:
 
 def aggregate_update(p: Pipeline, params: Params, grads: Params, opt_state,
                      codec_state: Dict[str, Any],
-                     gen: Optional[torch.Generator] = None):
+                     gen: Optional[torch.Generator] = None, *,
+                     step: Optional[int] = None,
+                     take: Optional[Callable[[Params], None]] = None):
     """Aggregate this rank's gradient across ranks, clip and update, in
     the lowering of the mode (the JAX package's ``_aggregate_update``,
     ``_bucketed_encode_aggregate_update`` and ``_update``, ``ps.py:1220``,
-    ``:1073``, ``:1039``): ``(params, opt_state, codec_state)``."""
-    if p.lowering in ("psum_scatter", "dense_scatter"):
-        units, wire = _units_of(p, grads), _psum_wire(p.code, p.comm_dtype)
-        if p.lowering == "dense_scatter":
-            # the own payload decoded to the codec-filtered gradient; the
-            # reduce-scatter sums those, as decode_sum of the gathered
-            # payloads would
-            units, codec_state = _own_decoded(p, units, codec_state, gen)
-            wire = p.comm_dtype
-        shards = leader_scatter_shards(units, p.size, wire, p.average,
-                                       p.group)
-        if p.clip_norm:
-            # shards partition the aggregated gradient (padding is zeros),
-            # so the sum of the ranks' shard norms is the global norm (a
-            # model-sharded leaf's summed over its shards too)
-            shards = clip_by_global_norm(shards, p.clip_norm,
-                                         across_ranks=True, group=p.group,
-                                         leaf_groups=p.clip_groups)
-        params, opt_state = _leader_step(p, params, opt_state, shards)
-        return params, opt_state, codec_state
-    # allgather mode, or a leader lowering where every rank holds the
-    # whole summed gradient
-    if p.plan is not None:
-        summed = dict(enumerate(bucketed_aggregate(
-            p.code, {k: _view(p.views, k, g) for k, g in grads.items()},
-            p.plan, p.comm_dtype, gen, p.group)))
-    else:
-        summed, codec_state = aggregate(p.code, grads, codec_state, gen,
-                                        p.views, p.comm_dtype,
-                                        p.leaf_groups)
-    params, opt_state = update_summed(p, params, summed, opt_state)
+    ``:1073``, ``:1039``): ``(params, opt_state, codec_state)``. The
+    aggregate, up to the summed units or leader mode's shards, is the
+    span ``ps.aggregate``; the rest, with ``take(params)`` where the
+    caller takes the new parameters, is ``ps.update``; both carry
+    ``step``."""
+    scatter = p.lowering in ("psum_scatter", "dense_scatter")
+    with annotate("ps.aggregate", step):
+        if scatter:
+            units = _units_of(p, grads)
+            wire = _psum_wire(p.code, p.comm_dtype)
+            if p.lowering == "dense_scatter":
+                # the own payload decoded to the codec-filtered gradient;
+                # the reduce-scatter sums those, as decode_sum of the
+                # gathered payloads would
+                units, codec_state = _own_decoded(p, units, codec_state,
+                                                  gen)
+                wire = p.comm_dtype
+            shards = leader_scatter_shards(units, p.size, wire, p.average,
+                                           p.group)
+        # allgather mode, or a leader lowering where every rank holds the
+        # whole summed gradient
+        elif p.plan is not None:
+            summed = dict(enumerate(bucketed_aggregate(
+                p.code, {k: _view(p.views, k, g) for k, g in grads.items()},
+                p.plan, p.comm_dtype, gen, p.group)))
+        else:
+            summed, codec_state = aggregate(p.code, grads, codec_state, gen,
+                                            p.views, p.comm_dtype,
+                                            p.leaf_groups)
+    with annotate("ps.update", step):
+        if scatter:
+            if p.clip_norm:
+                # shards partition the aggregated gradient (padding is
+                # zeros), so the sum of the ranks' shard norms is the
+                # global norm (a model-sharded leaf's summed over its
+                # shards too)
+                shards = clip_by_global_norm(shards, p.clip_norm,
+                                             across_ranks=True,
+                                             group=p.group,
+                                             leaf_groups=p.clip_groups)
+            params, opt_state = _leader_step(p, params, opt_state, shards)
+        else:
+            params, opt_state = update_summed(p, params, summed, opt_state)
+        if take is not None:
+            take(params)
     return params, opt_state, codec_state
 
 
@@ -896,16 +923,17 @@ class MPI_PS:
     def _aggregate_update(self, grads: Params, stats: bool = False) -> None:
         """Aggregate, update and take the new parameters; ``stats``: keep
         the numerics vector of this step in ``_nvec``."""
-        old = None
+        step, old = self._step_count + 1, None
         if stats:
-            with torch.no_grad():  # a copy, outside any autograd graph
+            # a copy, outside any autograd graph
+            with annotate("ps.numerics", step), torch.no_grad():
                 old = flat_f32(self.params.values())
-        params, self.opt_state, self.codec_state = aggregate_update(
+        _, self.opt_state, self.codec_state = aggregate_update(
             self._pipe, self.params, grads, self.opt_state, self.codec_state,
-            self._gen)
-        self._set_params(params)
+            self._gen, step=step, take=self._set_params)
         if stats:
-            self._nvec = self._numerics_vec(old, grads)
+            with annotate("ps.numerics", step):
+                self._nvec = self._numerics_vec(old, grads)
 
     @torch.no_grad()
     def _numerics_vec(self, old: torch.Tensor, grads: Params
@@ -1007,15 +1035,17 @@ class MPI_PS:
         self.profile_split = split
         return out
 
-    def _record_step(self, name: str, data: Dict[str, Any]) -> None:
+    def _record_step(self, name: str, data: Dict[str, Any],
+                     start: float) -> None:
         """Mirror one step's metrics dict into the run-wide flight
-        recorder as a span ending now (JAX ``ps.py:1932``); a disabled
-        recorder costs this method's None-check."""
+        recorder as a span from ``start`` (``time.monotonic()`` as the
+        step began; JAX ``ps.py:1932``); a disabled recorder costs this
+        method's None-check."""
         rec = get_recorder()
         if rec is None:
             return
         dur = float(data.get("step_time", 0.0))
-        rec.event(name, kind="span", ts=time.monotonic() - dur, dur=dur,
+        rec.event(name, kind="span", ts=start, dur=dur,
                   step=self._step_count,
                   **{k: v for k, v in data.items()
                      if isinstance(v, (int, float, str))})
@@ -1056,22 +1086,26 @@ class MPI_PS:
         gradients are summed from zero in order and divided by
         ``accum_steps``, the loss is their mean (``ps.py:402``). With
         ``aux_state`` the new aux state is averaged over ranks (``lax.pmean``,
-        ``ps.py:1665``) into :attr:`aux_state`."""
-        if accum_steps:
-            acc = {k: torch.zeros_like(p) for k, p in self.params.items()}
-            losses = []
-            for i in range(accum_steps):
-                loss, g, _ = self._loss_and_grads(loss_fn, _index(batch, i))
-                for k, a in acc.items():
-                    a.add_(g[k])
-                losses.append(loss)
-                del g
-            grads = {k: a / accum_steps for k, a in acc.items()}
-            return self._reduce_loss(torch.stack(losses).mean()), grads
-        loss, grads, new_aux = self._loss_and_grads(loss_fn, batch, aux_state)
-        if aux_state is not None:
-            self.aux_state = comms.allreduce_mean_tree(new_aux)
-        return self._reduce_loss(loss), grads
+        ``ps.py:1665``) into :attr:`aux_state`. The span ``ps.grad``."""
+        with annotate("ps.grad", self._step_count + 1):
+            if accum_steps:
+                acc = {k: torch.zeros_like(p)
+                       for k, p in self.params.items()}
+                losses = []
+                for i in range(accum_steps):
+                    loss, g, _ = self._loss_and_grads(loss_fn,
+                                                      _index(batch, i))
+                    for k, a in acc.items():
+                        a.add_(g[k])
+                    losses.append(loss)
+                    del g
+                grads = {k: a / accum_steps for k, a in acc.items()}
+                return self._reduce_loss(torch.stack(losses).mean()), grads
+            loss, grads, new_aux = self._loss_and_grads(loss_fn, batch,
+                                                        aux_state)
+            if aux_state is not None:
+                self.aux_state = comms.allreduce_mean_tree(new_aux)
+            return self._reduce_loss(loss), grads
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
@@ -1117,8 +1151,11 @@ class MPI_PS:
         ended by a device sync (the JAX package's ``block_until_ready``) and
         timed on the host (reference schema, ``ps.py:116-148``; JAX
         ``ps.py:1552-1641``). ``local``: this rank's gradient of a
-        grads-only step."""
+        grads-only step. The spans are the fused step's: ``ps.grad``,
+        ``ps.aggregate`` from the encode through the decode-sum, and
+        ``ps.update``."""
         timer, code = time.perf_counter, self.code
+        step = self._step_count + 1
         self._relabel_staged(data)
         loss = None
         if loss_fn is not None:
@@ -1130,43 +1167,46 @@ class MPI_PS:
             if accum_steps:
                 data["grad_time_per_microbatch"] = (data["grad_time"]
                                                     / accum_steps)
-        t0 = timer()
-        payloads, new_codec_state = encode_tree(
-            code, local, self.codec_state, self._gen, self._views)
-        self._sync()
-        data["code_wait"] = timer() - t0                 # reference :138
-        if code.supports_psum:
+        with annotate("ps.aggregate", step):
             t0 = timer()
-            if self._bucket_plan is not None:
-                summed = dict(enumerate(bucketed_aggregate(
-                    code, {k: self._view(k, g) for k, g in local.items()},
-                    self._bucket_plan, self.comm_dtype, group=self._group)))
+            payloads, new_codec_state = encode_tree(
+                code, local, self.codec_state, self._gen, self._views)
+            self._sync()
+            data["code_wait"] = timer() - t0             # reference :138
+            if code.supports_psum:
+                t0 = timer()
+                if self._bucket_plan is not None:
+                    summed = dict(enumerate(bucketed_aggregate(
+                        code, {k: self._view(k, g) for k, g in local.items()},
+                        self._bucket_plan, self.comm_dtype,
+                        group=self._group)))
+                else:
+                    summed = aggregate(code, local, self.codec_state,
+                                       comm_dtype=self.comm_dtype,
+                                       groups=self._leaf_groups)[0]
+                self._sync()
+                data["comm_wait"] = timer() - t0         # reference :162
             else:
-                summed = aggregate(code, local, self.codec_state,
-                                   comm_dtype=self.comm_dtype,
-                                   groups=self._leaf_groups)[0]
-            self._sync()
-            data["comm_wait"] = timer() - t0             # reference :162
-        else:
+                t0 = timer()
+                gathered = {k: comms.all_gather_tree(pl, self._group)
+                            for k, pl in payloads.items()}
+                data["isend_time"] = timer() - t0        # dispatch, :148
+                self._sync()
+                data["comm_wait"] = timer() - t0
+                t0 = timer()
+                summed = _units_of(self._pipe, {
+                    k: self._unview(k, decode_sum_payloads(
+                        code, gathered[k], self._view_shape(k), g.dtype))
+                    for k, g in local.items()})
+                self._sync()
+                data["decode_time"] = timer() - t0       # reference :168
+        with annotate("ps.update", step):
             t0 = timer()
-            gathered = {k: comms.all_gather_tree(pl, self._group)
-                        for k, pl in payloads.items()}
-            data["isend_time"] = timer() - t0            # dispatch, :148
+            params, self.opt_state = update_summed(self._pipe, self.params,
+                                                   summed, self.opt_state)
+            self._set_params(params)
             self._sync()
-            data["comm_wait"] = timer() - t0
-            t0 = timer()
-            summed = _units_of(self._pipe, {
-                k: self._unview(k, decode_sum_payloads(
-                    code, gathered[k], self._view_shape(k), g.dtype))
-                for k, g in local.items()})
-            self._sync()
-            data["decode_time"] = timer() - t0           # reference :168
-        t0 = timer()
-        params, self.opt_state = update_summed(self._pipe, self.params,
-                                               summed, self.opt_state)
-        self._set_params(params)
-        self._sync()
-        data["optim_step_time"] = timer() - t0           # reference :191
+            data["optim_step_time"] = timer() - t0       # reference :191
         self.codec_state = new_codec_state
         return loss
 
@@ -1203,37 +1243,42 @@ class MPI_PS:
         with the rest of the split (:attr:`profile_split` keeps it whole,
         ``top_ops`` included); not with ``instrument=True``.
         """
-        if profile and self.instrument:
-            raise ValueError(_PROFILE_INSTRUMENT)
-        self._check_step_args(grads, loss_fn, batch, aux_state)
-        batch = self._local_batch(batch)
-        t0 = time.perf_counter()
-        data = schema_dict(**self._metrics)
-        local = None
-        if loss_fn is None:
-            local = {k: self._local_grad(k, grads[k]) for k in self.params}
-        if self.instrument:
-            loss = self._step_instrumented(data, local, loss_fn, batch,
-                                           aux_state)
-        else:
-            if loss_fn is not None:
-                def call():
-                    return self._fused_step(loss_fn, batch, aux_state,
-                                            stats=self.numerics)
+        step = self._step_count + 1
+        with annotate("ps.step", step, record=False):
+            if profile and self.instrument:
+                raise ValueError(_PROFILE_INSTRUMENT)
+            self._check_step_args(grads, loss_fn, batch, aux_state)
+            batch = self._local_batch(batch)
+            start, t0 = time.monotonic(), time.perf_counter()
+            data = schema_dict(**self._metrics)
+            local = None
+            if loss_fn is None:
+                local = {k: self._local_grad(k, grads[k])
+                         for k in self.params}
+            if self.instrument:
+                loss = self._step_instrumented(data, local, loss_fn, batch,
+                                               aux_state)
             else:
-                def call():
-                    self._aggregate_update(local, stats=self.numerics)
-            loss = (self._profiled_call(call, data) if profile
-                    else call())
-            if self.numerics:
-                self._fill_numerics(data)
-        if closure is not None:
-            loss = closure()
-        self._sync()
-        data["step_time"] = time.perf_counter() - t0
-        self._step_count += 1
-        self._record_step("ps.step", data)
-        return loss, data
+                if loss_fn is not None:
+                    def call():
+                        return self._fused_step(loss_fn, batch, aux_state,
+                                                stats=self.numerics)
+                else:
+                    def call():
+                        self._aggregate_update(local, stats=self.numerics)
+                loss = (self._profiled_call(call, data) if profile
+                        else call())
+                if self.numerics:
+                    with annotate("ps.numerics", step):
+                        self._fill_numerics(data)
+            if closure is not None:
+                loss = closure()
+            with annotate("ps.wait", step):
+                self._sync()
+            data["step_time"] = time.perf_counter() - t0
+            self._step_count += 1
+            self._record_step("ps.step", data, start)
+            return loss, data
 
     def _fused_step(self, loss_fn: Callable, batch, aux_state=None,
                     accum_steps: int = 0, stats: bool = False
@@ -1254,30 +1299,35 @@ class MPI_PS:
         ``instrument=True`` the accumulation is the grad stage, with
         ``grad_time_per_microbatch`` its mean a microbatch.
         ``profile=True`` traces the fused step as :meth:`step` does."""
-        if profile and self.instrument:
-            raise ValueError(_PROFILE_INSTRUMENT)
-        microbatches = self._local_batch(microbatches, lead=1)
-        accum_steps = _leading(microbatches)
-        t0 = time.perf_counter()
-        data = schema_dict(**self._metrics)
-        data["accum_steps"] = float(accum_steps)
-        if self.instrument:
-            loss = self._step_instrumented(data, None, loss_fn, microbatches,
-                                           accum_steps=accum_steps)
-        else:
-            def call():
-                return self._fused_step(loss_fn, microbatches,
-                                        accum_steps=accum_steps,
-                                        stats=self.numerics)
-            loss = (self._profiled_call(call, data) if profile
-                    else call())
-            if self.numerics:
-                self._fill_numerics(data)
-        self._sync()
-        self._step_count += 1
-        data["step_time"] = time.perf_counter() - t0
-        self._record_step("ps.step_accumulate", data)
-        return loss, data
+        step = self._step_count + 1
+        with annotate("ps.step", step, record=False):
+            if profile and self.instrument:
+                raise ValueError(_PROFILE_INSTRUMENT)
+            microbatches = self._local_batch(microbatches, lead=1)
+            accum_steps = _leading(microbatches)
+            start, t0 = time.monotonic(), time.perf_counter()
+            data = schema_dict(**self._metrics)
+            data["accum_steps"] = float(accum_steps)
+            if self.instrument:
+                loss = self._step_instrumented(data, None, loss_fn,
+                                               microbatches,
+                                               accum_steps=accum_steps)
+            else:
+                def call():
+                    return self._fused_step(loss_fn, microbatches,
+                                            accum_steps=accum_steps,
+                                            stats=self.numerics)
+                loss = (self._profiled_call(call, data) if profile
+                        else call())
+                if self.numerics:
+                    with annotate("ps.numerics", step):
+                        self._fill_numerics(data)
+            with annotate("ps.wait", step):
+                self._sync()
+            self._step_count += 1
+            data["step_time"] = time.perf_counter() - t0
+            self._record_step("ps.step_accumulate", data, start)
+            return loss, data
 
     def run_steps(self, loss_fn: Callable, batches, *, unroll: int = 1,
                   aux_state: Any = None

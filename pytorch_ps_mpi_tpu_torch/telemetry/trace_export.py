@@ -5,8 +5,8 @@ recorders or their JSONL dumps — several processes' files merge into one
 timeline on the ``wall`` clock each record carries). Device side: the
 kernel, memcpy and memset rows of the Chrome trace ``torch.profiler``
 writes (``export_chrome_trace``, as :func:`~pytorch_ps_mpi_tpu_torch.
-utils.tracing.trace` does), read through
-:func:`pytorch_ps_mpi_tpu_torch.utils.tracing._iter_device_events`.
+utils.tracing.trace` does), read a file at a time through
+:func:`pytorch_ps_mpi_tpu_torch.utils.tracing._device_rows`.
 
 Clock honesty: host rows are placed by their ``wall`` timestamps (one
 clock across processes, NTP-grade alignment). When gradient lineage is
@@ -15,12 +15,16 @@ clock offsets :func:`~.lineage.clock_offsets_from_rows` fits from the
 frame (send_wall, recv_wall) timestamp pairs — see
 :func:`apply_clock_offsets` — so worker and server spans line up to
 ~min-wire-latency accuracy even across hosts with skewed clocks. Device
-ops only carry the profiler's own timebase, so they are placed relative
-to the wall time at which the trace capture started (``device_t0_wall``,
+ops carry the profiler's own timebase. Each profiler trace that holds
+``MPI_PS.step``'s ``ps.step`` ranges is put on the wall clock by the
+recorder's rows of the same steps (:func:`step_clock_offset`: the
+steps matched in order, the median of their offsets), to within the
+few µs between a range's start and its row's, so a kernel lands inside
+the recorder's stage span that launched it. A trace without those
+ranges, or whose steps the recorder does not hold, is placed relative
+to the wall time at which the capture started (``device_t0_wall``,
 recorded by the caller at ``start_trace``; defaults to the host
-timeline's start). The alignment is therefore approximate at the ~ms
-level — good for "which step was the device idle in", not for ns-level
-attribution.
+timeline's start), which is approximate at the ~ms level.
 
 Cross-process causality: pass ``lineage_rows`` (the ``publish``/``drop``
 rows of a ``lineage-*.jsonl``) and every composed push whose worker
@@ -35,11 +39,15 @@ Output is standard Chrome ``traceEvents`` JSON: load it at
 
 from __future__ import annotations
 
+import collections
 import json
+import statistics
 from typing import Any, Dict, Iterable, List, Optional, Tuple
 
 HOST_PID = 1
 DEVICE_PID_BASE = 1000
+#: the recorder's rows of one whole ``MPI_PS`` step
+STEP_ROWS = ("ps.step", "ps.step_accumulate")
 
 
 def apply_clock_offsets(
@@ -158,27 +166,75 @@ def _flow_events(
     return out
 
 
+def step_clock_offset(ranges: List[Tuple[float, float]],
+                      host_events: Iterable[Dict[str, Any]]
+                      ) -> Optional[float]:
+    """Seconds that put a profiler trace's clock on the wall clock:
+    ``ranges`` are the trace's ``ps.step`` ranges ``(start_us, dur_us)``,
+    matched in order to as many consecutive step rows of one worker in
+    ``host_events`` (:data:`STEP_ROWS`): of every such run, the one whose
+    offsets and durations agree best. Returns the median of its offsets
+    (``wall - start_us / 1e6``), or None where no worker has rows
+    enough."""
+    if not ranges:
+        return None
+    ranges = sorted(ranges)
+    n = len(ranges)
+    rows: Dict[Any, list] = collections.defaultdict(list)
+    for e in host_events:
+        if e.get("kind") == "span" and e.get("name") in STEP_ROWS \
+                and "wall" in e:
+            rows[e.get("worker")].append((e["wall"], e.get("dur", 0.0)))
+    best = None
+    for walls in rows.values():
+        walls.sort()
+        for j in range(len(walls) - n + 1):
+            run = walls[j:j + n]
+            offs = [w - s / 1e6 for (w, _), (s, _) in zip(run, ranges)]
+            score = max(offs) - min(offs) + sum(
+                abs(d - du / 1e6) for (_, d), (_, du) in zip(run, ranges)
+            ) / n
+            if best is None or score < best[0]:
+                best = (score, statistics.median(offs))
+    return None if best is None else best[1]
+
+
 def _device_events(
     trace_dir: str, t0_wall: float, device_t0_wall: Optional[float],
-    host_t0_wall: float,
+    host_t0_wall: float, host_events: List[Dict[str, Any]],
 ) -> List[Dict[str, Any]]:
-    from pytorch_ps_mpi_tpu_torch.utils.tracing import _iter_device_events
+    from pytorch_ps_mpi_tpu_torch.utils.tracing import (_device_rows,
+                                                        _trace_files)
 
-    raw = list(_iter_device_events(trace_dir))
-    if not raw:
-        return []
-    min_ns = min(start for _, _, start, _ in raw)
-    anchor = device_t0_wall if device_t0_wall is not None else host_t0_wall
-    base_us = (anchor - t0_wall) * 1e6
+    placed: List[Tuple[Any, str, float, float]] = []  # ts in µs
+    loose: List[Tuple[Any, str, float, float]] = []   # start in ns
+    for events in _trace_files(trace_dir):
+        rows = list(_device_rows(events))
+        steps = [(float(e["ts"]), float(e.get("dur", 0.0)))
+                 for e in events if e.get("ph") == "X"
+                 and e.get("cat") == "user_annotation"
+                 and e.get("name") == "ps.step"]
+        off = step_clock_offset(steps, host_events)
+        if off is None:
+            loose.extend(rows)
+            continue
+        base_us = (off - t0_wall) * 1e6
+        placed.extend((dev, name, base_us + start / 1e3, dur)
+                      for dev, name, start, dur in rows)
+    if loose:
+        min_ns = min(start for _, _, start, _ in loose)
+        anchor = (device_t0_wall if device_t0_wall is not None
+                  else host_t0_wall)
+        base_us = (anchor - t0_wall) * 1e6
+        placed.extend((dev, name, base_us + (start - min_ns) / 1e3, dur)
+                      for dev, name, start, dur in loose)
     out: List[Dict[str, Any]] = []
     pids: Dict[Any, int] = {}
-    for dev, name, start_ns, dur_ns in raw:
+    for dev, name, ts_us, dur_ns in placed:
         pid = pids.setdefault(dev, DEVICE_PID_BASE + len(pids))
         out.append({
             "ph": "X", "name": name, "cat": "device",
-            "pid": pid, "tid": 1,
-            "ts": base_us + (start_ns - min_ns) / 1e3,
-            "dur": dur_ns / 1e3,
+            "pid": pid, "tid": 1, "ts": ts_us, "dur": dur_ns / 1e3,
         })
     for dev, pid in pids.items():
         out.append({
@@ -198,7 +254,8 @@ def merged_trace_events(
     hop_rows: Optional[Iterable[Dict[str, Any]]] = None,
 ) -> List[Dict[str, Any]]:
     """FlightRecorder records (+ an optional torch.profiler Chrome trace,
-    a file or a directory of them) → Chrome
+    a file or a directory of them, each put on the wall clock by its
+    ``ps.step`` ranges where the records hold those steps) → Chrome
     ``traceEvents`` list, all timestamps relative to the earliest host
     record. ``clock_offsets`` (per-worker, from lineage) are applied to
     worker records first; ``lineage_rows`` add cross-process flow
@@ -235,7 +292,7 @@ def merged_trace_events(
         ))
     if device_trace_dir is not None:
         out.extend(_device_events(
-            device_trace_dir, t0_wall, device_t0_wall, t0_wall
+            device_trace_dir, t0_wall, device_t0_wall, t0_wall, host_events
         ))
     return out
 

@@ -4,7 +4,9 @@ what host clocks cannot, the kernels a step puts on the card.
 
 - :func:`trace` writes a Chrome trace of a region (``export_chrome_trace``)
   into a directory; :func:`annotate` names a region in it
-  (``record_function``).
+  (``record_function``) and in the flight recorder. It is the one span
+  helper of ``MPI_PS.step``, whose stages are :data:`STEP_SPANS`; with
+  neither the profiler nor a recorder on, a span costs two checks.
 - :func:`profiled_device_split` runs a thunk under the profiler and splits
   the card's time into communication (NCCL kernels) and compute, with the
   top kernels by time; it backs ``MPI_PS.step(profile=True)``.
@@ -18,7 +20,6 @@ what host clocks cannot, the kernels a step puts on the card.
   only when its other device rows number at least the launch calls made
   after them; a short trace is taken again, :data:`TAKES` times in all,
   and then the call fails. A short split is never returned.
-- :func:`device_memory_stats` reads ``torch.cuda.memory_stats``.
 
 Off the card there are no device rows: the split is zeros with
 ``devices=0`` (the JAX package's answer for a backend without device
@@ -37,6 +38,8 @@ from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple
 
 import torch
 
+from pytorch_ps_mpi_tpu_torch.telemetry.recorder import get_recorder
+
 #: spin kernels that open a trace of the card, there to be dropped
 LEAD = 256
 #: runtime calls that put one row on the device
@@ -44,6 +47,13 @@ LAUNCH_CALLS = ("cudaLaunch", "cuLaunch", "cudaMemset", "cuMemset",
                 "cudaMemcpy", "cuMemcpy")
 #: traces taken before a short one fails the call
 TAKES = 5
+#: the spans of one ``MPI_PS.step``: the whole call; forward, backward
+#: and the loss's reduce; every encode, the exchange and the decode-sum;
+#: average, clip, the optimizer and taking the new parameters; the
+#: on-device statistics (``numerics=True``); the host waiting for the
+#: card at the step's end
+STEP_SPANS = ("ps.step", "ps.grad", "ps.aggregate", "ps.update",
+              "ps.numerics", "ps.wait")
 
 # kernel names that are interconnect work: NCCL's kernels, and the JAX
 # package's collective names for traces of other origin
@@ -74,8 +84,8 @@ def trace(log_dir: str) -> Iterator[None]:
     """Capture a Chrome trace of the region (host operators, and the
     card's kernels where there is a card) into ``log_dir``, viewable in
     Perfetto. On the card the trace opens with the :data:`LEAD` spin
-    kernels (a region cannot be taken again; :func:`_iter_device_events`
-    leaves them out):
+    kernels (a region cannot be taken again; :func:`_device_rows` leaves
+    them out):
 
     >>> with trace('/tmp/torch-trace'):
     ...     opt.step(loss_fn=loss_fn, batch=batch)
@@ -101,10 +111,28 @@ def trace(log_dir: str) -> Iterator[None]:
             log_dir, f"trace-{os.getpid()}-{time.time_ns()}.json"))
 
 
+_OFF = contextlib.nullcontext()
+
+
+def annotate(name: str, step: Optional[int] = None, record: bool = True):
+    """Named region (a context manager): a ``record_function`` range when
+    the profiler is on, so it lies in the profiler's trace on the device
+    rows' clock; a span of the installed flight recorder, carrying
+    ``step``, unless ``record`` is false. With neither on it is a shared
+    null context, the cost of the two checks."""
+    rec = get_recorder() if record else None
+    if rec is None and not torch.autograd._profiler_enabled():
+        return _OFF
+    return _span(name, step, rec)
+
+
 @contextlib.contextmanager
-def annotate(name: str) -> Iterator[None]:
-    """Named region inside a trace (shows up on the timeline)."""
-    with torch.profiler.record_function(name):
+def _span(name: str, step: Optional[int], rec) -> Iterator[None]:
+    with contextlib.ExitStack() as stack:
+        if torch.autograd._profiler_enabled():
+            stack.enter_context(torch.profiler.record_function(name))
+        if rec is not None:
+            stack.enter_context(rec.span(name, step=step))
         yield
 
 
@@ -314,9 +342,8 @@ def profiled_overlap(thunk: Callable[[], Any]
     return out, overlap_split(_row_tuples(rows))
 
 
-def _iter_device_events(trace_path: str):
-    """Yield ``(device, name, start_ns, dur_ns)`` for every kernel, memcpy
-    and memset row of a Chrome trace that ``torch.profiler`` wrote
+def _trace_files(trace_path: str) -> Iterator[List[dict]]:
+    """The event list of each Chrome trace ``torch.profiler`` wrote
     (``export_chrome_trace``): ``trace_path`` is the file, or a directory
     whose ``*.json`` files are read."""
     paths = ([trace_path] if os.path.isfile(trace_path) else sorted(
@@ -327,22 +354,20 @@ def _iter_device_events(trace_path: str):
                 doc = json.load(f)
         except (OSError, ValueError):
             continue
-        events = doc.get("traceEvents", []) if isinstance(doc, dict) else doc
-        for e in events:
-            if e.get("ph") != "X" or e.get("cat") not in (
-                    "kernel", "gpu_memcpy", "gpu_memset") or \
-                    "spin_kernel" in str(e.get("name")):
-                continue
-            dur = float(e.get("dur", 0.0))
-            if dur <= 0:
-                continue
-            dev = (e.get("args") or {}).get("device", e.get("pid"))
-            yield dev, str(e.get("name")), float(e["ts"]) * 1e3, dur * 1e3
+        yield doc.get("traceEvents", []) if isinstance(doc, dict) else doc
 
 
-def device_memory_stats(device=None) -> Optional[dict]:
-    """The card's allocator statistics (``torch.cuda.memory_stats``);
-    None off the card."""
-    if not on_card(device) or not torch.cuda.is_available():
-        return None
-    return torch.cuda.memory_stats(device)
+def _device_rows(events: List[dict]):
+    """``(device, name, start_ns, dur_ns)`` of every kernel, memcpy and
+    memset row of one trace's events, the spin kernels left out."""
+    for e in events:
+        if e.get("ph") != "X" or e.get("cat") not in (
+                "kernel", "gpu_memcpy", "gpu_memset") or \
+                "spin_kernel" in str(e.get("name")):
+            continue
+        dur = float(e.get("dur", 0.0))
+        if dur <= 0:
+            continue
+        dev = (e.get("args") or {}).get("device", e.get("pid"))
+        yield dev, str(e.get("name")), float(e["ts"]) * 1e3, dur * 1e3
+

@@ -263,7 +263,8 @@ def test_trace_export_reads_torch_profiler_trace(tmp_path):
             {"ph": "X", "cat": "cpu_op", "name": "aten::add", "ts": 99.0,
              "dur": 1.0}]
     (d / "trace-1.json").write_text(json.dumps({"traceEvents": rows}))
-    got = list(tracing._iter_device_events(str(d)))
+    got = [row for events in tracing._trace_files(str(d))
+           for row in tracing._device_rows(events)]
     assert [(n, s, t) for _, n, s, t in got] == [
         ("sign_encode_kernel", 101e3, 3e3), ("Memcpy DtoH", 105e3, 2e3)]
     events, _ = _host_records()
@@ -323,7 +324,10 @@ def test_step_and_trainer_spans_with_recorder():
         ttel.disable()
     names = [e["name"] for e in rec.events()]
     assert names.count("ps.step") == 3 and names.count("trainer.step") == 2
-    span = rec.events()[0]
+    # the step's stages are spans of their own, before its row
+    assert names[:3] == ["ps.aggregate", "ps.update", "ps.wait"]
+    span = rec.events()[3]
+    assert span["name"] == "ps.step"
     assert span["kind"] == "span" and span["dur"] > 0
     assert span["attrs"]["wire_lowering"] == "psum"
     assert ttel.get_recorder() is None
